@@ -1,0 +1,17 @@
+"""sondetpu_torch — the RS41 decode path of sondetpu in PyTorch and CUDA.
+
+A second package beside :mod:`sondetpu` (the JAX reference). Plain tensor
+code is PyTorch; each Pallas kernel on the path is a hand-written CUDA
+kernel for Hopper (``csrc/``), built with nvcc at first use and bound with
+ctypes. Every kernel has a plain-torch twin in its module: the twin runs
+when the inputs lie on the CPU, the kernel when they lie on a CUDA device.
+
+Module names mirror the JAX package (``runtime.pipeline`` <->
+``sondetpu.runtime.pipeline`` and so on). The package imports torch and
+numpy, and from :mod:`sondetpu` only the modules that do not import jax
+(``fec.rs``/``crc``/``gf256``, ``telemetry``, ``physics``, ``io.iq``).
+Host modules of sondetpu whose import reaches jax are carried here as
+jax-free copies, each held equal to its original by a test.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,133 @@
+"""Fused front end: channel filter + decimation + FM discriminator + matched
+FIR + block DC (counterpart: ``sondetpu/pallas/frontend.py:fused_frontend``
+and ``fast_atan2``).
+
+:func:`fused_frontend` launches the CUDA kernel of ``csrc/frontend.cu`` for
+CUDA tensors and runs :func:`fused_frontend_plain` for CPU tensors. The
+two take every product and sum in the same order, each rounded on its own,
+so they agree bit for bit up to the order of the DC sum.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from sondetpu_torch.dsp.fir import apply_windows
+from sondetpu_torch.kernels import cuda
+
+HALO = 256   # raw input samples carried per plane (the JAX package's HALO:
+             # the carried state has this width on both sides)
+
+# odd minimax polynomial for atan on [0, 1] (max err ~1e-6 rad)
+_ATAN_C = (0.99997726, -0.33262347, 0.19354346, -0.11643287,
+           0.05265332, -0.01172120)
+
+
+def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Octant reduction + degree-11 odd minimax polynomial, the same
+    operations in the same order as the JAX package's ``fast_atan2``."""
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    den = torch.maximum(ax, ay)
+    num = torch.minimum(ax, ay)
+    z = num / torch.clamp_min(den, 1e-30)
+    z2 = z * z
+    c = _ATAN_C
+    p = z * (c[0] + z2 * (c[1] + z2 * (c[2] + z2 * (c[3] + z2 * (c[4] + z2 * c[5])))))
+    p = torch.where(ay > ax, (math.pi / 2) - p, p)
+    p = torch.where(x < 0, math.pi - p, p)
+    return torch.where(y < 0, -p, p)
+
+
+def _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps, decim):
+    if decim not in (1, 2):
+        raise ValueError(f"decim must be 1 or 2, got {decim}")
+    c, n = iq_i.shape
+    if n % decim:
+        raise ValueError(f"block length {n} is not a multiple of decim {decim}")
+    ntaps = len(chan_taps)
+    if len(match_taps) != ntaps:
+        raise ValueError("chan_taps and match_taps differ in length")
+    if decim * ntaps + ntaps - 1 > HALO:
+        raise ValueError(f"{ntaps} taps at decim {decim} need more than the "
+                         f"{HALO}-sample carried tail")
+    return c, n, ntaps
+
+
+def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
+                         scale: float, decim: int, dc_block: bool = True):
+    """Plain torch twin of :func:`fused_frontend` (same arguments and
+    results)."""
+    c, n, T = _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
+                          decim)
+    nproc = n // decim
+    # cf[g] for g in [-T, nproc): its first input is x[-(decim*T + T - 1)]
+    s0 = HALO - (decim * T + T - 1)
+
+    def chanfilt(tail, x):
+        xcat = torch.cat([tail, x], dim=-1)[:, s0:]
+        return apply_windows(xcat, chan_taps, stride=decim)[:, :nproc + T]
+
+    cf_i = chanfilt(tail_i, iq_i)
+    cf_q = chanfilt(tail_q, iq_q)
+    dre = cf_i[:, 1:] * cf_i[:, :-1] + cf_q[:, 1:] * cf_q[:, :-1]
+    dim = cf_q[:, 1:] * cf_i[:, :-1] - cf_i[:, 1:] * cf_q[:, :-1]
+    audio = fast_atan2(dim, dre) * torch.tensor(scale, dtype=torch.float32,
+                                                device=iq_i.device)
+    # audio[g] for g in [-(T-1), nproc)
+    filt = apply_windows(audio, match_taps)
+    dc = torch.sum(audio[:, T - 1:], dim=-1) / nproc
+    if dc_block:
+        filt = filt - dc[:, None]
+    return (filt, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
+            dc)
+
+
+def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
+                   scale: float, decim: int, dc_block: bool = True):
+    """Channel filter (``chan_taps``, stride ``decim``) -> FM discriminator
+    (``fast_atan2`` x ``scale``) -> matched FIR (``match_taps``), with the
+    block DC subtracted when ``dc_block`` is set.
+
+    iq planes [C, n] float32; tails [C, HALO] float32, the raw input that
+    precedes the block; taps: NumPy float32 arrays of equal odd length.
+    Returns (filt [C, n/decim], new tail_i, new tail_q [C, HALO], dc [C]),
+    dc being the block-mean discriminator audio.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    """
+    dev = iq_i.device
+    if dev.type == "cpu":
+        return fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps,
+                                    match_taps, scale, decim, dc_block)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_frontend: unsupported device {dev}")
+    c, n, T = _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
+                          decim)
+    for name, t, shape in (("iq_i", iq_i, (c, n)), ("iq_q", iq_q, (c, n)),
+                           ("tail_i", tail_i, (c, HALO)),
+                           ("tail_q", tail_q, (c, HALO))):
+        cuda.check_tensor(name, t, torch.float32, dev, shape)
+    if c > 65535:
+        raise ValueError(f"fused_frontend: {c} channels exceed the grid's "
+                         "65535 rows")
+    hc = np.ascontiguousarray(chan_taps, np.float32)
+    hm = np.ascontiguousarray(match_taps, np.float32)
+    nproc = n // decim
+    lib = cuda.library()
+    ntiles = lib.sondetpu_frontend_tiles(n, decim)
+    filt = torch.empty((c, nproc), dtype=torch.float32, device=dev)
+    partial = torch.empty((c, ntiles), dtype=torch.float32, device=dev)
+    cuda.launch("fused_frontend", "sondetpu_fused_frontend",
+                iq_i.data_ptr(), iq_q.data_ptr(), tail_i.data_ptr(),
+                tail_q.data_ptr(), hc.ctypes.data, hm.ctypes.data, T,
+                float(np.float32(scale)), decim, c, n, HALO, filt.data_ptr(),
+                partial.data_ptr(), cuda.stream_handle(dev))
+    dc = torch.sum(partial, dim=-1) / nproc
+    if dc_block:
+        filt = filt - dc[:, None]
+    return (filt, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
+            dc)

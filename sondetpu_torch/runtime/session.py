@@ -1,0 +1,157 @@
+"""Host-side decode session: steps the pipeline, aggregates telemetry
+(counterpart: ``sondetpu/runtime/session.py``).
+
+Single-process form of the original's ``DecoderSession``: it steps the
+port's pipeline, reads the packed buffer back to the host, runs the
+byte-level FEC and parse of the rs41 decoder, and merges fragments into
+per-channel telemetry. The mesh, fan-in, thread-pool and watchdog duties of
+the original are not ported. In pipelined mode the readback of block k
+happens after block k+1 is stepped, so telemetry lags the input by one
+block, as in the original; the readback itself (``packed.cpu()``) still
+waits for the device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sondetpu.telemetry import SondeTelemetry
+from sondetpu_torch.runtime.metrics import Metrics
+from sondetpu_torch.runtime.pipeline import (BlockOutput, Pipeline,
+                                             PipelineConfig,
+                                             unpack_block_output)
+from sondetpu_torch.sondes.base import get_sonde
+
+
+class DecoderSession:
+    """Streaming decode of [channels, block] IQ into telemetry updates."""
+
+    def __init__(self, config: PipelineConfig, device,
+                 on_update: Optional[Callable[[int, SondeTelemetry], None]] = None,
+                 pipelined: bool = False,
+                 pipeline: Optional[Pipeline] = None):
+        self.config = config
+        self.device = torch.device(device)
+        # callers that already hold a Pipeline for this config reuse it
+        self.pipeline = (pipeline if pipeline is not None
+                         else Pipeline(config, self.device))
+        self.state = self.pipeline.init_state()
+        self.decoder = get_sonde(config.sonde)["decoder"]()
+        self.telemetry: Dict[int, SondeTelemetry] = {}
+        self.on_update = on_update
+        self.frames_seen = 0
+        self.blocks_seen = 0
+        self.metrics = Metrics(channels=config.channels, fs=config.fs)
+        self._last_update_block: Dict[int, int] = {}
+        self.pipelined = pipelined
+        self._pending = None
+
+    def process_block(self, iq) -> List[Tuple[int, SondeTelemetry]]:
+        """iq: [channels, block_len] complex64 or (i, q) planes.
+        Returns (channel, telemetry snapshot) updates (for the previous
+        block when ``pipelined``)."""
+        t0 = time.perf_counter()
+        self.state, out = self.pipeline.step(self.state, iq)
+        self.blocks_seen += 1
+        if self.pipelined:
+            out, self._pending = self._pending, out
+            if out is None:
+                self.metrics.on_block(self.config.block_len,
+                                      time.perf_counter() - t0, 0, 0, 0)
+                return []
+        updates, frames_raw, decoded, soft_rms = self._handle_output(out)
+        self.metrics.on_block(
+            n_samples_per_chan=self.config.block_len,
+            wall_seconds=time.perf_counter() - t0,
+            frames_raw=frames_raw, frames_decoded=decoded,
+            updates=len(updates), soft_rms=soft_rms)
+        return updates
+
+    def flush(self) -> List[Tuple[int, SondeTelemetry]]:
+        """Drain the pending block in pipelined mode (call at end of stream)."""
+        if not self.pipelined or self._pending is None:
+            return []
+        out, self._pending = self._pending, None
+        updates, frames_raw, decoded, soft_rms = self._handle_output(out)
+        self.metrics.on_block(0, 0.0, frames_raw, decoded, len(updates),
+                              soft_rms)
+        return updates
+
+    def _handle_output(self, out: BlockOutput):
+        cfg = self.config
+        # ONE device->host transfer of the packed buffer
+        packed = out.packed.cpu().numpy()
+        all_frames, valid, rs_clean, soft_rms = unpack_block_output(
+            packed, cfg.k_slots, cfg.wire_ncols, cfg.chase_total)
+        if not valid.any():
+            return [], 0, 0, soft_rms
+        ch_idx, slot_idx = np.nonzero(valid)
+        frames = all_frames[ch_idx, slot_idx]             # [n, wire_ncols]
+        self.frames_seen += frames.shape[0]
+        clean = rs_clean[ch_idx, slot_idx]
+        cols = cfg.wire_columns
+        if cols is not None:
+            # compact mode: suspect rows need their full frames for host FEC
+            full = None
+            sus_ord = None
+            suspect = ~clean
+            if suspect.any():
+                full = self._fetch_full(out, ch_idx[suspect], slot_idx[suspect])
+                sus_ord = np.cumsum(suspect) - 1
+            frags = self._decode_rows(frames, ch_idx, clean, cols, full,
+                                      sus_ord, 0)
+        elif getattr(self.decoder, "wants_rs_clean", False):
+            frags = self.decoder.decode_byte_frames(frames, ch_idx,
+                                                    rs_clean=clean)
+        else:
+            frags = self.decoder.decode_byte_frames(frames, ch_idx)
+        updates = self._merge_frags(frags)
+        return updates, int(frames.shape[0]), len(frags), soft_rms
+
+    def _fetch_full(self, out: BlockOutput, ch_idx, slot_idx) -> np.ndarray:
+        return self.pipeline.fetch_frames(out.frames, ch_idx, slot_idx)
+
+    def _merge_frags(self, frags) -> List[Tuple[int, SondeTelemetry]]:
+        updates: List[Tuple[int, SondeTelemetry]] = []
+        for ch, frag in frags:
+            ch = int(ch)
+            telem = self.telemetry.get(ch)
+            if telem is None:
+                telem = self.telemetry[ch] = SondeTelemetry()
+            if telem.merge(frag):
+                self._last_update_block[ch] = self.blocks_seen
+                # snapshot: the live object keeps mutating on later frames
+                snap = telem.snapshot()
+                updates.append((ch, snap))
+                if self.on_update:
+                    self.on_update(ch, snap)
+        return updates
+
+    def _decode_rows(self, wire: np.ndarray, ch: np.ndarray,
+                     clean: np.ndarray, cols: np.ndarray,
+                     full: Optional[np.ndarray], sus_ord: Optional[np.ndarray],
+                     row0: int):
+        """Compact wire-column readback for one row range [row0, row0+len):
+        RS-clean frames are reconstructed column-sparse and parsed without
+        CRC re-checks (the device syndrome already proves integrity);
+        suspect frames use the prefetched full gather ``full`` (``sus_ord``
+        maps global row -> row of full)."""
+        fb = self.config.spec.frame_bytes
+        frags = []
+        if clean.any():
+            recon = np.zeros((int(clean.sum()), fb), np.uint8)
+            recon[:, np.asarray(cols)] = wire[clean]
+            frags += self.decoder.decode_byte_frames(
+                recon, ch[clean], rs_clean=np.ones(recon.shape[0], bool),
+                crc_present=False)
+        suspect = ~clean
+        if suspect.any():
+            rows = np.nonzero(suspect)[0] + row0
+            frags += self.decoder.decode_byte_frames(
+                full[sus_ord[rows]], ch[suspect],
+                rs_clean=np.zeros(int(suspect.sum()), bool))
+        return frags

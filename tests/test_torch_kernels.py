@@ -1,0 +1,271 @@
+"""Each kernel module of the port against the JAX package's Pallas kernel.
+
+On the CPU every wrapper runs its plain torch twin, and the JAX kernels run
+in interpret mode, as tests/test_pallas.py runs them. The same
+numpy-seeded inputs go to both. The CUDA kernels themselves are compared
+with their twins on the card (the tests at the end, skipped without a
+CUDA device, and chip_smoke.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sondetpu.dsp.fir import design_lowpass
+from sondetpu.pallas.corr import corr_kernel as jax_corr_kernel
+from sondetpu.pallas.frontend import HALO as JAX_HALO
+from sondetpu.pallas.frontend import fast_atan2 as jax_fast_atan2
+from sondetpu.pallas.frontend import frontend_chunk
+from sondetpu.pallas.frontend import fused_frontend as jax_fused_frontend
+from sondetpu.pallas.syndrome import rs_clean_flags_pallas
+from sondetpu.sondes.rs41 import SPEC, RS41Modulator, RS41Truth
+from sondetpu.sync.correlator import correlate_syncword as jax_correlate_syncword
+from sondetpu.sync.correlator import find_frame_starts as jax_find_frame_starts
+from sondetpu.sync.timing import oerder_meyr_tau as jax_oerder_meyr_tau
+from sondetpu_torch.fec.syndrome import layout_matrix
+from sondetpu_torch.kernels import cuda
+from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
+from sondetpu_torch.kernels.frontend import (HALO, fast_atan2, fused_frontend,
+                                             fused_frontend_plain)
+from sondetpu_torch.kernels.syndrome import (pack_syndrome_matrix,
+                                             rs_clean_flags_kernel,
+                                             rs_clean_plain)
+from sondetpu_torch.sync.correlator import find_frame_starts
+from sondetpu_torch.sync.timing import oerder_meyr_tau, spectral_line_tables
+
+FS, DEV, NTAPS = 48000.0, 2400.0, 41
+RS = SPEC.extra["rs"]
+
+
+def _frontend_inputs(seed, c, n, decim):
+    rng = np.random.default_rng(seed)
+    i, q = (rng.normal(size=(c, n)).astype(np.float32) for _ in range(2))
+    ti, tq = (rng.normal(size=(c, HALO)).astype(np.float32) for _ in range(2))
+    ct = design_lowpass(5000.0, FS, NTAPS)
+    mt = design_lowpass(2640.0, FS / decim, NTAPS)
+    scale = np.float32(FS / decim / (2 * np.pi * DEV))
+    return i, q, ti, tq, ct, mt, scale
+
+
+def test_fast_atan2_matches_jax():
+    rng = np.random.default_rng(0)
+    y = np.concatenate([rng.normal(size=4000), [0.0, -0.0, 1.0, -1.0, 0.0]])
+    x = np.concatenate([rng.normal(size=4000), [0.0, 1.0, 0.0, -1.0, -1.0]])
+    y, x = y.astype(np.float32), x.astype(np.float32)
+    want = np.asarray(jax_fast_atan2(jnp.asarray(y), jnp.asarray(x)))
+    got = fast_atan2(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, np.arctan2(y, x), atol=2e-5)
+
+
+@pytest.mark.parametrize("decim", [1, 2])
+@pytest.mark.parametrize("n", [12800, 4800])   # chunk multiple and not
+def test_fused_frontend_matches_pallas(decim, n):
+    """filt within 3e-4 (as tests/test_pallas.py: XLA and torch sum the
+    taps in different orders), dc within 2e-5, tails exact."""
+    assert HALO == JAX_HALO
+    i, q, ti, tq, ct, mt, scale = _frontend_inputs(decim + n, 8, n, decim)
+    want = jax_fused_frontend(
+        jnp.asarray(i), jnp.asarray(q), jnp.asarray(ti), jnp.asarray(tq),
+        jnp.asarray(ct[None]), jnp.asarray(mt[None]), jnp.asarray([[scale]]),
+        ntaps=NTAPS, decim=decim, chunk=frontend_chunk(n), dc_block=True,
+        interpret=True)
+    got = fused_frontend(*(torch.from_numpy(x) for x in (i, q, ti, tq)),
+                         ct, mt, float(scale), decim, True)
+    assert got[0].shape == (8, n // decim)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=3e-4)
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]), atol=2e-5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+
+
+def test_fused_frontend_stream_continuity():
+    """Two consecutive blocks with the carried tails equal one block of
+    twice the length (the virtual stream reads the tail at negative
+    indices), dc_block off."""
+    i, q, ti, tq, ct, mt, scale = _frontend_inputs(7, 8, 9600, 2)
+    t = [torch.from_numpy(x) for x in (i, q, ti, tq)]
+    whole = fused_frontend_plain(*t, ct, mt, float(scale), 2, False)
+    a = fused_frontend_plain(t[0][:, :4800], t[1][:, :4800], t[2], t[3],
+                             ct, mt, float(scale), 2, False)
+    b = fused_frontend_plain(t[0][:, 4800:], t[1][:, 4800:], a[1], a[2],
+                             ct, mt, float(scale), 2, False)
+    torch.testing.assert_close(torch.cat([a[0], b[0]], -1), whole[0],
+                               rtol=0, atol=0)
+    torch.testing.assert_close((a[3] + b[3]) / 2, whole[3], rtol=0, atol=1e-6)
+
+
+def test_corr_matches_pallas():
+    rng = np.random.default_rng(1)
+    buf = rng.normal(size=(8, 7360)).astype(np.float32)
+    tmpl = SPEC.sync_chip_template()
+    want = np.asarray(jax_corr_kernel(jnp.asarray(buf), jnp.asarray(tmpl[None]),
+                                      interpret=True))
+    got = corr_kernel(torch.from_numpy(buf), torch.from_numpy(tmpl))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_array_equal(
+        corr_plain(torch.from_numpy(buf), torch.from_numpy(tmpl)).numpy(),
+        got.numpy())
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_correlate_syncword(jnp.asarray(buf), tmpl)),
+        atol=1e-5)
+
+
+def _frames_clean_and_corrupt(seed, rows):
+    """[rows, 320] RS41 frames; about half carry 1-3 corrupted bytes in
+    the RS-covered region. Returns (frames, clean truth)."""
+    rng = np.random.default_rng(seed)
+    mod = RS41Modulator()
+    base = np.stack([mod.build_frame(RS41Truth(frame_no=k)) for k in range(8)])
+    frames = base[rng.integers(0, 8, size=rows)]
+    bad = rng.random(rows) < 0.5
+    for r in np.nonzero(bad)[0]:
+        pos = rng.choice(np.arange(8, 320), size=rng.integers(1, 4),
+                         replace=False)
+        frames[r, pos] ^= rng.integers(1, 256, size=pos.size).astype(np.uint8)
+    return frames, ~bad
+
+
+def test_rs_clean_matches_pallas():
+    frames, truth = _frames_clean_and_corrupt(2, 40)
+    want = np.asarray(rs_clean_flags_pallas(jnp.asarray(frames.reshape(5, 8, 320)),
+                                            RS, interpret=True))
+    got = rs_clean_flags_kernel(torch.from_numpy(frames.reshape(5, 8, 320)), RS)
+    assert got.dtype == torch.bool and got.shape == (5, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy().reshape(-1), truth)
+
+
+def test_rs_clean_xor_parity_form():
+    """The CUDA kernel's algorithm, run in NumPy: XOR of the packed W rows
+    of every set bit, all zero -> clean. Equals the twin's float product."""
+    frames, truth = _frames_clean_and_corrupt(3, 24)
+    w = layout_matrix(320, RS)
+    packed = pack_syndrome_matrix(w)
+    assert packed.shape == (8 * 320, 12) and packed.dtype == np.uint32
+    unpacked = (packed[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    np.testing.assert_array_equal(unpacked.reshape(8 * 320, -1)[:, :w.shape[1]],
+                                  w.astype(np.uint32))
+    bits = ((frames[:, :, None] >> np.arange(8)) & 1).reshape(24, -1)
+    synd = np.bitwise_xor.reduce(np.where(bits[:, :, None] == 1, packed[None],
+                                          np.uint32(0)), axis=1)
+    xor_clean = (synd == 0).all(axis=-1)
+    np.testing.assert_array_equal(xor_clean, truth)
+    np.testing.assert_array_equal(
+        rs_clean_plain(torch.from_numpy(frames), RS).numpy(), truth)
+
+
+def test_find_frame_starts_matches_jax():
+    """Exact starts and ok flags, including ties (quantized values) and
+    peaks below the threshold."""
+    rng = np.random.default_rng(4)
+    corr = np.round(rng.uniform(-1, 1, size=(8, 7297)) * 4) / 4
+    corr[:, ::700] = 0.9
+    corr = corr.astype(np.float32)
+    for k, md in ((3, 640), (9, 64)):
+        ws, wok = jax_find_frame_starts(jnp.asarray(corr), 0.6, k, md)
+        gs, gok = find_frame_starts(torch.from_numpy(corr), 0.6, k, md)
+        np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+        np.testing.assert_array_equal(gok.numpy(), np.asarray(wok))
+
+
+def test_oerder_meyr_tau_matches_jax():
+    rng = np.random.default_rng(5)
+    x = np.repeat(rng.choice([-1.0, 1.0], size=(8, 4800)), 5, axis=-1)
+    x = np.roll(x, 3, axis=-1).astype(np.float32) + 0.05 * rng.normal(
+        size=(8, 24000)).astype(np.float32)
+    want = np.asarray(jax_oerder_meyr_tau(jnp.asarray(x), 5.0))
+    cw, sw = (torch.from_numpy(t) for t in spectral_line_tables(24000, 5.0))
+    got = oerder_meyr_tau(torch.from_numpy(x), 5.0, cw, sw).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3)
+
+
+def test_wrappers_reject_unsupported_devices():
+    """A tensor on neither the CPU nor a CUDA device is refused; nothing
+    falls back."""
+    meta = torch.empty((8, 512), device="meta")
+    taps = design_lowpass(5000.0, FS, NTAPS)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_frontend(meta, meta, meta[:, :HALO], meta[:, :HALO], taps,
+                       taps, 1.0, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        corr_kernel(meta, torch.empty(64, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        rs_clean_flags_kernel(torch.empty((4, 320), dtype=torch.uint8,
+                                          device="meta"), RS)
+    with pytest.raises(ValueError, match="decim"):
+        fused_frontend_plain(torch.zeros(8, 512), torch.zeros(8, 512),
+                             torch.zeros(8, HALO), torch.zeros(8, HALO),
+                             taps, taps, 1.0, 3)
+
+
+def test_check_tensor_refuses_bad_arguments():
+    cpu = torch.device("cpu")
+    x = torch.zeros((4, 6))
+    cuda.check_tensor("x", x, torch.float32, cpu, (4, None))
+    for bad, exc in ((x.t(), ValueError), (x.double(), TypeError),
+                     (x[:, :3].contiguous(), None)):
+        if exc is None:
+            with pytest.raises(ValueError, match="shape"):
+                cuda.check_tensor("x", bad, torch.float32, cpu, (4, 6))
+        else:
+            with pytest.raises(exc):
+                cuda.check_tensor("x", bad, torch.float32, cpu, (None, None))
+    with pytest.raises(ValueError, match="expected meta"):
+        cuda.check_tensor("x", x, torch.float32, torch.device("meta"))
+    with pytest.raises(TypeError):
+        cuda.check_tensor("x", np.zeros(3), torch.float32, cpu)
+
+
+def test_kernel_library_is_named_by_its_sources():
+    """The build is keyed by a hash of csrc/ and the flags, under the
+    ignored build/ directory; nothing is built at import."""
+    path = cuda.library_path()
+    assert path.startswith(cuda.BUILD_DIR)
+    assert cuda.BUILD_DIR.endswith("build/sondetpu_torch")
+    assert {p.rsplit("/", 1)[-1] for p in cuda._sources()} >= {
+        "frontend.cu", "corr.cu", "syndrome.cu", "common.cuh"}
+    assert path == cuda.library_path()
+    assert cuda._lib is None or torch.cuda.is_available()
+
+
+# --- on the card: each kernel against its twin -------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no "
+                    "CPU mode); chip_smoke.py runs these on the card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("decim", [1, 2])
+def test_cuda_fused_frontend_matches_twin(cuda_device, decim):
+    args = [torch.from_numpy(x).to(cuda_device) if isinstance(x, np.ndarray)
+            and x.ndim == 2 else x
+            for x in _frontend_inputs(11, 16, 48000, decim)]
+    before = cuda.launches["fused_frontend"]
+    got = fused_frontend(*args[:6], float(args[6]), decim, True)
+    want = fused_frontend_plain(*args[:6], float(args[6]), decim, True)
+    assert cuda.launches["fused_frontend"] == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-5)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_cuda_corr_and_rs_clean_match_twins(cuda_device):
+    rng = np.random.default_rng(12)
+    buf = torch.from_numpy(rng.normal(size=(16, 7360)).astype(np.float32)
+                           ).to(cuda_device)
+    tmpl = torch.from_numpy(SPEC.sync_chip_template()).to(cuda_device)
+    assert torch.equal(corr_kernel(buf, tmpl), corr_plain(buf, tmpl))
+    frames, truth = _frames_clean_and_corrupt(13, 64)
+    fr = torch.from_numpy(frames).to(cuda_device)
+    got = rs_clean_flags_kernel(fr, RS)
+    assert torch.equal(got, rs_clean_plain(fr, RS))
+    np.testing.assert_array_equal(got.cpu().numpy(), truth)
+    with pytest.raises(ValueError, match="contiguous"):
+        corr_kernel(buf.t().contiguous().t(), tmpl)
