@@ -9,14 +9,26 @@ before the result line:
 1. env: torch/CUDA versions, the card's name and power limit, TF32 off.
 2. build: nvcc builds the kernels of sondetpu_torch/csrc.
 3. kernels: each CUDA kernel against its plain torch twin on the card, at
-   the main path's shapes (2048 channels x 192000 samples), with the
-   tolerance stated beside it, and both timed with CUDA events.
+   the shapes its path gives it (the RS41 path: 2048 channels x 192000
+   samples; the fleet: 2048 PFB bins x 4 s, m10 group 616 x 192000), with
+   the tolerance stated beside it, and both timed with CUDA events.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's launch count
    read from that run alone; then an 8-channel run with three serials,
    held byte for byte to the same pipeline on the CPU (plain twins).
 5. step: steady-state step time, the real-time channels it implies, and
    peak device memory.
+6. pfb_stream: the 2048-bin channelizer fed blocks shorter than its
+   history (the pfb_fir_timemajor path) equals one long block.
+7. fleet_path: FleetSession.process_wideband at 2048 bins x 4 s (1230
+   rs41, 614 m10, 204 dfm channels), 4 blocks with rs41, m10 and dfm
+   carriers in bins 1, 6 and 9: their serials decoded, every kernel of the
+   path launched.
+8. fleet_distinct: a 16-bin fleet with two channels per family, on the
+   card and on the CPU (twins): validity, valid frame bytes and telemetry
+   equal.
+9. fleet_step: the fleet's device step, the real-time channels it implies,
+   peak device memory, and process_wideband with readback and host decode.
 
 The last lines are the kernel table, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}. Needs one CUDA device and nvcc; no network.
@@ -36,13 +48,25 @@ import numpy as np
 CHANNELS = 2048
 BLOCK_LEN = 192000          # 4 s at 48 kHz
 FS = 48000.0
+N_BINS = 2048               # PFB bins of the fleet (BENCH_FLEET_r05 shape)
 KERNEL_SOURCES = {
     "fused_frontend": ("sondetpu_torch/csrc/frontend.cu",
                        "sondetpu/pallas/frontend.py:278"),
     "corr": ("sondetpu_torch/csrc/corr.cu", "sondetpu/pallas/corr.py:32"),
     "rs_clean": ("sondetpu_torch/csrc/syndrome.cu",
                  "sondetpu/pallas/syndrome.py:38"),
+    "pfb_fir_stream": ("sondetpu_torch/csrc/pfb.cu",
+                       "sondetpu/pallas/pfb.py:169"),
+    "pfb_fir_timemajor": ("sondetpu_torch/csrc/pfb.cu",
+                          "sondetpu/pallas/pfb.py:89"),
+    "pfb_dft": ("sondetpu_torch/csrc/pfb_dft.cu",
+                "sondetpu/pallas/pfb.py:312"),
+    "fused_dualtone_frontend": ("sondetpu_torch/csrc/dualtone.cu",
+                                "sondetpu/pallas/frontend.py:513"),
 }
+# carriers of the fleet path: (bin, family, serial the decoder reports)
+FLEET_CARRIERS = ((1, "rs41", "S1234567"), (6, "m10", "910-2-12345"),
+                  (9, "dfm", "1234567"))
 
 
 def check(ok, message: str) -> None:
@@ -257,8 +281,9 @@ def phase_main_path(torch, dev):
     check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
               == ref_text for ch in range(CHANNELS)),
           "main path: telemetry differs between identical channels")
-    for name, count in launches.items():
-        check(count > 0, f"main path: kernel {name} was not launched")
+    for name in ("fused_frontend", "corr", "rs_clean"):
+        check(launches[name] > 0, f"main path: kernel {name} was not "
+              "launched")
     emit({"phase": "main_path", "channels": CHANNELS, "block_len": BLOCK_LEN,
           "blocks": n_blocks, "frames_raw": m.frames_raw,
           "frames_decoded": m.frames_decoded,
@@ -331,6 +356,389 @@ def phase_step(torch, pipe, blocks):
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
 
 
+def fleet_family(k: int) -> str:
+    """bench.py's fleet channel map: ~60% rs41, ~30% m10, the rest dfm."""
+    return "rs41" if k % 10 < 6 else ("m10" if k % 10 < 9 else "dfm")
+
+
+def narrowband(family: str, serial: str, n: int, fs: float) -> np.ndarray:
+    """complex64 [n] at rate fs: back-to-back frames of ``family`` from the
+    port's modulator, carrying ``serial``."""
+    from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+    from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+    from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+
+    if family == "rs41":
+        k = int(np.ceil(n / (fs / 4800.0) / 2560)) + 1
+        iq = RS41Modulator().modulate(
+            [RS41Truth(serial=serial, frame_no=i) for i in range(k)], fs=fs)
+    elif family == "m10":
+        k = int(np.ceil(n / (fs / 9600.0) / 1648)) + 1
+        iq = M10Modulator().modulate(
+            [M10Truth(serial=serial, frame_no=8 + i) for i in range(k)], fs=fs)
+    else:
+        k = int(np.ceil(n / (fs / 2500.0) / 560)) + 1
+        iq = DFMModulator().modulate(
+            [DFMTruth(serial_num=int(serial), frame_no=2 + i)
+             for i in range(k)], fs=fs)
+    return iq[:n]
+
+
+def fleet_blocks(torch, dev, n_blocks: int, seed: int, n_bins: int = N_BINS,
+                 block_len: int = BLOCK_LEN):
+    """Wideband (i, q) planes [n_bins * block_len] float32 on ``dev``, one
+    block at a time: complex noise of std 0.05 per component plus the
+    FLEET_CARRIERS, each modulated at 48 kHz by the port's modulator and
+    placed as bench.py places its RS41 carrier (zero-order hold x n_bins,
+    then a phase ramp to its bin: row r, column j of the block gets
+    a[r] * exp(2*pi*i*k*j/n_bins))."""
+    n = n_blocks * block_len
+    carriers = []
+    for k, family, serial in FLEET_CARRIERS:
+        iq = narrowband(family, serial, n, FS)
+        a = torch.from_numpy(np.stack([iq.real, iq.imag]).astype(
+            np.float32)).to(dev)
+        ang = 2.0 * np.pi * k * np.arange(n_bins) / n_bins
+        ph = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(
+            np.float32)).to(dev)
+        carriers.append((a, ph))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b in range(n_blocks):
+        sl = slice(b * block_len, (b + 1) * block_len)
+        wi = 0.05 * torch.randn((block_len, n_bins), generator=gen, device=dev)
+        wq = 0.05 * torch.randn((block_len, n_bins), generator=gen, device=dev)
+        for a, ph in carriers:
+            ar, ai = a[0, sl, None], a[1, sl, None]
+            wi += ar * ph[0] - ai * ph[1]
+            wq += ar * ph[1] + ai * ph[0]
+        yield wi.reshape(-1), wq.reshape(-1)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 when both are all zero)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else 0.0
+
+
+def phase_fleet_kernels(torch, dev):
+    """The PFB and dual-tone kernels against their twins at the fleet's
+    shapes."""
+    from sondetpu_torch.dsp.channelizer import PFBChannelizer
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
+                                                 fused_dualtone_plain,
+                                                 mixer_tables)
+    from sondetpu_torch.kernels.frontend import HALO
+    from sondetpu_torch.kernels.pfb import (TPP, pfb_dft, pfb_dft_plain,
+                                            pfb_fir_plain, pfb_fir_stream,
+                                            pfb_fir_timemajor)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    results = {}
+    hcol = PFBChannelizer(N_BINS, dev)._hcol_t
+    m = BLOCK_LEN
+
+    # K4: same products and sums in the same order as the twin: expected 0
+    fir_tol = 1e-6
+    x_i, x_q, t_i, t_q = randn(m, N_BINS), randn(m, N_BINS), \
+        randn(8, N_BINS), randn(8, N_BINS)
+    got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol)
+    want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol)
+    torch.cuda.synchronize()
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    check(err <= fir_tol, f"pfb_fir_stream: err {err}")
+    del got, want
+    ms = cuda_ms(torch, lambda: pfb_fir_stream(x_i, x_q, t_i, t_q, hcol), 20)
+    plain_ms = cuda_ms(torch, lambda: pfb_fir_plain(
+        torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol), 3)
+    emit({"phase": "kernel", "name": "pfb_fir_stream", "shape": [m, N_BINS],
+          "max_abs_err": err, "tol": fir_tol, "ms": ms, "plain_ms": plain_ms})
+    results["pfb_fir_stream"] = (err, ms, plain_ms)
+
+    # K5: a short block (m = 4) and the full block, pre-concatenated
+    errs = []
+    for rows in (4, m):
+        vv_i = torch.cat([t_i, x_i[:rows]])
+        vv_q = torch.cat([t_q, x_q[:rows]])
+        got = pfb_fir_timemajor(vv_i, vv_q, hcol)
+        want = pfb_fir_plain(vv_i, vv_q, hcol)
+        torch.cuda.synchronize()
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        check(err <= fir_tol, f"pfb_fir_timemajor m={rows}: err {err}")
+        errs.append(err)
+        del got, want
+        entry = {"phase": "kernel", "name": "pfb_fir_timemajor",
+                 "shape": [TPP + rows, N_BINS], "max_abs_err": err,
+                 "tol": fir_tol}
+        if rows == m:
+            ms = cuda_ms(torch, lambda: pfb_fir_timemajor(vv_i, vv_q, hcol),
+                         20)
+            plain_ms = cuda_ms(torch, lambda: pfb_fir_plain(vv_i, vv_q, hcol),
+                               3)
+            entry.update(ms=ms, plain_ms=plain_ms)
+        emit(entry)
+        del vv_i, vv_q
+    results["pfb_fir_timemajor"] = (max(errs), ms, plain_ms)
+    del x_i, x_q, t_i, t_q
+    torch.cuda.empty_cache()
+
+    # K6: radix-2 FFT in f32 against torch.fft (cuFFT), both f32: the
+    # error is relative to max |y|
+    dft_tol = 1e-4
+    errs = []
+    for rows, nb in ((m, N_BINS), (4096, 16)):
+        u_i, u_q = randn(rows, nb), randn(rows, nb)
+        got = pfb_dft(u_i, u_q)
+        want = pfb_dft_plain(u_i, u_q)
+        torch.cuda.synchronize()
+        rel = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        check(rel <= dft_tol, f"pfb_dft N={nb}: err {rel} of max|y|")
+        errs.append(err)
+        del got, want
+        entry = {"phase": "kernel", "name": "pfb_dft", "shape": [rows, nb],
+                 "max_abs_err": err, "max_err_over_max_abs_y": rel,
+                 "tol_over_max_abs_y": dft_tol}
+        if nb == N_BINS:
+            ms = cuda_ms(torch, lambda: pfb_dft(u_i, u_q), 20)
+            plain_ms = cuda_ms(torch, lambda: pfb_dft_plain(u_i, u_q), 5)
+            entry.update(ms=ms, plain_ms=plain_ms)
+        emit(entry)
+        del u_i, u_q
+    results["pfb_dft"] = (max(errs), ms, plain_ms)
+    torch.cuda.empty_cache()
+
+    # K7: the m10 group's shape (chanfilt skipped, nb 5) and a 256-channel
+    # block with the chanfilt and the AFC sums. Metric: same operations in
+    # the same order (expected 0); dc and rotation sums differ only in the
+    # order of summation, so they are held relative to their largest value
+    met_tol, sum_tol = 1e-6, 1e-5
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    errs = []
+    for c, n, skip, afc in ((616, m, True, False), (256, 48000, False, True)):
+        args = (randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO))
+        tabs = tuple(torch.from_numpy(t).to(dev)
+                     for t in mixer_tables(n, 12000.0 / FS))
+        got = fused_dualtone_frontend(*args, taps, *tabs, 5, afc, skip)
+        want = fused_dualtone_plain(*args, taps, *tabs, 5, afc, skip)
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        sums_err = max(rel_err(got[k], want[k]) for k in (3, 4, 5))
+        check(err <= met_tol, f"dualtone {c}x{n}: metric err {err}")
+        check(sums_err <= sum_tol, f"dualtone {c}x{n}: sums err {sums_err}")
+        check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+              "dualtone: carried tails differ")
+        errs.append(err)
+        del got, want
+        entry = {"phase": "kernel", "name": "fused_dualtone_frontend",
+                 "shape": [c, n], "skip_chanfilt": skip, "want_afc": afc,
+                 "max_abs_err": err, "tol": met_tol,
+                 "sums_rel_err": sums_err, "sums_tol": sum_tol}
+        if c == 616:
+            ms = cuda_ms(torch, lambda: fused_dualtone_frontend(
+                *args, taps, *tabs, 5, afc, skip), 20)
+            plain_ms = cuda_ms(torch, lambda: fused_dualtone_plain(
+                *args, taps, *tabs, 5, afc, skip), 3)
+            entry.update(ms=ms, plain_ms=plain_ms)
+            k7 = (ms, plain_ms)
+        emit(entry)
+        del args, tabs
+    results["fused_dualtone_frontend"] = (max(errs), *k7)
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_pfb_stream(torch, dev):
+    """The 2048-bin channelizer over blocks shorter than its history
+    (pfb_fir_timemajor, the tail carried through a concatenation) equals
+    one call on the whole stream (pfb_fir_stream): the same arithmetic, so
+    the outputs must be equal exactly."""
+    from sondetpu_torch.dsp.channelizer import PFBChannelizer
+    from sondetpu_torch.kernels import cuda
+
+    pfb = PFBChannelizer(N_BINS, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    short, n_short = 4 * N_BINS, 6              # 4 rows < tpp = 8
+    x_i, x_q = (torch.randn(short * n_short, generator=gen, device=dev)
+                for _ in range(2))
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    st = pfb.init_state()
+    ys_i, ys_q = [], []
+    for b in range(n_short):
+        st, y_i, y_q = pfb(st, x_i[b * short:(b + 1) * short],
+                           x_q[b * short:(b + 1) * short])
+        ys_i.append(y_i)
+        ys_q.append(y_q)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    _, w_i, w_q = pfb(pfb.init_state(), x_i, x_q)
+    same = (torch.equal(torch.cat(ys_i, dim=1), w_i)
+            and torch.equal(torch.cat(ys_q, dim=1), w_q))
+    check(same, "pfb_stream: short blocks differ from one long block")
+    check(launches["pfb_fir_timemajor"] == n_short,
+          f"pfb_stream: pfb_fir_timemajor launched "
+          f"{launches['pfb_fir_timemajor']} times")
+    emit({"phase": "pfb_stream", "bins": N_BINS, "block_samples": short,
+          "blocks": n_short, "equal_to_one_block": same,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return launches
+
+
+def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
+                     block_len: int = BLOCK_LEN, n_blocks: int = 4):
+    """FleetSession.process_wideband at n_bins x block_len, pipelined, f32,
+    every group on the kernel path."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+
+    chans = [FleetChannel(pfb_bin=k, sonde=fleet_family(k))
+             for k in range(n_bins)]
+    fleet = FleetSession(chans, n_bins, dev, fs_chan=FS, block_len=block_len,
+                         pipelined=True)
+    groups = {s: [len(idxs), sess.config.channels]
+              for s, (idxs, sess) in fleet.groups.items()}
+    blocks = fleet_blocks(torch, dev, n_blocks, seed=3, n_bins=n_bins,
+                          block_len=block_len)
+    last = None
+    times, updates = [], 0
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for wi, wq in blocks:
+        t0 = time.perf_counter()
+        updates += fleet.process_wideband((wi, wq))
+        times.append(time.perf_counter() - t0)
+        last = (wi, wq)
+    updates += fleet.flush()
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    telem = fleet.telemetry
+    for k, family, serial in FLEET_CARRIERS:
+        got = telem.get(k)
+        check(got is not None and got.serial == serial,
+              f"fleet_path: channel {k} ({family}) telemetry {got}")
+    for name in ("fused_frontend", "corr", "rs_clean", "pfb_fir_stream",
+                 "pfb_dft", "fused_dualtone_frontend"):
+        check(launches[name] > 0, f"fleet_path: kernel {name} was not "
+              "launched")
+    emit({"phase": "fleet_path", "bins": n_bins, "block_len": block_len,
+          "blocks": n_blocks, "groups": groups, "updates": updates,
+          "channels_with_telemetry": len(telem),
+          "carriers": {str(k): {f: telem[k].to_dict()[f] for f in
+                                ("serial", "lat", "lon", "alt")}
+                       for k, _, _ in FLEET_CARRIERS},
+          "process_wideband_seconds": times, "launches": launches})
+    return fleet, last, launches
+
+
+def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
+    """A 16-bin fleet, two channels per family with their own serials and
+    noise, built at the wideband rate: the card equals the CPU (twins)."""
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+    from sondetpu_torch.runtime.pipeline import unpack_block_output
+    from sondetpu_torch.sondes.modulate import freq_shift
+
+    plan = ((1, "rs41", "S1234567"), (3, "rs41", "T7654321"),
+            (5, "m10", "910-2-12345"), (9, "m10", "A05-3-54321"),
+            (12, "dfm", "1234567"), (14, "dfm", "7654321"))
+    fs_wide = n_bins * FS
+    w = n_bins * int(FS)
+    n = n_blocks * w
+    wide = np.zeros(n, np.complex64)
+    for i, (k, family, serial) in enumerate(plan):
+        center = (k if k < n_bins / 2 else k - n_bins) * FS
+        iq = freq_shift(narrowband(family, serial, n, fs_wide),
+                        center / fs_wide)
+        rng = np.random.default_rng(10 + i)
+        wide += iq + (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+                      ).astype(np.complex64)
+    chans = [FleetChannel(pfb_bin=k, sonde=f) for k, f, _ in plan]
+    gpu = FleetSession(chans, n_bins, dev, fs_chan=FS, block_len=int(FS))
+    cpu = FleetSession(chans, n_bins, "cpu", fs_chan=FS, block_len=int(FS))
+    valid, weak_same, weak_total = {}, 0, 0
+    for b in range(n_blocks):
+        x = wide[b * w:(b + 1) * w]
+        wi = torch.from_numpy(np.ascontiguousarray(x.real, np.float32))
+        wq = torch.from_numpy(np.ascontiguousarray(x.imag, np.float32))
+        pg, fg = gpu.step(wi.to(dev), wq.to(dev))
+        pc, fc = cpu.step(wi, wq)
+        hg, hc = pg.cpu().numpy(), pc.numpy()
+        off = 0
+        for (sonde, _, sess), frg, frc in zip(gpu._order, fg, fc):
+            cfg = sess.config
+            nbytes = cfg.channels * cfg.packed_row_bytes
+            ug, uc = (unpack_block_output(h[off:off + nbytes], cfg.k_slots,
+                                          cfg.wire_ncols, cfg.chase_total)
+                      for h in (hg, hc))
+            off += nbytes
+            v = uc[1]
+            check(np.array_equal(ug[1], v),
+                  f"fleet_distinct block {b} {sonde}: validity differs")
+            check(torch.equal(frg.cpu()[torch.from_numpy(v)],
+                              frc[torch.from_numpy(v)]),
+                  f"fleet_distinct block {b} {sonde}: frame bytes differ")
+            valid[sonde] = valid.get(sonde, 0) + int(v.sum())
+            if cfg.chase_m:
+                for ch, k in zip(*np.nonzero(v)):
+                    weak_total += 1
+                    weak_same += set(ug[4][ch, k]) == set(uc[4][ch, k])
+        gpu._consume((pg, fg))
+        cpu._consume((pc, fc))
+    tg, tc = gpu.telemetry, cpu.telemetry
+    for i, (k, family, serial) in enumerate(plan):
+        check(i in tg and tg[i].serial == serial,
+              f"fleet_distinct: channel {i} ({family}) telemetry "
+              f"{tg.get(i)}")
+        check(json.dumps(tg[i].to_dict(), sort_keys=True)
+              == json.dumps(tc[i].to_dict(), sort_keys=True),
+              f"fleet_distinct: channel {i} telemetry differs from the CPU")
+    check(all(valid.get(f, 0) > 0 for f in ("rs41", "m10", "dfm")),
+          f"fleet_distinct: valid frames per group {valid}")
+    emit({"phase": "fleet_distinct", "bins": n_bins, "blocks": n_blocks,
+          "valid_frames": valid, "matches_cpu": True,
+          "serials": [s for _, _, s in plan],
+          "m10_weak_sets_equal": [weak_same, weak_total]})
+
+
+def phase_fleet_step(torch, fleet, wi, wq):
+    """The fleet's device step and its session reading at the path's
+    shape."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):                          # warm-up
+        fleet.step(wi, wq)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        fleet.step(wi, wq)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    wall = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        fleet.process_wideband((wi, wq))
+        wall.append(time.perf_counter() - t0)
+    fleet.flush()
+    step = statistics.median(times)
+    secs = fleet.block_len / FS
+    emit({"phase": "fleet_step", "bins": fleet.n_bins, "block_seconds": secs,
+          "steps": len(times), "step_ms_median": step * 1e3,
+          "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
+          "realtime_channels": fleet.n_bins * secs / step,
+          "max_memory_allocated_bytes": peak,
+          "process_wideband_ms_median": statistics.median(wall) * 1e3,
+          "process_wideband_ms": [t * 1e3 for t in wall]})
+
+
 def main() -> int:
     import torch
 
@@ -338,9 +746,22 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     kres = phase_kernels(torch, dev)
+    kres.update(phase_fleet_kernels(torch, dev))
     pipe, blocks, launches = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
     phase_step(torch, pipe, blocks)
+    del pipe, blocks
+    torch.cuda.empty_cache()
+    # each kernel's launches come from the run of the path that drives it
+    launches = {k: launches[k] for k in ("fused_frontend", "corr",
+                                         "rs_clean")}
+    launches["pfb_fir_timemajor"] = phase_pfb_stream(
+        torch, dev)["pfb_fir_timemajor"]
+    fleet, (wi, wq), fleet_launches = phase_fleet_path(torch, dev)
+    for k in ("pfb_fir_stream", "pfb_dft", "fused_dualtone_frontend"):
+        launches[k] = fleet_launches[k]
+    phase_fleet_distinct(torch, dev)
+    phase_fleet_step(torch, fleet, wi, wq)
     check("jax" not in sys.modules, "the port imported jax")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],

@@ -1,0 +1,131 @@
+// Polyphase filter-bank branch FIR, time-major, for both I and Q planes.
+//
+// Replaces sondetpu/pallas/pfb.py:pfb_fir_stream (body _kernel_stream) and
+// sondetpu/pallas/pfb.py:pfb_fir_timemajor (body _kernel): two entry points
+// into one kernel.
+//
+// On the virtual stream vv = concat(tail [TPP, N], x [m, N]) (row k < TPP
+// reads tail row k, row k >= TPP reads x row k - TPP), for every output
+// row r < m and column j < N:
+//   u[r, j] = sum_t hcol[t, j] * vv[r + TPP - 1 - t + s_j, j],  s_j = (j == 0)
+// (column 0 holds branch 0, which taps one row later). pfb_fir_stream
+// reads x and the carried tail through separate pointers, so nothing is
+// concatenated in memory; pfb_fir_timemajor reads a pre-concatenated vv,
+// which is the same kernel with tail = vv and x = vv + TPP*N.
+//
+// What bounds it: device memory. At [192000, 2048] the two planes are read
+// once and written once, 6.3 GB per 4-s block, ~1.9 ms at 3.35 TB/s; the
+// 8 MACs per sample are nothing beside that. Design: each thread owns one
+// column j of a ROWS-row strip and walks down it with a TPP-deep register
+// window, so a warp's loads and stores are 32 consecutive floats of one row
+// (coalesced) and each input is read once per strip (plus TPP - 1 rows of
+// halo, 5% at ROWS = 128). The taps of the column sit in registers, and
+// the loads of BATCH rows are issued together to keep enough bytes in
+// flight.
+// The TPU kernel's (TM, TN) tiles, halo BlockSpec and VMEM budget have no
+// counterpart here.
+//
+// Products and sums are rounded one at a time (__fmul_rn/__fadd_rn, no FMA
+// contraction) in ascending t, the order of the plain twin
+// (sondetpu_torch/kernels/pfb.py:pfb_fir_plain), so the two agree bit for
+// bit.
+#include "common.cuh"
+
+namespace {
+
+constexpr int TPP = 8;
+constexpr int THREADS = 256;
+constexpr int ROWS = 128;
+constexpr int BATCH = 4;
+
+__device__ __forceinline__ float vv_at(const float* __restrict__ x,
+                                       const float* __restrict__ tail,
+                                       long k, int n, int j) {
+    return k < TPP ? tail[k * n + j] : x[(k - TPP) * n + j];
+}
+
+__global__ void __launch_bounds__(THREADS) pfb_fir_kernel(
+    const float* __restrict__ xi, const float* __restrict__ xq,
+    const float* __restrict__ ti, const float* __restrict__ tq,
+    const float* __restrict__ hcol, const int m, const int n,
+    float* __restrict__ ui, float* __restrict__ uq) {
+    const int j = blockIdx.x * THREADS + threadIdx.x;
+    if (j >= n) return;
+    const long r0 = (long)blockIdx.y * ROWS;
+    const long r1 = r0 + ROWS < m ? r0 + ROWS : (long)m;
+    const long s = (j == 0) ? 1 : 0;
+    float h[TPP];
+#pragma unroll
+    for (int t = 0; t < TPP; ++t) h[t] = hcol[t * n + j];
+    // window w[d] = vv[r + s + d], d < TPP; row r takes tap t on w[TPP-1-t]
+    float wi[TPP], wq[TPP];
+#pragma unroll
+    for (int d = 0; d < TPP - 1; ++d) {
+        wi[d] = vv_at(xi, ti, r0 + s + d, n, j);
+        wq[d] = vv_at(xq, tq, r0 + s + d, n, j);
+    }
+    // rows go in batches of BATCH: their BATCH new loads per plane are
+    // issued together, so each thread keeps 2*BATCH loads in flight
+    for (long r = r0; r < r1; r += BATCH) {
+        float ni[BATCH], nq[BATCH];
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+            const bool in = r + u < r1;
+            ni[u] = in ? vv_at(xi, ti, r + u + s + TPP - 1, n, j) : 0.0f;
+            nq[u] = in ? vv_at(xq, tq, r + u + s + TPP - 1, n, j) : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+            if (r + u >= r1) break;
+            wi[TPP - 1] = ni[u];
+            wq[TPP - 1] = nq[u];
+            float ai = __fmul_rn(h[0], wi[TPP - 1]);
+            float aq = __fmul_rn(h[0], wq[TPP - 1]);
+#pragma unroll
+            for (int t = 1; t < TPP; ++t) {
+                ai = __fadd_rn(ai, __fmul_rn(h[t], wi[TPP - 1 - t]));
+                aq = __fadd_rn(aq, __fmul_rn(h[t], wq[TPP - 1 - t]));
+            }
+            ui[(r + u) * n + j] = ai;
+            uq[(r + u) * n + j] = aq;
+#pragma unroll
+            for (int d = 0; d < TPP - 1; ++d) {
+                wi[d] = wi[d + 1];
+                wq[d] = wq[d + 1];
+            }
+        }
+    }
+}
+
+int launch(const float* xi, const float* xq, const float* ti, const float* tq,
+           const float* hcol, int tpp, int m, int n, float* ui, float* uq,
+           void* stream) {
+    const long strips = ((long)m + ROWS - 1) / ROWS;
+    if (tpp != TPP || m < 1 || n < 1 || strips > 65535)
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid((n + THREADS - 1) / THREADS, (unsigned)strips);
+    pfb_fir_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+        xi, xq, ti, tq, hcol, m, n, ui, uq);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x_i, x_q [m, n]; tail_i, tail_q [tpp, n]; hcol [tpp, n] (device);
+// u_i, u_q [m, n].
+SONDETPU_API int sondetpu_pfb_fir_stream(
+    const float* xi, const float* xq, const float* ti, const float* tq,
+    const float* hcol, int tpp, int m, int n, float* ui, float* uq,
+    void* stream) {
+    return launch(xi, xq, ti, tq, hcol, tpp, m, n, ui, uq, stream);
+}
+
+// vv_i, vv_q [tpp + m, n]; hcol [tpp, n] (device); u_i, u_q [m, n].
+SONDETPU_API int sondetpu_pfb_fir_timemajor(
+    const float* vvi, const float* vvq, const float* hcol, int tpp, int m,
+    int n, float* ui, float* uq, void* stream) {
+    if (tpp != TPP) return (int)cudaErrorInvalidValue;
+    const size_t off = (size_t)TPP * n;
+    return launch(vvi + off, vvq + off, vvi, vvq, hcol, tpp, m, n, ui, uq,
+                  stream);
+}

@@ -1,11 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
-The sources are compiled with nvcc for Hopper (``sm_90a``) into one shared
-library with a plain C interface, at the first launch, and bound with
-ctypes: no PyTorch headers, so the build takes seconds. The library lands
-in ``build/sondetpu_torch/`` beside the package, named by a hash of the
-sources, so an edited source is rebuilt and a stale library is never
-loaded. Nothing here runs when the module is imported.
+The sources are compiled with nvcc for Hopper (``sm_90a``), one process per
+source, all at once, and linked into one shared library with a plain C
+interface, at the first launch, and bound with ctypes: no PyTorch headers,
+so the build takes seconds. The library lands in ``build/sondetpu_torch/``
+beside the package, named by a hash of the sources, so an edited source is
+rebuilt and a stale library is never loaded. Nothing here runs when the
+module is imported.
 
 ``launches`` counts, per kernel, the launches that went through
 :func:`launch`; a run resets it with :func:`reset_launches` and reads it
@@ -29,7 +30,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "sondetpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
@@ -39,9 +40,17 @@ _SIGNATURES = {
                                 _I, _P, _P, _P],
     "sondetpu_corr": [_P, _P, _I, _F, _I, _I, _P, _P],
     "sondetpu_rs_clean": [_P, _P, _I, _I, _I, _P, _P],
+    "sondetpu_pfb_fir_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sondetpu_pfb_fir_timemajor": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "sondetpu_pfb_dft": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "sondetpu_dualtone_tiles": [_I],
+    "sondetpu_dualtone_frontend": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                                   _I, _I, _I, _I, _P, _P, _P, _P, _P],
 }
 
-launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0}
+launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0,
+            "pfb_fir_stream": 0, "pfb_fir_timemajor": 0, "pfb_dft": 0,
+            "fused_dualtone_frontend": 0}
 build_seconds = None     # wall time of this process's nvcc build, if any
 _lib = None
 
@@ -75,10 +84,28 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libsondetpu_kernels_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first one
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = "nvcc failed (%d):\n%s\n%s" % (proc.returncode,
+                                                     " ".join(cmd), out)
+    if failed is not None:
+        raise RuntimeError(failed)
+
+
 def build() -> str:
     """Compile csrc/*.cu into the shared library unless it already exists;
-    returns its path. The library is written under a temporary name and
-    renamed, so a concurrent build never leaves a partial file behind."""
+    returns its path. Each source compiles in its own nvcc process, all at
+    once, and one more links them. The library is written under a temporary
+    name and renamed, so a concurrent build never leaves a partial file
+    behind."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
@@ -88,12 +115,13 @@ def build() -> str:
     os.close(fd)
     t0 = time.perf_counter()
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *[p for p in _sources() if p.endswith(".cu")]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s\n%s" % (
-                res.returncode, " ".join(cmd), res.stdout + res.stderr))
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            units = [p for p in _sources() if p.endswith(".cu")]
+            objs = [os.path.join(objdir, os.path.basename(p) + ".o")
+                    for p in units]
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p]
+                      for p, o in zip(units, objs)])
+            _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):

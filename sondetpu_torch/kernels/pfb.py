@@ -1,0 +1,156 @@
+"""The PFB channelizer's two stages: the time-major branch FIR and the DFT
+across branches (counterpart: ``sondetpu/pallas/pfb.py``:
+``pfb_fir_stream``, ``pfb_fir_timemajor`` and ``pfb_dft_perm``).
+
+:func:`pfb_fir_stream` and :func:`pfb_fir_timemajor` launch the two entry
+points of ``csrc/pfb.cu`` for CUDA tensors and run :func:`pfb_fir_plain`
+for CPU tensors; they agree bit for bit (the same products and sums in the
+same order, each rounded on its own). :func:`pfb_dft` launches
+``csrc/pfb_dft.cu`` (a radix-2 FFT per time row, f32) for CUDA tensors and
+runs :func:`pfb_dft_plain` (``torch.fft.fft``) for CPU tensors.
+
+The DFT writes channel k at row k. The TPU kernel's ``dft_perm`` row order
+is not reproduced: it existed so that the fleet's row gather absorbed it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from sondetpu_torch.kernels import cuda
+
+TPP = 8   # taps per phase the FIR kernel is built for
+
+
+def pfb_fir_plain(vv_i: torch.Tensor, vv_q: torch.Tensor,
+                  hcol: torch.Tensor):
+    """Plain torch twin of the branch FIR over pre-concatenated planes
+    vv [tpp + m, N] -> (u_i, u_q) [m, N] (the slice-sum of
+    ``dsp/channelizer.py:_impl``):
+    ``u[r, j] = sum_t hcol[t, j] * vvs[r + tpp - 1 - t, j]``, where ``vvs``
+    is ``vv`` with column 0 moved up one row, summed in ascending t."""
+    tpp = hcol.shape[0]
+    m = vv_i.shape[0] - tpp
+    rows = m + tpp - 1
+
+    def fir(vv):
+        vvs = torch.cat([vv[1:rows + 1, :1], vv[:rows, 1:]], dim=1)
+        acc = None
+        for t in range(tpp):
+            o = tpp - 1 - t
+            s = vvs[o:o + m, :] * hcol[t][None, :]
+            acc = s if acc is None else acc + s
+        return acc
+
+    return fir(vv_i), fir(vv_q)
+
+
+def _check_fir(name, planes, hcol, dev):
+    tpp, n = hcol.shape
+    if tpp != TPP:
+        raise ValueError(f"{name}: {tpp} taps per phase; the kernel takes "
+                         f"{TPP}")
+    for pname, t in planes:
+        cuda.check_tensor(pname, t, torch.float32, dev, (None, n))
+    cuda.check_tensor("hcol", hcol, torch.float32, dev, (TPP, n))
+
+
+def pfb_fir_stream(x_i: torch.Tensor, x_q: torch.Tensor,
+                   tail_i: torch.Tensor, tail_q: torch.Tensor,
+                   hcol: torch.Tensor):
+    """Branch FIR of one block: raw planes x [m, N] and the carried tail
+    [tpp, N] (the previous block's last tpp rows) -> (u_i, u_q) [m, N],
+    branch-permuted time-major (column j holds branch (N - j) % N). Equal
+    to :func:`pfb_fir_timemajor` over ``concat(tail, x)``; nothing is
+    concatenated on the card. CPU tensors run the twin; CUDA tensors launch
+    the kernel."""
+    dev = x_i.device
+    if dev.type == "cpu":
+        return pfb_fir_plain(torch.cat([tail_i, x_i]),
+                             torch.cat([tail_q, x_q]), hcol)
+    if dev.type != "cuda":
+        raise ValueError(f"pfb_fir_stream: unsupported device {dev}")
+    m, n = x_i.shape
+    _check_fir("pfb_fir_stream", (("x_i", x_i), ("x_q", x_q),
+                                  ("tail_i", tail_i), ("tail_q", tail_q)),
+               hcol, dev)
+    if x_q.shape[0] != m or tail_i.shape[0] != TPP or tail_q.shape[0] != TPP:
+        raise ValueError("pfb_fir_stream: plane or tail rows differ")
+    u_i = torch.empty((m, n), dtype=torch.float32, device=dev)
+    u_q = torch.empty((m, n), dtype=torch.float32, device=dev)
+    cuda.launch("pfb_fir_stream", "sondetpu_pfb_fir_stream",
+                x_i.data_ptr(), x_q.data_ptr(), tail_i.data_ptr(),
+                tail_q.data_ptr(), hcol.data_ptr(), TPP, m, n,
+                u_i.data_ptr(), u_q.data_ptr(), cuda.stream_handle(dev))
+    return u_i, u_q
+
+
+def pfb_fir_timemajor(vv_i: torch.Tensor, vv_q: torch.Tensor,
+                      hcol: torch.Tensor):
+    """Branch FIR over pre-concatenated planes vv [tpp + m, N] -> (u_i,
+    u_q) [m, N]: the channelizer's path for blocks shorter than its
+    history. CPU tensors run the twin; CUDA tensors launch the kernel."""
+    dev = vv_i.device
+    if dev.type == "cpu":
+        return pfb_fir_plain(vv_i, vv_q, hcol)
+    if dev.type != "cuda":
+        raise ValueError(f"pfb_fir_timemajor: unsupported device {dev}")
+    rows, n = vv_i.shape
+    _check_fir("pfb_fir_timemajor", (("vv_i", vv_i), ("vv_q", vv_q)), hcol,
+               dev)
+    m = rows - TPP
+    if m < 1 or vv_q.shape[0] != rows:
+        raise ValueError(f"pfb_fir_timemajor: {rows} rows for {TPP} taps per "
+                         "phase")
+    u_i = torch.empty((m, n), dtype=torch.float32, device=dev)
+    u_q = torch.empty((m, n), dtype=torch.float32, device=dev)
+    cuda.launch("pfb_fir_timemajor", "sondetpu_pfb_fir_timemajor",
+                vv_i.data_ptr(), vv_q.data_ptr(), hcol.data_ptr(), TPP, m, n,
+                u_i.data_ptr(), u_q.data_ptr(), cuda.stream_handle(dev))
+    return u_i, u_q
+
+
+def twiddle_table(n: int):
+    """cos, sin(2*pi*x/n) for x < n/2, taken in float64 and rounded once to
+    float32 (NumPy arrays): the FFT kernel's twiddles."""
+    ang = 2.0 * np.pi * np.arange(n // 2, dtype=np.float64) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def pfb_dft_plain(u_i: torch.Tensor, u_q: torch.Tensor):
+    """Plain torch twin of :func:`pfb_dft`: ``torch.fft.fft`` of the
+    complex rows, transposed to [N, m]."""
+    y = torch.fft.fft(torch.complex(u_i, u_q), dim=-1)
+    return y.real.t().contiguous(), y.imag.t().contiguous()
+
+
+def pfb_dft(u_i: torch.Tensor, u_q: torch.Tensor, twiddles=None):
+    """Complex DFT across the N branches of every time row, sign -1,
+    channel-major: (u_i, u_q) [m, N] -> (y_i, y_q) [N, m] with
+    ``y[k, r] = sum_j u[r, j] * exp(-2*pi*i*j*k/N)``. ``twiddles`` is
+    :func:`twiddle_table` for N as tensors on the card (made here when
+    None). N must be a power of two from 8 to 4096. CPU tensors run the
+    twin; CUDA tensors launch the kernel."""
+    dev = u_i.device
+    if dev.type == "cpu":
+        return pfb_dft_plain(u_i, u_q)
+    if dev.type != "cuda":
+        raise ValueError(f"pfb_dft: unsupported device {dev}")
+    m, n = u_i.shape
+    if n < 8 or n > 4096 or n & (n - 1):
+        raise ValueError(f"pfb_dft: N={n}; the kernel covers powers of two "
+                         "from 8 to 4096")
+    cuda.check_tensor("u_i", u_i, torch.float32, dev, (m, n))
+    cuda.check_tensor("u_q", u_q, torch.float32, dev, (m, n))
+    if twiddles is None:
+        twiddles = tuple(torch.from_numpy(t).to(dev) for t in twiddle_table(n))
+    twc, tws = twiddles
+    cuda.check_tensor("twiddle cos", twc, torch.float32, dev, (n // 2,))
+    cuda.check_tensor("twiddle sin", tws, torch.float32, dev, (n // 2,))
+    y_i = torch.empty((n, m), dtype=torch.float32, device=dev)
+    y_q = torch.empty((n, m), dtype=torch.float32, device=dev)
+    cuda.launch("pfb_dft", "sondetpu_pfb_dft", u_i.data_ptr(), u_q.data_ptr(),
+                twc.data_ptr(), tws.data_ptr(), m, n, y_i.data_ptr(),
+                y_q.data_ptr(), cuda.stream_handle(dev))
+    return y_i, y_q

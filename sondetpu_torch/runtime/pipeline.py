@@ -1,12 +1,16 @@
-"""The per-block RS41 decoding pipeline on the kernel path (counterpart:
+"""The per-block decoding pipeline on the kernel path (counterpart:
 ``sondetpu/runtime/pipeline.py``).
 
 ``PipelineConfig`` and ``unpack_block_output`` are copies of the originals
 (the original module imports jax), so one config drives both packages and
 the wire layout agrees by construction. ``Pipeline`` is the torch form of
-the original's ``use_pallas=True`` NRZ branch: dequant, fused front end
-(kernel), Oerder-Meyr timing, integer-sps symbol sampling, chip ring,
-syncword correlation (kernel), peak pick, NRZ byte pack and frame gather,
+the original's ``use_pallas=True`` step for rs41/rs41x/dfm (the fused front
+end) and m10 (the fused dual-tone front end): dequant, front end (kernel),
+Oerder-Meyr timing, integer- or rational-sps symbol sampling, chip ring,
+syncword correlation (the correlator kernel on the fused-front-end path;
+the plain correlation on the dual-tone path, as in the original), peak
+pick, then either the NRZ byte pack and frame gather, or the frame gather
+with Manchester/biphase-M decoding and the Chase weak bits, then
 de-whitening, RS syndrome flag (kernel), and the flat packed buffer. In the
 port ``use_pallas=True`` means "the Hopper kernels"; every other config
 raises ``NotImplementedError`` naming the missing piece.
@@ -19,6 +23,7 @@ packages.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from fractions import Fraction
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -26,14 +31,18 @@ import torch
 
 from sondetpu_torch.dsp.fir import FIRState, design_lowpass
 from sondetpu_torch.kernels.corr import corr_kernel
+from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
+                                             mixer_tables)
 from sondetpu_torch.kernels.frontend import HALO, fused_frontend
 from sondetpu_torch.kernels.syndrome import rs_clean_flags_kernel
 from sondetpu_torch.sondes.base import get_sonde
-from sondetpu_torch.sync.correlator import find_frame_starts
+from sondetpu_torch.sync.coding import biphase_m_decode, manchester_decode
+from sondetpu_torch.sync.correlator import (correlate_syncword,
+                                            find_frame_starts, gather_frames)
 from sondetpu_torch.sync.timing import (TimingState, oerder_meyr_tau,
                                         spectral_line_tables)
 
-PORTED_SONDES = ("rs41", "rs41x")
+PORTED_SONDES = ("rs41", "rs41x", "m10", "dfm")
 
 
 @dataclass(frozen=True)
@@ -306,6 +315,33 @@ def state_to_numpy(state: PipelineState) -> PipelineState:
     return _map_state(state, lambda t: t.detach().cpu().numpy())
 
 
+def _dualtone_gates(c):
+    """(dualtone, skip_chanfilt): the original's gates for the noncoherent
+    dual-tone front end and for skipping its channel filter
+    (``sondetpu/runtime/pipeline.py:331-339, 366-367``)."""
+    spec = c.spec
+    n_proc = c.block_len // c.decim
+    turns = spec.dev * n_proc / c.fs_proc
+    dualtone = (spec.modulation in ("gfsk", "fsk")
+                and bool(spec.extra.get("fsk_dualtone"))
+                and abs(turns - round(turns)) < 1e-6
+                and 2 <= round(c.sps) <= c.ntaps)
+    return dualtone, dualtone and spec.bandwidth / 2.0 >= 0.45 * c.fs_proc
+
+
+def _rational_sps(c):
+    """(p, q) with sps = p/q, q <= 16, when the block splits into whole
+    p-sample segments of q chips each (the segmented sampling of the
+    original); None otherwise."""
+    fr = Fraction(c.sps).limit_denominator(16)
+    p, q = fr.numerator, fr.denominator
+    cpb = c.chips_per_block
+    if (abs(float(fr) - float(c.sps)) < 1e-9 and q > 1 and cpb % q == 0
+            and c.block_len // c.decim == (cpb // q) * p):
+        return p, q
+    return None
+
+
 def _check_slice(c) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     missing = None
@@ -326,8 +362,13 @@ def _check_slice(c) -> None:
         missing = (f"block_len={c.block_len}, ntaps={c.ntaps} (the kernel "
                    f"path needs block_len >= {HALO} and "
                    f"decim*ntaps + ntaps - 1 <= {HALO})")
-    elif not float(c.sps).is_integer():
-        missing = f"sps={c.sps} (only integer samples per symbol)"
+    elif c.spec.extra.get("fsk_dualtone") and not _dualtone_gates(c)[0]:
+        missing = (f"the FM-discriminator fallback of {c.sonde!r} (its "
+                   "dual-tone front end needs dev*block/fs integer and "
+                   "2 <= sps <= ntaps)")
+    elif not float(c.sps).is_integer() and _rational_sps(c) is None:
+        missing = (f"sps={c.sps} (only integer sps, or p/q with q <= 16 "
+                   "and whole p-sample segments per block)")
     if missing is not None:
         raise NotImplementedError(f"sondetpu_torch Pipeline: {missing} is not "
                                   "ported")
@@ -355,8 +396,16 @@ class Pipeline:
             templates.append(spec.sync_chip_template(alt))
         for b in spec.extra.get("alt_sync_bits", ()):
             templates.append(spec.sync_chip_template(bits=np.asarray(b)))
-        self._templates = [torch.from_numpy(np.asarray(t, np.float32)).to(dev)
-                           for t in templates]
+        self._np_templates = [np.asarray(t, np.float32) for t in templates]
+        self._templates = [torch.from_numpy(t).to(dev)
+                           for t in self._np_templates]
+        self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
+        if self._dualtone:
+            # +/-dev mixer, block-periodic: one host f64 table per block
+            cos_m, sin_m = mixer_tables(c.block_len // c.decim,
+                                        spec.dev / c.fs_proc)
+            self._mix_cos = torch.from_numpy(cos_m).to(dev)
+            self._mix_sin = torch.from_numpy(sin_m).to(dev)
         # FM discriminator scale at the processing rate, rounded to f32 as
         # the original hands it to its kernel
         self._scale = float(np.float32(c.fs_proc / (2.0 * np.pi * spec.dev)))
@@ -372,6 +421,7 @@ class Pipeline:
         self._bit_shift = torch.arange(8, device=dev, dtype=torch.int32)
         if not spec.lsb_first:
             self._bit_shift = 7 - self._bit_shift
+        self._bit_weight = torch.ones_like(self._bit_shift) << self._bit_shift
 
     # -- state -------------------------------------------------------------
 
@@ -384,7 +434,9 @@ class Pipeline:
         return PipelineState(
             chan_tail_i=z(c.channels, HALO), chan_tail_q=z(c.channels, HALO),
             fm_prev=z(c.channels, 2),
-            fir=FIRState(tail=z(c.channels, c.ntaps - 1)),
+            # the dual-tone path's layout carries 4 mixed planes per channel
+            fir=FIRState(tail=z(c.channels * (4 if self._dualtone else 1),
+                                c.ntaps - 1)),
             timing=TimingState(pos=z(c.channels), locked=z(c.channels)),
             chipbuf=z(c.channels, c.buf_len),
             buf_fill=z(c.channels, dtype=torch.int32),
@@ -429,19 +481,55 @@ class Pipeline:
 
     def _sample_symbols(self, filt: torch.Tensor, start: torch.Tensor,
                         sps: float, cpb: int) -> torch.Tensor:
-        """Linear-interpolate symbol centers at start + k*sps, k < cpb
-        (integer sps: the fractional position is constant per channel).
+        """Linear-interpolate symbol centers at start + k*sps, k < cpb.
+
+        Integer sps: the fractional position is constant per channel;
         ``(1-frac)*filt[s0 + k*sps] + frac*filt[s0 + 1 + k*sps]``, the two
         terms the original's strided weighted sum leaves non-zero, added in
-        its order; reads past the block take its last sample."""
-        isps = int(sps)
-        s0 = torch.floor(start).to(torch.int64)            # [C] in [0, sps)
-        frac = (start - s0.to(torch.float32))[:, None]
-        fp = torch.cat([filt, filt[:, -1:].expand(-1, isps + 1)], dim=-1)
-        idx = s0[:, None] + isps * torch.arange(cpb, device=filt.device)
-        a = torch.gather(fp, 1, idx)
-        b = torch.gather(fp, 1, idx + 1)
-        return (1.0 - frac) * a + frac * b
+        its order; reads past the block take its last sample.
+
+        Rational sps = p/q (dfm: 19.2 = 96/5): the block splits into n/p
+        segments of p samples holding q chips each, at the same positions
+        ``start + j*sps`` (j < q) in every segment. The original contracts
+        each segment with a one-hot interpolation matrix; this takes the
+        same two non-zero terms of that contraction directly, in float32,
+        so no matrix product (and no TF32) is involved. Position p reads
+        the next segment's first sample."""
+        if float(sps).is_integer():
+            isps = int(sps)
+            s0 = torch.floor(start).to(torch.int64)        # [C] in [0, sps)
+            frac = (start - s0.to(torch.float32))[:, None]
+            fp = torch.cat([filt, filt[:, -1:].expand(-1, isps + 1)], dim=-1)
+            idx = s0[:, None] + isps * torch.arange(cpb, device=filt.device)
+            a = torch.gather(fp, 1, idx)
+            b = torch.gather(fp, 1, idx + 1)
+            return (1.0 - frac) * a + frac * b
+        p, q = _rational_sps(self.config)
+        c = filt.shape[0]
+        g = filt.shape[-1] // p
+        j = torch.arange(q, dtype=torch.float32, device=filt.device)
+        pos = start[:, None] + j[None, :] * torch.tensor(
+            np.float32(sps), device=filt.device)               # [C, q]
+        i0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, p - 1)
+        frac = torch.clamp(pos - i0.to(torch.float32), 0.0, 1.0)
+        # segments with the next segment's first sample appended (the
+        # block's last sample repeats past its end): [C, G, p + 1]
+        nxt = torch.cat([filt[:, p::p], filt[:, -1:]], dim=-1)[:, :g]
+        ext = torch.cat([filt.reshape(c, g, p), nxt[:, :, None]], dim=-1)
+        idx = i0[:, None, :].expand(c, g, q)
+        a = torch.gather(ext, 2, idx)
+        b = torch.gather(ext, 2, idx + 1)
+        soft = (1.0 - frac)[:, None, :] * a + frac[:, None, :] * b
+        # chips in temporal order: segment-major, j-minor
+        return soft.reshape(c, cpb)
+
+    def _correlate(self, chipbuf: torch.Tensor, k: int) -> torch.Tensor:
+        """Correlation with template k: the correlator kernel on the fused
+        front end's path, the plain correlation on the dual-tone path (the
+        original's choice, ``pipeline.py:948-970``)."""
+        if self._dualtone:
+            return correlate_syncword(chipbuf, self._np_templates[k])
+        return corr_kernel(chipbuf, self._templates[k])
 
     def _step_impl(self, state: PipelineState, iq_i: torch.Tensor,
                    iq_q: torch.Tensor):
@@ -458,11 +546,25 @@ class Pipeline:
             iq_q = iq_q.to(torch.float32).contiguous()
         sps = c.sps
 
-        # K1: channel filter + decimate + FM discriminator + matched FIR;
-        # the carry is the raw HALO-sample input tail per plane
-        filt, new_ctail_i, new_ctail_q, _ = fused_frontend(
-            iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
-            self._chan_taps, self._taps, self._scale, c.decim, c.dc_block)
+        if self._dualtone:
+            # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
+            # + one-chip boxcar + envelope metric; mean DC from the kernel's
+            # sums. The boxcar is the matched filter.
+            nb = max(2, int(round(sps)))
+            filt, new_ctail_i, new_ctail_q, dc, _, _ = \
+                fused_dualtone_frontend(
+                    iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
+                    self._chan_taps, self._mix_cos, self._mix_sin, nb,
+                    want_afc=False, skip_chanfilt=self._skip_chanfilt)
+            if c.dc_block:
+                filt = filt - dc[:, None]
+        else:
+            # K1: channel filter + decimate + FM discriminator + matched
+            # FIR; the carry is the raw HALO-sample input tail per plane
+            filt, new_ctail_i, new_ctail_q, _ = fused_frontend(
+                iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
+                self._chan_taps, self._taps, self._scale, c.decim,
+                c.dc_block)
         n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
@@ -485,12 +587,13 @@ class Pipeline:
         chipbuf = torch.cat([state.chipbuf, soft], dim=-1)[:, cpb:].contiguous()
         buf_fill = torch.clamp_max(state.buf_fill + cpb, c.buf_len)
 
-        # K2: syncword correlation, alternates through the same kernel
-        corr = corr_kernel(chipbuf, self._templates[0])
+        # syncword correlation (K2 off the dual-tone path); alternates go
+        # through the same correlator
+        corr = self._correlate(chipbuf, 0)
         if spec.extra.get("abs_corr"):
             corr = corr.abs()
-        for alt_t in self._templates[1:]:
-            corr2 = corr_kernel(chipbuf, alt_t)
+        for k in range(1, len(self._templates)):
+            corr2 = self._correlate(chipbuf, k)
             if spec.extra.get("abs_corr"):
                 corr2 = corr2.abs()
             m = min(corr.shape[-1], corr2.shape[-1])
@@ -505,27 +608,54 @@ class Pipeline:
         fit = (starts + c.frame_chips) <= c.buf_len
         frame_valid = ok & fit & is_new & in_hist
 
-        # NRZ byte pack at every chip offset, with integer shifts:
-        # byte_at[i] = sum_k hard[i + k] << shift[k]
         cc, kk, fb = chipbuf.shape[0], starts.shape[1], spec.frame_bytes
-        hard = (chipbuf > 0).to(torch.int32)
-        m = c.buf_len - 7
-        byte_at = hard[:, 0:m] << self._bit_shift[0]
-        for k in range(1, 8):
-            byte_at = byte_at + (hard[:, k:k + m] << self._bit_shift[k])
-        # the original regroups byte_at as [C, 8, bq] (zero-padded to a
-        # multiple of 8) and takes fb consecutive bytes of row r = safe % 8
-        # from column q = min(safe // 8, bq - fb): frame byte t is
-        # byte_at[8*q + r + 8*t]
-        byte_at = torch.nn.functional.pad(byte_at, (0, (-m) % 8))
-        bq = byte_at.shape[-1] // 8
-        safe = torch.clamp(starts, 0, max(c.buf_len - c.frame_chips, 0)
-                           ).to(torch.int64)
-        q = torch.clamp_max(safe // 8, bq - fb)
-        first = 8 * q + (safe - 8 * (safe // 8))
-        idx = first[:, :, None] + 8 * torch.arange(fb, device=self.device)
-        frames = torch.gather(byte_at, 1, idx.reshape(cc, kk * fb)
-                              ).reshape(cc, kk, fb).to(torch.uint8)
+        weak = None
+        if spec.line_code == "nrz":
+            # NRZ byte pack at every chip offset, with integer shifts:
+            # byte_at[i] = sum_k hard[i + k] << shift[k]
+            hard = (chipbuf > 0).to(torch.int32)
+            m = c.buf_len - 7
+            byte_at = hard[:, 0:m] << self._bit_shift[0]
+            for k in range(1, 8):
+                byte_at = byte_at + (hard[:, k:k + m] << self._bit_shift[k])
+            # the original regroups byte_at as [C, 8, bq] (zero-padded to a
+            # multiple of 8) and takes fb consecutive bytes of row r = safe % 8
+            # from column q = min(safe // 8, bq - fb): frame byte t is
+            # byte_at[8*q + r + 8*t]
+            byte_at = torch.nn.functional.pad(byte_at, (0, (-m) % 8))
+            bq = byte_at.shape[-1] // 8
+            safe = torch.clamp(starts, 0, max(c.buf_len - c.frame_chips, 0)
+                               ).to(torch.int64)
+            q = torch.clamp_max(safe // 8, bq - fb)
+            first = 8 * q + (safe - 8 * (safe // 8))
+            idx = first[:, :, None] + 8 * torch.arange(fb, device=self.device)
+            frames = torch.gather(byte_at, 1, idx.reshape(cc, kk * fb)
+                                  ).reshape(cc, kk, fb).to(torch.uint8)
+        else:
+            if c.chase_m:
+                # soft-decision assist: gather soft chips, slice them, and
+                # rank each decoded bit's reliability as min(|a|, |b|) of
+                # its chip pair; the chase_m weakest per span ride the
+                # packed buffer (torch.topk in place of approx_max_k: the
+                # host compares them as a set of candidates)
+                soft_fr, _ = gather_frames(chipbuf, starts, ok, c.frame_chips)
+                chips = (soft_fr > 0).to(torch.uint8)
+                rel = torch.minimum(soft_fr[..., 0::2].abs(),
+                                    soft_fr[..., 1::2].abs())
+                weak = torch.cat([
+                    torch.topk(rel[..., a:b], c.chase_m, dim=-1,
+                               largest=False).indices + a
+                    for a, b in c.chase_spans], dim=-1)    # [C, K, S*M]
+            else:
+                chips, _ = gather_frames((chipbuf > 0).to(torch.uint8),
+                                         starts, ok, c.frame_chips)
+            if spec.line_code == "manchester":
+                chips = manchester_decode(chips)
+            elif spec.line_code == "biphase_m":
+                chips = biphase_m_decode(chips)
+            bits8 = chips.reshape(cc, kk, fb, 8).to(torch.int32)
+            frames = torch.sum(bits8 * self._bit_weight, dim=-1).to(
+                torch.uint8)
         if self._whiten is not None:
             frames = torch.bitwise_xor(frames, self._whiten)
         score = torch.gather(
@@ -542,12 +672,17 @@ class Pipeline:
 
         wire = frames if self._wire_cols is None else frames.index_select(
             -1, self._wire_cols)
-        packed = torch.cat([
+        parts = [
             wire.reshape(cc, -1),
             frame_valid.to(torch.uint8),
             rs_clean.to(torch.uint8),
             soft_rms.contiguous().view(torch.uint8).reshape(cc, 4),
-        ], dim=-1).reshape(-1)
+        ]
+        if c.chase_m:
+            # weakest-bit indices as u16 little-endian pairs
+            parts.append(weak.to(torch.int16).contiguous().view(
+                torch.uint8).reshape(cc, -1))
+        packed = torch.cat(parts, dim=-1).reshape(-1)
         out = BlockOutput(frames=frames, frame_valid=frame_valid,
                           frame_score=score, soft_rms=soft_rms,
                           rs_clean=rs_clean, packed=packed)

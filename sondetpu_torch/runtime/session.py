@@ -3,8 +3,9 @@
 
 Single-process form of the original's ``DecoderSession``: it steps the
 port's pipeline, reads the packed buffer back to the host, runs the
-byte-level FEC and parse of the rs41 decoder, and merges fragments into
-per-channel telemetry. The mesh, fan-in, thread-pool and watchdog duties of
+family's byte-level FEC and parse (with the device's weakest-bit ranks for
+the Chase repair of m10), and merges fragments into per-channel
+telemetry. The mesh, fan-in, thread-pool and watchdog duties of
 the original are not ported. In pipelined mode the readback of block k
 happens after block k+1 is stepped, so telemetry lags the input by one
 block, as in the original; the readback itself (``packed.cpu()``) still
@@ -82,11 +83,21 @@ class DecoderSession:
         return updates
 
     def _handle_output(self, out: BlockOutput):
+        """Decode one block's packed buffer. ``out.packed`` is read back
+        here (ONE device->host transfer), or is already a host array when
+        the caller read several sessions' buffers back at once (the
+        fleet)."""
         cfg = self.config
-        # ONE device->host transfer of the packed buffer
-        packed = out.packed.cpu().numpy()
-        all_frames, valid, rs_clean, soft_rms = unpack_block_output(
-            packed, cfg.k_slots, cfg.wire_ncols, cfg.chase_total)
+        packed = out.packed
+        if isinstance(packed, torch.Tensor):
+            packed = packed.cpu().numpy()
+        res = unpack_block_output(packed, cfg.k_slots, cfg.wire_ncols,
+                                  cfg.chase_total)
+        weak_all = None
+        if cfg.chase_m:
+            all_frames, valid, rs_clean, soft_rms, weak_all = res
+        else:
+            all_frames, valid, rs_clean, soft_rms = res
         if not valid.any():
             return [], 0, 0, soft_rms
         ch_idx, slot_idx = np.nonzero(valid)
@@ -94,7 +105,13 @@ class DecoderSession:
         self.frames_seen += frames.shape[0]
         clean = rs_clean[ch_idx, slot_idx]
         cols = cfg.wire_columns
-        if cols is not None:
+        if weak_all is not None and getattr(self.decoder, "wants_weak_bits",
+                                            False):
+            # soft-assist families: hand the device's weakest-bit ranks to
+            # the Chase repair in the host parser
+            frags = self.decoder.decode_byte_frames(
+                frames, ch_idx, weak_bits=weak_all[ch_idx, slot_idx])
+        elif cols is not None:
             # compact mode: suspect rows need their full frames for host FEC
             full = None
             sus_ord = None

@@ -1,8 +1,10 @@
-"""Sonde families of the port (counterpart: ``sondetpu/sondes``): rs41 and
-rs41x. Importing this package registers them."""
+"""Sonde families of the port (counterpart: ``sondetpu/sondes``): rs41,
+rs41x, m10 and dfm. Importing this package registers them."""
 
 from sondetpu_torch.sondes.base import (ProtocolSpec, SondeDecoderBase,
                                         get_sonde, register_sonde)
 from sondetpu_torch.sondes import rs41 as _rs41  # noqa: F401
+from sondetpu_torch.sondes import m10 as _m10  # noqa: F401
+from sondetpu_torch.sondes import dfm as _dfm  # noqa: F401
 
 __all__ = ["ProtocolSpec", "SondeDecoderBase", "get_sonde", "register_sonde"]

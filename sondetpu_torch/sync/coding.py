@@ -1,13 +1,32 @@
-"""Bit packing for the host side (counterpart: ``sondetpu/sync/coding.py``).
+"""Line decoding and bit packing (counterpart: ``sondetpu/sync/coding.py``).
 
-Jax-free copy of ``np_bits_to_bytes`` and ``np_bytes_to_bits``: the
-original module imports jax at the top, so the port carries the two NumPy
-helpers it needs.
+``manchester_decode`` and ``biphase_m_decode`` are the torch form of the
+originals, on uint8 tensors with any leading batch dims. The NumPy
+helpers ``np_bits_to_bytes`` and ``np_bytes_to_bits`` are jax-free copies:
+the original module imports jax at the top.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def manchester_decode(chips: torch.Tensor, invert: bool = False
+                      ) -> torch.Tensor:
+    """IEEE Manchester: chip pair (1,0) -> 1, (0,1) -> 0 (swapped if
+    ``invert``). chips [..., 2*n] uint8 -> bits [..., n] uint8."""
+    a = chips[..., 0::2]
+    b = chips[..., 1::2]
+    if invert:
+        return ((1 - a) & b).to(torch.uint8)
+    return (a & (1 - b)).to(torch.uint8)
+
+
+def biphase_m_decode(chips: torch.Tensor) -> torch.Tensor:
+    """Biphase-Mark: a transition mid-cell encodes 1, none encodes 0.
+    chips [..., 2*n] uint8 -> bits [..., n] uint8."""
+    return (chips[..., 0::2] ^ chips[..., 1::2]).to(torch.uint8)
 
 
 def np_bits_to_bytes(bits: np.ndarray, lsb_first: bool = False) -> np.ndarray:

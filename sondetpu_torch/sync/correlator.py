@@ -1,8 +1,9 @@
-"""Frame synchronization: syncword template, correlation, peak picking
-(counterpart: ``sondetpu/sync/correlator.py``).
+"""Frame synchronization: syncword template, correlation, peak picking,
+frame gather (counterpart: ``sondetpu/sync/correlator.py``).
 
-``correlate_syncword`` is the plain correlation; it is the twin
-(``kernels.corr.corr_plain``) of the CUDA correlator the pipeline runs.
+``correlate_syncword`` is the plain correlation: the twin
+(``kernels.corr.corr_plain``) of the CUDA correlator, and what the
+dual-tone families correlate with, as in the original.
 """
 
 from __future__ import annotations
@@ -72,6 +73,27 @@ def find_frame_starts(corr: torch.Tensor, threshold: float, max_peaks: int,
     key = torch.where(ok, starts, torch.full_like(starts, n + 1))
     order = torch.argsort(key, dim=-1, stable=True)
     return torch.gather(starts, -1, order), torch.gather(ok, -1, order)
+
+
+def gather_frames(stream: torch.Tensor, starts: torch.Tensor,
+                  ok: torch.Tensor, frame_len: int):
+    """Gather fixed-length frames at per-channel offsets.
+
+    stream [C, n] (bits or soft symbols); starts, ok [C, K]. Returns
+    (frames [C, K, frame_len], valid [C, K]): one contiguous slice per
+    (channel, slot) from the start clamped to [0, n - frame_len], and
+    valid = ok & the whole frame fits inside the stream."""
+    c, n = stream.shape
+    k = starts.shape[1]
+    valid = ok & (starts + frame_len <= n)
+    if n < frame_len:
+        return (torch.zeros((c, k, frame_len), dtype=stream.dtype,
+                            device=stream.device), valid & False)
+    safe = torch.clamp(starts, 0, n - frame_len).to(torch.int64)
+    rows = torch.arange(c, device=stream.device)[:, None]
+    # a view [C, n - frame_len + 1, frame_len]; indexing copies only the
+    # [C, K, frame_len] result
+    return stream.unfold(1, frame_len, 1)[rows, safe], valid
 
 
 def _max_first(x: torch.Tensor):

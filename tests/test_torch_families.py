@@ -1,0 +1,349 @@
+"""The port's m10 and dfm families against the JAX package: the dual-tone
+front end, line decoding, frame gather, rational-sps sampling, the host
+copies of the two families, their pipelines on the kernel path, and the
+session's hand-off of the Chase weak bits.
+
+On the CPU every wrapper runs its plain torch twin; the JAX Pallas kernels
+run in interpret mode (the JAX pipelines take them on their own with
+use_pallas=True, as tests/test_sonde_families.py runs them). Inputs are made
+from numpy seeds and go to both packages.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sondetpu.dsp.fir import design_lowpass
+from sondetpu.pallas.frontend import frontend_chunk
+from sondetpu.pallas.frontend import fused_dualtone_frontend as jax_dualtone
+from sondetpu.runtime import pipeline as jpipe
+from sondetpu.runtime.session import DecoderSession as JaxSession
+from sondetpu.sondes import dfm as jdfm
+from sondetpu.sondes import m10 as jm10
+from sondetpu.sync import coding as jcoding
+from sondetpu.sync import correlator as jcorrelator
+from sondetpu_torch.kernels import cuda
+from sondetpu_torch.kernels.dualtone import (HALO, fused_dualtone_frontend,
+                                             fused_dualtone_plain,
+                                             mixer_tables)
+from sondetpu_torch.runtime import pipeline as tpipe
+from sondetpu_torch.runtime.session import DecoderSession
+from sondetpu_torch.sondes import dfm as tdfm
+from sondetpu_torch.sondes import m10 as tm10
+from sondetpu_torch.sondes.base import get_sonde
+from sondetpu_torch.sync import coding as tcoding
+from sondetpu_torch.sync import correlator as tcorrelator
+
+T = torch.from_numpy
+CPU = torch.device("cpu")
+C, BLOCK = 8, 48000
+FS, DEV = 48000.0, 12000.0     # m10: 12 kHz deviation, one-chip boxcar of 5
+
+
+def _dualtone_inputs(seed, c=8, n=48000):
+    rng = np.random.default_rng(seed)
+    x = [rng.normal(size=(c, n)).astype(np.float32) for _ in range(2)]
+    t = [rng.normal(size=(c, HALO)).astype(np.float32) for _ in range(2)]
+    return x + t
+
+
+@pytest.mark.parametrize("want_afc", [False, True])
+@pytest.mark.parametrize("skip_chanfilt", [True, False])
+def test_dualtone_twin_matches_pallas(skip_chanfilt, want_afc):
+    """K7's twin against the Pallas kernel at 8 x 48000 with m10's
+    parameters: metric atol 1e-5 (XLA and torch round the chanfilt sums
+    differently), dc and rotation sums 1e-5 of their largest value, tails
+    exact."""
+    planes = _dualtone_inputs(int(skip_chanfilt) + 2 * int(want_afc))
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    want = jax_dualtone(*(jnp.asarray(p) for p in planes),
+                        jnp.asarray(taps[None]), ntaps=41, nb=5,
+                        chunk=frontend_chunk(BLOCK), dev_over_fs=DEV / FS,
+                        want_afc=want_afc, skip_chanfilt=skip_chanfilt,
+                        interpret=True)
+    tabs = [T(t) for t in mixer_tables(BLOCK, DEV / FS)]
+    got = fused_dualtone_frontend(*(T(p) for p in planes), taps, *tabs, 5,
+                                  want_afc, skip_chanfilt)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
+                               atol=1e-5)
+    for k in (1, 2):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    for k in (3, 4, 5):
+        w = np.asarray(want[k])
+        scale = max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-5 * scale)
+    if not want_afc:
+        assert not got[4].any() and not got[5].any()
+
+
+def test_dualtone_stream_continuity():
+    """Two blocks with the carried tail equal one block of twice the length
+    wherever the mixer tables agree (dev * n / fs integer for both)."""
+    x_i, x_q, t_i, t_q = (T(p) for p in _dualtone_inputs(9, 8, 9600))
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    whole = fused_dualtone_plain(x_i, x_q, t_i, t_q, taps,
+                                 *(T(t) for t in mixer_tables(9600, 0.25)), 5,
+                                 skip_chanfilt=False)
+    tabs = [T(t) for t in mixer_tables(4800, 0.25)]
+    a = fused_dualtone_plain(x_i[:, :4800], x_q[:, :4800], t_i, t_q, taps,
+                             *tabs, 5)
+    b = fused_dualtone_plain(x_i[:, 4800:], x_q[:, 4800:], a[1], a[2], taps,
+                             *tabs, 5)
+    torch.testing.assert_close(torch.cat([a[0], b[0]], -1), whole[0],
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="mixer tables"):
+        fused_dualtone_plain(x_i, x_q, t_i, t_q, taps, *tabs, 5)
+
+
+def test_line_decoders_match_jax():
+    rng = np.random.default_rng(3)
+    chips = rng.integers(0, 2, size=(4, 3, 96), dtype=np.uint8)
+    for invert in (False, True):
+        np.testing.assert_array_equal(
+            tcoding.manchester_decode(T(chips), invert).numpy(),
+            np.asarray(jcoding.manchester_decode(jnp.asarray(chips), invert)))
+    np.testing.assert_array_equal(
+        tcoding.biphase_m_decode(T(chips)).numpy(),
+        np.asarray(jcoding.biphase_m_decode(jnp.asarray(chips))))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_gather_frames_matches_jax(dtype):
+    """One contiguous slice per (channel, slot), starts clamped, the same
+    validity; including a stream shorter than a frame."""
+    rng = np.random.default_rng(4)
+    stream = (rng.normal(size=(5, 300)) * 4).astype(dtype)
+    starts = rng.integers(-20, 320, size=(5, 6)).astype(np.int32)
+    ok = rng.random((5, 6)) < 0.7
+    for frame_len in (40, 301):
+        want = jcorrelator.gather_frames(jnp.asarray(stream),
+                                         jnp.asarray(starts), jnp.asarray(ok),
+                                         frame_len)
+        got = tcorrelator.gather_frames(T(stream), T(starts), T(ok), frame_len)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_rational_sps_sampling_matches_jax():
+    """dfm's sps 19.2 = 96/5: the port's two-tap form of the segmented
+    contraction against the JAX einsum, atol 1e-6."""
+    kw = dict(sonde="dfm", channels=C, block_len=BLOCK, use_pallas=True)
+    jp = jpipe.Pipeline(jpipe.PipelineConfig(**kw))
+    tp = tpipe.Pipeline(tpipe.PipelineConfig(**kw), CPU)
+    cfg = tp.config
+    assert cfg.sps == pytest.approx(19.2) and tpipe._rational_sps(cfg) == (96, 5)
+    rng = np.random.default_rng(5)
+    filt = rng.normal(size=(C, BLOCK)).astype(np.float32)
+    start = (rng.random(C) * (cfg.sps - 1e-3)).astype(np.float32)
+    start[0], start[1] = 0.0, np.float32(cfg.sps - 1e-3)
+    want = jp._sample_symbols(jnp.asarray(filt), jnp.asarray(start), cfg.sps,
+                              cfg.chips_per_block)
+    got = tp._sample_symbols(T(filt), T(start), cfg.sps, cfg.chips_per_block)
+    assert got.shape == (C, cfg.chips_per_block)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+# --- the host copies ---------------------------------------------------------
+
+FAMILIES = {"m10": (jm10, tm10), "dfm": (jdfm, tdfm)}
+
+
+def _truths(mod, family, k=6):
+    if family == "m10":
+        return [mod.M10Truth(serial="A05-3-54321", frame_no=3 + i,
+                             m20=(i == 4)) for i in range(k)]
+    return [mod.DFMTruth(serial_num=7654321, frame_no=1 + i)
+            for i in range(k)]
+
+
+def _frag_dicts(frags):
+    # repr: NaN fields compare equal as text
+    return [(int(ch), repr(dataclasses.asdict(f))) for ch, f in frags]
+
+
+@pytest.mark.parametrize("family", ["m10", "dfm"])
+def test_family_copies_equal_originals(family):
+    """Spec fields, built frames, modulated IQ and decoded fragments (with
+    clean, repairable and broken frames) equal the originals."""
+    jmod, tmod = FAMILIES[family]
+    js, ts = jmod.SPEC, tmod.SPEC
+    for f in dataclasses.fields(js):
+        assert getattr(ts, f.name) == getattr(js, f.name), f.name
+    assert get_sonde(family)["spec"] is ts
+    np.testing.assert_array_equal(ts.sync_chip_template(),
+                                  js.sync_chip_template())
+    jm, tm = (m.M10Modulator() if family == "m10" else m.DFMModulator()
+              for m in (jmod, tmod))
+    jt, tt = _truths(jmod, family), _truths(tmod, family)
+    if family == "m10":
+        jf = np.stack([jm.build_frame(t) for t in jt])
+        tf = np.stack([tm.build_frame(t) for t in tt])
+    else:
+        jf = np.stack([jm.build_frame(t, k) for k, t in enumerate(jt)])
+        tf = np.stack([tm.build_frame(t, k) for k, t in enumerate(tt)])
+    np.testing.assert_array_equal(tf, jf)
+    np.testing.assert_array_equal(tm.modulate(tt), jm.modulate(jt))
+    frames = np.concatenate([jf, jf])
+    frames[len(jf), 20] ^= 0x10          # one flipped bit
+    frames[len(jf) + 1, 10:30] ^= 0xFF   # broken
+    chans = np.arange(frames.shape[0]) % 3
+    port_dec = get_sonde(family)["decoder"]()
+    jax_dec = {"m10": jm10.M10Decoder, "dfm": jdfm.DFMDecoder}[family]()
+    kw = {}
+    if family == "m10":
+        bits = frames.shape[1] * 8
+        weak = np.tile(np.arange(24) * 7 % bits, (frames.shape[0], 1))
+        weak[len(jf)] = [20 * 8 + 3] + list(range(23))
+        kw = {"weak_bits": weak}
+    want = _frag_dicts(jax_dec.decode_byte_frames(frames, chans, **kw))
+    got = _frag_dicts(port_dec.decode_byte_frames(frames, chans, **kw))
+    assert got == want and len(want) >= 3
+
+
+# --- the pipelines on the kernel path ----------------------------------------
+
+SERIALS = {"m10": ["910-2-12345", "A05-3-54321", "C12-1-00042"],
+           "dfm": [1234567, 1235678, 7654321]}
+
+
+def _family_planes(family, n_blocks, seed=0, noise=0.1):
+    """int16 (i, q) [C, n_blocks * BLOCK]: channel ch carries serial
+    ch % 3 with its own offset into the frame stream and its own noise."""
+    n = n_blocks * BLOCK
+    rows = []
+    for k, serial in enumerate(SERIALS[family]):
+        if family == "m10":
+            iq = tm10.M10Modulator().modulate(
+                [tm10.M10Truth(serial=serial, frame_no=5 + j)
+                 for j in range(n // 8000 + 2)])
+        else:
+            iq = tdfm.DFMModulator().modulate(
+                [tdfm.DFMTruth(serial_num=serial, frame_no=2 + j)
+                 for j in range(n // 10000 + 2)])
+        iq = iq[37 * k:37 * k + n]
+        rng = np.random.default_rng(seed + k)
+        iq = iq + noise * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        rows.append((np.clip(iq.real * 32767, -32768, 32767).astype(np.int16),
+                     np.clip(iq.imag * 32767, -32768, 32767).astype(np.int16)))
+    return (np.stack([rows[ch % 3][0] for ch in range(C)]),
+            np.stack([rows[ch % 3][1] for ch in range(C)]))
+
+
+def _config(family, **kw):
+    return dict(sonde=family, channels=C, block_len=BLOCK, use_pallas=True,
+                compute_dtype="f32", input_dtype="i16", **kw)
+
+
+@pytest.mark.parametrize("family", ["m10", "dfm"])
+def test_family_pipeline_matches_jax(family):
+    """3 blocks at C=8 on the kernel path: validity, valid-slot bytes and
+    the packed buffer's valid rows equal the JAX use_pallas=True pipeline;
+    m10's weak bits are equal as sets per valid frame; the sessions'
+    telemetry is identical and each channel reports its serial."""
+    qi, qq = _family_planes(family, 3)
+    jsess = JaxSession(jpipe.PipelineConfig(**_config(family)))
+    jp = jsess.pipeline            # one compiled step for both comparisons
+    tp = tpipe.Pipeline(tpipe.PipelineConfig(**_config(family)), CPU)
+    assert (jp._pallas_dualtone, jp._pallas) == (
+        (True, False) if family == "m10" else (False, True))
+    assert tp._dualtone == (family == "m10")
+    cfg = tp.config
+    js, ts = jp.init_state(), tp.init_state()
+    assert ts.fir.tail.shape == np.asarray(js.fir.tail).shape
+    frames = 0
+    for b in range(3):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        js, jo = jp.step(js, (qi[:, sl], qq[:, sl]))
+        ts, to = tp.step(ts, (qi[:, sl], qq[:, sl]))
+        jv = np.asarray(jo.frame_valid)
+        tv = to.frame_valid.numpy()
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(to.frames.numpy()[tv],
+                                      np.asarray(jo.frames)[jv])
+        np.testing.assert_allclose(ts.timing.pos.numpy(),
+                                   np.asarray(js.timing.pos), atol=5e-3)
+        tu = tpipe.unpack_block_output(to.packed.numpy(), cfg.k_slots,
+                                       cfg.wire_ncols, cfg.chase_total)
+        ju = jpipe.unpack_block_output(np.asarray(jo.packed), cfg.k_slots,
+                                       cfg.wire_ncols, cfg.chase_total)
+        assert len(tu) == len(ju) == (5 if family == "m10" else 4)
+        np.testing.assert_array_equal(tu[0][tv], ju[0][jv])
+        np.testing.assert_array_equal(tu[1], ju[1])
+        if family == "m10":
+            for ch, k in zip(*np.nonzero(jv)):
+                assert set(tu[4][ch, k]) == set(ju[4][ch, k])
+        frames += int(jv.sum())
+    assert frames >= C * 4
+    tsess = DecoderSession(tpipe.PipelineConfig(**_config(family)), CPU)
+    for b in range(3):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        jsess.process_block((qi[:, sl], qq[:, sl]))
+        tsess.process_block((qi[:, sl], qq[:, sl]))
+    assert sorted(tsess.telemetry) == sorted(jsess.telemetry) == list(range(C))
+    for ch in range(C):
+        assert (repr(tsess.telemetry[ch].to_dict())
+                == repr(jsess.telemetry[ch].to_dict()))
+        assert tsess.telemetry[ch].serial == str(SERIALS[family][ch % 3])
+    assert (tsess.metrics.frames_decoded == jsess.metrics.frames_decoded
+            > 0)
+
+
+def test_session_hands_weak_bits_to_the_chase_repair():
+    """An m10 packed buffer whose frame fails its checksum by one bit, with
+    that bit among the frame's weak bits: the session unpacks the five
+    parts of a chase family and hands the weak bits to the decoder, whose
+    Chase repair recovers the frame."""
+    cfg = tpipe.PipelineConfig(sonde="m10", channels=C, block_len=BLOCK,
+                               use_pallas=True)
+    sess = DecoderSession(cfg, CPU)
+    k, fb, m = cfg.k_slots, cfg.wire_ncols, cfg.chase_total
+    frame = tm10.M10Modulator().build_frame(tm10.M10Truth(frame_no=7))
+    bad_bit = 0x40 * 8 + 5                       # inside the checksum span
+    frame[bad_bit >> 3] ^= 0x80 >> (bad_bit & 7)
+    assert sess.decoder.decode_byte_frames(frame[None], [2]) == []
+    frames = np.zeros((C, k, fb), np.uint8)
+    frames[2, 1] = frame
+    valid = np.zeros((C, k), np.uint8)
+    valid[2, 1] = 1
+    weak = np.tile(np.arange(m, dtype=np.uint16) * 9, (C, k, 1))
+    weak[2, 1, 3] = bad_bit
+    packed = np.concatenate([frames.reshape(C, -1), valid,
+                             np.zeros((C, k), np.uint8),
+                             np.ones((C, 1), np.float32).view(np.uint8),
+                             weak.view(np.uint8).reshape(C, -1)], axis=1)
+    assert packed.shape[1] == cfg.packed_row_bytes
+    out = tpipe.BlockOutput(frames=None, frame_valid=None, frame_score=None,
+                            soft_rms=None, rs_clean=None,
+                            packed=T(packed.reshape(-1)))
+    updates, raw, decoded, _ = sess._handle_output(out)
+    assert (raw, decoded) == (1, 1)
+    assert [ch for ch, _ in updates] == [2]
+    assert sess.telemetry[2].serial == "910-2-12345"
+
+
+# --- on the card -----------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no "
+                    "CPU mode); chip_smoke.py runs these on the card")
+    return torch.device("cuda", 0)
+
+
+def test_cuda_dualtone_matches_twin(cuda_device):
+    planes = [T(p).to(cuda_device) for p in _dualtone_inputs(12, 16, 48000)]
+    tabs = [T(t).to(cuda_device) for t in mixer_tables(BLOCK, DEV / FS)]
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    before = cuda.launches["fused_dualtone_frontend"]
+    got = fused_dualtone_frontend(*planes, taps, *tabs, 5, True, False)
+    want = fused_dualtone_plain(*planes, taps, *tabs, 5, True, False)
+    assert cuda.launches["fused_dualtone_frontend"] == before + 1
+    assert torch.equal(got[0], want[0])
+    for k in (3, 4, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)

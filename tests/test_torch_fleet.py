@@ -1,0 +1,163 @@
+"""The port's mixed fleet against the JAX package's FleetSession.
+
+An rs41, an m10 and a dfm sonde in three PFB bins of one 8-bin wideband
+stream (the signal of tests/test_fleet.py) go through the port's
+FleetSession (plain twins on the CPU) and the JAX FleetSession with
+use_pallas=True (Pallas kernels in interpret mode). The telemetry per
+logical channel must be identical.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from sondetpu.runtime.fleet import FleetChannel as JaxChannel
+from sondetpu.runtime.fleet import FleetSession as JaxFleet
+from sondetpu_torch.kernels import cuda
+from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+from sondetpu_torch.sondes.modulate import freq_shift, gfsk_modulate
+from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+
+N_BINS = 8
+FS_WIDE = N_BINS * 48000.0
+PLAN = ((1, "rs41"), (3, "m10"), (6, "dfm"))
+
+
+def _narrowband_at_wideband(bits, chip_rate, dev, f_center, bt=0.5):
+    iq = gfsk_modulate(bits, FS_WIDE / chip_rate, dev / FS_WIDE, bt=bt)
+    return freq_shift(iq, f_center / FS_WIDE)
+
+
+def _wideband(centers):
+    rs41 = RS41Modulator()
+    sig = [_narrowband_at_wideband(rs41.frames_to_bits(np.stack(
+        [rs41.build_frame(RS41Truth(frame_no=40 + i)) for i in range(3)])),
+        4800.0, 2400.0, centers[1])]
+    m10 = M10Modulator()
+    sig.append(_narrowband_at_wideband(m10.frames_to_chips(np.stack(
+        [m10.build_frame(M10Truth(frame_no=8 + i)) for i in range(10)])),
+        9600.0, 12000.0, centers[3], bt=0.7))
+    dfm = DFMModulator()
+    sig.append(_narrowband_at_wideband(dfm.frames_to_chips(np.stack(
+        [dfm.build_frame(DFMTruth(frame_no=2 + k), k) for k in range(8)])),
+        2500.0, 2500.0, centers[6]))
+    w = N_BINS * 48000
+    n = max(s.size for s in sig)
+    wide = np.zeros(((n + w - 1) // w) * w, np.complex64)
+    for s in sig:
+        wide[:s.size] += s
+    return wide, w
+
+
+@pytest.fixture(scope="module")
+def wideband():
+    return _wideband(FleetSession([FleetChannel(1, "rs41")], N_BINS, "cpu")
+                     .pfb.center_freqs(FS_WIDE))
+
+
+def _telemetry_text(telem):
+    return {k: json.dumps(t.to_dict(), sort_keys=True)
+            for k, t in telem.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_reference(wideband):
+    """The JAX fleet (use_pallas=True) over the stream, not pipelined: the
+    updates of each block and the telemetry after it."""
+    wide, w = wideband
+    fleet = JaxFleet([JaxChannel(b, s) for b, s in PLAN], N_BINS,
+                     use_pallas=True)
+    updates, telem = [], []
+    for i in range(0, wide.size, w):
+        updates.append(fleet.process_wideband(wide[i:i + w]))
+        telem.append(_telemetry_text(fleet.telemetry))
+    return updates, telem
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_fleet_matches_jax_fleet(wideband, jax_reference, pipelined):
+    """Same updates and telemetry per logical channel as the JAX fleet,
+    block by block (pipelined: one block later, and flush recovers the
+    last block); pad rows never surface; each group is padded to a
+    multiple of 8 only."""
+    wide, w = wideband
+    want_updates, want_telem = jax_reference
+    got_updates = []
+    port = FleetSession([FleetChannel(b, s) for b, s in PLAN], N_BINS, "cpu",
+                        pipelined=pipelined,
+                        on_update=lambda ch, s, t: got_updates.append((ch, s)))
+    assert {s: sess.config.channels for s, (_, sess) in port.groups.items()} \
+        == {"rs41": 8, "m10": 8, "dfm": 8}
+    assert port.groups["m10"][1].pipeline._dualtone
+    lag = int(pipelined)
+    for b, i in enumerate(range(0, wide.size, w)):
+        got = port.process_wideband(wide[i:i + w])
+        if b < lag:
+            assert got == 0 and port.telemetry == {}
+        else:
+            assert got == want_updates[b - lag]
+            assert _telemetry_text(port.telemetry) == want_telem[b - lag]
+    assert port.flush() == (want_updates[-1] if pipelined else 0)
+    assert port.flush() == 0
+    telem = port.telemetry
+    assert _telemetry_text(telem) == want_telem[-1]
+    assert set(telem) == {0, 1, 2}
+    assert telem[0].serial == "S1234567"
+    assert telem[1].serial == "910-2-12345"
+    assert telem[2].serial == "1234567"
+    assert telem[1].lat == pytest.approx(52.2, abs=1e-4)
+    assert {ch for ch, _ in got_updates} == {0, 1, 2}
+    assert {s for _, s in got_updates} == {"rs41", "m10", "dfm"}
+
+
+def test_fleet_step_is_one_packed_buffer(wideband):
+    """The device step returns every group's packed buffer concatenated,
+    in group order, and the frames of each group."""
+    wide, w = wideband
+    fleet = FleetSession([FleetChannel(b, s) for b, s in PLAN], N_BINS, "cpu")
+    planes = [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+        wide[:w].real, wide[:w].imag)]
+    packed, frames = fleet.step(*planes)
+    sizes = [sess.config.channels * sess.config.packed_row_bytes
+             for _, _, sess in fleet._order]
+    assert packed.dtype == torch.uint8 and packed.numel() == sum(sizes)
+    assert [f.shape[0] for f in frames] == [8, 8, 8]
+    assert fleet.process_wideband(tuple(planes)) >= 0
+
+
+def test_fleet_refuses_what_is_not_ported():
+    chans = [FleetChannel(1, "rs41")]
+    with pytest.raises(NotImplementedError, match="mesh"):
+        FleetSession(chans, N_BINS, "cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="afc"):
+        FleetSession(chans, N_BINS, "cpu", afc=True)
+    with pytest.raises(NotImplementedError, match="offset_hz"):
+        FleetSession([FleetChannel(1, "rs41", offset_hz=300.0)], N_BINS,
+                     "cpu")
+    with pytest.raises(NotImplementedError, match="block_len=100"):
+        FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu", block_len=100)
+    with pytest.raises(NotImplementedError, match="ims100"):
+        FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu")
+
+
+# --- on the card -----------------------------------------------------------
+
+def test_cuda_fleet_matches_cpu(wideband):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the fleet on the card")
+    wide, w = wideband
+    chans = [FleetChannel(b, s) for b, s in PLAN]
+    gpu = FleetSession(chans, N_BINS, torch.device("cuda", 0))
+    cpu = FleetSession(chans, N_BINS, "cpu")
+    cuda.reset_launches()
+    for i in range(0, wide.size, w):
+        gpu.process_wideband(wide[i:i + w])
+        cpu.process_wideband(wide[i:i + w])
+    assert all(cuda.launches[k] > 0 for k in ("pfb_fir_stream", "pfb_dft",
+                                               "fused_dualtone_frontend"))
+    assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)

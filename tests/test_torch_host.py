@@ -201,8 +201,8 @@ def test_pipeline_config_validation_equal():
             jpipe.PipelineConfig(**bad)
         with pytest.raises(ValueError):
             tpipe.PipelineConfig(**bad)
-    with pytest.raises(NotImplementedError, match="m10"):
-        tpipe.PipelineConfig(sonde="m10")
+    with pytest.raises(NotImplementedError, match="ims100"):
+        tpipe.PipelineConfig(sonde="ims100")
 
 
 @pytest.mark.parametrize("chase_m", [0, 3])

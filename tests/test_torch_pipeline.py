@@ -7,6 +7,7 @@ equal exactly, and the decoded telemetry identical. Bytes of invalid slots
 are not compared: they come from sub-threshold argmax picks.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -218,8 +219,18 @@ s = DecoderSession(PipelineConfig(sonde="rs41", channels=8, block_len=48000,
                                   use_pallas=True), torch.device("cpu"))
 s.process_block(iq)
 assert s.telemetry[0].serial == "S1234567", s.telemetry
+from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+iq = M10Modulator().modulate([M10Truth(frame_no=i) for i in range(8)])
+m10 = DecoderSession(PipelineConfig(sonde="m10", channels=8, block_len=48000,
+                                    use_pallas=True), torch.device("cpu"))
+m10.process_block(np.tile(iq[None, :48000], (8, 1)))
+assert m10.telemetry[0].serial == "910-2-12345", m10.telemetry
+from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+fleet = FleetSession([FleetChannel(1, "rs41"), FleetChannel(3, "m10"),
+                      FleetChannel(6, "dfm")], 8, torch.device("cpu"))
+fleet.process_wideband(np.zeros(8 * 48000, np.complex64))
 assert not any(k.split(".")[0] in ("jax", "jaxlib") for k in sys.modules)
-print("OK", s.metrics.frames_decoded)
+print("OK", s.metrics.frames_decoded + m10.metrics.frames_decoded)
 """
 
 
@@ -232,17 +243,37 @@ def test_port_imports_and_decodes_without_jax():
     assert int(res.stdout.split()[1]) > 0
 
 
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py names no module of jax or of the JAX package in its
+    own imports: only the standard library, numpy, torch and the port."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    assert names, "no imports found"
+    tops = {n.split(".")[0] for n in names}
+    allowed = set(sys.stdlib_module_names) | {"numpy", "torch",
+                                              "sondetpu_torch"}
+    assert tops <= allowed, sorted(tops - allowed)
+
+
 @pytest.mark.parametrize("kw,missing", [
-    (dict(sonde="m10", input_dtype="f32"), "sonde 'm10'"),
+    (dict(sonde="ims100", input_dtype="f32"), "sonde 'ims100'"),
     (dict(use_pallas=False), "use_pallas=False"),
     (dict(use_pallas=False, compute_dtype="bf16"), "use_pallas=False"),
     (dict(fine_offsets=tuple([100.0] * C)), "fine_offsets/afc"),
     (dict(afc=True), "fine_offsets/afc"),
     (dict(profile_stop="corr"), "profile_stop"),
     (dict(channels=12), "multiple of 8"),
-    (dict(fs=50000.0, block_len=50000), "sps="),
-], ids=["m10", "no-pallas", "bf16", "fine-offsets", "afc", "profile-stop",
-        "channels-12", "fractional-sps"])
+    (dict(fs=50000.0, block_len=50000), r"sps=5\.208.* q <= 16"),
+    (dict(sonde="m10", block_len=48005, input_dtype="f32"),
+     "FM-discriminator fallback"),
+], ids=["ims100", "no-pallas", "bf16", "fine-offsets", "afc", "profile-stop",
+        "channels-12", "fractional-sps", "m10-fm-fallback"])
 def test_pipeline_refuses_configs_outside_the_slice(kw, missing):
     """One JAX PipelineConfig drives both packages; the port names the
     piece it lacks."""
