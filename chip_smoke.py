@@ -29,6 +29,20 @@ before the result line:
    equal.
 9. fleet_step: the fleet's device step, the real-time channels it implies,
    peak device memory, and process_wideband with readback and host decode.
+10. afsk_kernels: the AFSK tone kernel (imet4's win 40 and c50's win 20)
+    and the fused front end at decim 1 with an identity matched filter,
+    against their twins at 2048 x 192000; the two kernels no path runs
+    (the r4 demod+FIR front end at 2048 x 96000, the lane experiment's FIR
+    at its four shapes), against theirs; then plain_correlation: the
+    dual-tone and AFSK paths' syncword correlation on the card divides by
+    L (m10's L = 80, imet4's L = 20), as on the CPU.
+11. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
+    at 2048 channels x 4 s: the truth's telemetry on every channel, the
+    front end and the AFSK tone kernel launched, the correlator not; then
+    each family's steady-state device step (afsk_step).
+12. afsk_distinct: 8 channels of each family with four distinct truths, on
+    the card and on the CPU (twins): validity, valid frame bytes and
+    telemetry equal.
 
 The last lines are the kernel table, the card as nvidia-smi names it, and
 {"ok": true, "device": {...}}. Needs one CUDA device and nvcc; no network.
@@ -63,7 +77,15 @@ KERNEL_SOURCES = {
                 "sondetpu/pallas/pfb.py:312"),
     "fused_dualtone_frontend": ("sondetpu_torch/csrc/dualtone.cu",
                                 "sondetpu/pallas/frontend.py:513"),
+    "fused_afsk_frontend": ("sondetpu_torch/csrc/afsk.cu",
+                            "sondetpu/pallas/frontend.py:666"),
+    "fused_demod_fir": ("sondetpu_torch/csrc/demod_fir.cu",
+                        "sondetpu/pallas/frontend.py:75"),
+    "lane_fir": ("sondetpu_torch/csrc/lane_fir.cu",
+                 "tools/exp_chanfilt.py:51"),
 }
+# AFSK families: (mark Hz, space Hz, boxcar win = fs / baud)
+AFSK_TONES = {"imet4": (1200.0, 2200.0, 40), "c50": (2400.0, 4800.0, 20)}
 # carriers of the fleet path: (bin, family, serial the decoder reports)
 FLEET_CARRIERS = ((1, "rs41", "S1234567"), (6, "m10", "910-2-12345"),
                   (9, "dfm", "1234567"))
@@ -334,7 +356,7 @@ def phase_distinct(torch, dev):
           "serials": serials, "matches_cpu": True})
 
 
-def phase_step(torch, pipe, blocks):
+def phase_step(torch, pipe, blocks, phase: str = "step"):
     """Steady-state step time at 2048 channels x 4 s."""
     torch.cuda.reset_peak_memory_stats()
     state = pipe.init_state()
@@ -349,7 +371,8 @@ def phase_step(torch, pipe, blocks):
         times.append(time.perf_counter() - t0)
     step = statistics.median(times)
     secs = BLOCK_LEN / FS
-    emit({"phase": "step", "channels": CHANNELS, "block_seconds": secs,
+    emit({"phase": phase, "sonde": pipe.config.sonde,
+          "channels": CHANNELS, "block_seconds": secs,
           "steps": len(times), "step_ms_median": step * 1e3,
           "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
           "realtime_channels": CHANNELS * secs / step,
@@ -739,6 +762,348 @@ def phase_fleet_step(torch, fleet, wi, wq):
           "process_wideband_ms": [t * 1e3 for t in wall]})
 
 
+def afsk_planes(family: str, n: int, seed: int, noise: float = 0.04,
+                k: int = 0):
+    """int16 (i, q) planes [n] of back-to-back ``family`` frames from the
+    port's modulator (truth set ``k``: imet4 lat 40 + k, temp -58 + k; c50
+    serial 12345 + k, lat 46.8 + k), with complex noise of std ``noise``
+    per component, quantized to cs16."""
+    from sondetpu_torch.sondes.c50 import C50Modulator, C50Truth
+    from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
+
+    if family == "imet4":
+        count = n // 20800 + 2                  # 20800 samples per truth
+        iq = IMET4Modulator().modulate(
+            [IMET4Truth(frame_no=1 + i, lat=40.0 + k, temp=-58.0 + k)
+             for i in range(count)], fs=FS)
+    else:
+        count = n // 10080 + 2                  # 10080 samples per truth
+        iq = C50Modulator().modulate(
+            [C50Truth(serial_num=12345 + k, frame_no=1 + i, lat=46.8 + k)
+             for i in range(count)], fs=FS)
+    iq = iq[:n]
+    rng = np.random.default_rng(seed)
+    noisy = iq + (rng.normal(size=n) + 1j * rng.normal(size=n)
+                  ).astype(np.complex64) * noise
+    qi = np.clip(noisy.real * 32767, -32768, 32767).astype(np.int16)
+    qq = np.clip(noisy.imag * 32767, -32768, 32767).astype(np.int16)
+    return qi, qq
+
+
+def phase_afsk_kernels(torch, dev):
+    """K8 for both AFSK families and K1 at decim 1 with the identity
+    matched filter, against their twins at the AFSK path's shape."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels.afsk import (afsk_tables, fused_afsk_frontend,
+                                             fused_afsk_frontend_plain)
+    from sondetpu_torch.kernels.frontend import (HALO, fused_frontend,
+                                                 fused_frontend_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    c, n = CHANNELS, BLOCK_LEN
+    results = {}
+    # K8: the same operations in the same order as the twin: expected 0
+    k8_tol = 1e-6
+    audio, atail = randn(c, n), randn(c, HALO)
+    k8 = {}
+    for family, (fm, fsp, win) in AFSK_TONES.items():
+        tabs = [torch.from_numpy(t).to(dev)
+                for t in afsk_tables(n, fm / FS, fsp / FS)]
+        got = fused_afsk_frontend(audio, atail, tabs, win)
+        want = fused_afsk_frontend_plain(audio, atail, tabs, win)
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        check(torch.isfinite(got[0]).all(), "afsk: non-finite soft")
+        check(err <= k8_tol, f"afsk {family}: err {err}")
+        check(torch.equal(got[1], want[1]), "afsk: carried tail differs")
+        del got, want
+        ms = cuda_ms(torch, lambda: fused_afsk_frontend(audio, atail, tabs,
+                                                        win), 20)
+        plain_ms = cuda_ms(torch, lambda: fused_afsk_frontend_plain(
+            audio, atail, tabs, win), 3)
+        emit({"phase": "kernel", "name": "fused_afsk_frontend",
+              "family": family, "win": win, "shape": [c, n],
+              "max_abs_err": err, "tol": k8_tol, "tail_exact": True,
+              "ms": ms, "plain_ms": plain_ms})
+        k8[family] = (err, ms, plain_ms)
+    results["fused_afsk_frontend"] = (
+        max(e for e, _, _ in k8.values()), k8["imet4"][1], k8["imet4"][2])
+    results["fused_afsk_frontend_c50"] = k8["c50"]
+    del audio, atail
+    torch.cuda.empty_cache()
+
+    # K1 at decim 1 with the identity matched filter: only the order of
+    # the block-DC sum differs from the twin
+    k1_tol = 1e-5
+    i, q, ti, tq = randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO)
+    ct = design_lowpass(10000.0, FS, 41)
+    delta = np.zeros(41, np.float32)
+    delta[-1] = 1.0
+    scale = float(np.float32(FS / (2 * np.pi * 3000.0)))
+    got = fused_frontend(i, q, ti, tq, ct, delta, scale, 1, True)
+    want = fused_frontend_plain(i, q, ti, tq, ct, delta, scale, 1, True)
+    torch.cuda.synchronize()
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[3] - want[3]).abs().max()))
+    check(err <= k1_tol, f"fused_frontend decim 1 identity: err {err}")
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          "fused_frontend decim 1: carried tails differ")
+    del got, want
+    ms = cuda_ms(torch, lambda: fused_frontend(i, q, ti, tq, ct, delta,
+                                               scale, 1, True), 20)
+    plain_ms = cuda_ms(torch, lambda: fused_frontend_plain(
+        i, q, ti, tq, ct, delta, scale, 1, True), 3)
+    emit({"phase": "kernel", "name": "fused_frontend", "decim": 1,
+          "matched_taps": "identity", "shape": [c, n], "max_abs_err": err,
+          "tol": k1_tol, "ms": ms, "plain_ms": plain_ms})
+    results["fused_frontend_decim1"] = (err, ms, plain_ms)
+    del i, q, ti, tq
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_unpathed_kernels(torch, dev):
+    """K9 and K10, which no pipeline path runs, against their twins; their
+    launch counts come from this phase."""
+    from sondetpu_torch.dsp.fir import conv1d, design_lowpass
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.frontend import (fused_demod_fir,
+                                                 fused_demod_fir_plain)
+    from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    results = {}
+    # K9 at RS41's processing-rate shape. Tolerance: kernel and twin round
+    # the discriminator and the FIR alike; the block-mean DC is summed in
+    # another order than torch.mean, which moves outputs of magnitude ~10
+    # by a few ulp
+    k9_tol = 2e-5
+    c, n = CHANNELS, BLOCK_LEN // 2
+    i, q = randn(c, n), randn(c, n)
+    prev, atail = randn(c, 2), randn(c, 40)
+    taps = design_lowpass(2640.0, FS / 2, 41)
+    scale = float(np.float32(FS / 2 / (2 * np.pi * 2400.0)))
+    got = fused_demod_fir(i, q, prev, atail, taps, scale, True)
+    want = fused_demod_fir_plain(i, q, prev, atail, taps, scale, True)
+    torch.cuda.synchronize()
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    check(torch.isfinite(got[0]).all(), "demod_fir: non-finite")
+    check(err <= k9_tol, f"demod_fir: err {err}")
+    del got, want
+    ms = cuda_ms(torch, lambda: fused_demod_fir(i, q, prev, atail, taps,
+                                                scale, True), 20)
+    plain_ms = cuda_ms(torch, lambda: fused_demod_fir_plain(
+        i, q, prev, atail, taps, scale, True), 3)
+    emit({"phase": "kernel", "name": "fused_demod_fir", "shape": [c, n],
+          "max_abs_err": err, "tol": k9_tol, "ms": ms, "plain_ms": plain_ms})
+    results["fused_demod_fir"] = (err, ms, plain_ms)
+    del i, q, prev, atail
+    torch.cuda.empty_cache()
+
+    # K10 at the experiment's shapes: the same operations in the same order
+    # as the twin, so exact
+    h = design_lowpass(0.1, 1.0, 41)
+    for c, n in ((306, 96000), (102, 96000), (616, 96000), (CHANNELS,
+                                                              BLOCK_LEN)):
+        x = randn(c, n + 40)
+        got, want = lane_fir(x, h), lane_fir_plain(x, h)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err == 0.0, f"lane_fir [{c}, {n}]: err {err}")
+        entry = {"phase": "kernel", "name": "lane_fir", "shape": [c, n],
+                 "max_abs_err": err, "tol": 0}
+        del got, want
+        if c == CHANNELS:
+            ms = cuda_ms(torch, lambda: lane_fir(x, h), 20)
+            plain_ms = cuda_ms(torch, lambda: lane_fir_plain(x, h), 3)
+            conv_ms = cuda_ms(torch, lambda: conv1d(x, h), 3)
+            entry.update(ms=ms, plain_ms=plain_ms, conv1d_ms=conv_ms)
+            results["lane_fir"] = (err, ms, plain_ms)
+        emit(entry)
+        del x
+    torch.cuda.synchronize()
+    launches = {k: cuda.launches[k] for k in ("fused_demod_fir", "lane_fir")}
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def phase_plain_correlation(torch, dev):
+    """The plain syncword correlation (the dual-tone and AFSK paths') on the
+    card divides by L: on +/-1 chips every window sum s is an exact integer,
+    so each output must be float32(s / L) correctly rounded, not
+    s * float32(1/L). m10's template (L = 80) over one 4 s block of its
+    chips, imet4's three (L = 20) over one of theirs, at 2048 channels; the
+    first 64 rows also equal the CPU."""
+    from sondetpu_torch.dsp.fir import conv1d
+    from sondetpu_torch.sondes import imet4, m10
+    from sondetpu_torch.sync.correlator import correlate_syncword
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    templates = [("m10", m10.SPEC.sync_chip_template(), 38400)]
+    templates += [(f"imet4-{k}", t, 4800) for k, t in enumerate(
+        [imet4.SPEC.sync_chip_template()]
+        + [imet4.SPEC.sync_chip_template(bits=np.asarray(b))
+           for b in imet4.SPEC.extra["alt_sync_bits"]])]
+    out = {}
+    for name, tmpl, n_chips in templates:
+        L = len(tmpl)
+        chips = (torch.randint(0, 2, (CHANNELS, n_chips + L - 1),
+                               generator=gen, device=dev) * 2 - 1).float()
+        got = correlate_syncword(chips, tmpl)
+        sums = conv1d(chips, tmpl)
+        # float64 division rounded once more to float32 is the correctly
+        # rounded float32 quotient (53 >= 2 * 24 + 2 bits)
+        want = (sums.double() / L).float()
+        bad = int((got != want).sum())
+        check(bad == 0, f"plain correlation {name}: {bad} outputs are not "
+              f"s / {L} correctly rounded")
+        cpu = correlate_syncword(chips[:64].cpu(), tmpl)
+        check(torch.equal(got[:64].cpu(), cpu),
+              f"plain correlation {name}: the card differs from the CPU")
+        recip = int((sums * float(np.float32(1.0 / L)) != want).sum())
+        out[name] = {"L": L, "shape": list(chips.shape),
+                     "outputs_where_reciprocal_differs": recip}
+        del chips, got, sums, want
+    # at 2048 channels each L = 20 buffer holds ~190 window sums of +/-18
+    check(all(v["outputs_where_reciprocal_differs"] > 0 for v in out.values()),
+          f"plain correlation: a check cannot tell the two roundings apart "
+          f"({out})")
+    emit({"phase": "plain_correlation", "templates": out,
+          "divides_by_l": True})
+
+
+def phase_afsk_path(torch, dev, family: str, n_blocks: int):
+    """One AFSK family through DecoderSession at 2048 channels x 4 s, the
+    same signal on every channel."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    cfg = PipelineConfig(sonde=family, channels=CHANNELS,
+                         block_len=BLOCK_LEN, use_pallas=True,
+                         compute_dtype="f32", input_dtype="i16")
+    qi, qq = afsk_planes(family, n_blocks * BLOCK_LEN, seed=7)
+    row_i = torch.from_numpy(qi).to(dev)
+    row_q = torch.from_numpy(qq).to(dev)
+    blocks = [(row_i[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous(),
+               row_q[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous()) for b in range(n_blocks)]
+    pipe = Pipeline(cfg, dev)
+    sess = DecoderSession(cfg, dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    block_seconds = []
+    for planes in blocks:
+        t0 = time.perf_counter()
+        sess.process_block(planes)
+        block_seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    m = sess.metrics
+    check(m.frames_decoded > 0, f"{family} path: no frames decoded")
+    check(m.frames_decoded % CHANNELS == 0,
+          f"{family} path: {m.frames_decoded} decoded frames do not split "
+          "evenly over identical channels")
+    check(sorted(sess.telemetry) == list(range(CHANNELS)),
+          f"{family} path: channels without telemetry")
+    t = sess.telemetry[0]
+    ref = t.to_dict()
+    ref_text = json.dumps(ref, sort_keys=True)
+    check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
+              == ref_text for ch in range(CHANNELS)),
+          f"{family} path: telemetry differs between identical channels")
+    if family == "imet4":
+        o3 = (float(t.aux_data[3:-3]) if t.aux_data.startswith("O3=")
+              and t.aux_data.endswith("mPa") else None)
+        check(t.serial == "" and abs(t.lat - 40.0) <= 1e-5
+              and abs(t.alt - 22000.0) <= 0.5 and abs(t.temp + 58.0) <= 0.01
+              and o3 is not None and abs(o3 - 3.2) <= 0.05,
+              f"imet4 path: telemetry {ref}")
+    else:
+        check(t.serial == "C50-12345" and abs(t.lat - 46.8) <= 1e-5
+              and abs(t.temp + 15.0) <= 0.02, f"c50 path: telemetry {ref}")
+    for name in ("fused_frontend", "fused_afsk_frontend"):
+        check(launches[name] > 0, f"{family} path: kernel {name} was not "
+              "launched")
+    check(launches["corr"] == 0, f"{family} path: the correlator kernel ran "
+          "(the AFSK path correlates with the plain correlation)")
+    emit({"phase": "afsk_path", "sonde": family, "channels": CHANNELS,
+          "block_len": BLOCK_LEN, "blocks": n_blocks,
+          "k_slots": cfg.k_slots, "frames_raw": m.frames_raw,
+          "frames_decoded": m.frames_decoded,
+          "frames_per_channel": m.frames_decoded // CHANNELS,
+          "telemetry": {f: ref.get(f) for f in
+                        ("serial", "lat", "lon", "alt", "temp", "aux_data")},
+          "process_block_seconds": block_seconds,
+          "launches": {k: v for k, v in launches.items() if v}})
+    return pipe, blocks, launches
+
+
+def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
+    """Per family, 8 channels carrying four distinct truths: the card
+    equals the CPU (twins) on validity, valid frame bytes and telemetry,
+    and each channel reports its own truth."""
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    c = 8
+    out = {}
+    for family in AFSK_TONES:
+        sig = [afsk_planes(family, n_blocks * BLOCK_LEN, seed=20 + k, k=k)
+               for k in range(4)]
+        qi = np.stack([sig[ch % 4][0] for ch in range(c)])
+        qq = np.stack([sig[ch % 4][1] for ch in range(c)])
+        cfg = PipelineConfig(sonde=family, channels=c, block_len=BLOCK_LEN,
+                             use_pallas=True, compute_dtype="f32",
+                             input_dtype="i16")
+        gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
+        sg, sc = gpu.init_state(), cpu.init_state()
+        gsess = DecoderSession(cfg, dev, pipeline=gpu)
+        csess = DecoderSession(cfg, "cpu", pipeline=cpu)
+        frames = 0
+        for b in range(n_blocks):
+            sl = slice(b * BLOCK_LEN, (b + 1) * BLOCK_LEN)
+            sg, og = gpu.step(sg, (qi[:, sl], qq[:, sl]))
+            sc, oc = cpu.step(sc, (qi[:, sl], qq[:, sl]))
+            vg, vc = og.frame_valid.cpu(), oc.frame_valid
+            check(torch.equal(vg, vc),
+                  f"{family} block {b}: validity differs from CPU")
+            check(torch.equal(og.frames.cpu()[vg], oc.frames[vc]),
+                  f"{family} block {b}: frame bytes differ from CPU")
+            frames += int(vg.sum())
+            gsess.process_block((qi[:, sl], qq[:, sl]))
+            csess.process_block((qi[:, sl], qq[:, sl]))
+        for ch in range(c):
+            tg, tc = gsess.telemetry.get(ch), csess.telemetry.get(ch)
+            check(tg is not None and tc is not None
+                  and json.dumps(tg.to_dict(), sort_keys=True)
+                  == json.dumps(tc.to_dict(), sort_keys=True),
+                  f"{family} channel {ch}: telemetry differs from the CPU")
+            k = ch % 4
+            if family == "imet4":
+                check(abs(tg.lat - (40.0 + k)) <= 1e-5,
+                      f"imet4 channel {ch}: telemetry {tg.to_dict()}")
+            else:
+                check(tg.serial == f"C50-{12345 + k}",
+                      f"c50 channel {ch}: telemetry {tg.to_dict()}")
+        out[family] = {"valid_frames": frames,
+                       "frames_decoded": gsess.metrics.frames_decoded}
+    emit({"phase": "afsk_distinct", "channels": c, "blocks": n_blocks,
+          "families": out, "matches_cpu": True})
+
+
 def main() -> int:
     import torch
 
@@ -747,14 +1112,17 @@ def main() -> int:
     phase_build()
     kres = phase_kernels(torch, dev)
     kres.update(phase_fleet_kernels(torch, dev))
-    pipe, blocks, launches = phase_main_path(torch, dev)
+    kres.update(phase_afsk_kernels(torch, dev))
+    phase_plain_correlation(torch, dev)
+    unpathed, unpathed_launches = phase_unpathed_kernels(torch, dev)
+    kres.update(unpathed)
+    pipe, blocks, rs41_launches = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
     phase_step(torch, pipe, blocks)
     del pipe, blocks
     torch.cuda.empty_cache()
     # each kernel's launches come from the run of the path that drives it
-    launches = {k: launches[k] for k in ("fused_frontend", "corr",
-                                         "rs_clean")}
+    launches = {k: rs41_launches[k] for k in ("corr", "rs_clean")}
     launches["pfb_fir_timemajor"] = phase_pfb_stream(
         torch, dev)["pfb_fir_timemajor"]
     fleet, (wi, wq), fleet_launches = phase_fleet_path(torch, dev)
@@ -762,12 +1130,53 @@ def main() -> int:
         launches[k] = fleet_launches[k]
     phase_fleet_distinct(torch, dev)
     phase_fleet_step(torch, fleet, wi, wq)
+    del fleet, wi, wq
+    torch.cuda.empty_cache()
+
+    afsk_launches = {}
+    for family, n_blocks in (("imet4", 3), ("c50", 2)):
+        pipe, blocks, afsk_launches[family] = phase_afsk_path(
+            torch, dev, family, n_blocks)
+        phase_step(torch, pipe, blocks, phase="afsk_step")
+        del pipe, blocks
+        torch.cuda.empty_cache()
+    phase_afsk_distinct(torch, dev)
+    # K1 and K8 as launched by the imet4 path's own run; K9 and K10 have no
+    # pipeline path, so theirs come from the kernels phase
+    for k in ("fused_frontend", "fused_afsk_frontend"):
+        launches[k] = afsk_launches["imet4"][k]
+    launches.update(unpathed_launches)
+    launches_from = {k: "imet4 afsk_path" for k in ("fused_frontend",
+                                                   "fused_afsk_frontend")}
+    launches_from.update({k: "rs41 main_path" for k in ("corr", "rs_clean")})
+    launches_from.update({k: "fleet_path" for k in (
+        "pfb_fir_stream", "pfb_dft", "fused_dualtone_frontend")})
+    launches_from["pfb_fir_timemajor"] = "pfb_stream"
+    launches_from.update({k: "kernels phase (no pipeline path)"
+                          for k in unpathed_launches})
     check("jax" not in sys.modules, "the port imported jax")
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-         "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
-         "max_abs_err": kres[name][0], "ms": kres[name][1],
-         "plain_ms": kres[name][2]} for name in KERNEL_SOURCES]})
+    table = []
+    for name in KERNEL_SOURCES:
+        check(launches[name] > 0, f"kernel {name}: no launches")
+        table.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
+            "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
+            "launches_from": launches_from[name],
+            "max_abs_err": kres[name][0], "ms": kres[name][1],
+            "plain_ms": kres[name][2]})
+    table[0].update(
+        launches_by_path={"rs41": rs41_launches["fused_frontend"],
+                          "fleet": fleet_launches["fused_frontend"],
+                          "imet4": afsk_launches["imet4"]["fused_frontend"],
+                          "c50": afsk_launches["c50"]["fused_frontend"]},
+        decim1_identity_ms=kres["fused_frontend_decim1"][1],
+        decim1_identity_plain_ms=kres["fused_frontend_decim1"][2],
+        decim1_identity_max_abs_err=kres["fused_frontend_decim1"][0])
+    k8 = next(e for e in table if e["name"] == "fused_afsk_frontend")
+    k8.update(c50_launches=afsk_launches["c50"]["fused_afsk_frontend"],
+              win20_ms=kres["fused_afsk_frontend_c50"][1],
+              win20_plain_ms=kres["fused_afsk_frontend_c50"][2])
+    emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -10,14 +10,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sondetpu_torch.dsp.fir import conv1d
 from sondetpu_torch.kernels import cuda
-from sondetpu_torch.sync.correlator import correlate_syncword
 
 
 def corr_plain(chipbuf: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
     """chipbuf [C, buf], template [L] -> corr [C, buf - L + 1]:
-    ``(sum_k t[k] * buf[c, i + k]) * (1/L)`` (``correlate_syncword``)."""
-    return correlate_syncword(chipbuf, template.cpu().numpy())
+    ``(sum_k t[k] * buf[c, i + k]) * float32(1/L)``, as the Pallas
+    correlator scales it (``sondetpu/pallas/corr.py:28``). The plain
+    ``correlate_syncword`` divides by L instead."""
+    t = template.cpu().numpy()
+    inv_l = torch.tensor(np.float32(1.0 / t.shape[0]), device=chipbuf.device)
+    return conv1d(chipbuf, t) * inv_l
 
 
 def corr_kernel(chipbuf: torch.Tensor, template: torch.Tensor) -> torch.Tensor:

@@ -46,11 +46,17 @@ _SIGNATURES = {
     "sondetpu_dualtone_tiles": [_I],
     "sondetpu_dualtone_frontend": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                                    _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    "sondetpu_afsk_frontend": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I,
+                               _P, _P],
+    "sondetpu_demod_fir": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P, _P,
+                           _P],
+    "sondetpu_lane_fir": [_P, _P, _I, _I, _I, _P, _P],
 }
 
 launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0,
             "pfb_fir_stream": 0, "pfb_fir_timemajor": 0, "pfb_dft": 0,
-            "fused_dualtone_frontend": 0}
+            "fused_dualtone_frontend": 0, "fused_afsk_frontend": 0,
+            "fused_demod_fir": 0, "lane_fir": 0}
 build_seconds = None     # wall time of this process's nvcc build, if any
 _lib = None
 

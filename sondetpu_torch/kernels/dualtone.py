@@ -81,7 +81,8 @@ def fused_dualtone_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
     pm = lmi * lmi + lmq * lmq
     eps = torch.tensor(np.float32(1e-12), device=dev)
     met = ((pp - pm) / (pp + pm + eps))[:, 1:]
-    dc = torch.sum(met, dim=-1) / n
+    dc = torch.sum(met, dim=-1) / torch.full((), float(n),
+                                             dtype=torch.float32, device=dev)
     if want_afc:
         # rotation products of the pairs (k, k - 1) for 1 <= k < n: lp
         # index k + 1 against index k
@@ -145,4 +146,5 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
                 cuda.stream_handle(dev))
     sums = torch.sum(parts, dim=-1)
     return (metric, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
-            sums[0] / n, sums[1], sums[2])
+            sums[0] / torch.full((), float(n), dtype=torch.float32,
+                                 device=dev), sums[1], sums[2])

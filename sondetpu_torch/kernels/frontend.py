@@ -1,11 +1,14 @@
 """Fused front end: channel filter + decimation + FM discriminator + matched
 FIR + block DC (counterpart: ``sondetpu/pallas/frontend.py:fused_frontend``
-and ``fast_atan2``).
+and ``fast_atan2``), and the r4 front end without the channel filter
+(counterpart: ``fused_demod_fir`` in the same file).
 
-:func:`fused_frontend` launches the CUDA kernel of ``csrc/frontend.cu`` for
-CUDA tensors and runs :func:`fused_frontend_plain` for CPU tensors. The
-two take every product and sum in the same order, each rounded on its own,
-so they agree bit for bit up to the order of the DC sum.
+:func:`fused_frontend` launches the CUDA kernel of ``csrc/frontend.cu``,
+and :func:`fused_demod_fir` that of ``csrc/demod_fir.cu``, for CUDA
+tensors; for CPU tensors they run :func:`fused_frontend_plain` and
+:func:`fused_demod_fir_plain`. Kernel and twin take every product and sum
+in the same order, each rounded on its own, so they agree bit for bit up to
+the order of the DC sum.
 """
 
 from __future__ import annotations
@@ -79,7 +82,8 @@ def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                                                 device=iq_i.device)
     # audio[g] for g in [-(T-1), nproc)
     filt = apply_windows(audio, match_taps)
-    dc = torch.sum(audio[:, T - 1:], dim=-1) / nproc
+    dc = torch.sum(audio[:, T - 1:], dim=-1) / torch.full(
+        (), float(nproc), dtype=torch.float32, device=audio.device)
     if dc_block:
         filt = filt - dc[:, None]
     return (filt, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
@@ -126,8 +130,75 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                 tail_q.data_ptr(), hc.ctypes.data, hm.ctypes.data, T,
                 float(np.float32(scale)), decim, c, n, HALO, filt.data_ptr(),
                 partial.data_ptr(), cuda.stream_handle(dev))
-    dc = torch.sum(partial, dim=-1) / nproc
+    # a divisor on the device: CUDA multiplies by the reciprocal of a
+    # Python number, which rounds otherwise than the twin on the CPU
+    dc = torch.sum(partial, dim=-1) / torch.full(
+        (), float(nproc), dtype=torch.float32, device=dev)
     if dc_block:
         filt = filt - dc[:, None]
     return (filt, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
             dc)
+
+
+# --- K9: the r4 front end without a channel filter --------------------------
+
+def _check_demod_args(iq_i, taps):
+    c, n = iq_i.shape
+    ntaps = len(taps)
+    if not 2 <= ntaps <= 64:
+        raise ValueError(f"{ntaps} taps (2 to 64)")
+    if n < ntaps - 1:
+        raise ValueError(f"block of {n} samples is shorter than the "
+                         f"{ntaps - 1}-sample audio tail")
+    return c, n, ntaps
+
+
+def fused_demod_fir_plain(iq_i, iq_q, prev, atail, taps, scale: float,
+                          dc_block: bool = True):
+    """Plain torch twin of :func:`fused_demod_fir` (same arguments and
+    results)."""
+    c, n, T = _check_demod_args(iq_i, taps)
+    ip = torch.cat([prev[:, 0:1], iq_i[:, :-1]], dim=-1)
+    qp = torch.cat([prev[:, 1:2], iq_q[:, :-1]], dim=-1)
+    dre = iq_i * ip + iq_q * qp
+    dim = iq_q * ip - iq_i * qp
+    audio = fast_atan2(dim, dre) * torch.tensor(
+        scale, dtype=torch.float32, device=iq_i.device)
+    if dc_block:
+        audio = audio - torch.mean(audio, dim=-1, keepdim=True)
+    filt = apply_windows(torch.cat([atail, audio], dim=-1), taps)
+    return filt, audio[:, n - (T - 1):].contiguous()
+
+
+def fused_demod_fir(iq_i, iq_q, prev, atail, taps, scale: float,
+                    dc_block: bool = True):
+    """FM discriminator (``fast_atan2`` x ``scale``, the previous sample
+    from ``prev``) -> block-mean DC removal (when ``dc_block``) -> FIR
+    (``taps``) over the audio after the carried tail ``atail``.
+
+    iq planes [C, n] float32; prev [C, 2] float32, the (I, Q) sample before
+    the block; atail [C, ntaps - 1] float32, the previous block's last
+    DC-removed audio; taps: NumPy float32 array. Returns (filt [C, n], the
+    next atail [C, ntaps - 1]).
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    """
+    dev = iq_i.device
+    if dev.type == "cpu":
+        return fused_demod_fir_plain(iq_i, iq_q, prev, atail, taps, scale,
+                                     dc_block)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_demod_fir: unsupported device {dev}")
+    c, n, T = _check_demod_args(iq_i, taps)
+    for name, t, shape in (("iq_i", iq_i, (c, n)), ("iq_q", iq_q, (c, n)),
+                           ("prev", prev, (c, 2)),
+                           ("atail", atail, (c, T - 1))):
+        cuda.check_tensor(name, t, torch.float32, dev, shape)
+    h = np.ascontiguousarray(taps, np.float32)
+    filt = torch.empty((c, n), dtype=torch.float32, device=dev)
+    tail = torch.empty((c, T - 1), dtype=torch.float32, device=dev)
+    cuda.launch("fused_demod_fir", "sondetpu_demod_fir", iq_i.data_ptr(),
+                iq_q.data_ptr(), prev.data_ptr(), atail.data_ptr(),
+                h.ctypes.data, T, float(np.float32(scale)), int(dc_block), c,
+                n, filt.data_ptr(), tail.data_ptr(), cuda.stream_handle(dev))
+    return filt, tail

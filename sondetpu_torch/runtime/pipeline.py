@@ -5,12 +5,14 @@
 (the original module imports jax), so one config drives both packages and
 the wire layout agrees by construction. ``Pipeline`` is the torch form of
 the original's ``use_pallas=True`` step for rs41/rs41x/dfm (the fused front
-end) and m10 (the fused dual-tone front end): dequant, front end (kernel),
-Oerder-Meyr timing, integer- or rational-sps symbol sampling, chip ring,
-syncword correlation (the correlator kernel on the fused-front-end path;
-the plain correlation on the dual-tone path, as in the original), peak
-pick, then either the NRZ byte pack and frame gather, or the frame gather
-with Manchester/biphase-M decoding and the Chase weak bits, then
+end), m10 (the fused dual-tone front end) and imet4/c50 (the fused front
+end at decim 1 with an identity matched filter, then the AFSK tone
+kernel): dequant, front end (kernels), Oerder-Meyr timing, integer- or
+rational-sps symbol sampling, chip ring, syncword correlation (the
+correlator kernel on the fused-front-end path; the plain correlation on
+the dual-tone and AFSK paths, as in the original), peak pick, then
+either the NRZ byte pack and frame gather, or the frame gather with
+Manchester/biphase-M decoding and the Chase weak bits, then
 de-whitening, RS syndrome flag (kernel), and the flat packed buffer. In the
 port ``use_pallas=True`` means "the Hopper kernels"; every other config
 raises ``NotImplementedError`` naming the missing piece.
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from sondetpu_torch.dsp.fir import FIRState, design_lowpass
+from sondetpu_torch.kernels.afsk import afsk_tables, fused_afsk_frontend
 from sondetpu_torch.kernels.corr import corr_kernel
 from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                              mixer_tables)
@@ -42,7 +45,7 @@ from sondetpu_torch.sync.correlator import (correlate_syncword,
 from sondetpu_torch.sync.timing import (TimingState, oerder_meyr_tau,
                                         spectral_line_tables)
 
-PORTED_SONDES = ("rs41", "rs41x", "m10", "dfm")
+PORTED_SONDES = ("rs41", "rs41x", "m10", "dfm", "imet4", "c50")
 
 
 @dataclass(frozen=True)
@@ -329,6 +332,19 @@ def _dualtone_gates(c):
     return dualtone, dualtone and spec.bandwidth / 2.0 >= 0.45 * c.fs_proc
 
 
+def _afsk_params(c):
+    """(win, L) of an AFSK family: the one-symbol boxcar width and the
+    joint period in samples of its mark and space tones
+    (``sondetpu/runtime/pipeline.py:369-379``)."""
+    spec = c.spec
+    win = max(int(c.fs / spec.baud), 2)
+    L = int(np.lcm(
+        Fraction(spec.afsk_mark / c.fs).limit_denominator(1 << 20).denominator,
+        Fraction(spec.afsk_space / c.fs).limit_denominator(1 << 20)
+        .denominator))
+    return win, L
+
+
 def _rational_sps(c):
     """(p, q) with sps = p/q, q <= 16, when the block splits into whole
     p-sample segments of q chips each (the segmented sampling of the
@@ -362,6 +378,13 @@ def _check_slice(c) -> None:
         missing = (f"block_len={c.block_len}, ntaps={c.ntaps} (the kernel "
                    f"path needs block_len >= {HALO} and "
                    f"decim*ntaps + ntaps - 1 <= {HALO})")
+    elif c.spec.modulation == "afsk" and (
+            (p := _afsk_params(c))[0] - 1 > HALO or c.block_len % p[1]):
+        win, L = p
+        missing = (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
+                   f"(the AFSK kernel path needs win - 1 <= {HALO} and the "
+                   f"tones' joint period L = {L} to divide block_len = "
+                   f"{c.block_len}; win = {win})")
     elif c.spec.extra.get("fsk_dualtone") and not _dualtone_gates(c)[0]:
         missing = (f"the FM-discriminator fallback of {c.sonde!r} (its "
                    "dual-tone front end needs dev*block/fs integer and "
@@ -400,6 +423,17 @@ class Pipeline:
         self._templates = [torch.from_numpy(t).to(dev)
                            for t in self._np_templates]
         self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
+        self._afsk = spec.modulation == "afsk"
+        if self._afsk:
+            # stage 1 is the fused front end with an identity matched
+            # filter; stage 2 mixes by the host f64 mark/space tables
+            self._afsk_win = _afsk_params(c)[0]
+            self._delta = np.zeros(c.ntaps, np.float32)
+            self._delta[-1] = 1.0
+            self._afsk_tabs = tuple(torch.from_numpy(t).to(dev)
+                                    for t in afsk_tables(
+                                        c.block_len, spec.afsk_mark / c.fs,
+                                        spec.afsk_space / c.fs))
         if self._dualtone:
             # +/-dev mixer, block-periodic: one host f64 table per block
             cos_m, sin_m = mixer_tables(c.block_len // c.decim,
@@ -440,7 +474,8 @@ class Pipeline:
             timing=TimingState(pos=z(c.channels), locked=z(c.channels)),
             chipbuf=z(c.channels, c.buf_len),
             buf_fill=z(c.channels, dtype=torch.int32),
-            aux=())
+            # the AFSK path carries the last HALO DC-removed audio samples
+            aux=(z(c.channels, HALO),) if self._afsk else ())
 
     # -- the step ------------------------------------------------------------
 
@@ -525,9 +560,9 @@ class Pipeline:
 
     def _correlate(self, chipbuf: torch.Tensor, k: int) -> torch.Tensor:
         """Correlation with template k: the correlator kernel on the fused
-        front end's path, the plain correlation on the dual-tone path (the
-        original's choice, ``pipeline.py:948-970``)."""
-        if self._dualtone:
+        front end's path, the plain correlation on the dual-tone and AFSK
+        paths (the original's choice, ``pipeline.py:948-970``)."""
+        if self._dualtone or self._afsk:
             return correlate_syncword(chipbuf, self._np_templates[k])
         return corr_kernel(chipbuf, self._templates[k])
 
@@ -558,6 +593,17 @@ class Pipeline:
                     want_afc=False, skip_chanfilt=self._skip_chanfilt)
             if c.dc_block:
                 filt = filt - dc[:, None]
+            aux = ()
+        elif self._afsk:
+            # K1 at decim 1 with an identity matched filter gives the
+            # DC-removed discriminator audio; K8 mixes it by the mark and
+            # space tones, boxcars one symbol and forms the soft chips
+            audio, new_ctail_i, new_ctail_q, _ = fused_frontend(
+                iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
+                self._chan_taps, self._delta, self._scale, 1, c.dc_block)
+            filt, new_atail = fused_afsk_frontend(
+                audio, state.aux[0], self._afsk_tabs, self._afsk_win)
+            aux = (new_atail,)
         else:
             # K1: channel filter + decimate + FM discriminator + matched
             # FIR; the carry is the raw HALO-sample input tail per plane
@@ -565,6 +611,7 @@ class Pipeline:
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._taps, self._scale, c.decim,
                 c.dc_block)
+            aux = ()
         n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
@@ -587,8 +634,8 @@ class Pipeline:
         chipbuf = torch.cat([state.chipbuf, soft], dim=-1)[:, cpb:].contiguous()
         buf_fill = torch.clamp_max(state.buf_fill + cpb, c.buf_len)
 
-        # syncword correlation (K2 off the dual-tone path); alternates go
-        # through the same correlator
+        # syncword correlation (K2 off the dual-tone and AFSK paths);
+        # alternates go through the same correlator
         corr = self._correlate(chipbuf, 0)
         if spec.extra.get("abs_corr"):
             corr = corr.abs()
@@ -689,5 +736,5 @@ class Pipeline:
         new_state = PipelineState(
             chan_tail_i=new_ctail_i, chan_tail_q=new_ctail_q,
             fm_prev=state.fm_prev, fir=state.fir, timing=timing_state,
-            chipbuf=chipbuf, buf_fill=buf_fill, aux=())
+            chipbuf=chipbuf, buf_fill=buf_fill, aux=aux)
         return new_state, out

@@ -3,7 +3,8 @@
 
 A jax-free copy: the original is reached only through ``sondetpu.sondes``,
 whose package import pulls in every family and with them jax. The port's
-registry holds the families of the port (rs41, rs41x, m10 and dfm).
+registry holds the families of the port (rs41, rs41x, m10, dfm,
+imet4 and c50).
 """
 
 from __future__ import annotations

@@ -37,6 +37,23 @@ def gfsk_modulate(bits: np.ndarray, sps: float, deviation_norm: float,
     return np.exp(1j * phase).astype(np.complex64)
 
 
+def afsk_modulate(bits: np.ndarray, sps: float, f_mark: float, f_space: float,
+                  fs: float, deviation_norm: float = 0.05) -> np.ndarray:
+    """AFSK-over-FM IQ: audio tones keyed by bits, then FM-modulated.
+
+    Mirrors the iMet-4/SRS-C50 uplink structure (SURVEY.md S5/S6): the
+    carrier is FM-modulated by an audio signal that switches between the
+    mark and space tones.
+    """
+    n_sym = bits.size
+    n = int(round(n_sym * sps))
+    idx = np.minimum((np.arange(n) / sps).astype(np.int64), n_sym - 1)
+    freq = np.where(np.asarray(bits)[idx] > 0, f_mark, f_space)
+    audio = np.sin(2.0 * np.pi * np.cumsum(freq) / fs)
+    phase = 2.0 * np.pi * deviation_norm * np.cumsum(audio)
+    return np.exp(1j * phase).astype(np.complex64)
+
+
 def add_awgn(iq: np.ndarray, snr_db: float, rng=None,
              signal_power: float = 1.0) -> np.ndarray:
     """Add complex AWGN at the given SNR (dB, relative to signal power)."""

@@ -1,9 +1,8 @@
 """Frame synchronization: syncword template, correlation, peak picking,
 frame gather (counterpart: ``sondetpu/sync/correlator.py``).
 
-``correlate_syncword`` is the plain correlation: the twin
-(``kernels.corr.corr_plain``) of the CUDA correlator, and what the
-dual-tone families correlate with, as in the original.
+``correlate_syncword`` is the plain correlation, what the dual-tone and
+AFSK families correlate with, as in the original.
 """
 
 from __future__ import annotations
@@ -25,14 +24,16 @@ def correlate_syncword(soft: torch.Tensor, template) -> torch.Tensor:
     """Correlate soft symbols [channels, n] against template [L].
 
     Returns corr [channels, n - L + 1] float32,
-    ``(sum_k t[k] * soft[c, i + k]) * float32(1/L)``, normalized so a
-    perfect hard match scores 1.0. It multiplies by 1/L as the Pallas
-    correlator does; the JAX ``correlate_syncword`` divides by L, which is
-    the same for the RS41 template (L = 64, a power of two).
+    ``(sum_k t[k] * soft[c, i + k]) / L``, normalized so a perfect hard
+    match scores 1.0. It divides by L as the JAX ``correlate_syncword``
+    does (the correlator kernel's twin multiplies by ``float32(1/L)``
+    instead, which rounds differently unless L is a power of two). L is a
+    tensor on the input's device: CUDA turns a division by a Python number
+    into a multiply by its reciprocal, which is that other rounding.
     """
     t = np.asarray(template, np.float32)
-    inv_l = torch.tensor(np.float32(1.0 / t.shape[0]), device=soft.device)
-    return conv1d(soft, t) * inv_l
+    return conv1d(soft, t) / torch.full((), float(t.shape[0]),
+                                        dtype=torch.float32, device=soft.device)
 
 
 def find_frame_starts(corr: torch.Tensor, threshold: float, max_peaks: int,

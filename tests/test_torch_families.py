@@ -21,7 +21,9 @@ from sondetpu.pallas.frontend import frontend_chunk
 from sondetpu.pallas.frontend import fused_dualtone_frontend as jax_dualtone
 from sondetpu.runtime import pipeline as jpipe
 from sondetpu.runtime.session import DecoderSession as JaxSession
+from sondetpu.sondes import c50 as jc50
 from sondetpu.sondes import dfm as jdfm
+from sondetpu.sondes import imet4 as jimet4
 from sondetpu.sondes import m10 as jm10
 from sondetpu.sync import coding as jcoding
 from sondetpu.sync import correlator as jcorrelator
@@ -31,7 +33,9 @@ from sondetpu_torch.kernels.dualtone import (HALO, fused_dualtone_frontend,
                                              mixer_tables)
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.session import DecoderSession
+from sondetpu_torch.sondes import c50 as tc50
 from sondetpu_torch.sondes import dfm as tdfm
+from sondetpu_torch.sondes import imet4 as timet4
 from sondetpu_torch.sondes import m10 as tm10
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync import coding as tcoding
@@ -150,15 +154,51 @@ def test_rational_sps_sampling_matches_jax():
 
 # --- the host copies ---------------------------------------------------------
 
-FAMILIES = {"m10": (jm10, tm10), "dfm": (jdfm, tdfm)}
+FAMILIES = {"m10": (jm10, tm10), "dfm": (jdfm, tdfm),
+            "imet4": (jimet4, timet4), "c50": (jc50, tc50)}
+MODULATORS = {"m10": "M10Modulator", "dfm": "DFMModulator",
+              "imet4": "IMET4Modulator", "c50": "C50Modulator"}
+DECODERS = {"m10": "M10Decoder", "dfm": "DFMDecoder",
+            "imet4": "IMET4Decoder", "c50": "C50Decoder"}
 
 
 def _truths(mod, family, k=6):
     if family == "m10":
         return [mod.M10Truth(serial="A05-3-54321", frame_no=3 + i,
                              m20=(i == 4)) for i in range(k)]
+    if family == "imet4":
+        return [mod.IMET4Truth(frame_no=1 + i, lat=40.0 + i,
+                               o3_mpa=(3.2 if i % 2 else 0.0))
+                for i in range(k)]
+    if family == "c50":
+        return [mod.C50Truth(serial_num=12345 + i, frame_no=1 + i)
+                for i in range(k)]
     return [mod.DFMTruth(serial_num=7654321, frame_no=1 + i)
             for i in range(k)]
+
+
+def _built_frames(family, modulator, truths):
+    """The byte frames the device hands the family's decoder: m10 and dfm
+    frames, c50's 9-byte telegrams, or imet4's 80-byte windows of the UART
+    bit stream at each packet start."""
+    if family == "m10":
+        return np.stack([modulator.build_frame(t) for t in truths])
+    if family == "dfm":
+        return np.stack([modulator.build_frame(t, k)
+                         for k, t in enumerate(truths)])
+    if family == "c50":
+        return np.concatenate([modulator.build_frame(t)
+                               for t in truths]).reshape(-1, 9)
+    packets = []
+    for t in truths:
+        packets += [modulator.build_ptu(t), modulator.build_gps(t)]
+        if t.o3_mpa:
+            packets.append(modulator.build_xdata(t))
+    bits = modulator.packets_to_bits(packets)
+    bits = np.concatenate([bits, np.ones(640, np.uint8)])
+    starts = np.cumsum([0] + [10 * (len(p) + 1) for p in packets[:-1]])
+    return np.stack([tcoding.np_bits_to_bytes(bits[s:s + 640])
+                     for s in starts])
 
 
 def _frag_dicts(frags):
@@ -166,34 +206,35 @@ def _frag_dicts(frags):
     return [(int(ch), repr(dataclasses.asdict(f))) for ch, f in frags]
 
 
-@pytest.mark.parametrize("family", ["m10", "dfm"])
+@pytest.mark.parametrize("family", ["m10", "dfm", "imet4", "c50"])
 def test_family_copies_equal_originals(family):
     """Spec fields, built frames, modulated IQ and decoded fragments (with
     clean, repairable and broken frames) equal the originals."""
     jmod, tmod = FAMILIES[family]
     js, ts = jmod.SPEC, tmod.SPEC
     for f in dataclasses.fields(js):
-        assert getattr(ts, f.name) == getattr(js, f.name), f.name
+        tv, jv = getattr(ts, f.name), getattr(js, f.name)
+        if f.name == "extra":
+            # imet4's holds arrays (its sync bits): compared element-wise
+            np.testing.assert_equal(tv, jv)
+        else:
+            assert tv == jv, f.name
     assert get_sonde(family)["spec"] is ts
     np.testing.assert_array_equal(ts.sync_chip_template(),
                                   js.sync_chip_template())
-    jm, tm = (m.M10Modulator() if family == "m10" else m.DFMModulator()
-              for m in (jmod, tmod))
+    jm, tm = (getattr(m, MODULATORS[family])() for m in (jmod, tmod))
     jt, tt = _truths(jmod, family), _truths(tmod, family)
-    if family == "m10":
-        jf = np.stack([jm.build_frame(t) for t in jt])
-        tf = np.stack([tm.build_frame(t) for t in tt])
-    else:
-        jf = np.stack([jm.build_frame(t, k) for k, t in enumerate(jt)])
-        tf = np.stack([tm.build_frame(t, k) for k, t in enumerate(tt)])
+    jf = _built_frames(family, jm, jt)
+    tf = _built_frames(family, tm, tt)
     np.testing.assert_array_equal(tf, jf)
     np.testing.assert_array_equal(tm.modulate(tt), jm.modulate(jt))
     frames = np.concatenate([jf, jf])
-    frames[len(jf), 20] ^= 0x10          # one flipped bit
-    frames[len(jf) + 1, 10:30] ^= 0xFF   # broken
+    fb = frames.shape[1]
+    frames[len(jf), 20 % fb] ^= 0x10     # one flipped bit
+    frames[len(jf) + 1, 10 % fb:30] ^= 0xFF   # broken
     chans = np.arange(frames.shape[0]) % 3
     port_dec = get_sonde(family)["decoder"]()
-    jax_dec = {"m10": jm10.M10Decoder, "dfm": jdfm.DFMDecoder}[family]()
+    jax_dec = getattr(jmod, DECODERS[family])()
     kw = {}
     if family == "m10":
         bits = frames.shape[1] * 8

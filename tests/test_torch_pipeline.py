@@ -225,12 +225,20 @@ m10 = DecoderSession(PipelineConfig(sonde="m10", channels=8, block_len=48000,
                                     use_pallas=True), torch.device("cpu"))
 m10.process_block(np.tile(iq[None, :48000], (8, 1)))
 assert m10.telemetry[0].serial == "910-2-12345", m10.telemetry
+from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
+iq = IMET4Modulator().modulate([IMET4Truth(frame_no=i) for i in range(3)])
+imet = DecoderSession(PipelineConfig(sonde="imet4", channels=8,
+                                     block_len=48000, use_pallas=True),
+                      torch.device("cpu"))
+imet.process_block(np.tile(iq[None, :48000], (8, 1)))
+assert abs(imet.telemetry[0].lat - 40.0) < 1e-5, imet.telemetry
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 fleet = FleetSession([FleetChannel(1, "rs41"), FleetChannel(3, "m10"),
                       FleetChannel(6, "dfm")], 8, torch.device("cpu"))
 fleet.process_wideband(np.zeros(8 * 48000, np.complex64))
 assert not any(k.split(".")[0] in ("jax", "jaxlib") for k in sys.modules)
-print("OK", s.metrics.frames_decoded + m10.metrics.frames_decoded)
+print("OK", s.metrics.frames_decoded + m10.metrics.frames_decoded
+      + imet.metrics.frames_decoded)
 """
 
 
