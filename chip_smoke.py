@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of sondetpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --profile    # env, build and step profiles only
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
 
 1. env: torch/CUDA versions, the card's name and power limit, TF32 off.
-2. build: nvcc builds the kernels of sondetpu_torch/csrc.
+2. build: nvcc builds the kernels of sondetpu_torch/csrc, and the host's
+   C++ compiler the port's native FEC.
 3. kernels: each CUDA kernel against its plain torch twin on the card, at
    the shapes its path gives it (the RS41 path: 2048 channels x 192000
-   samples; the fleet: 2048 PFB bins x 4 s, m10 group 616 x 192000), with
-   the tolerance stated beside it, and both timed with CUDA events.
+   samples; the fleet: 2048 PFB bins x 4 s, m10 group 616 x 192000; the
+   AFSK paths: 2048 x 192000), with the tolerance stated beside it, timed
+   with CUDA events beside its twin, its bound (bytes or operations, from
+   this run's shapes) and, where one PyTorch call computes the same
+   function, that call. The fused front end runs every body: decim 2 and
+   1, lowpass and identity matched taps, 41 taps and a run-time count,
+   and edge shapes, each bit-equal to its twin before the block DC. The
+   two kernels no path runs (the r4 demod+FIR front end, the lane
+   experiment's FIR) are held to theirs too; plain_correlation checks that
+   the dual-tone and AFSK paths' syncword correlation divides by L.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
-   x 4 s blocks: decoded telemetry checked, each kernel's launch count
-   read from that run alone; then an 8-channel run with three serials,
-   held byte for byte to the same pipeline on the CPU (plain twins).
+   x 4 s blocks: decoded telemetry checked, each kernel's and body's
+   launch count read from that run alone; then an 8-channel run with three
+   serials, held byte for byte to the same pipeline on the CPU (plain
+   twins).
 5. step: steady-state step time, the real-time channels it implies, and
    peak device memory.
 6. pfb_stream: the 2048-bin channelizer fed blocks shorter than its
@@ -29,23 +40,23 @@ before the result line:
    equal.
 9. fleet_step: the fleet's device step, the real-time channels it implies,
    peak device memory, and process_wideband with readback and host decode.
-10. afsk_kernels: the AFSK tone kernel (imet4's win 40 and c50's win 20)
-    and the fused front end at decim 1 with an identity matched filter,
-    against their twins at 2048 x 192000; the two kernels no path runs
-    (the r4 demod+FIR front end at 2048 x 96000, the lane experiment's FIR
-    at its four shapes), against theirs; then plain_correlation: the
-    dual-tone and AFSK paths' syncword correlation on the card divides by
-    L (m10's L = 80, imet4's L = 20), as on the CPU.
-11. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
+10. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
     at 2048 channels x 4 s: the truth's telemetry on every channel, the
-    front end and the AFSK tone kernel launched, the correlator not; then
-    each family's steady-state device step (afsk_step).
-12. afsk_distinct: 8 channels of each family with four distinct truths, on
+    front end's identity body and the AFSK tone kernel launched, the
+    correlator not; then each family's steady-state device step
+    (afsk_step).
+11. afsk_distinct: 8 channels of each family with four distinct truths, on
     the card and on the CPU (twins): validity, valid frame bytes and
     telemetry equal.
 
-The last lines are the kernel table, the card as nvidia-smi names it, and
-{"ok": true, "device": {...}}. Needs one CUDA device and nvcc; no network.
+At the end no module of jax or of the JAX package (sondetpu) may be loaded.
+With --profile, ptxas reports the registers of the redesigned kernels'
+bodies and torch.profiler reads the device kernels of three steady steps
+of the RS41, imet4 and c50 paths instead (no result line).
+The last lines are the kernel table (each kernel's launches from its
+path's run and per step on each path), the card as nvidia-smi names it,
+and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
+compiler; no network.
 """
 
 from __future__ import annotations
@@ -84,6 +95,16 @@ KERNEL_SOURCES = {
     "lane_fir": ("sondetpu_torch/csrc/lane_fir.cu",
                  "tools/exp_chanfilt.py:51"),
 }
+# the card's peaks for the bound of each kernel (NVIDIA's H100 SXM data
+# sheet): device memory, and FP32 outside the tensor cores at 67 TFLOP/s,
+# which counts an FMA as two; the kernels round every product and sum on its
+# own, so each is one operation at half that rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 33.5e12
+# the FM discriminator per output: 4 products and 2 sums, fast_atan2's
+# division, 5 polynomial steps of a product and a sum, 4 more, the scale
+DISC_OPS = 23
+K1_DC_TOL = 1e-5   # K1's block DC is summed in another order than the twin's
 # AFSK families: (mark Hz, space Hz, boxcar win = fs / baud)
 AFSK_TONES = {"imet4": (1200.0, 2200.0, 40), "c50": (2400.0, 4800.0, 20)}
 # carriers of the fleet path: (bin, family, serial the decoder reports)
@@ -157,64 +178,172 @@ def phase_env(torch):
 
 
 def phase_build():
+    """nvcc builds the kernels; the host's C++ compiler the port's native
+    FEC."""
+    from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
 
     t0 = time.perf_counter()
     path = cuda.build()
     cuda.library()
+    t1 = time.perf_counter()
+    fec_path = native.build()
+    check(native.available(), "the port's native FEC does not load")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cuda.build_seconds,
-          "library": os.path.relpath(path), "flags": " ".join(cuda.NVCC_FLAGS)})
+          "library": os.path.relpath(path), "flags": " ".join(cuda.NVCC_FLAGS),
+          "fec_library": os.path.relpath(fec_path),
+          "fec_seconds": time.perf_counter() - t1})
+
+
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    bytes the function must move (each input read once, each output written
+    once) over device memory's rate and its operations over the FP32 rate
+    for single-rounded operations."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "bound_bytes": nbytes, "bound_ops": nops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def frontend_inputs(torch, dev, gen, c, n, decim, ntaps, identity):
+    """K1's arguments: seeded planes and tails on the card, a lowpass
+    channel filter of ntaps, and matched taps that are the exact delay
+    [0, ..., 0, 1] (the AFSK path's) or a lowpass (RS41's)."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels.frontend import HALO
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ct = design_lowpass(5000.0, FS, ntaps)
+    if identity:
+        mt = np.zeros(ntaps, np.float32)
+        mt[-1] = 1.0
+    else:
+        mt = design_lowpass(2640.0, FS / decim, ntaps)
+    scale = float(np.float32(FS / decim / (2 * np.pi * 2400.0)))
+    return (randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO), ct, mt,
+            scale, decim)
+
+
+def frontend_bound(args):
+    """K1 as the path calls it (dc_block on): per output the channel filter
+    (2 planes x T products and sums), the discriminator, the matched FIR
+    unless its taps are the delay, the DC sum and its subtraction."""
+    from sondetpu_torch.kernels.frontend import is_delay_taps
+
+    i, q, ti, tq, ct, mt, _, decim = args
+    c, n = i.shape
+    T = len(ct)
+    outs = c * (n // decim)
+    per = 4 * T + DISC_OPS + (0 if is_delay_taps(mt) else 2 * T) + 2
+    return bound(nbytes(i, q) + 2 * nbytes(ti, tq) + 4 * outs + 4 * c,
+                 outs * per)
+
+
+def check_frontend(torch, args, label: str):
+    """K1 before the block DC is bit-equal to its twin (dc_block off), the
+    DC within K1_DC_TOL, the carried tails equal, and the body the host
+    picks is the one launched. Returns the DC error."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.frontend import (FIXED_TAPS, fused_frontend,
+                                                 fused_frontend_plain,
+                                                 is_delay_taps)
+
+    *planes, ct, mt, scale, decim = args
+    cuda.reset_launches()
+    got = fused_frontend(*planes, ct, mt, scale, decim, False)
+    want = fused_frontend_plain(*planes, ct, mt, scale, decim, False)
+    torch.cuda.synchronize()
+    body = (f"fused_frontend:decim{decim}_"
+            + ("t41" if len(ct) == FIXED_TAPS else "runtime_t")
+            + ("_identity" if is_delay_taps(mt) else ""))
+    check(cuda.body_launches == {body: 1},
+          f"fused_frontend {label}: bodies {cuda.body_launches}, "
+          f"expected {body}")
+    check(torch.isfinite(got[0]).all(), f"fused_frontend {label}: non-finite")
+    check(torch.equal(got[0], want[0]),
+          f"fused_frontend {label}: not bit-equal to its twin before the DC "
+          f"(max err {float((got[0] - want[0]).abs().max())})")
+    dc_err = float((got[3] - want[3]).abs().max())
+    check(dc_err <= K1_DC_TOL, f"fused_frontend {label}: dc err {dc_err}")
+    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+          f"fused_frontend {label}: carried tails differ")
+    return dc_err, body
+
+
+def phase_frontend(torch, dev):
+    """K1 in every body against its twin: the RS41 shape (decim 2) and the
+    AFSK shape (decim 1, identity matched taps), both timed; decim 1 with a
+    lowpass; the run-time-T body (T = 33); and edge shapes (one channel,
+    blocks that are not a multiple of the tile)."""
+    from sondetpu_torch.kernels.frontend import (fused_frontend,
+                                                 fused_frontend_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = (  # label, channels, samples, decim, taps, identity, timed
+        ("rs41", CHANNELS, BLOCK_LEN, 2, 41, False, True),
+        ("afsk", CHANNELS, BLOCK_LEN, 1, 41, True, True),
+        ("decim1-lowpass", CHANNELS, BLOCK_LEN, 1, 41, False, True),
+        ("decim2-identity", 8, 48006, 2, 41, True, False),
+        ("runtime-t33", 256, 48000, 2, 33, False, False),
+        ("runtime-t33-decim1", 256, 48000, 1, 33, False, False),
+        ("runtime-t33-identity", 256, 48000, 1, 33, True, False),
+        ("runtime-t33-decim2-identity", 8, 48000, 2, 33, True, False),
+        ("edge-c1-decim2", 1, 48006, 2, 41, False, False),
+        ("edge-c1-identity", 1, 30001, 1, 41, True, False),
+        ("edge-c3-decim1", 3, 30001, 1, 41, False, False))
+    results, bodies = {}, set()
+    for label, c, n, decim, ntaps, ident, timed in cases:
+        args = frontend_inputs(torch, dev, gen, c, n, decim, ntaps, ident)
+        dc_err, body = check_frontend(torch, args, label)
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "fused_frontend", "case": label,
+                 "shape": [c, n], "decim": decim, "taps": ntaps,
+                 "identity_matched_taps": ident, "body": body,
+                 "equal_before_dc": True, "dc_abs_err": dc_err,
+                 "dc_tol": K1_DC_TOL}
+        if timed:
+            # as the path calls it: the block DC subtracted
+            got = fused_frontend(*args[:7], decim, True)
+            want = fused_frontend_plain(*args[:7], decim, True)
+            torch.cuda.synchronize()
+            err = max(float((got[0] - want[0]).abs().max()), dc_err)
+            check(err <= K1_DC_TOL, f"fused_frontend {label}: err {err}")
+            del got, want
+            entry.update(
+                max_abs_err=err, tol=K1_DC_TOL,
+                ms=cuda_ms(torch, lambda: fused_frontend(
+                    *args[:7], decim, True), 20),
+                plain_ms=cuda_ms(torch, lambda: fused_frontend_plain(
+                    *args[:7], decim, True), 3),
+                library_ms=None, **frontend_bound(args))
+            results[label] = entry
+        emit(entry)
+        del args
+        torch.cuda.empty_cache()
+    check(len(bodies) == 8, f"fused_frontend: bodies launched {bodies}")
+    return results
 
 
 def phase_kernels(torch, dev):
-    """Each kernel against its twin at the main path's shapes."""
-    from sondetpu_torch.dsp.fir import design_lowpass
+    """K2 and K3 against their twins at the RS41 path's shapes."""
+    import torch.nn.functional as F
+
     from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
-    from sondetpu_torch.kernels.frontend import (HALO, fused_frontend,
-                                                 fused_frontend_plain)
     from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                                  rs_clean_plain)
     from sondetpu_torch.sondes.rs41 import (SPEC, RS41Modulator, RS41Truth)
 
     rng = np.random.default_rng(0)
     results = {}
-
-    # K1: the fused front end at decim 2 (the RS41 shape) and decim 1.
-    # Tolerance: kernel and twin round the same operations in the same
-    # order; only the order of the block-DC sum differs.
-    k1_tol = 1e-5
-    errs, k1_ms, k1_plain_ms = [], None, None
-    for decim, c, n in ((2, CHANNELS, BLOCK_LEN), (1, 256, 48000)):
-        i, q = (torch.from_numpy(rng.normal(size=(c, n)).astype(np.float32)
-                                 ).to(dev) for _ in range(2))
-        ti, tq = (torch.from_numpy(rng.normal(size=(c, HALO)).astype(
-            np.float32)).to(dev) for _ in range(2))
-        ct = design_lowpass(5000.0, FS, 41)
-        mt = design_lowpass(2640.0, FS / decim, 41)
-        scale = float(np.float32(FS / decim / (2 * np.pi * 2400.0)))
-        got = fused_frontend(i, q, ti, tq, ct, mt, scale, decim, True)
-        want = fused_frontend_plain(i, q, ti, tq, ct, mt, scale, decim, True)
-        torch.cuda.synchronize()
-        err = max(float((got[0] - want[0]).abs().max()),
-                  float((got[3] - want[3]).abs().max()))
-        tails_exact = bool(torch.equal(got[1], want[1])
-                           and torch.equal(got[2], want[2]))
-        check(tails_exact, "fused_frontend: carried tails differ")
-        check(torch.isfinite(got[0]).all(), "fused_frontend: non-finite")
-        check(err <= k1_tol, f"fused_frontend decim {decim}: err {err}")
-        errs.append(err)
-        entry = {"phase": "kernel", "name": "fused_frontend", "decim": decim,
-                 "shape": [c, n], "max_abs_err": err, "tol": k1_tol}
-        if decim == 2:
-            k1_ms = cuda_ms(torch, lambda: fused_frontend(
-                i, q, ti, tq, ct, mt, scale, decim, True), 20)
-            k1_plain_ms = cuda_ms(torch, lambda: fused_frontend_plain(
-                i, q, ti, tq, ct, mt, scale, decim, True), 3)
-            entry.update(ms=k1_ms, plain_ms=k1_plain_ms)
-        emit(entry)
-        del i, q, ti, tq, got, want
-    results["fused_frontend"] = (max(errs), k1_ms, k1_plain_ms)
 
     # K2: the correlator on the RS41 chip ring [2048, 2560 + 19200]
     buf = torch.from_numpy(rng.normal(size=(CHANNELS, 2560 + 19200)).astype(
@@ -226,11 +355,20 @@ def phase_kernels(torch, dev):
     err = float((got - want).abs().max())
     k2_tol = 1e-6   # same operations in the same order: expected 0
     check(err <= k2_tol, f"corr: err {err}")
-    ms = cuda_ms(torch, lambda: corr_kernel(buf, tmpl), 50)
-    plain_ms = cuda_ms(torch, lambda: corr_plain(buf, tmpl), 5)
-    emit({"phase": "kernel", "name": "corr", "shape": list(buf.shape),
-          "max_abs_err": err, "tol": k2_tol, "ms": ms, "plain_ms": plain_ms})
-    results["corr"] = (err, ms, plain_ms)
+    L = tmpl.numel()
+    n_out = buf.shape[1] - L + 1
+    # the library's one call: conv1d (cuDNN, TF32 off) of the scaled template
+    w = (tmpl / L)[None, None, :]
+    entry = {"phase": "kernel", "name": "corr", "shape": list(buf.shape),
+             "max_abs_err": err, "tol": k2_tol,
+             "ms": cuda_ms(torch, lambda: corr_kernel(buf, tmpl), 50),
+             "plain_ms": cuda_ms(torch, lambda: corr_plain(buf, tmpl), 5),
+             "library_ms": cuda_ms(torch, lambda: F.conv1d(
+                 buf[:, None, :], w), 20),
+             **bound(nbytes(buf, tmpl) + 4 * CHANNELS * n_out,
+                     CHANNELS * n_out * (2 * L + 1))}
+    emit(entry)
+    results["corr"] = entry
     del buf, got, want
 
     # K3: RS syndrome flags on 2048 x 9 frame rows, clean and corrupted
@@ -253,17 +391,23 @@ def phase_kernels(torch, dev):
     mismatches = int((got != want).sum())
     check(mismatches == 0, f"rs_clean: {mismatches} rows differ from twin")
     check(torch.equal(got, truth), "rs_clean: verdicts differ from truth")
-    ms = cuda_ms(torch, lambda: rs_clean_flags_kernel(fr, layout), 50)
-    plain_ms = cuda_ms(torch, lambda: rs_clean_plain(fr, layout), 5)
-    emit({"phase": "kernel", "name": "rs_clean", "rows": rows,
-          "clean_rows": int((~bad).sum()), "max_abs_err": 0.0, "tol": 0,
-          "ms": ms, "plain_ms": plain_ms})
-    results["rs_clean"] = (0.0, ms, plain_ms)
+    # each set bit of a frame XORs the 12 packed words of its W row
+    entry = {"phase": "kernel", "name": "rs_clean", "rows": rows,
+             "clean_rows": int((~bad).sum()), "max_abs_err": 0.0, "tol": 0,
+             "ms": cuda_ms(torch, lambda: rs_clean_flags_kernel(fr, layout),
+                           50),
+             "plain_ms": cuda_ms(torch, lambda: rs_clean_plain(fr, layout), 5),
+             "library_ms": None,
+             **bound(frames.nbytes + rows,
+                     12 * int(np.unpackbits(frames).sum()))}
+    emit(entry)
+    results["rs_clean"] = entry
     return results
 
 
 def phase_main_path(torch, dev):
     """The RS41 kernel path at 2048 channels through DecoderSession."""
+    from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -283,13 +427,17 @@ def phase_main_path(torch, dev):
     sess = DecoderSession(cfg, dev, pipeline=pipe)
     torch.cuda.synchronize()
     cuda.reset_launches()
-    t0 = time.perf_counter()
+    block_seconds = []
     for planes in blocks:
+        t0 = time.perf_counter()
         sess.process_block(planes)
+        block_seconds.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
     m = sess.metrics
+    check(native.available(), "main path: the port's native FEC is not "
+          "loaded")
     check(m.frames_decoded > 0, "main path: no frames decoded")
     check(m.frames_decoded % CHANNELS == 0,
           f"main path: {m.frames_decoded} decoded frames do not split evenly "
@@ -306,14 +454,19 @@ def phase_main_path(torch, dev):
     for name in ("fused_frontend", "corr", "rs_clean"):
         check(launches[name] > 0, f"main path: kernel {name} was not "
               "launched")
+    # RS41's matched filter is a lowpass: the general decim-2 body
+    check(bodies == {"fused_frontend:decim2_t41": n_blocks},
+          f"main path: front-end bodies {bodies}")
     emit({"phase": "main_path", "channels": CHANNELS, "block_len": BLOCK_LEN,
           "blocks": n_blocks, "frames_raw": m.frames_raw,
           "frames_decoded": m.frames_decoded,
           "frames_per_channel": m.frames_decoded // CHANNELS,
           "serial": ref.get("serial"), "lat": ref.get("lat"),
           "lon": ref.get("lon"), "alt": ref.get("alt"),
-          "launches": launches, "wall_seconds_first_blocks": wall})
-    return pipe, blocks, launches
+          "launches": launches, "body_launches": bodies,
+          "process_block_seconds": block_seconds})
+    return pipe, blocks, {"launches": launches, "bodies": bodies,
+                          "steps": n_blocks}
 
 
 def phase_distinct(torch, dev):
@@ -448,6 +601,7 @@ def phase_fleet_kernels(torch, dev):
     shapes."""
     from sondetpu_torch.dsp.channelizer import PFBChannelizer
     from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                                  fused_dualtone_plain,
                                                  mixer_tables)
@@ -476,12 +630,20 @@ def phase_fleet_kernels(torch, dev):
               float((got[1] - want[1]).abs().max()))
     check(err <= fir_tol, f"pfb_fir_stream: err {err}")
     del got, want
-    ms = cuda_ms(torch, lambda: pfb_fir_stream(x_i, x_q, t_i, t_q, hcol), 20)
-    plain_ms = cuda_ms(torch, lambda: pfb_fir_plain(
-        torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol), 3)
-    emit({"phase": "kernel", "name": "pfb_fir_stream", "shape": [m, N_BINS],
-          "max_abs_err": err, "tol": fir_tol, "ms": ms, "plain_ms": plain_ms})
-    results["pfb_fir_stream"] = (err, ms, plain_ms)
+    # per output a product and a sum per tap but the first; no single
+    # library call filters the time-major layout per column
+    fir_ops = 2 * TPP - 1
+    entry = {"phase": "kernel", "name": "pfb_fir_stream", "shape": [m, N_BINS],
+             "max_abs_err": err, "tol": fir_tol,
+             "ms": cuda_ms(torch, lambda: pfb_fir_stream(
+                 x_i, x_q, t_i, t_q, hcol), 20),
+             "plain_ms": cuda_ms(torch, lambda: pfb_fir_plain(
+                 torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol), 3),
+             "library_ms": None,
+             **bound(2 * nbytes(x_i, x_q) + nbytes(t_i, t_q, hcol),
+                     2 * m * N_BINS * fir_ops)}
+    emit(entry)
+    results["pfb_fir_stream"] = entry
 
     # K5: a short block (m = 4) and the full block, pre-concatenated
     errs = []
@@ -500,26 +662,36 @@ def phase_fleet_kernels(torch, dev):
                  "shape": [TPP + rows, N_BINS], "max_abs_err": err,
                  "tol": fir_tol}
         if rows == m:
-            ms = cuda_ms(torch, lambda: pfb_fir_timemajor(vv_i, vv_q, hcol),
-                         20)
-            plain_ms = cuda_ms(torch, lambda: pfb_fir_plain(vv_i, vv_q, hcol),
-                               3)
-            entry.update(ms=ms, plain_ms=plain_ms)
+            entry.update(
+                ms=cuda_ms(torch, lambda: pfb_fir_timemajor(
+                    vv_i, vv_q, hcol), 20),
+                plain_ms=cuda_ms(torch, lambda: pfb_fir_plain(
+                    vv_i, vv_q, hcol), 3),
+                library_ms=None,
+                **bound(nbytes(vv_i, vv_q, hcol) + 2 * 4 * rows * N_BINS,
+                        2 * rows * N_BINS * fir_ops))
+            k5 = entry
         emit(entry)
         del vv_i, vv_q
-    results["pfb_fir_timemajor"] = (max(errs), ms, plain_ms)
+    results["pfb_fir_timemajor"] = dict(k5, max_abs_err=max(errs))
     del x_i, x_q, t_i, t_q
     torch.cuda.empty_cache()
 
-    # K6: radix-2 FFT in f32 against torch.fft (cuFFT), both f32: the
-    # error is relative to max |y|
+    # K6: the FFT in f32 against torch.fft (cuFFT), both f32: the error is
+    # relative to max |y|. N = 2048 runs the register-pass body (the full
+    # block, and a block that is not a multiple of its 8 rows), N = 16 the
+    # radix-2 body
     dft_tol = 1e-4
     errs = []
-    for rows, nb in ((m, N_BINS), (4096, 16)):
+    for rows, nb in ((m, N_BINS), (1003, N_BINS), (4096, 16)):
         u_i, u_q = randn(rows, nb), randn(rows, nb)
+        cuda.reset_launches()
         got = pfb_dft(u_i, u_q)
         want = pfb_dft_plain(u_i, u_q)
         torch.cuda.synchronize()
+        body = "pfb_dft:" + ("n2048" if nb == 2048 else "radix2")
+        check(cuda.body_launches == {body: 1},
+              f"pfb_dft N={nb}: bodies {cuda.body_launches}")
         rel = max(rel_err(got[0], want[0]), rel_err(got[1], want[1]))
         err = max(float((got[0] - want[0]).abs().max()),
                   float((got[1] - want[1]).abs().max()))
@@ -527,15 +699,25 @@ def phase_fleet_kernels(torch, dev):
         errs.append(err)
         del got, want
         entry = {"phase": "kernel", "name": "pfb_dft", "shape": [rows, nb],
-                 "max_abs_err": err, "max_err_over_max_abs_y": rel,
+                 "body": body, "max_abs_err": err,
+                 "max_err_over_max_abs_y": rel,
                  "tol_over_max_abs_y": dft_tol}
-        if nb == N_BINS:
-            ms = cuda_ms(torch, lambda: pfb_dft(u_i, u_q), 20)
-            plain_ms = cuda_ms(torch, lambda: pfb_dft_plain(u_i, u_q), 5)
-            entry.update(ms=ms, plain_ms=plain_ms)
+        if rows == m:
+            # the library's one call: cuFFT along the branch axis, written
+            # time-major (K6 also transposes to channel-major)
+            z = torch.complex(u_i, u_q)
+            entry.update(
+                ms=cuda_ms(torch, lambda: pfb_dft(u_i, u_q), 20),
+                plain_ms=cuda_ms(torch, lambda: pfb_dft_plain(u_i, u_q), 5),
+                library_ms=cuda_ms(torch, lambda: torch.fft.fft(z, dim=-1),
+                                   20),
+                **bound(2 * nbytes(u_i, u_q) + 4 * nb,
+                        rows * 5 * nb * int(np.log2(nb))))
+            del z
+            k6 = entry
         emit(entry)
         del u_i, u_q
-    results["pfb_dft"] = (max(errs), ms, plain_ms)
+    results["pfb_dft"] = dict(k6, max_abs_err=max(errs))
     torch.cuda.empty_cache()
 
     # K7: the m10 group's shape (chanfilt skipped, nb 5) and a 256-channel
@@ -565,15 +747,21 @@ def phase_fleet_kernels(torch, dev):
                  "max_abs_err": err, "tol": met_tol,
                  "sums_rel_err": sums_err, "sums_tol": sum_tol}
         if c == 616:
-            ms = cuda_ms(torch, lambda: fused_dualtone_frontend(
-                *args, taps, *tabs, 5, afc, skip), 20)
-            plain_ms = cuda_ms(torch, lambda: fused_dualtone_plain(
-                *args, taps, *tabs, 5, afc, skip), 3)
-            entry.update(ms=ms, plain_ms=plain_ms)
-            k7 = (ms, plain_ms)
+            # per position: the +/-dev mix of both planes (12), the nb = 5
+            # boxcars of four products and their scale (24), the metric
+            # (10), its DC sum (1); a fused chain, no single library call
+            entry.update(
+                ms=cuda_ms(torch, lambda: fused_dualtone_frontend(
+                    *args, taps, *tabs, 5, afc, skip), 20),
+                plain_ms=cuda_ms(torch, lambda: fused_dualtone_plain(
+                    *args, taps, *tabs, 5, afc, skip), 3),
+                library_ms=None,
+                **bound(nbytes(*args, *tabs) + nbytes(*args[2:]) + 4 * c * n,
+                        c * n * 47))
+            k7 = entry
         emit(entry)
         del args, tabs
-    results["fused_dualtone_frontend"] = (max(errs), *k7)
+    results["fused_dualtone_frontend"] = dict(k7, max_abs_err=max(errs))
     torch.cuda.empty_cache()
     return results
 
@@ -612,7 +800,7 @@ def phase_pfb_stream(torch, dev):
     emit({"phase": "pfb_stream", "bins": N_BINS, "block_samples": short,
           "blocks": n_short, "equal_to_one_block": same,
           "launches": {k: v for k, v in launches.items() if v}})
-    return launches
+    return {"launches": launches, "steps": n_short}
 
 
 def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
@@ -642,6 +830,7 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
     updates += fleet.flush()
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
     telem = fleet.telemetry
     for k, family, serial in FLEET_CARRIERS:
         got = telem.get(k)
@@ -651,14 +840,18 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
                  "pfb_dft", "fused_dualtone_frontend"):
         check(launches[name] > 0, f"fleet_path: kernel {name} was not "
               "launched")
+    check(bodies.get("pfb_dft:n2048") == launches["pfb_dft"],
+          f"fleet_path: DFT bodies {bodies}")
     emit({"phase": "fleet_path", "bins": n_bins, "block_len": block_len,
           "blocks": n_blocks, "groups": groups, "updates": updates,
           "channels_with_telemetry": len(telem),
           "carriers": {str(k): {f: telem[k].to_dict()[f] for f in
                                 ("serial", "lat", "lon", "alt")}
                        for k, _, _ in FLEET_CARRIERS},
-          "process_wideband_seconds": times, "launches": launches})
-    return fleet, last, launches
+          "process_wideband_seconds": times, "launches": launches,
+          "body_launches": bodies})
+    return fleet, last, {"launches": launches, "bodies": bodies,
+                         "steps": n_blocks}
 
 
 def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
@@ -791,85 +984,68 @@ def afsk_planes(family: str, n: int, seed: int, noise: float = 0.04,
 
 
 def phase_afsk_kernels(torch, dev):
-    """K8 for both AFSK families and K1 at decim 1 with the identity
-    matched filter, against their twins at the AFSK path's shape."""
-    from sondetpu_torch.dsp.fir import design_lowpass
+    """K8 against its twin: both AFSK families at the path's shape (timed),
+    an edge shape (3 channels, a block that is not a multiple of the tile)
+    and a width that takes the run-time body."""
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.afsk import (afsk_tables, fused_afsk_frontend,
                                              fused_afsk_frontend_plain)
-    from sondetpu_torch.kernels.frontend import (HALO, fused_frontend,
-                                                 fused_frontend_plain)
+    from sondetpu_torch.kernels.frontend import HALO
 
     gen = torch.Generator(device=dev).manual_seed(4)
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
-
-    c, n = CHANNELS, BLOCK_LEN
     results = {}
-    # K8: the same operations in the same order as the twin: expected 0
-    k8_tol = 1e-6
-    audio, atail = randn(c, n), randn(c, HALO)
-    k8 = {}
-    for family, (fm, fsp, win) in AFSK_TONES.items():
+    cases = [(family, CHANNELS, BLOCK_LEN, fm, fsp, win)
+             for family, (fm, fsp, win) in AFSK_TONES.items()]
+    cases += [("edge", 3, 30001, 1200.0, 2200.0, 40),
+              ("runtime-win13", 64, 48000, 2400.0, 4800.0, 13)]
+    for label, c, n, fm, fsp, win in cases:
+        audio = torch.randn((c, n), generator=gen, device=dev)
+        atail = torch.randn((c, HALO), generator=gen, device=dev)
         tabs = [torch.from_numpy(t).to(dev)
                 for t in afsk_tables(n, fm / FS, fsp / FS)]
+        cuda.reset_launches()
         got = fused_afsk_frontend(audio, atail, tabs, win)
         want = fused_afsk_frontend_plain(audio, atail, tabs, win)
         torch.cuda.synchronize()
-        err = float((got[0] - want[0]).abs().max())
-        check(torch.isfinite(got[0]).all(), "afsk: non-finite soft")
-        check(err <= k8_tol, f"afsk {family}: err {err}")
-        check(torch.equal(got[1], want[1]), "afsk: carried tail differs")
+        body = "fused_afsk_frontend:" + (
+            f"win{win}" if win in (20, 40) else "runtime_win")
+        check(cuda.body_launches == {body: 1},
+              f"afsk {label}: bodies {cuda.body_launches}")
+        check(torch.isfinite(got[0]).all(), f"afsk {label}: non-finite soft")
+        # the same operations in the same order as the twin: exact
+        check(torch.equal(got[0], want[0]),
+              f"afsk {label}: not equal to its twin (max err "
+              f"{float((got[0] - want[0]).abs().max())})")
+        check(torch.equal(got[1], want[1]), f"afsk {label}: tail differs")
         del got, want
-        ms = cuda_ms(torch, lambda: fused_afsk_frontend(audio, atail, tabs,
-                                                        win), 20)
-        plain_ms = cuda_ms(torch, lambda: fused_afsk_frontend_plain(
-            audio, atail, tabs, win), 3)
-        emit({"phase": "kernel", "name": "fused_afsk_frontend",
-              "family": family, "win": win, "shape": [c, n],
-              "max_abs_err": err, "tol": k8_tol, "tail_exact": True,
-              "ms": ms, "plain_ms": plain_ms})
-        k8[family] = (err, ms, plain_ms)
-    results["fused_afsk_frontend"] = (
-        max(e for e, _, _ in k8.values()), k8["imet4"][1], k8["imet4"][2])
-    results["fused_afsk_frontend_c50"] = k8["c50"]
-    del audio, atail
-    torch.cuda.empty_cache()
-
-    # K1 at decim 1 with the identity matched filter: only the order of
-    # the block-DC sum differs from the twin
-    k1_tol = 1e-5
-    i, q, ti, tq = randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO)
-    ct = design_lowpass(10000.0, FS, 41)
-    delta = np.zeros(41, np.float32)
-    delta[-1] = 1.0
-    scale = float(np.float32(FS / (2 * np.pi * 3000.0)))
-    got = fused_frontend(i, q, ti, tq, ct, delta, scale, 1, True)
-    want = fused_frontend_plain(i, q, ti, tq, ct, delta, scale, 1, True)
-    torch.cuda.synchronize()
-    err = max(float((got[0] - want[0]).abs().max()),
-              float((got[3] - want[3]).abs().max()))
-    check(err <= k1_tol, f"fused_frontend decim 1 identity: err {err}")
-    check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-          "fused_frontend decim 1: carried tails differ")
-    del got, want
-    ms = cuda_ms(torch, lambda: fused_frontend(i, q, ti, tq, ct, delta,
-                                               scale, 1, True), 20)
-    plain_ms = cuda_ms(torch, lambda: fused_frontend_plain(
-        i, q, ti, tq, ct, delta, scale, 1, True), 3)
-    emit({"phase": "kernel", "name": "fused_frontend", "decim": 1,
-          "matched_taps": "identity", "shape": [c, n], "max_abs_err": err,
-          "tol": k1_tol, "ms": ms, "plain_ms": plain_ms})
-    results["fused_frontend_decim1"] = (err, ms, plain_ms)
-    del i, q, ti, tq
-    torch.cuda.empty_cache()
+        entry = {"phase": "kernel", "name": "fused_afsk_frontend",
+                 "case": label, "win": win, "shape": [c, n], "body": body,
+                 "max_abs_err": 0.0, "tol": 0, "tail_exact": True}
+        if c == CHANNELS:
+            # per output: 4 mixing products, the 4 boxcars' win sums, their
+            # scale, the energies (6) and the soft ratio (4); a fused chain,
+            # no single library call
+            entry.update(
+                ms=cuda_ms(torch, lambda: fused_afsk_frontend(
+                    audio, atail, tabs, win), 20),
+                plain_ms=cuda_ms(torch, lambda: fused_afsk_frontend_plain(
+                    audio, atail, tabs, win), 3),
+                library_ms=None,
+                **bound(2 * nbytes(audio, atail) + nbytes(*tabs),
+                        c * n * (18 + 4 * win)))
+            results[label] = entry
+        emit(entry)
+        del audio, atail, tabs
+        torch.cuda.empty_cache()
     return results
 
 
 def phase_unpathed_kernels(torch, dev):
     """K9 and K10, which no pipeline path runs, against their twins; their
     launch counts come from this phase."""
-    from sondetpu_torch.dsp.fir import conv1d, design_lowpass
+    import torch.nn.functional as F
+
+    from sondetpu_torch.dsp.fir import design_lowpass
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.frontend import (fused_demod_fir,
                                                  fused_demod_fir_plain)
@@ -901,13 +1077,19 @@ def phase_unpathed_kernels(torch, dev):
     check(torch.isfinite(got[0]).all(), "demod_fir: non-finite")
     check(err <= k9_tol, f"demod_fir: err {err}")
     del got, want
-    ms = cuda_ms(torch, lambda: fused_demod_fir(i, q, prev, atail, taps,
-                                                scale, True), 20)
-    plain_ms = cuda_ms(torch, lambda: fused_demod_fir_plain(
-        i, q, prev, atail, taps, scale, True), 3)
-    emit({"phase": "kernel", "name": "fused_demod_fir", "shape": [c, n],
-          "max_abs_err": err, "tol": k9_tol, "ms": ms, "plain_ms": plain_ms})
-    results["fused_demod_fir"] = (err, ms, plain_ms)
+    # per output: the discriminator, the DC sum and subtraction, the FIR;
+    # a fused chain, no single library call
+    entry = {"phase": "kernel", "name": "fused_demod_fir", "shape": [c, n],
+             "max_abs_err": err, "tol": k9_tol,
+             "ms": cuda_ms(torch, lambda: fused_demod_fir(
+                 i, q, prev, atail, taps, scale, True), 20),
+             "plain_ms": cuda_ms(torch, lambda: fused_demod_fir_plain(
+                 i, q, prev, atail, taps, scale, True), 3),
+             "library_ms": None,
+             **bound(nbytes(i, q, prev) + 2 * nbytes(atail) + 4 * c * n,
+                     c * n * (DISC_OPS + 2 + 2 * len(taps)))}
+    emit(entry)
+    results["fused_demod_fir"] = entry
     del i, q, prev, atail
     torch.cuda.empty_cache()
 
@@ -925,11 +1107,16 @@ def phase_unpathed_kernels(torch, dev):
                  "max_abs_err": err, "tol": 0}
         del got, want
         if c == CHANNELS:
-            ms = cuda_ms(torch, lambda: lane_fir(x, h), 20)
-            plain_ms = cuda_ms(torch, lambda: lane_fir_plain(x, h), 3)
-            conv_ms = cuda_ms(torch, lambda: conv1d(x, h), 3)
-            entry.update(ms=ms, plain_ms=plain_ms, conv1d_ms=conv_ms)
-            results["lane_fir"] = (err, ms, plain_ms)
+            # the library's one call: conv1d (cuDNN, TF32 off)
+            w = torch.from_numpy(np.ascontiguousarray(h, np.float32)).to(
+                dev)[None, None, :]
+            entry.update(
+                ms=cuda_ms(torch, lambda: lane_fir(x, h), 20),
+                plain_ms=cuda_ms(torch, lambda: lane_fir_plain(x, h), 3),
+                library_ms=cuda_ms(torch, lambda: F.conv1d(x[:, None, :], w),
+                                   20),
+                **bound(nbytes(x) + 4 * c * n, c * n * (2 * len(h) - 1)))
+            results["lane_fir"] = entry
         emit(entry)
         del x
     torch.cuda.synchronize()
@@ -1011,6 +1198,7 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int):
         block_seconds.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
     m = sess.metrics
     check(m.frames_decoded > 0, f"{family} path: no frames decoded")
     check(m.frames_decoded % CHANNELS == 0,
@@ -1039,6 +1227,11 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int):
               "launched")
     check(launches["corr"] == 0, f"{family} path: the correlator kernel ran "
           "(the AFSK path correlates with the plain correlation)")
+    # the identity matched taps take the front end's identity body
+    win = AFSK_TONES[family][2]
+    check(bodies == {"fused_frontend:decim1_t41_identity": n_blocks,
+                     f"fused_afsk_frontend:win{win}": n_blocks},
+          f"{family} path: bodies {bodies}")
     emit({"phase": "afsk_path", "sonde": family, "channels": CHANNELS,
           "block_len": BLOCK_LEN, "blocks": n_blocks,
           "k_slots": cfg.k_slots, "frames_raw": m.frames_raw,
@@ -1047,8 +1240,10 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int):
           "telemetry": {f: ref.get(f) for f in
                         ("serial", "lat", "lon", "alt", "temp", "aux_data")},
           "process_block_seconds": block_seconds,
-          "launches": {k: v for k, v in launches.items() if v}})
-    return pipe, blocks, launches
+          "launches": {k: v for k, v in launches.items() if v},
+          "body_launches": bodies})
+    return pipe, blocks, {"launches": launches, "bodies": bodies,
+                          "steps": n_blocks}
 
 
 def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
@@ -1104,78 +1299,166 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
           "families": out, "matches_cpu": True})
 
 
+def phase_profile(torch, dev, family: str, steps: int = 3):
+    """torch.profiler over ``steps`` steady device steps of one family at
+    2048 channels x 4 s: device time by kernel name per step, against the
+    step's wall time (the card's busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=BLOCK_LEN,
+                         use_pallas=True, compute_dtype="f32",
+                         input_dtype="i16")
+    n = steps * BLOCK_LEN
+    qi, qq = (rs41_planes("S1234567", steps, seed=0) if family == "rs41"
+              else afsk_planes(family, n, seed=7))
+    blocks = [tuple(torch.from_numpy(x[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN])
+                    .to(dev).expand(CHANNELS, -1).contiguous()
+                    for x in (qi, qq)) for b in range(steps)]
+    pipe = Pipeline(cfg, dev)
+    state = pipe.init_state()
+    for planes in blocks[:2]:                   # warm-up
+        state, _ = pipe.step(state, planes)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for planes in blocks:
+            state, _ = pipe.step(state, planes)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    check(device_ms > 0, f"profile {family}: the profiler saw no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+    emit({"phase": "profile", "sonde": family, "steps": steps,
+          "step_wall_ms": wall_ms, "device_ms_per_step": device_ms,
+          "busy_share": device_ms / wall_ms,
+          "kernels_per_step": sum(e.count for e in kernels) / steps,
+          "top": [[e.key[:90], e.self_device_time_total / 1e3 / steps,
+                   e.count / steps] for e in top]})
+
+
+def phase_resources():
+    """Registers and stack of each body of the redesigned kernels, as
+    ptxas reports them (nvcc -Xptxas -v)."""
+    import re
+
+    from sondetpu_torch.kernels import cuda
+
+    out = {}
+    for src in ("frontend.cu", "afsk.cu", "pfb_dft.cu"):
+        res = subprocess.run(
+            [cuda._nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.devnull, os.path.join(cuda.CSRC, src)],
+            capture_output=True, text=True, check=True, timeout=600)
+        name = None
+        for line in res.stderr.splitlines():
+            m = re.search(r"Compiling entry function '\S*?\d("
+                          r"frontend_kernel|afsk_kernel|dft2048_kernel|"
+                          r"pfb_dft_kernel)((?:I|L[ib]-?\d+E)*)", line)
+            if m:
+                # the kernel's name and template arguments, from the mangling
+                args = re.findall(r"L[ib](-?\d+)E", m.group(2))
+                name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                stack = re.search(r"(\d+) bytes cumulative stack", line)
+                out[f"{src}:{name}"] = {
+                    "registers": int(m.group(1)),
+                    "stack_bytes": int(stack.group(1)) if stack else 0}
+    emit({"phase": "resources", "kernels": out})
+
+
+def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by")):
+    return {k: entry[k] for k in keys if k in entry}
+
+
 def main() -> int:
     import torch
 
     smi = phase_env(torch)
     dev = torch.device("cuda", 0)
     phase_build()
-    kres = phase_kernels(torch, dev)
+    if sys.argv[1:] == ["--profile"]:
+        # the step breakdowns only: python3 chip_smoke.py --profile
+        phase_resources()
+        for family in ("rs41", "imet4", "c50"):
+            phase_profile(torch, dev, family)
+            torch.cuda.empty_cache()
+        print(smi, flush=True)
+        return 0
+    k1 = phase_frontend(torch, dev)
+    kres = {"fused_frontend": k1["rs41"]}
+    kres.update(phase_kernels(torch, dev))
     kres.update(phase_fleet_kernels(torch, dev))
-    kres.update(phase_afsk_kernels(torch, dev))
+    k8 = phase_afsk_kernels(torch, dev)
+    kres["fused_afsk_frontend"] = k8["imet4"]
     phase_plain_correlation(torch, dev)
     unpathed, unpathed_launches = phase_unpathed_kernels(torch, dev)
     kres.update(unpathed)
-    pipe, blocks, rs41_launches = phase_main_path(torch, dev)
+    # every path is driven with the counts at 0 just before it and read
+    # just after; each kernel's launches come from the path that drives it
+    runs = {}
+    pipe, blocks, runs["rs41"] = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
     phase_step(torch, pipe, blocks)
     del pipe, blocks
     torch.cuda.empty_cache()
-    # each kernel's launches come from the run of the path that drives it
-    launches = {k: rs41_launches[k] for k in ("corr", "rs_clean")}
-    launches["pfb_fir_timemajor"] = phase_pfb_stream(
-        torch, dev)["pfb_fir_timemajor"]
-    fleet, (wi, wq), fleet_launches = phase_fleet_path(torch, dev)
-    for k in ("pfb_fir_stream", "pfb_dft", "fused_dualtone_frontend"):
-        launches[k] = fleet_launches[k]
+    runs["pfb_stream"] = phase_pfb_stream(torch, dev)
+    fleet, (wi, wq), runs["fleet"] = phase_fleet_path(torch, dev)
     phase_fleet_distinct(torch, dev)
     phase_fleet_step(torch, fleet, wi, wq)
     del fleet, wi, wq
     torch.cuda.empty_cache()
-
-    afsk_launches = {}
     for family, n_blocks in (("imet4", 3), ("c50", 2)):
-        pipe, blocks, afsk_launches[family] = phase_afsk_path(
-            torch, dev, family, n_blocks)
+        pipe, blocks, runs[family] = phase_afsk_path(torch, dev, family,
+                                                     n_blocks)
         phase_step(torch, pipe, blocks, phase="afsk_step")
         del pipe, blocks
         torch.cuda.empty_cache()
     phase_afsk_distinct(torch, dev)
-    # K1 and K8 as launched by the imet4 path's own run; K9 and K10 have no
-    # pipeline path, so theirs come from the kernels phase
-    for k in ("fused_frontend", "fused_afsk_frontend"):
-        launches[k] = afsk_launches["imet4"][k]
-    launches.update(unpathed_launches)
-    launches_from = {k: "imet4 afsk_path" for k in ("fused_frontend",
-                                                   "fused_afsk_frontend")}
-    launches_from.update({k: "rs41 main_path" for k in ("corr", "rs_clean")})
-    launches_from.update({k: "fleet_path" for k in (
-        "pfb_fir_stream", "pfb_dft", "fused_dualtone_frontend")})
-    launches_from["pfb_fir_timemajor"] = "pfb_stream"
-    launches_from.update({k: "kernels phase (no pipeline path)"
-                          for k in unpathed_launches})
-    check("jax" not in sys.modules, "the port imported jax")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
+    check(not loaded, f"the run imported jax or the JAX package: {loaded}")
+
+    launches_from = {"fused_frontend": "imet4", "fused_afsk_frontend": "imet4",
+                     "corr": "rs41", "rs_clean": "rs41",
+                     "pfb_fir_stream": "fleet", "pfb_dft": "fleet",
+                     "fused_dualtone_frontend": "fleet",
+                     "pfb_fir_timemajor": "pfb_stream"}
+    paths = ("rs41", "fleet", "imet4", "c50")
     table = []
     for name in KERNEL_SOURCES:
-        check(launches[name] > 0, f"kernel {name}: no launches")
-        table.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-            "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
-            "launches_from": launches_from[name],
-            "max_abs_err": kres[name][0], "ms": kres[name][1],
-            "plain_ms": kres[name][2]})
+        if name in launches_from:
+            frm = launches_from[name]
+            n = runs[frm]["launches"][name]
+        else:                    # K9 and K10: no pipeline path runs them
+            frm, n = "kernels phase (no pipeline path)", unpathed_launches[name]
+        check(n > 0, f"kernel {name}: no launches")
+        row = {"name": name, "route": "cuda",
+               "source": KERNEL_SOURCES[name][0],
+               "replaces": KERNEL_SOURCES[name][1], "launches": n,
+               "launches_from": frm, **subset(kres[name]),
+               "launches_per_step": {
+                   p: runs[p]["launches"][name] / runs[p]["steps"]
+                   for p in paths}}
+        check(all(k in row for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")),
+              f"kernel {name}: row lacks a number {row}")
+        table.append(row)
     table[0].update(
-        launches_by_path={"rs41": rs41_launches["fused_frontend"],
-                          "fleet": fleet_launches["fused_frontend"],
-                          "imet4": afsk_launches["imet4"]["fused_frontend"],
-                          "c50": afsk_launches["c50"]["fused_frontend"]},
-        decim1_identity_ms=kres["fused_frontend_decim1"][1],
-        decim1_identity_plain_ms=kres["fused_frontend_decim1"][2],
-        decim1_identity_max_abs_err=kres["fused_frontend_decim1"][0])
-    k8 = next(e for e in table if e["name"] == "fused_afsk_frontend")
-    k8.update(c50_launches=afsk_launches["c50"]["fused_afsk_frontend"],
-              win20_ms=kres["fused_afsk_frontend_c50"][1],
-              win20_plain_ms=kres["fused_afsk_frontend_c50"][2])
+        bodies_by_path={p: {k: v for k, v in runs[p]["bodies"].items()
+                            if k.startswith("fused_frontend")}
+                        for p in paths},
+        decim1_identity=subset(k1["afsk"]),
+        decim1_lowpass=subset(k1["decim1-lowpass"]))
+    k8_row = next(e for e in table if e["name"] == "fused_afsk_frontend")
+    k8_row["win20"] = subset(k8["c50"])
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""sondetpu_torch — the RS41 decode path of sondetpu in PyTorch and CUDA.
+"""sondetpu_torch — the decode paths of sondetpu in PyTorch and CUDA.
 
 A second package beside :mod:`sondetpu` (the JAX reference). Plain tensor
 code is PyTorch; each Pallas kernel on the path is a hand-written CUDA
@@ -8,10 +8,9 @@ when the inputs lie on the CPU, the kernel when they lie on a CUDA device.
 
 Module names mirror the JAX package (``runtime.pipeline`` <->
 ``sondetpu.runtime.pipeline`` and so on). The package imports torch and
-numpy, and from :mod:`sondetpu` only the modules that do not import jax
-(``fec.rs``/``crc``/``gf256``, ``telemetry``, ``physics``, ``io.iq``).
-Host modules of sondetpu whose import reaches jax are carried here as
-jax-free copies, each held equal to its original by a test.
+numpy and nothing of :mod:`sondetpu`: the host modules it needs (telemetry,
+physics, the FEC with its native C++, the families' parsers) are carried
+here as copies, each held equal to its original by a test.
 """
 
 __version__ = "0.1.0"

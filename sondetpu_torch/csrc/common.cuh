@@ -20,6 +20,61 @@ struct Taps {
     float h[SONDETPU_MAX_TAPS];
 };
 
+// Asynchronous 4-byte copy from device to shared memory (cp.async): a
+// thread issues all of its copies without waiting for any, so a tile's
+// staging costs one memory latency, not one per element. With valid false
+// nothing is read and the word is zero-filled (src must still be a valid
+// address). cp_async_wait_all waits for this thread's copies; a
+// __syncthreads() after it publishes them to the block.
+static __device__ __forceinline__ void cp_async_f32(float* dst,
+                                                    const float* src,
+                                                    const bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                     : "memory");
+}
+
+// Register blocking of a tap loop over shared memory (K1 and K8). Output
+// r < NR of a thread reads p[D*r - u] at tap u = 0 .. T-1, and
+// step(u, r, value) folds that value into output r, taps in ascending
+// order. From one tap to the next every read moves down one element, so a
+// window of D*(NR-1)+1 registers slides by one: one shared load per tap
+// feeds NR outputs. With TT > 0 the tap loop is unrolled at compile time,
+// the slide is register renaming, and a tap h[u] of the parameter space is
+// an immediate constant-bank operand. With TT == 0 the count T comes at run
+// time and the slide costs register moves. p[-(T-1)] .. p[D*(NR-1)] must
+// lie in shared memory.
+template <int NR, int D, int TT, typename Step>
+static __device__ __forceinline__ void slide_window(
+    const float* __restrict__ p, const int T, Step step) {
+    constexpr int W = D * (NR - 1) + 1;
+    float w[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) w[j] = p[j];
+    auto tap = [&](const int u) {
+        if (u > 0) {
+#pragma unroll
+            for (int j = W - 1; j > 0; --j) w[j] = w[j - 1];
+            w[0] = p[-u];
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) step(u, r, w[D * r]);
+    };
+    if constexpr (TT > 0) {
+#pragma unroll
+        for (int u = 0; u < TT; ++u) tap(u);
+    } else {
+#pragma unroll 1
+        for (int u = 0; u < T; ++u) tap(u);
+    }
+}
+
 // Octant reduction + odd minimax polynomial, exactly as
 // sondetpu/pallas/frontend.py:fast_atan2 (max error ~1e-6 rad).
 static __device__ __forceinline__ float fast_atan2(float y, float x) {

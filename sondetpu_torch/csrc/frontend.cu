@@ -14,106 +14,156 @@
 // and partial[c, tile] = sum of audio[g] over the tile's g < n/D. The
 // wrapper turns the partials into the block DC and subtracts it.
 //
-// What bounds it: at 2048 channels x 192000 samples the two f32 input
-// planes are 3.1 GB a block and filt 0.8 GB, so device-memory bytes set the
-// floor (~1.2 ms at 3.35 TB/s). Design: one thread block per (channel, tile
-// of TILE outputs); the tile's input window, then cf, then audio are staged
-// in shared memory, so each input sample is read from device memory once
-// (plus a (D+1)*ntaps halo per tile) and neighbouring threads take
-// neighbouring outputs. Taps ride in the parameter space (broadcast reads).
-// As written, one shared-memory load per multiply-add bounds it instead:
-// 5.4 ms at that shape on an H100 80GB HBM3 (700 W), ~22% of the memory
-// bandwidth. Register tiling (several outputs per thread) is the next step.
+// What bounds it: the FP32 issue rate. Every product and sum is rounded on
+// its own (__fmul_rn/__fadd_rn, no FMA contraction) in the order of the
+// plain twin (sondetpu_torch/kernels/frontend.py:fused_frontend_plain), so
+// a multiply-add is two instructions and tensor cores cannot hold the
+// twin's rounding. Per output: the channel filter 2 planes x 41 taps x 2,
+// the discriminator ~35 (with an IEEE division), the matched FIR 41 x 2:
+// ~285 instructions. At [2048, 192000] decim 2 that is 5.6e10, ~1.9 ms at
+// 132 SMs x 128 lanes x ~1.75 GHz (chip_smoke.py's bound, at the published
+// 67 TFLOP/s, counts 1.6 ms); decim 1 with identity matched taps skips the
+// FIR, ~200 per output x 3.9e8, ~2.7 ms (2.2). Device memory is below that:
+// the planes in and filt out are 3.9 GB (decim 2) and 4.7 GB (decim 1),
+// 1.2 and 1.4 ms at 3.35 TB/s.
+//
+// Design: one thread block per (channel, tile of TILE outputs). The tile's
+// input window is staged in shared memory once (coalesced, plus a
+// (D+1)*T halo), then three stages run over it:
+//  1. channel filter: each thread takes R consecutive cf outputs and slides
+//     a register window of D*(R-1)+1 inputs per plane (slide_window in
+//     common.cuh): one shared load per tap for R outputs, and with T = 41
+//     known at compile time each tap is an immediate constant-bank operand
+//     of its FMUL (no LDC). Other T take a body with T at run time.
+//  2. discriminator: one thread per output, cf read from shared memory;
+//     audio overwrites the input window.
+//  3. matched FIR: R consecutive outputs per thread, as in stage 1; results
+//     go through shared memory so the global store is coalesced. When the
+//     host finds the matched taps are exactly [0, ..., 0, 1] (the AFSK
+//     path), sum_u hm[u] * audio[g - u] = audio[g - T + 1] exactly for
+//     finite audio, so the identity body writes the delayed audio from
+//     stage 2 and skips stage 3 and its 41 multiply-adds per output.
+// R = 9 measured faster than 7 and as fast as 11 at [2048, 192000] (11
+// runs at the 64-register cap). R is odd, so threads reading at stride R
+// hit 32 distinct banks; the decim-2 channel filter reads at stride 2R, a
+// 2-way conflict that the shared pipe absorbs (2 loads per 4R = 36 FP32
+// instructions). The staging is cp.async (one memory latency per tile).
+// Shared memory per block: 55.6 KB at decim 2, 37.2 KB at decim 1 (T = 41);
+// __launch_bounds__(256, 4) caps registers at 64, so 4 blocks (32 warps,
+// 50% occupancy) run per SM, each thread with R independent sums.
 // The TPU kernel's HALO alignment, even/odd deinterleave pass and chunk
 // padding are layout artefacts of the TPU and have no counterpart here.
-//
-// Every product and sum is rounded on its own (__fmul_rn/__fadd_rn, no FMA
-// contraction) in the same order as the plain torch twin
-// (sondetpu_torch/kernels/frontend.py:fused_frontend_plain), so the two
-// agree bit for bit up to the order of the DC sum.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TILE = 1024;
+constexpr int R = 9;                              // outputs per thread
 constexpr int THREADS = 256;
+constexpr int SPAN = R * THREADS;                 // outputs of one pass
+constexpr int TILE = SPAN - SONDETPU_MAX_TAPS;    // filt outputs per block
+constexpr int T_FIXED = 41;                       // every path's tap count
 
-template <int D>
-__global__ void __launch_bounds__(THREADS) frontend_kernel(
+template <int D, int TT, bool IDENT>
+__global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
     const float* __restrict__ xi, const float* __restrict__ xq,
     const float* __restrict__ ti, const float* __restrict__ tq,
-    const Taps hc, const Taps hm, const int T, const float scale,
+    const Taps hc, const Taps hm, const int t_run, const float scale,
     const int n, const int halo,
     float* __restrict__ filt, float* __restrict__ partial) {
     extern __shared__ float smem[];
+    const int T = TT > 0 ? TT : t_run;
     const int N = n / D;
     const int c = blockIdx.y;
     const int g0 = blockIdx.x * TILE;
-    const int nx = D * (TILE + T - 1) + T;   // input window per plane
+    const int nx = D * (SPAN - 1) + T;       // input window per plane
     const int ncf = TILE + T;                // cf[g0 - T .. g0 + TILE - 1]
     const int na = TILE + T - 1;             // audio[g0 - T + 1 .. ]
     float* xs_i = smem;
     float* xs_q = xs_i + nx;
-    float* cf_i = xs_q + nx;
-    float* cf_q = cf_i + ncf;
-    float* au = cf_q + ncf;
+    float* cf_i = xs_q + nx;                 // SPAN each
+    float* cf_q = cf_i + SPAN;
+    float* au = xs_i;                        // stage 2 overwrites the input
+    float* out = cf_i;                       // stage 3 overwrites cf
 
     const float* row_i = xi + (size_t)c * n;
     const float* row_q = xq + (size_t)c * n;
     const float* tail_i = ti + (size_t)c * halo;
     const float* tail_q = tq + (size_t)c * halo;
-    // xs[j] = x[x0 + j]; x0 >= -halo is checked by the wrapper
+    // xs[j] = x[x0 + j]; x0 >= -halo is checked by the entry point
     const long x0 = (long)D * (g0 - T) - (T - 1);
     for (int j = threadIdx.x; j < nx; j += THREADS) {
-        const long gi = x0 + j;
-        float vi = 0.0f, vq = 0.0f;
-        if (gi < 0) {
-            vi = tail_i[halo + gi];
-            vq = tail_q[halo + gi];
-        } else if (gi < n) {             // past the block: feeds no output
-            vi = row_i[gi];
-            vq = row_q[gi];
+        const long gi = x0 + j;          // past the block: zeros, no output
+        const bool tail = gi < 0;
+        const long at = tail ? halo + gi : (gi < n ? gi : 0);
+        cp_async_f32(xs_i + j, (tail ? tail_i : row_i) + at, gi < n);
+        cp_async_f32(xs_q + j, (tail ? tail_q : row_q) + at, gi < n);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 1. cf[g0 - T + k] = sum_u hc[u] * xs[D*k + T - 1 - u], k = k0 .. k0+R-1
+    const int k0 = threadIdx.x * R;
+    if (k0 < ncf) {
+        float y[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) y[r] = 0.0f;
+        slide_window<R, D, TT>(xs_i + D * k0 + T - 1, T,
+                               [&](int u, int r, float x) {
+            y[r] = __fadd_rn(y[r], __fmul_rn(hc.h[u], x));
+        });
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+            cf_i[k0 + r] = y[r];
+            y[r] = 0.0f;
         }
-        xs_i[j] = vi;
-        xs_q[j] = vq;
+        slide_window<R, D, TT>(xs_q + D * k0 + T - 1, T,
+                               [&](int u, int r, float x) {
+            y[r] = __fadd_rn(y[r], __fmul_rn(hc.h[u], x));
+        });
+#pragma unroll
+        for (int r = 0; r < R; ++r) cf_q[k0 + r] = y[r];
     }
     __syncthreads();
 
-    // cf[g0 - T + k] = sum_u hc[u] * xs[D*k + T - 1 - u]
-    for (int k = threadIdx.x; k < ncf; k += THREADS) {
-        const float* pi = xs_i + D * k + T - 1;
-        const float* pq = xs_q + D * k + T - 1;
-        float ai = 0.0f, aq = 0.0f;
-        for (int u = 0; u < T; ++u) {
-            ai = __fadd_rn(ai, __fmul_rn(hc.h[u], pi[-u]));
-            aq = __fadd_rn(aq, __fmul_rn(hc.h[u], pq[-u]));
-        }
-        cf_i[k] = ai;
-        cf_q[k] = aq;
-    }
-    __syncthreads();
-
-    // audio[g0 - T + 1 + m] from cf[k = m + 1] and cf[k = m]
+    // 2. audio[g0 - T + 1 + m] from cf[k = m + 1] and cf[k = m]; the
+    // identity body writes filt[g0 + m] = audio[g0 + m - T + 1] here
+    float s = 0.0f;
     for (int m = threadIdx.x; m < na; m += THREADS) {
         const float a = cf_i[m + 1], b = cf_q[m + 1];
         const float pa = cf_i[m], pb = cf_q[m];
         const float dre = __fadd_rn(__fmul_rn(a, pa), __fmul_rn(b, pb));
         const float dim = __fsub_rn(__fmul_rn(b, pa), __fmul_rn(a, pb));
-        au[m] = __fmul_rn(fast_atan2(dim, dre), scale);
+        const float v = __fmul_rn(fast_atan2(dim, dre), scale);
+        if (IDENT) {
+            if (m < TILE && g0 + m < N) filt[(size_t)c * N + g0 + m] = v;
+            const int g = g0 + m - (T - 1);
+            if (m >= T - 1 && g < N) s += v;
+        } else {
+            au[m] = v;
+        }
     }
-    __syncthreads();
 
-    // filt[g0 + t] = sum_u hm[u] * au[t + T - 1 - u]
-    float s = 0.0f;
-    for (int t = threadIdx.x; t < TILE; t += THREADS) {
-        const int g = g0 + t;
-        if (g >= N) break;
-        const float* pa = au + t + T - 1;
-        float acc = 0.0f;
-        for (int u = 0; u < T; ++u)
-            acc = __fadd_rn(acc, __fmul_rn(hm.h[u], pa[-u]));
-        filt[(size_t)c * N + g] = acc;
-        s += pa[0];
+    if (!IDENT) {
+        __syncthreads();
+        // 3. filt[g0 + t] = sum_u hm[u] * au[t + T - 1 - u], t = t0 .. t0+R-1
+        const int t0 = threadIdx.x * R;
+        if (t0 < TILE) {
+            float y[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) y[r] = 0.0f;
+            slide_window<R, 1, TT>(au + t0 + T - 1, T,
+                                   [&](int u, int r, float x) {
+                y[r] = __fadd_rn(y[r], __fmul_rn(hm.h[u], x));
+            });
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                out[t0 + r] = y[r];
+                if (t0 + r < TILE && g0 + t0 + r < N) s += au[t0 + r + T - 1];
+            }
+        }
+        __syncthreads();
+        for (int t = threadIdx.x; t < TILE && g0 + t < N; t += THREADS)
+            filt[(size_t)c * N + g0 + t] = out[t];
     }
 
     // block sum of this tile's audio -> partial[c, tile]
@@ -128,22 +178,38 @@ __global__ void __launch_bounds__(THREADS) frontend_kernel(
     }
 }
 
-template <int D>
+template <int D, int TT, bool IDENT>
 int launch(const float* xi, const float* xq, const float* ti, const float* tq,
-           const float* hc, const float* hm, int T, float scale, int C,
-           int n, int halo, float* filt, float* partial, cudaStream_t stream) {
-    Taps th{}, tm{};
-    for (int u = 0; u < T; ++u) {
-        th.h[u] = hc[u];
-        tm.h[u] = hm[u];
-    }
+           const Taps& th, const Taps& tm, int T, float scale, int C, int n,
+           int halo, float* filt, float* partial, cudaStream_t stream) {
     const int N = n / D;
     const dim3 grid((N + TILE - 1) / TILE, C);
-    const size_t shm = sizeof(float) *
-        (2 * (D * (TILE + T - 1) + T) + 2 * (TILE + T) + (TILE + T - 1));
-    frontend_kernel<D><<<grid, THREADS, shm, stream>>>(
+    const size_t shm = sizeof(float) * (2 * (D * (SPAN - 1) + T) + 2 * SPAN);
+    const cudaError_t err = cudaFuncSetAttribute(
+        frontend_kernel<D, TT, IDENT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (err != cudaSuccess) return (int)err;
+    frontend_kernel<D, TT, IDENT><<<grid, THREADS, shm, stream>>>(
         xi, xq, ti, tq, th, tm, T, scale, n, halo, filt, partial);
     return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch(const float* xi, const float* xq, const float* ti,
+             const float* tq, const Taps& th, const Taps& tm, int T,
+             float scale, bool identity, int C, int n, int halo, float* filt,
+             float* partial, cudaStream_t s) {
+    if (T == T_FIXED)
+        return identity
+            ? launch<D, T_FIXED, true>(xi, xq, ti, tq, th, tm, T, scale, C,
+                                       n, halo, filt, partial, s)
+            : launch<D, T_FIXED, false>(xi, xq, ti, tq, th, tm, T, scale, C,
+                                        n, halo, filt, partial, s);
+    return identity
+        ? launch<D, 0, true>(xi, xq, ti, tq, th, tm, T, scale, C, n, halo,
+                             filt, partial, s)
+        : launch<D, 0, false>(xi, xq, ti, tq, th, tm, T, scale, C, n, halo,
+                              filt, partial, s);
 }
 
 }  // namespace
@@ -155,18 +221,28 @@ SONDETPU_API int sondetpu_frontend_tiles(int n, int decim) {
 }
 
 // xi, xq [C, n]; ti, tq [C, halo]; hc, hm: host arrays of T taps;
-// filt [C, n/decim]; partial [C, sondetpu_frontend_tiles(n, decim)].
+// identity: hm is exactly [0, ..., 0, 1] (the caller's host check; checked
+// again here); filt [C, n/decim]; partial [C, sondetpu_frontend_tiles].
+// T = 41 runs the compile-time body, any other T the run-time one.
 SONDETPU_API int sondetpu_fused_frontend(
     const float* xi, const float* xq, const float* ti, const float* tq,
-    const float* hc, const float* hm, int T, float scale, int decim, int C,
-    int n, int halo, float* filt, float* partial, void* stream) {
+    const float* hc, const float* hm, int T, float scale, int decim,
+    int identity, int C, int n, int halo, float* filt, float* partial,
+    void* stream) {
     if (T < 1 || T > SONDETPU_MAX_TAPS || (decim != 1 && decim != 2) ||
         decim * T + T - 1 > halo || n % decim != 0 || C < 1 || n < 1)
         return (int)cudaErrorInvalidValue;
+    Taps th{}, tm{};
+    for (int u = 0; u < T; ++u) {
+        th.h[u] = hc[u];
+        tm.h[u] = hm[u];
+        if (identity && hm[u] != (u == T - 1 ? 1.0f : 0.0f))
+            return (int)cudaErrorInvalidValue;
+    }
     cudaStream_t s = (cudaStream_t)stream;
     if (decim == 2)
-        return launch<2>(xi, xq, ti, tq, hc, hm, T, scale, C, n, halo, filt,
-                         partial, s);
-    return launch<1>(xi, xq, ti, tq, hc, hm, T, scale, C, n, halo, filt,
-                     partial, s);
+        return dispatch<2>(xi, xq, ti, tq, th, tm, T, scale, identity != 0, C,
+                           n, halo, filt, partial, s);
+    return dispatch<1>(xi, xq, ti, tq, th, tm, T, scale, identity != 0, C, n,
+                       halo, filt, partial, s);
 }

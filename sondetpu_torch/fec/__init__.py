@@ -1,4 +1,7 @@
-"""Device-side RS syndrome check (counterpart: ``sondetpu/fec/syndrome.py``).
+"""Host FEC and the device-side RS syndrome check (counterparts:
+``sondetpu/fec/{gf256,crc,rs,hamming,native,syndrome}.py``).
 
-The host FEC (``sondetpu.fec.rs``, ``crc``, ``gf256``) imports no jax and is
-used from the JAX package directly."""
+``gf256``, ``crc``, ``rs`` and ``hamming`` are copies of the originals;
+``native`` builds the port's copy of the C++ FEC (``csrc/sondefec.cpp``) at
+first use; ``syndrome`` carries the syndrome matrices and the plain torch
+form of the RS flag."""

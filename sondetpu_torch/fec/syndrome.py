@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from sondetpu.fec.gf256 import GF256
+from sondetpu_torch.fec.gf256 import GF256
 
 
 def _mul_const_bits(gf: GF256, k: int) -> np.ndarray:

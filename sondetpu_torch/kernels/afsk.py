@@ -91,7 +91,8 @@ def fused_afsk_frontend(audio, atail, tabs, win: int):
     atail [C, HALO] float32, the previous block's last HALO audio samples.
     Returns (soft [C, n], new atail [C, HALO]).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel (its
+    compile-time body at win 40 or 20, the run-time one otherwise).
     """
     dev = audio.device
     if dev.type == "cpu":
@@ -112,5 +113,6 @@ def fused_afsk_frontend(audio, atail, tabs, win: int):
                 audio.data_ptr(), atail.data_ptr(),
                 *(t.data_ptr() for t in tabs), win,
                 float(np.float32(1.0 / win)), c, n, HALO, soft.data_ptr(),
-                cuda.stream_handle(dev))
+                cuda.stream_handle(dev),
+                body=f"win{win}" if win in (20, 40) else "runtime_win")
     return soft, audio[:, -HALO:].contiguous()

@@ -9,8 +9,10 @@ rebuilt and a stale library is never loaded. Nothing here runs when the
 module is imported.
 
 ``launches`` counts, per kernel, the launches that went through
-:func:`launch`; a run resets it with :func:`reset_launches` and reads it
-afterwards to show which kernels it went through.
+:func:`launch`, and ``body_launches`` the launches of each compiled body of
+a kernel that has several (``"fused_frontend:decim2_t41"`` and so on); a
+run resets both with :func:`reset_launches` and reads them afterwards to
+show which kernels and bodies it went through.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sondetpu_frontend_tiles": [_I, _I],
     "sondetpu_fused_frontend": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I,
-                                _I, _P, _P, _P],
+                                _I, _I, _P, _P, _P],
     "sondetpu_corr": [_P, _P, _I, _F, _I, _I, _P, _P],
     "sondetpu_rs_clean": [_P, _P, _I, _I, _I, _P, _P],
     "sondetpu_pfb_fir_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
@@ -57,6 +59,7 @@ launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0,
             "pfb_fir_stream": 0, "pfb_fir_timemajor": 0, "pfb_dft": 0,
             "fused_dualtone_frontend": 0, "fused_afsk_frontend": 0,
             "fused_demod_fir": 0, "lane_fir": 0}
+body_launches = {}       # "kernel:body" -> launches, for multi-body kernels
 build_seconds = None     # wall time of this process's nvcc build, if any
 _lib = None
 
@@ -64,6 +67,7 @@ _lib = None
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    body_launches.clear()
 
 
 def _sources():
@@ -153,14 +157,18 @@ def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(kernel: str, entry: str, *args) -> None:
+def launch(kernel: str, entry: str, *args, body: str | None = None) -> None:
     """Call C entry point ``entry`` with ``args`` (pointers as ints, the
     stream last), raise if it reports a CUDA error, and count one launch
-    of ``kernel``."""
+    of ``kernel`` (and of its ``body``, where the entry point picks one of
+    several)."""
     err = getattr(library(), entry)(*args)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA error {err} at launch")
     launches[kernel] += 1
+    if body is not None:
+        key = f"{kernel}:{body}"
+        body_launches[key] = body_launches.get(key, 0) + 1
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

@@ -23,6 +23,7 @@ from sondetpu_torch.kernels import cuda
 
 HALO = 256   # raw input samples carried per plane (the JAX package's HALO:
              # the carried state has this width on both sides)
+FIXED_TAPS = 41   # the tap count csrc/frontend.cu compiles in (T_FIXED)
 
 # odd minimax polynomial for atan on [0, 1] (max err ~1e-6 rad)
 _ATAN_C = (0.99997726, -0.33262347, 0.19354346, -0.11643287,
@@ -43,6 +44,17 @@ def fast_atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     p = torch.where(ay > ax, (math.pi / 2) - p, p)
     p = torch.where(x < 0, math.pi - p, p)
     return torch.where(y < 0, -p, p)
+
+
+def is_delay_taps(taps) -> bool:
+    """True when ``taps`` is exactly ``[0, ..., 0, 1]`` in float32: then
+    the FIR ``sum_u taps[u] * a[g - u]`` equals ``a[g - T + 1]`` exactly for
+    finite ``a`` (each zero product adds nothing, and 1 * a is a), and the
+    kernel skips the multiply-adds. A scaled, shifted or noisy delta is a
+    FIR like any other."""
+    h = np.asarray(taps, np.float32)
+    return bool(h.ndim == 1 and h.size >= 1 and h[-1] == 1.0
+                and not np.any(h[:-1]))
 
 
 def _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps, decim):
@@ -101,7 +113,10 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     Returns (filt [C, n/decim], new tail_i, new tail_q [C, HALO], dc [C]),
     dc being the block-mean discriminator audio.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel: the
+    body for 41 taps or for any other count, and, when
+    :func:`is_delay_taps` holds for ``match_taps``, the body that writes
+    the delayed audio instead of the matched FIR (the same result).
     """
     dev = iq_i.device
     if dev.type == "cpu":
@@ -120,16 +135,20 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                          "65535 rows")
     hc = np.ascontiguousarray(chan_taps, np.float32)
     hm = np.ascontiguousarray(match_taps, np.float32)
+    identity = is_delay_taps(hm)
     nproc = n // decim
     lib = cuda.library()
     ntiles = lib.sondetpu_frontend_tiles(n, decim)
     filt = torch.empty((c, nproc), dtype=torch.float32, device=dev)
     partial = torch.empty((c, ntiles), dtype=torch.float32, device=dev)
+    body = (f"decim{decim}_" + ("t41" if T == FIXED_TAPS else "runtime_t")
+            + ("_identity" if identity else ""))
     cuda.launch("fused_frontend", "sondetpu_fused_frontend",
                 iq_i.data_ptr(), iq_q.data_ptr(), tail_i.data_ptr(),
                 tail_q.data_ptr(), hc.ctypes.data, hm.ctypes.data, T,
-                float(np.float32(scale)), decim, c, n, HALO, filt.data_ptr(),
-                partial.data_ptr(), cuda.stream_handle(dev))
+                float(np.float32(scale)), decim, int(identity), c, n, HALO,
+                filt.data_ptr(), partial.data_ptr(), cuda.stream_handle(dev),
+                body=body)
     # a divisor on the device: CUDA multiplies by the reciprocal of a
     # Python number, which rounds otherwise than the twin on the CPU
     dc = torch.sum(partial, dim=-1) / torch.full(

@@ -131,7 +131,8 @@ def pfb_dft(u_i: torch.Tensor, u_q: torch.Tensor, twiddles=None):
     ``y[k, r] = sum_j u[r, j] * exp(-2*pi*i*j*k/N)``. ``twiddles`` is
     :func:`twiddle_table` for N as tensors on the card (made here when
     None). N must be a power of two from 8 to 4096. CPU tensors run the
-    twin; CUDA tensors launch the kernel."""
+    twin; CUDA tensors launch the kernel (a register-pass body at N = 2048,
+    the radix-2 body otherwise)."""
     dev = u_i.device
     if dev.type == "cpu":
         return pfb_dft_plain(u_i, u_q)
@@ -152,5 +153,6 @@ def pfb_dft(u_i: torch.Tensor, u_q: torch.Tensor, twiddles=None):
     y_q = torch.empty((n, m), dtype=torch.float32, device=dev)
     cuda.launch("pfb_dft", "sondetpu_pfb_dft", u_i.data_ptr(), u_q.data_ptr(),
                 twc.data_ptr(), tws.data_ptr(), m, n, y_i.data_ptr(),
-                y_q.data_ptr(), cuda.stream_handle(dev))
+                y_q.data_ptr(), cuda.stream_handle(dev),
+                body="n2048" if n == 2048 else "radix2")
     return y_i, y_q

@@ -24,10 +24,11 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from sondetpu.telemetry import SondeTelemetry
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
-from sondetpu_torch.runtime.pipeline import BlockOutput, PipelineConfig
+from sondetpu_torch.runtime.pipeline import (BlockOutput, PipelineConfig,
+                                             c64_to_planes)
 from sondetpu_torch.runtime.session import DecoderSession
+from sondetpu_torch.telemetry import SondeTelemetry
 
 ROW_MULTIPLE = 8   # the kernel path's channel gate (pipeline._check_slice)
 
@@ -154,8 +155,6 @@ class FleetSession:
         if isinstance(iq, tuple):
             wi, wq = iq
         else:
-            from sondetpu.io.iq import c64_to_planes
-
             wi, wq = c64_to_planes(np.asarray(iq))
         wi = torch.as_tensor(wi).to(self.device, torch.float32)
         wq = torch.as_tensor(wq).to(self.device, torch.float32)

@@ -294,6 +294,14 @@ def unpack_block_output(packed: np.ndarray, k_slots: int, frame_bytes: int,
     return frames, valid, rs_clean, soft_rms, weak
 
 
+def c64_to_planes(iq: np.ndarray):
+    """Split complex64 [..., n] into contiguous float32 (i, q) planes (the
+    NumPy form of ``sondetpu/io/iq.py:c64_to_planes``)."""
+    iq = np.ascontiguousarray(iq, dtype=np.complex64)
+    return (np.ascontiguousarray(iq.real.astype(np.float32)),
+            np.ascontiguousarray(iq.imag.astype(np.float32)))
+
+
 def _map_state(state, fn):
     return PipelineState(
         chan_tail_i=fn(state.chan_tail_i), chan_tail_q=fn(state.chan_tail_q),
@@ -489,8 +497,6 @@ class Pipeline:
             if self.config.input_dtype != "f32":
                 raise TypeError("input_dtype %r needs raw integer (i, q) "
                                 "planes, not complex" % self.config.input_dtype)
-            from sondetpu.io.iq import c64_to_planes
-
             i, q = c64_to_planes(np.asarray(iq))
         shape = (self.config.channels, self.config.block_len)
         planes = []

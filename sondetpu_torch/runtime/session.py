@@ -20,12 +20,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from sondetpu.telemetry import SondeTelemetry
 from sondetpu_torch.runtime.metrics import Metrics
 from sondetpu_torch.runtime.pipeline import (BlockOutput, Pipeline,
                                              PipelineConfig,
                                              unpack_block_output)
 from sondetpu_torch.sondes.base import get_sonde
+from sondetpu_torch.telemetry import SondeTelemetry
 
 
 class DecoderSession:

@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from sondetpu.telemetry import TelemetryFragment
+from sondetpu_torch.telemetry import TelemetryFragment
 
 
 @dataclass(frozen=True)

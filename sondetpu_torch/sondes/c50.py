@@ -41,12 +41,12 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from sondetpu.fec.crc import crc16_ccitt
+from sondetpu_torch.fec.crc import crc16_ccitt
 from sondetpu_torch.sondes import geo
 from sondetpu_torch.sondes.base import ProtocolSpec, SondeDecoderBase, register_sonde
 from sondetpu_torch.sondes.modulate import afsk_modulate
 from sondetpu_torch.sync.coding import np_bytes_to_bits
-from sondetpu.telemetry import Fields, TelemetryFragment
+from sondetpu_torch.telemetry import Fields, TelemetryFragment
 
 BAUD = 2400.0
 F_MARK, F_SPACE = 2400.0, 4800.0

@@ -54,11 +54,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from sondetpu.fec.hamming import hamming84_decode, hamming84_encode
+from sondetpu_torch.fec.hamming import hamming84_decode, hamming84_encode
 from sondetpu_torch.sondes.base import ProtocolSpec, SondeDecoderBase, register_sonde
 from sondetpu_torch.sondes.modulate import gfsk_modulate
 from sondetpu_torch.sync.coding import np_bytes_to_bits
-from sondetpu.telemetry import Fields, TelemetryFragment
+from sondetpu_torch.telemetry import Fields, TelemetryFragment
 
 CHIP_RATE = 2500.0            # on-air Manchester chip rate (BASELINE.json:9)
 FRAME_BITS = 280

@@ -47,11 +47,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from sondetpu.fec.crc import crc16_ccitt
+from sondetpu_torch.fec.crc import crc16_ccitt
 from sondetpu_torch.sondes.base import ProtocolSpec, SondeDecoderBase, register_sonde
 from sondetpu_torch.sondes.modulate import afsk_modulate
 from sondetpu_torch.sync.coding import np_bytes_to_bits
-from sondetpu.telemetry import Fields, TelemetryFragment
+from sondetpu_torch.telemetry import Fields, TelemetryFragment
 
 BAUD = 1200.0
 F_MARK, F_SPACE = 1200.0, 2200.0      # Bell-202

@@ -69,7 +69,7 @@ from sondetpu_torch.sondes import geo
 from sondetpu_torch.sondes.base import ProtocolSpec, SondeDecoderBase, register_sonde
 from sondetpu_torch.sondes.modulate import gfsk_modulate
 from sondetpu_torch.sync.coding import np_bytes_to_bits
-from sondetpu.telemetry import Fields, TelemetryFragment
+from sondetpu_torch.telemetry import Fields, TelemetryFragment
 
 CHIP_RATE = 9600.0
 M10_LEN = 101                 # 0x64 + 1

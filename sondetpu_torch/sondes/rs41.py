@@ -53,13 +53,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from sondetpu.fec.crc import crc16_ccitt, crc16_ccitt_batch
-from sondetpu.fec.rs import ReedSolomon
+from sondetpu_torch.fec.crc import crc16_ccitt, crc16_ccitt_batch
+from sondetpu_torch.fec.rs import ReedSolomon
 from sondetpu_torch.sondes import geo
 from sondetpu_torch.sondes.base import ProtocolSpec, SondeDecoderBase, register_sonde
 from sondetpu_torch.sondes.modulate import gfsk_modulate
 from sondetpu_torch.sync.coding import np_bits_to_bytes, np_bytes_to_bits
-from sondetpu.telemetry import Fields, TelemetryFragment
+from sondetpu_torch.telemetry import Fields, TelemetryFragment
 
 # ---------------------------------------------------------------------------
 # Constants

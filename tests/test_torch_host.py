@@ -1,19 +1,29 @@
-"""The port's jax-free host copies equal their JAX-package originals.
+"""The port's host copies equal their JAX-package originals.
 
-sondetpu_torch carries copies of the host modules whose import reaches jax
-(sync/coding, dsp/fir design, sondes/base, geo, modulate, rs41,
-fec/syndrome matrices, PipelineConfig, unpack_block_output, Metrics).
-Each is held here to its original on the same NumPy inputs.
+sondetpu_torch imports nothing of sondetpu, so it carries copies of the
+host modules it needs (sync/coding, dsp/fir design, sondes/base, geo,
+modulate, rs41, fec/syndrome matrices, fec gf256/crc/rs/hamming and the
+native C++ FEC, telemetry, physics, c64_to_planes, PipelineConfig,
+unpack_block_output, Metrics). Each is held here to its original on the
+same NumPy inputs.
 """
 
 import dataclasses
+import math
+import os
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sondetpu import physics as jphysics
+from sondetpu import telemetry as jtelemetry
 from sondetpu.dsp import fir as jfir
+from sondetpu.fec import crc as jcrc
+from sondetpu.fec import gf256 as jgf256
+from sondetpu.fec import hamming as jhamming
+from sondetpu.fec import rs as jrs
 from sondetpu.fec import syndrome as jsyn
 from sondetpu.runtime import metrics as jmetrics
 from sondetpu.runtime import pipeline as jpipe
@@ -21,8 +31,16 @@ from sondetpu.sondes import geo as jgeo
 from sondetpu.sondes import modulate as jmodulate
 from sondetpu.sondes import rs41 as jrs41
 from sondetpu.sync import coding as jcoding
+from sondetpu.io import iq as jiq
 from sondetpu.sync import correlator as jcorrelator
+from sondetpu_torch import physics as tphysics
+from sondetpu_torch import telemetry as ttelemetry
 from sondetpu_torch.dsp import fir as tfir
+from sondetpu_torch.fec import crc as tcrc
+from sondetpu_torch.fec import gf256 as tgf256
+from sondetpu_torch.fec import hamming as thamming
+from sondetpu_torch.fec import native as tnative
+from sondetpu_torch.fec import rs as trs
 from sondetpu_torch.fec import syndrome as tsyn
 from sondetpu_torch.runtime import metrics as tmetrics
 from sondetpu_torch.runtime import pipeline as tpipe
@@ -227,3 +245,158 @@ def test_metrics_equal():
         m.on_block(48000, 0.25, 4, 4, 2)
     assert tm.to_dict() == jm.to_dict()
     assert tm.status_line() == jm.status_line()
+
+
+# --- the host copies of fec, telemetry, physics and io ---------------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(params=["native", "numpy"])
+def fec_backend(request, monkeypatch):
+    """Both packages on their native C++ FEC, or both on NumPy."""
+    if request.param == "numpy":
+        monkeypatch.setenv("SONDETPU_NO_NATIVE", "1")
+        monkeypatch.setattr(tnative, "available", lambda: False)
+    else:
+        assert tnative.available(), "the port's native FEC did not build"
+    return request.param
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 318])
+def test_crc16_equal(n, fec_backend):
+    rng = np.random.default_rng(100 + n)
+    data = rng.integers(0, 256, size=(9, n), dtype=np.uint8)
+    for init in (0xFFFF, 0x0000, 0x1D0F):
+        np.testing.assert_array_equal(tcrc.crc16_ccitt_batch(data, init),
+                                      jcrc.crc16_ccitt_batch(data, init))
+        for row in data[:3]:
+            assert (tcrc.crc16_ccitt(row, init)
+                    == jcrc.crc16_ccitt(row, init)
+                    == tcrc.crc16_ccitt(bytes(row), init))
+    assert tcrc.crc16_ccitt(b"123456789") == 0x29B1
+
+
+@pytest.mark.parametrize("n", [255, 131])
+def test_rs_decode_equal(n, fec_backend):
+    """Codewords with 0 to 12 byte errors (RS(255,231) corrects up to 12)
+    and some with 13-20: the same corrections, counts and verdicts."""
+    rng = np.random.default_rng(n)
+    code_t, code_j = trs.ReedSolomon(24), jrs.ReedSolomon(24)
+    nerrs = np.concatenate([np.arange(13), np.arange(13), np.arange(13),
+                            [13, 14, 16, 20]])
+    msg = rng.integers(0, 256, size=(len(nerrs), n - 24))
+    cw = code_t.encode(msg)
+    np.testing.assert_array_equal(cw, code_j.encode(msg))
+    recv = cw.copy()
+    for r, k in enumerate(nerrs):
+        pos = rng.choice(n, size=k, replace=False)
+        recv[r, pos] ^= rng.integers(1, 256, size=k).astype(np.uint8)
+    got, want = code_t.decode(recv), code_j.decode(recv)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    fixed = nerrs <= 12
+    assert got[2][fixed].all()
+    np.testing.assert_array_equal(got[0][fixed], cw[fixed])
+    np.testing.assert_array_equal(got[1][fixed], nerrs[fixed])
+
+
+def test_gf256_tables_equal():
+    tg, jg = tgf256.GF256(), jgf256.GF256()
+    np.testing.assert_array_equal(tg.exp, jg.exp)
+    np.testing.assert_array_equal(tg.log, jg.log)
+    a, b = np.meshgrid(np.arange(256), np.arange(1, 256))
+    np.testing.assert_array_equal(tg.mul(a, b), jg.mul(a, b))
+    np.testing.assert_array_equal(tg.div(a, b), jg.div(a, b))
+
+
+def test_native_fec_source_is_the_original():
+    """The port's C++ FEC is the original's code; only the header comment
+    differs."""
+    def code(path):
+        with open(os.path.join(REPO, path)) as f:
+            lines = f.read().splitlines()
+        while lines[0].startswith("//") or not lines[0]:
+            lines.pop(0)
+        return lines
+    assert (code("sondetpu_torch/csrc/sondefec.cpp")
+            == code("sondetpu/native/sondefec.cpp"))
+
+
+def test_hamming84_equal_over_all_bytes():
+    nib = np.arange(16)
+    np.testing.assert_array_equal(thamming.hamming84_encode(nib),
+                                  jhamming.hamming84_encode(nib))
+    cw = np.arange(256, dtype=np.uint8)
+    for a, b in zip(thamming.hamming84_decode(cw),
+                    jhamming.hamming84_decode(cw)):
+        np.testing.assert_array_equal(a, b)
+
+
+def _fragments(mod, seed):
+    rng = np.random.default_rng(seed)
+    F = mod.Fields
+    frags = []
+    for k in range(40):
+        flags = F(int(rng.integers(0, 256)))
+        frags.append(mod.TelemetryFragment(
+            fields=flags, seq=k, lat=float(rng.uniform(-90, 90)),
+            lon=float(rng.uniform(-180, 180)),
+            alt=float(rng.uniform(-500, 90000)),
+            speed=float(rng.uniform(0, 80)), heading=float(rng.uniform(0, 360)),
+            climb=float(rng.normal()), time=1.7e9 + k,
+            calib_percent=float(rng.choice([50.0, 100.0])),
+            temp=float(rng.uniform(-80, 40)), rh=float(rng.uniform(-5, 100)),
+            pressure=float(rng.choice([0.0, -1.0, 850.0])),
+            serial=f"S{k:07d}", shutdown=int(rng.integers(-1, 9000)),
+            o3_mpa=float(rng.uniform(0, 20))))
+    return frags
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_telemetry_merge_equal(seed):
+    """The same fragments merged into both packages' SondeTelemetry give
+    the same to_dict after every merge (compared as repr: NaN dew points
+    then compare equal)."""
+    tt, jt = ttelemetry.SondeTelemetry(), jtelemetry.SondeTelemetry()
+    for ft, fj in zip(_fragments(ttelemetry, seed),
+                      _fragments(jtelemetry, seed)):
+        assert repr(dataclasses.asdict(ft)) == repr(dataclasses.asdict(fj))
+        assert tt.merge(ft) == jt.merge(fj)
+        assert repr(tt.to_dict()) == repr(jt.to_dict())
+        assert repr(tt.snapshot().to_dict()) == repr(tt.to_dict())
+    tt.reset()
+    jt.reset()
+    assert repr(tt.to_dict()) == repr(jt.to_dict())
+
+
+def test_telemetry_fields_equal():
+    tf, jf = ttelemetry.Fields, jtelemetry.Fields
+    assert [(m.name, int(m)) for m in tf] == [(m.name, int(m)) for m in jf]
+    assert tf.POS | tf.PTU == jf.POS | jf.PTU     # IntFlags compare as ints
+    assert [f.name for f in dataclasses.fields(ttelemetry.SondeTelemetry)] \
+        == [f.name for f in dataclasses.fields(jtelemetry.SondeTelemetry)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_physics_equal(seed):
+    rng = np.random.default_rng(seed)
+    for alt in np.concatenate([rng.uniform(-1000, 100000, 200),
+                               [0.0, 11000.0, 20000.0, 77000.0, 90000.0]]):
+        assert (tphysics.altitude_to_pressure(float(alt))
+                == jphysics.altitude_to_pressure(float(alt)))
+    for t, rh in zip(rng.uniform(-90, 45, 200), rng.uniform(-10, 100, 200)):
+        a = tphysics.dewpt(float(t), float(rh))
+        b = jphysics.dewpt(float(t), float(rh))
+        assert a == b or (math.isnan(a) and math.isnan(b))
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 100), (8, 48000)])
+def test_c64_to_planes_equal(shape):
+    rng = np.random.default_rng(len(shape))
+    iq = (rng.normal(size=shape) + 1j * rng.normal(size=shape)).astype(
+        np.complex64)
+    got, want = tpipe.c64_to_planes(iq), jiq.c64_to_planes(iq)
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32 and a.flags.c_contiguous
+        np.testing.assert_array_equal(a, b)

@@ -1,0 +1,79 @@
+"""The port imports nothing of the JAX package.
+
+sondetpu_torch and chip_smoke.py may import the standard library, numpy,
+torch and the port itself, and no module of ``sondetpu``, not even one
+that does not import jax: the port carries its own copies of what it needs
+(held to their originals in test_torch_host.py).
+"""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "sondetpu_torch", "**", "*.py"),
+                       recursive=True)) + ["chip_smoke.py"]
+
+
+def _is_jax_package(name) -> bool:
+    return name is not None and (name == "sondetpu"
+                                 or name.startswith("sondetpu."))
+
+
+def jax_package_imports(path: str):
+    """(line, module) of every import of sondetpu or sondetpu.* in the
+    file, at any depth (module level or inside a function)."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names
+                      if _is_jax_package(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _is_jax_package(node.module):
+                found.append((node.lineno, node.module))
+    return found
+
+
+def test_the_walk_sees_the_port():
+    assert "chip_smoke.py" in SOURCES
+    assert os.path.join("sondetpu_torch", "runtime", "session.py") in SOURCES
+    assert jax_package_imports(os.path.join("tests", "test_torch_host.py"))
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_nothing_of_sondetpu(path):
+    assert jax_package_imports(path) == []
+
+
+_PROBE = r"""
+import sys
+import sondetpu_torch.runtime.session
+import sondetpu_torch.runtime.fleet
+from sondetpu_torch.sondes import c50, dfm, imet4, m10, rs41
+from sondetpu_torch.sondes.base import get_sonde
+for name in ("rs41", "rs41x", "m10", "dfm", "imet4", "c50"):
+    get_sonde(name)
+from sondetpu_torch.fec.crc import crc16_ccitt_batch
+from sondetpu_torch.fec.rs import ReedSolomon
+import numpy as np
+ReedSolomon(24).decode(np.zeros((2, 255), np.uint8))
+crc16_ccitt_batch(np.zeros((2, 8), np.uint8))
+print(sorted(m for m in sys.modules
+             if m == "sondetpu" or m.startswith("sondetpu.")))
+"""
+
+
+def test_session_fleet_and_families_load_no_sondetpu_module():
+    res = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, cwd=REPO, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout

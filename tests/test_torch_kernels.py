@@ -26,8 +26,10 @@ from sondetpu.sync.timing import oerder_meyr_tau as jax_oerder_meyr_tau
 from sondetpu_torch.fec.syndrome import layout_matrix
 from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
+from sondetpu_torch.dsp.fir import apply_windows
 from sondetpu_torch.kernels.frontend import (HALO, fast_atan2, fused_frontend,
-                                             fused_frontend_plain)
+                                             fused_frontend_plain,
+                                             is_delay_taps)
 from sondetpu_torch.kernels.syndrome import (pack_syndrome_matrix,
                                              rs_clean_flags_kernel,
                                              rs_clean_plain)
@@ -94,6 +96,42 @@ def test_fused_frontend_stream_continuity():
     torch.testing.assert_close(torch.cat([a[0], b[0]], -1), whole[0],
                                rtol=0, atol=0)
     torch.testing.assert_close((a[3] + b[3]) / 2, whole[3], rtol=0, atol=1e-6)
+
+
+def _delta(t, dtype=np.float32):
+    h = np.zeros(t, dtype)
+    h[-1] = 1.0
+    return h
+
+
+@pytest.mark.parametrize("taps,want", [
+    (_delta(41), True), (_delta(33), True), (_delta(41, np.float64), True),
+    (np.where(_delta(41) == 0, -0.0, 1.0).astype(np.float32), True),
+    (2.0 * _delta(41), False), (np.roll(_delta(41), -1), False),
+    (_delta(41) + np.float32(1e-12) * (np.arange(41) == 3), False),
+    (np.where(_delta(41) == 1, np.nextafter(np.float32(1), np.float32(2)),
+              0).astype(np.float32), False),
+    (np.zeros(41, np.float32), False),
+    (design_lowpass(2640.0, FS, NTAPS), False),
+], ids=["delta41", "delta33", "delta-f64", "negative-zeros", "scaled",
+        "shifted", "noisy", "one-ulp-high", "zeros", "lowpass"])
+def test_is_delay_taps(taps, want):
+    """The host check that picks the front end's identity body: true only
+    for an exact [0, ..., 0, 1]."""
+    assert is_delay_taps(taps) is want
+
+
+def test_delay_taps_fir_is_the_delayed_input():
+    """What the identity body relies on: the tap loop over [0, ..., 0, 1],
+    every product and sum rounded alone, returns the input T - 1 samples
+    earlier exactly (finite input, zeros and negatives included)."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(8, 2000 + 40)).astype(np.float32) * 1e3
+    x[:, ::7] = 0.0
+    x[:, 1::11] = -0.0
+    xt = torch.from_numpy(x)
+    got = apply_windows(xt, _delta(41))
+    assert torch.equal(got, xt[:, :2000])
 
 
 def test_corr_matches_pallas():
@@ -269,3 +307,28 @@ def test_cuda_corr_and_rs_clean_match_twins(cuda_device):
     np.testing.assert_array_equal(got.cpu().numpy(), truth)
     with pytest.raises(ValueError, match="contiguous"):
         corr_kernel(buf.t().contiguous().t(), tmpl)
+
+
+@pytest.mark.parametrize("taps", ["lowpass", "delta"])
+@pytest.mark.parametrize("ntaps", [41, 33])
+@pytest.mark.parametrize("decim", [1, 2])
+def test_cuda_fused_frontend_bodies_exact(cuda_device, decim, ntaps, taps):
+    """Every body of the front end (41 taps at compile time or T at run
+    time, matched FIR or identity) equals its twin bit for bit before the
+    DC, on a block that is not a multiple of the tile."""
+    rng = np.random.default_rng(14)
+    c, n = 3, 2 * 4803
+    i, q, ti, tq = (torch.from_numpy(rng.normal(size=s).astype(np.float32)
+                                     ).to(cuda_device)
+                    for s in ((c, n), (c, n), (c, HALO), (c, HALO)))
+    ct = design_lowpass(5000.0, FS, ntaps)
+    mt = (_delta(ntaps) if taps == "delta"
+          else design_lowpass(2640.0, FS / decim, ntaps))
+    cuda.reset_launches()
+    got = fused_frontend(i, q, ti, tq, ct, mt, 3.2, decim, False)
+    want = fused_frontend_plain(i, q, ti, tq, ct, mt, 3.2, decim, False)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-5)
+    body = (f"decim{decim}_" + ("t41" if ntaps == 41 else "runtime_t")
+            + ("_identity" if taps == "delta" else ""))
+    assert cuda.body_launches == {f"fused_frontend:{body}": 1}
