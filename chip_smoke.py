@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # env, build and step profiles only
+    python3 chip_smoke.py --tune       # env, build, K2 and K7 per R only
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -14,11 +15,16 @@ before the result line:
    the shapes its path gives it (the RS41 path: 2048 channels x 192000
    samples; the fleet: 2048 PFB bins x 4 s, m10 group 616 x 192000; the
    AFSK paths: 2048 x 192000), with the tolerance stated beside it, timed
-   with CUDA events beside its twin, its bound (bytes or operations, from
-   this run's shapes) and, where one PyTorch call computes the same
-   function, that call. The fused front end runs every body: decim 2 and
-   1, lowpass and identity matched taps, 41 taps and a run-time count,
-   and edge shapes, each bit-equal to its twin before the block DC. The
+   with CUDA events around runs of back-to-back launches beside its twin,
+   its bound (bytes or operations, from this run's shapes) and, where one
+   PyTorch call computes the same function, that call. The fused front end
+   runs every body: decim 2 and 1, lowpass and identity matched taps, 41
+   taps and a run-time count, and edge shapes, each bit-equal to its twin
+   before the block DC. The correlator runs every body (sign and
+   separately rounded templates at L 64, 32 and a run-time length, the
+   long-template body, edge shapes) and the dual-tone front end every body
+   (compiled nb 5 and run-time nb, channel filter, AFC, channel counts
+   that are not a multiple of its eight rows), each equal to its twin. The
    two kernels no path runs (the r4 demod+FIR front end, the lane
    experiment's FIR) are held to theirs too; plain_correlation checks that
    the dual-tone and AFSK paths' syncword correlation divides by L.
@@ -52,7 +58,10 @@ before the result line:
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
 bodies and torch.profiler reads the device kernels of three steady steps
-of the RS41, imet4 and c50 paths instead (no result line).
+of the RS41, imet4 and c50 paths and of the 2048-bin fleet instead (no
+result line). With --tune, K2 and K7 are rebuilt with other outputs per
+thread (-DSONDETPU_CORR_R, -DSONDETPU_DUALTONE_R) and timed at the path's
+shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run and per step on each path), the card as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
@@ -122,19 +131,28 @@ def emit(obj) -> None:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median device time of fn() in ms over ``reps`` runs, after one
-    warm-up run."""
+    """Device time of one fn() in ms: ``reps`` runs after one warm-up run,
+    in up to 5 rounds of back-to-back runs between two CUDA events, each
+    round behind one more run that keeps the card busy while the host
+    queues the first timed one; the median of the rounds' means. Back to
+    back, the host enqueues the next run while the card executes this one,
+    so a kernel of a fraction of a millisecond is not timed with its
+    wrapper's host work."""
     fn()
     torch.cuda.synchronize()
+    rounds = min(reps, 5)
+    per = max(1, reps // rounds)
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
-        s.record()
         fn()
+        s.record()
+        for _ in range(per):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / per)
     return statistics.median(times)
 
 
@@ -333,11 +351,61 @@ def phase_frontend(torch, dev):
     return results
 
 
+def corr_cases(rng):
+    """K2's cases: (label, channels, buffer, template, timed). The RS41
+    chip ring (sign body, L 64, timed), the same shape with a template that
+    is not +/-1 (the separately rounded body, timed), the fleet's dfm group
+    (sign, L 32), run-time lengths of either kind, a template above 64
+    taps, and edge shapes (one channel, buffers that are neither a multiple
+    of the tile nor of four)."""
+    from sondetpu_torch.sondes import dfm, m10
+    from sondetpu_torch.sondes.rs41 import SPEC
+
+    def signs(L):
+        return (rng.integers(0, 2, L) * 2 - 1).astype(np.float32)
+
+    rs41_t = SPEC.sync_chip_template()
+    return (
+        ("rs41", CHANNELS, 2560 + 19200, rs41_t, True),
+        ("rounded-l64", CHANNELS, 2560 + 19200,
+         rng.normal(size=64).astype(np.float32), True),
+        ("dfm", 208, 10560, dfm.SPEC.sync_chip_template(), False),
+        ("rounded-l32", 64, 10560, rng.normal(size=32).astype(np.float32),
+         False),
+        ("sign-runtime-l48", 64, 9000, signs(48), False),
+        ("rounded-runtime-l20", 64, 9000,
+         rng.normal(size=20).astype(np.float32), False),
+        ("long-l80", 64, 40048, m10.SPEC.sync_chip_template(), False),
+        ("long-l300", 16, 9001, rng.normal(size=300).astype(np.float32),
+         False),
+        ("edge-c1", 1, 4099, rs41_t, False),
+        ("edge-c3-l32", 3, 3871, signs(32), False),
+        ("edge-c5-mixed", 5, 5003,
+         np.where(rng.random(64) < 0.5, signs(64), 0.5).astype(np.float32),
+         False))
+
+
+def corr_bound(buf, L: int, sign: bool):
+    """K2's bound for the body that runs, beside both bodies' counts: per
+    output L fused multiply-adds and the scale (sign body) or L products
+    and L sums and the scale (separately rounded)."""
+    c, n = buf.shape
+    outs = c * (n - L + 1)
+    ops = {"sign_body_ops": outs * (L + 1),
+           "rounded_body_ops": outs * (2 * L + 1)}
+    return dict(ops, **bound(nbytes(buf) + 4 * L + 4 * outs,
+                             ops["sign_body_ops" if sign else
+                                 "rounded_body_ops"]))
+
+
 def phase_kernels(torch, dev):
-    """K2 and K3 against their twins at the RS41 path's shapes."""
+    """K2 in every body and K3 against their twins at the RS41 path's
+    shapes."""
     import torch.nn.functional as F
 
-    from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.corr import (corr_body, corr_kernel,
+                                             corr_plain, is_sign_template)
     from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                                  rs_clean_plain)
     from sondetpu_torch.sondes.rs41 import (SPEC, RS41Modulator, RS41Truth)
@@ -345,31 +413,46 @@ def phase_kernels(torch, dev):
     rng = np.random.default_rng(0)
     results = {}
 
-    # K2: the correlator on the RS41 chip ring [2048, 2560 + 19200]
-    buf = torch.from_numpy(rng.normal(size=(CHANNELS, 2560 + 19200)).astype(
-        np.float32)).to(dev)
-    tmpl = torch.from_numpy(SPEC.sync_chip_template()).to(dev)
-    got = corr_kernel(buf, tmpl)
-    want = corr_plain(buf, tmpl)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    k2_tol = 1e-6   # same operations in the same order: expected 0
-    check(err <= k2_tol, f"corr: err {err}")
-    L = tmpl.numel()
-    n_out = buf.shape[1] - L + 1
-    # the library's one call: conv1d (cuDNN, TF32 off) of the scaled template
-    w = (tmpl / L)[None, None, :]
-    entry = {"phase": "kernel", "name": "corr", "shape": list(buf.shape),
-             "max_abs_err": err, "tol": k2_tol,
-             "ms": cuda_ms(torch, lambda: corr_kernel(buf, tmpl), 50),
-             "plain_ms": cuda_ms(torch, lambda: corr_plain(buf, tmpl), 5),
-             "library_ms": cuda_ms(torch, lambda: F.conv1d(
-                 buf[:, None, :], w), 20),
-             **bound(nbytes(buf, tmpl) + 4 * CHANNELS * n_out,
-                     CHANNELS * n_out * (2 * L + 1))}
-    emit(entry)
-    results["corr"] = entry
-    del buf, got, want
+    # K2: every product and sum rounded as the twin's, or (sign body) one
+    # exact product per fused multiply-add: torch.equal in every case
+    bodies = set()
+    for label, c, n, t, timed in corr_cases(rng):
+        buf = torch.from_numpy(rng.normal(size=(c, n)).astype(
+            np.float32)).to(dev)
+        tmpl = torch.from_numpy(t).to(dev)
+        L, sign = len(t), is_sign_template(t)
+        body = "corr:" + corr_body(L, sign)
+        cuda.reset_launches()
+        got = corr_kernel(buf, tmpl)
+        want = corr_plain(buf, tmpl)
+        torch.cuda.synchronize()
+        check(cuda.body_launches == {body: 1},
+              f"corr {label}: bodies {cuda.body_launches}, expected {body}")
+        check(torch.isfinite(got).all(), f"corr {label}: non-finite")
+        check(torch.equal(got, want),
+              f"corr {label}: not equal to its twin (max err "
+              f"{float((got - want).abs().max())})")
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "corr", "case": label,
+                 "shape": [c, n], "L": L, "sign_template": sign,
+                 "body": body, "max_abs_err": 0.0, "tol": 0}
+        if timed:
+            # the library's one call: conv1d (cuDNN, TF32 off) of the
+            # scaled template
+            w = (tmpl / L)[None, None, :]
+            entry.update(
+                ms=cuda_ms(torch, lambda: corr_kernel(buf, t), 50),
+                plain_ms=cuda_ms(torch, lambda: corr_plain(buf, tmpl), 5),
+                library_ms=cuda_ms(torch, lambda: F.conv1d(
+                    buf[:, None, :], w), 20),
+                **corr_bound(buf, L, sign))
+            results[label] = entry
+        emit(entry)
+        del buf, got, want
+    check(len(bodies) == 7, f"corr: bodies launched {bodies}")
+    torch.cuda.empty_cache()
+    results["corr"] = results.pop("rs41")
+    results["corr_rounded_l64"] = results.pop("rounded-l64")
 
     # K3: RS syndrome flags on 2048 x 9 frame rows, clean and corrupted
     mod = RS41Modulator()
@@ -454,9 +537,11 @@ def phase_main_path(torch, dev):
     for name in ("fused_frontend", "corr", "rs_clean"):
         check(launches[name] > 0, f"main path: kernel {name} was not "
               "launched")
-    # RS41's matched filter is a lowpass: the general decim-2 body
-    check(bodies == {"fused_frontend:decim2_t41": n_blocks},
-          f"main path: front-end bodies {bodies}")
+    # RS41's matched filter is a lowpass: the general decim-2 body; its
+    # syncword template is 64 chips of +/-1: the correlator's sign body
+    check(bodies == {"fused_frontend:decim2_t41": n_blocks,
+                     "corr:sign_l64": n_blocks},
+          f"main path: bodies {bodies}")
     emit({"phase": "main_path", "channels": CHANNELS, "block_len": BLOCK_LEN,
           "blocks": n_blocks, "frames_raw": m.frames_raw,
           "frames_decoded": m.frames_decoded,
@@ -602,7 +687,8 @@ def phase_fleet_kernels(torch, dev):
     from sondetpu_torch.dsp.channelizer import PFBChannelizer
     from sondetpu_torch.dsp.fir import design_lowpass
     from sondetpu_torch.kernels import cuda
-    from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
+    from sondetpu_torch.kernels.dualtone import (dualtone_body,
+                                                 fused_dualtone_frontend,
                                                  fused_dualtone_plain,
                                                  mixer_tables)
     from sondetpu_torch.kernels.frontend import HALO
@@ -720,48 +806,64 @@ def phase_fleet_kernels(torch, dev):
     results["pfb_dft"] = dict(k6, max_abs_err=max(errs))
     torch.cuda.empty_cache()
 
-    # K7: the m10 group's shape (chanfilt skipped, nb 5) and a 256-channel
-    # block with the chanfilt and the AFC sums. Metric: same operations in
-    # the same order (expected 0); dc and rotation sums differ only in the
+    # K7 in every body. Metric: the same operations in the same order as
+    # the twin, so torch.equal; the dc and rotation sums differ only in the
     # order of summation, so they are held relative to their largest value
-    met_tol, sum_tol = 1e-6, 1e-5
+    sum_tol = 1e-5
     taps = design_lowpass(0.45 * FS, FS, 41)
-    errs = []
-    for c, n, skip, afc in ((616, m, True, False), (256, 48000, False, True)):
+    cases = (  # label, channels, samples, skip chanfilt, AFC, nb, timed
+        ("m10", 616, m, True, False, 5, True),
+        ("chanfilt-afc", 256, 48000, False, True, 5, False),
+        ("chanfilt", 64, 48000, False, False, 7, False),
+        ("skip-afc", 256, 48000, True, True, 5, False),
+        ("runtime-nb7", 64, 48000, True, False, 7, False),
+        ("runtime-nb7-afc", 64, 48000, True, True, 7, False),
+        ("edge-c13", 13, 30001, True, False, 5, False),
+        ("edge-c5-chanfilt-afc", 5, 30001, False, True, 3, False),
+        ("edge-c1-nb7", 1, 1003, True, False, 7, False))
+    bodies = set()
+    for label, c, n, skip, afc, nb, timed in cases:
         args = (randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO))
         tabs = tuple(torch.from_numpy(t).to(dev)
                      for t in mixer_tables(n, 12000.0 / FS))
-        got = fused_dualtone_frontend(*args, taps, *tabs, 5, afc, skip)
-        want = fused_dualtone_plain(*args, taps, *tabs, 5, afc, skip)
+        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc)
+        cuda.reset_launches()
+        got = fused_dualtone_frontend(*args, taps, *tabs, nb, afc, skip)
+        want = fused_dualtone_plain(*args, taps, *tabs, nb, afc, skip)
         torch.cuda.synchronize()
-        err = float((got[0] - want[0]).abs().max())
+        check(cuda.body_launches == {body: 1},
+              f"dualtone {label}: bodies {cuda.body_launches}, "
+              f"expected {body}")
+        check(torch.isfinite(got[0]).all(), f"dualtone {label}: non-finite")
+        check(torch.equal(got[0], want[0]),
+              f"dualtone {label}: metric not equal to its twin (max err "
+              f"{float((got[0] - want[0]).abs().max())})")
         sums_err = max(rel_err(got[k], want[k]) for k in (3, 4, 5))
-        check(err <= met_tol, f"dualtone {c}x{n}: metric err {err}")
-        check(sums_err <= sum_tol, f"dualtone {c}x{n}: sums err {sums_err}")
+        check(sums_err <= sum_tol, f"dualtone {label}: sums err {sums_err}")
         check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-              "dualtone: carried tails differ")
-        errs.append(err)
+              f"dualtone {label}: carried tails differ")
+        bodies.add(body)
         del got, want
         entry = {"phase": "kernel", "name": "fused_dualtone_frontend",
-                 "shape": [c, n], "skip_chanfilt": skip, "want_afc": afc,
-                 "max_abs_err": err, "tol": met_tol,
-                 "sums_rel_err": sums_err, "sums_tol": sum_tol}
-        if c == 616:
+                 "case": label, "shape": [c, n], "skip_chanfilt": skip,
+                 "want_afc": afc, "nb": nb, "body": body, "max_abs_err": 0.0,
+                 "tol": 0, "sums_rel_err": sums_err, "sums_tol": sum_tol}
+        if timed:
             # per position: the +/-dev mix of both planes (12), the nb = 5
             # boxcars of four products and their scale (24), the metric
             # (10), its DC sum (1); a fused chain, no single library call
             entry.update(
                 ms=cuda_ms(torch, lambda: fused_dualtone_frontend(
-                    *args, taps, *tabs, 5, afc, skip), 20),
+                    *args, taps, *tabs, nb, afc, skip), 20),
                 plain_ms=cuda_ms(torch, lambda: fused_dualtone_plain(
-                    *args, taps, *tabs, 5, afc, skip), 3),
+                    *args, taps, *tabs, nb, afc, skip), 3),
                 library_ms=None,
                 **bound(nbytes(*args, *tabs) + nbytes(*args[2:]) + 4 * c * n,
                         c * n * 47))
-            k7 = entry
+            results["fused_dualtone_frontend"] = entry
         emit(entry)
         del args, tabs
-    results["fused_dualtone_frontend"] = dict(k7, max_abs_err=max(errs))
+    check(len(bodies) == 6, f"dualtone: bodies launched {bodies}")
     torch.cuda.empty_cache()
     return results
 
@@ -842,6 +944,15 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
               "launched")
     check(bodies.get("pfb_dft:n2048") == launches["pfb_dft"],
           f"fleet_path: DFT bodies {bodies}")
+    # the correlator's sign bodies (rs41 L 64, dfm L 32) and the m10
+    # front end's compiled nb = 5 body, once per step each
+    steps = launches["pfb_dft"]
+    check(bodies.get("corr:sign_l64") == steps
+          and bodies.get("corr:sign_l32") == steps
+          and launches["corr"] == 2 * steps
+          and bodies.get("fused_dualtone_frontend:skip_nb5") == steps
+          == launches["fused_dualtone_frontend"],
+          f"fleet_path: correlator and dual-tone bodies {bodies}")
     emit({"phase": "fleet_path", "bins": n_bins, "block_len": block_len,
           "blocks": n_blocks, "groups": groups, "updates": updates,
           "channels_with_telemetry": len(telem),
@@ -1301,11 +1412,7 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
 
 def phase_profile(torch, dev, family: str, steps: int = 3):
     """torch.profiler over ``steps`` steady device steps of one family at
-    2048 channels x 4 s: device time by kernel name per step, against the
-    step's wall time (the card's busy share)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    2048 channels x 4 s."""
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 
     cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=BLOCK_LEN,
@@ -1322,19 +1429,34 @@ def phase_profile(torch, dev, family: str, steps: int = 3):
     for planes in blocks[:2]:                   # warm-up
         state, _ = pipe.step(state, planes)
     torch.cuda.synchronize()
+    holder = [state]
+
+    def step(k):
+        holder[0], _ = pipe.step(holder[0], blocks[k])
+
+    profile_steps(torch, family, step, steps)
+
+
+def profile_steps(torch, label: str, step, steps: int):
+    """torch.profiler over step(0) .. step(steps - 1), warmed up by the
+    caller: device time by kernel name per step against the step's wall
+    time (the card's busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for planes in blocks:
-            state, _ = pipe.step(state, planes)
+        for k in range(steps):
+            step(k)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    check(device_ms > 0, f"profile {family}: the profiler saw no device time")
+    check(device_ms > 0, f"profile {label}: the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
-    emit({"phase": "profile", "sonde": family, "steps": steps,
+    emit({"phase": "profile", "sonde": label, "steps": steps,
           "step_wall_ms": wall_ms, "device_ms_per_step": device_ms,
           "busy_share": device_ms / wall_ms,
           "kernels_per_step": sum(e.count for e in kernels) / steps,
@@ -1342,15 +1464,32 @@ def phase_profile(torch, dev, family: str, steps: int = 3):
                    e.count / steps] for e in top]})
 
 
-def phase_resources():
+def phase_profile_fleet(torch, dev, steps: int = 3):
+    """torch.profiler over ``steps`` device steps of the 2048-bin fleet
+    (the fleet_path's groups, one block of its signal)."""
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+
+    chans = [FleetChannel(pfb_bin=k, sonde=fleet_family(k))
+             for k in range(N_BINS)]
+    fleet = FleetSession(chans, N_BINS, dev, fs_chan=FS, block_len=BLOCK_LEN,
+                         pipelined=True)
+    wi, wq = next(fleet_blocks(torch, dev, 1, seed=3))
+    for _ in range(2):                          # warm-up
+        fleet.step(wi, wq)
+    torch.cuda.synchronize()
+    profile_steps(torch, "fleet", lambda k: fleet.step(wi, wq), steps)
+
+
+def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
+                             "corr.cu", "dualtone.cu"), quiet=False):
     """Registers and stack of each body of the redesigned kernels, as
-    ptxas reports them (nvcc -Xptxas -v)."""
+    ptxas reports them (nvcc -Xptxas -v), with the library's flags."""
     import re
 
     from sondetpu_torch.kernels import cuda
 
     out = {}
-    for src in ("frontend.cu", "afsk.cu", "pfb_dft.cu"):
+    for src in sources:
         res = subprocess.run(
             [cuda._nvcc(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              os.devnull, os.path.join(cuda.CSRC, src)],
@@ -1359,18 +1498,72 @@ def phase_resources():
         for line in res.stderr.splitlines():
             m = re.search(r"Compiling entry function '\S*?\d("
                           r"frontend_kernel|afsk_kernel|dft2048_kernel|"
-                          r"pfb_dft_kernel)((?:I|L[ib]-?\d+E)*)", line)
+                          r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
+                          r"dualtone_kernel)((?:I|L[ib]-?\d+E)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling
                 args = re.findall(r"L[ib](-?\d+)E", m.group(2))
                 name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+                spill = 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                spill = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 stack = re.search(r"(\d+) bytes cumulative stack", line)
                 out[f"{src}:{name}"] = {
                     "registers": int(m.group(1)),
-                    "stack_bytes": int(stack.group(1)) if stack else 0}
-    emit({"phase": "resources", "kernels": out})
+                    "stack_bytes": int(stack.group(1)) if stack else 0,
+                    "spill_store_bytes": spill}
+    if not quiet:
+        emit({"phase": "resources", "kernels": out})
+    return out
+
+
+def phase_tune(torch, dev, variants=(
+        (), ("SONDETPU_CORR_R=9",), ("SONDETPU_CORR_R=21",),
+        ("SONDETPU_DUALTONE_R=7",), ("SONDETPU_DUALTONE_R=11",))):
+    """K2 and K7 rebuilt with each variant's -D flags (their outputs per
+    thread, R) and timed at the path's shapes, each checked equal to its
+    twin, beside ptxas's registers and spills."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
+    from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
+                                                 fused_dualtone_plain,
+                                                 mixer_tables)
+    from sondetpu_torch.kernels.frontend import HALO
+    from sondetpu_torch.sondes.rs41 import SPEC
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    buf = torch.randn((CHANNELS, 2560 + 19200), generator=gen, device=dev)
+    t = SPEC.sync_chip_template()
+    want_corr = corr_plain(buf, torch.from_numpy(t).to(dev))
+    k7 = (*(torch.randn(s, generator=gen, device=dev) for s in (
+        (616, BLOCK_LEN), (616, BLOCK_LEN), (616, HALO), (616, HALO))),
+        design_lowpass(0.45 * FS, FS, 41),
+        *(torch.from_numpy(x).to(dev)
+          for x in mixer_tables(BLOCK_LEN, 12000.0 / FS)), 5, False, True)
+    want_k7 = fused_dualtone_plain(*k7)[0]
+    base = list(cuda.NVCC_FLAGS)
+    try:
+        for flags in variants:
+            cuda.NVCC_FLAGS = base + [f"-D{f}" for f in flags]
+            cuda._lib = None
+            cuda.library()
+            check(torch.equal(corr_kernel(buf, t), want_corr),
+                  f"tune {flags}: corr differs from its twin")
+            check(torch.equal(fused_dualtone_frontend(*k7)[0], want_k7),
+                  f"tune {flags}: metric differs from its twin")
+            emit({"phase": "tune", "flags": list(flags),
+                  "corr_ms": cuda_ms(torch, lambda: corr_kernel(buf, t), 50),
+                  "dualtone_ms": cuda_ms(
+                      torch, lambda: fused_dualtone_frontend(*k7), 20),
+                  "resources": phase_resources(("corr.cu", "dualtone.cu"),
+                                               quiet=True)})
+    finally:
+        cuda.NVCC_FLAGS = base
+        cuda._lib = None
 
 
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
@@ -1390,6 +1583,12 @@ def main() -> int:
         for family in ("rs41", "imet4", "c50"):
             phase_profile(torch, dev, family)
             torch.cuda.empty_cache()
+        phase_profile_fleet(torch, dev)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--tune"]:
+        # K2's and K7's outputs per thread: python3 chip_smoke.py --tune
+        phase_tune(torch, dev)
         print(smi, flush=True)
         return 0
     k1 = phase_frontend(torch, dev)
@@ -1459,6 +1658,16 @@ def main() -> int:
         decim1_lowpass=subset(k1["decim1-lowpass"]))
     k8_row = next(e for e in table if e["name"] == "fused_afsk_frontend")
     k8_row["win20"] = subset(k8["c50"])
+    k2_row = next(e for e in table if e["name"] == "corr")
+    k2_row.update(
+        body=kres["corr"]["body"],
+        sign_body_ops=kres["corr"]["sign_body_ops"],
+        rounded_body_ops=kres["corr"]["rounded_body_ops"],
+        rounded_l64=subset(kres["corr_rounded_l64"]),
+        bodies_by_path={p: {k: v for k, v in runs[p]["bodies"].items()
+                            if k.split(":")[0] in (
+                                "corr", "fused_dualtone_frontend")}
+                        for p in paths})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -35,6 +35,21 @@ static __device__ __forceinline__ void cp_async_f32(float* dst,
                  : "memory");
 }
 
+// The same for 16 bytes (four floats): dst and src 16-byte aligned; with
+// valid false the four words are zero-filled. .cg: cached in L2 only.
+static __device__ __forceinline__ void cp_async_f32x4(float* dst,
+                                                      const float* src,
+                                                      const bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+static __host__ __device__ __forceinline__ bool aligned16(const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 static __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                      : "memory");
@@ -65,6 +80,36 @@ static __device__ __forceinline__ void slide_window(
         }
 #pragma unroll
         for (int r = 0; r < NR; ++r) step(u, r, w[D * r]);
+    };
+    if constexpr (TT > 0) {
+#pragma unroll
+        for (int u = 0; u < TT; ++u) tap(u);
+    } else {
+#pragma unroll 1
+        for (int u = 0; u < T; ++u) tap(u);
+    }
+}
+
+// The forward twin of slide_window (K2): output r < NR reads p[r + u] at
+// tap u = 0 .. T-1, taps in ascending order. From one tap to the next every
+// read moves up one element, so a window of NR registers slides by one: one
+// shared load per tap feeds NR outputs. TT > 0 unrolls the taps (the slide
+// is renaming, h[u] an immediate operand); TT == 0 takes T at run time.
+// p[0] .. p[T - 1 + NR - 1] must lie in shared memory.
+template <int NR, int TT, typename Step>
+static __device__ __forceinline__ void slide_window_up(
+    const float* __restrict__ p, const int T, Step step) {
+    float w[NR];
+#pragma unroll
+    for (int j = 0; j < NR; ++j) w[j] = p[j];
+    auto tap = [&](const int u) {
+        if (u > 0) {
+#pragma unroll
+            for (int j = 0; j < NR - 1; ++j) w[j] = w[j + 1];
+            w[NR - 1] = p[u + NR - 1];
+        }
+#pragma unroll
+        for (int r = 0; r < NR; ++r) step(u, r, w[r]);
     };
     if constexpr (TT > 0) {
 #pragma unroll

@@ -13,182 +13,304 @@
 //            (ang from the host f64 tables cos/sin[P mod n]: dev*n/fs is an
 //            integer, so the tables are periodic in n and negative
 //            positions wrap)
-//   lp[P]  = (sum_{v<nb} plane[P - v]) * (1/nb)    (each of the 4 planes)
+//   lp[P]  = (plane[P] + plane[P-1] + ... + plane[P-nb+1]) * (1/nb),
+//            summed from zero in that order (each of the 4 planes)
 //   metric = (P+ - P-) / (P+ + P- + 1e-12),  P+- = lpI^2 + lpQ^2
 //   rot_re/im: sums over 1 <= P < n of the adjacent-sample rotation
 //            products of the lp planes.
 // The wrapper adds the per-tile partials up.
 //
 // What bounds it: device memory. At [616, 192000] (the m10 group of the
-// 2048-bin fleet) the two input planes are 0.95 GB and the metric 0.47 GB,
-// ~0.4 ms at 3.35 TB/s; the ~30 flops per sample (with the chanfilt
-// skipped) are far below the card's rate. Design: one thread block per
-// (channel, tile of TILE positions), as in frontend.cu: the tile's input
-// window [nb + halo | body] is staged in shared memory, then the four mixed
-// planes, then the four boxcar outputs, so each input sample is read from
-// device memory once (plus an (nb + ntaps - 1)-sample halo per tile) and
-// neighbouring threads take neighbouring positions. The TPU kernel's
-// per-chunk table windows, SUMW lane padding and chunk padding have no
-// counterpart here.
+// 2048-bin fleet, chanfilt skipped, nb 5) the two input planes are 0.95 GB
+// and the metric 0.47 GB, 0.42 ms at 3.35 TB/s; the ~47 operations per
+// position are 0.17 ms at the FP32 rate, and the ~65 instructions a thread
+// issues per position (loads and the IEEE division included) ~0.26 ms.
+//
+// Design: one thread block per (CH = 8 channel rows, tile of TILE = 32 x R
+// positions); each warp owns one row. The tile's two LO-table windows are
+// staged once in shared memory and shared by the eight rows (every channel
+// reads the same tables), and each warp stages its own row, all with
+// cp.async, 16 bytes a copy where the rows allow it; whether a word comes
+// from the tail or the row is a choice of address. Each lane
+// then takes R consecutive positions: walking the window of R + nb - 1
+// positions downward, it forms the four mixed plane values of a position
+// in registers and adds each into the boxcar sums of the (up to nb) outputs
+// it feeds, so every output sums its plane values newest first from zero,
+// the twin's order, with 4 shared loads per window position and no shared
+// traffic for the boxcars. Metric, DC sum (and the AFC sums) follow in
+// registers; the metric goes back through the warp's own row of shared
+// memory so the global store is coalesced, and each tile partial is a warp
+// sum: one barrier in all, after the staging.
+// nb = 5 (m10, the fleet's path) is compiled in; other widths take a
+// run-time body. The channel filter, on no path, runs per warp over shared
+// memory before the mix (one output per lane at a time, taps in ascending
+// order). R is odd, so lanes at stride R read 32 distinct banks. R = 9
+// timed faster than 7 and within 2% of 11 at [616, 192000] on an H100
+// (chip_smoke.py --tune); at 11 the skip_nb5_afc body spills at the 64
+// registers that __launch_bounds__(256, 4) allows.
 //
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn, no FMA
-// contraction) in the order of the plain twin
+// contraction: cos and sin are not +/-1) in the order of the plain twin
 // (sondetpu_torch/kernels/dualtone.py:fused_dualtone_plain), so the metric
 // agrees bit for bit and the sums up to their order of summation.
 #include "common.cuh"
 
+#ifndef SONDETPU_DUALTONE_R
+#define SONDETPU_DUALTONE_R 9
+#endif
+
 namespace {
 
-constexpr int TILE = 1024;
-constexpr int THREADS = 256;
+constexpr int R = SONDETPU_DUALTONE_R;   // positions per lane
+constexpr int CH = 8;                    // channel rows per block, one a warp
+constexpr int THREADS = 32 * CH;
+constexpr int TILE = 32 * R;             // positions per block and row
 
-__device__ __forceinline__ float block_sum(float s, float* warp_sums) {
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = s;
-    __syncthreads();
-    float tot = 0.0f;
-    if (threadIdx.x == 0)
-        for (int w = 0; w < THREADS / 32; ++w) tot += warp_sums[w];
-    return tot;
+template <int V>
+__device__ __forceinline__ void cp_async_v(float* dst, const float* src,
+                                           const bool valid) {
+    if constexpr (V == 4)
+        cp_async_f32x4(dst, src, valid);
+    else
+        cp_async_f32(dst, src, valid);
 }
 
-template <bool SKIP, bool AFC>
-__global__ void __launch_bounds__(THREADS) dualtone_kernel(
+// Stage positions x0 .. x0 + nx - 1 in words of V floats: the tables
+// (position mod n) by the whole block, the row's I and Q (the tail below 0)
+// by its warp; past n nothing is read and the words are zero (they feed no
+// output). With V = 4, x0, nx, n and halo are multiples of 4.
+template <int V>
+__device__ __forceinline__ void stage(
+    const int x0, const int nx, const int n, const int halo,
+    const float* __restrict__ tab_cos, const float* __restrict__ tab_sin,
+    const float* __restrict__ row_i, const float* __restrict__ row_q,
+    const float* __restrict__ tail_i, const float* __restrict__ tail_q,
+    const bool row_valid, float* tc, float* ts, float* xr_i, float* xr_q) {
+    for (int k = V * threadIdx.x; k < nx; k += V * THREADS) {
+        const int P = x0 + k;
+        int p = P;
+        if (P < 0) {                       // the first tile only
+            p = P % n;
+            if (p < 0) p += n;
+        }
+        const bool in = P < n;
+        cp_async_v<V>(tc + k, tab_cos + (in ? p : 0), in);
+        cp_async_v<V>(ts + k, tab_sin + (in ? p : 0), in);
+    }
+    if (!row_valid) return;
+    const int lane = threadIdx.x & 31;
+    for (int k = V * lane; k < nx; k += V * 32) {
+        const int P = x0 + k;              // >= -halo, checked by the host
+        const bool tail = P < 0, in = P < n;
+        const int at = tail ? halo + P : (in ? P : 0);
+        cp_async_v<V>(xr_i + k, (tail ? tail_i : row_i) + at, in);
+        cp_async_v<V>(xr_q + k, (tail ? tail_q : row_q) + at, in);
+    }
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+}
+
+template <int NB, bool SKIP, bool AFC>
+__global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     const float* __restrict__ xi, const float* __restrict__ xq,
     const float* __restrict__ ti, const float* __restrict__ tq,
-    const Taps hc, const int T, const int nb, const float inv_nb,
+    const Taps hc, const int T, const int nb_run, const float inv_nb,
     const float* __restrict__ tab_cos, const float* __restrict__ tab_sin,
-    const int n, const int halo, float* __restrict__ metric,
+    const int C, const int n, const int halo, const int xlead,
+    const bool vec, float* __restrict__ metric,
     float* __restrict__ dc_part, float* __restrict__ re_part,
     float* __restrict__ im_part) {
-    extern __shared__ float smem[];
-    __shared__ float warp_sums[THREADS / 32];
-    const int c = blockIdx.y;
+    extern __shared__ __align__(16) float smem[];
+    constexpr int A = AFC ? 1 : 0;       // output 0 is the previous lp
+    constexpr int RO = R + A;            // boxcar outputs per lane
+    const int nb = NB > 0 ? NB : nb_run;
+    const int fh = SKIP ? 0 : T - 1;     // chanfilt history
+    const int lead = xlead - fh;         // cf positions before g0
+    const int nx = TILE + xlead;         // staged: g0 - xlead .. g0 + TILE
+    const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int c = blockIdx.y * CH + w;
     const int g0 = blockIdx.x * TILE;
-    const int fh = SKIP ? 0 : T - 1;         // chanfilt history
-    const int nx = TILE + nb + fh;           // x[g0 - nb - fh .. g0 + TILE)
-    const int np = TILE + nb;                // planes at [g0 - nb, g0 + TILE)
-    const int nl = TILE + 1;                 // lp at [g0 - 1, g0 + TILE)
-    float* xs_i = smem;
-    float* xs_q = xs_i + nx;
-    float* pl = xs_q + nx;                   // 4 planes of np
-    float* lp = pl + 4 * np;                 // 4 planes of nl
+    float* tc = smem;                    // tables, index k: g0 - xlead + k
+    float* ts = tc + nx;
+    float* xr_i = ts + nx + 2 * w * nx;  // this warp's row, same indexing
+    float* xr_q = xr_i + nx;
+    // cf at positions g0 - lead + k (the input itself when skipped)
+    float* cf_i = SKIP ? xr_i
+                       : ts + nx + 2 * CH * nx + 2 * w * (TILE + lead);
+    float* cf_q = SKIP ? xr_q : cf_i + TILE + lead;
 
-    const float* row_i = xi + (size_t)c * n;
-    const float* row_q = xq + (size_t)c * n;
-    const float* tail_i = ti + (size_t)c * halo;
-    const float* tail_q = tq + (size_t)c * halo;
-    const long x0 = (long)g0 - nb - fh;      // >= -halo, checked by the host
-    for (int j = threadIdx.x; j < nx; j += THREADS) {
-        const long gi = x0 + j;
-        float vi = 0.0f, vq = 0.0f;
-        if (gi < 0) {
-            vi = tail_i[halo + gi];
-            vq = tail_q[halo + gi];
-        } else if (gi < n) {             // past the block: feeds no output
-            vi = row_i[gi];
-            vq = row_q[gi];
-        }
-        xs_i[j] = vi;
-        xs_q[j] = vq;
-    }
-    __syncthreads();
+    const bool row_valid = c < C;
+    const size_t rc = row_valid ? (size_t)c : 0;
+    if (vec)
+        stage<4>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
+                 xq + rc * n, ti + rc * halo, tq + rc * halo, row_valid, tc,
+                 ts, xr_i, xr_q);
+    else
+        stage<1>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
+                 xq + rc * n, ti + rc * halo, tq + rc * halo, row_valid, tc,
+                 ts, xr_i, xr_q);
+    cp_async_wait_all();
+    __syncthreads();                     // the tables are the block's
+    if (!row_valid) return;
 
-    // channel filter (or pass-through) and the +/-dev mix at position
-    // P = g0 - nb + k
-    for (int k = threadIdx.x; k < np; k += THREADS) {
-        float ci, cq;
-        if (SKIP) {
-            ci = xs_i[k];
-            cq = xs_q[k];
-        } else {
-            const float* pi = xs_i + k + T - 1;
-            const float* pq = xs_q + k + T - 1;
-            ci = 0.0f;
-            cq = 0.0f;
+    if constexpr (!SKIP) {
+        // cf[k] = sum_u hc[u] * x[position - u], ascending u from zero
+        for (int k = lane; k < TILE + lead; k += 32) {
+            const float* pi = xr_i + k + fh;
+            const float* pq = xr_q + k + fh;
+            float ci = 0.0f, cq = 0.0f;
             for (int u = 0; u < T; ++u) {
                 ci = __fadd_rn(ci, __fmul_rn(hc.h[u], pi[-u]));
                 cq = __fadd_rn(cq, __fmul_rn(hc.h[u], pq[-u]));
             }
+            cf_i[k] = ci;
+            cf_q[k] = cq;
         }
-        long p = ((long)g0 - nb + k) % n;
-        if (p < 0) p += n;
-        const float cv = tab_cos[p], sv = tab_sin[p];
-        pl[k] = __fadd_rn(__fmul_rn(ci, cv), __fmul_rn(cq, sv));           // +I
-        pl[np + k] = __fsub_rn(__fmul_rn(cq, cv), __fmul_rn(ci, sv));      // +Q
-        pl[2 * np + k] = __fsub_rn(__fmul_rn(ci, cv), __fmul_rn(cq, sv));  // -I
-        pl[3 * np + k] = __fadd_rn(__fmul_rn(cq, cv), __fmul_rn(ci, sv));  // -Q
+        __syncwarp();
     }
-    __syncthreads();
 
-    // boxcar: lp[l] at position g0 - 1 + l sums plane positions
-    // g0 - 1 + l - v, v < nb, i.e. plane index l - 1 - v + nb
-    for (int l = threadIdx.x; l < nl; l += THREADS) {
-        for (int a = 0; a < 4; ++a) {
-            const float* p = pl + a * np + l - 1 + nb;
-            float acc = 0.0f;
-            for (int v = 0; v < nb; ++v) acc = __fadd_rn(acc, p[-v]);
-            lp[a * nl + l] = __fmul_rn(acc, inv_nb);
+    // window position j (0 .. RO + nb - 2) is g0 + t0 - A - (nb - 1) + j;
+    // boxcar output o (0 .. RO - 1), at g0 + t0 - A + o, sums positions
+    // j = o + nb - 1 down to o, so the walk goes down j
+    const int t0 = lane * R;
+    const int k0 = lead + t0 - A - (nb - 1);
+    const float* pi = cf_i + k0;
+    const float* pq = cf_q + k0;
+    const float* pc = tc + fh + k0;
+    const float* psn = ts + fh + k0;
+    float acc[4][RO];
+#pragma unroll
+    for (int o = 0; o < RO; ++o)
+        acc[0][o] = acc[1][o] = acc[2][o] = acc[3][o] = 0.0f;
+    auto position = [&](const int j) {
+        const float ci = pi[j], cq = pq[j], cv = pc[j], sv = psn[j];
+        const float ic = __fmul_rn(ci, cv), qs = __fmul_rn(cq, sv);
+        const float qc = __fmul_rn(cq, cv), is = __fmul_rn(ci, sv);
+        const float pl[4] = {__fadd_rn(ic, qs),    // +tone I
+                             __fsub_rn(qc, is),    // +tone Q
+                             __fsub_rn(ic, qs),    // -tone I
+                             __fadd_rn(qc, is)};   // -tone Q
+#pragma unroll
+        for (int o = 0; o < RO; ++o) {
+            const bool feeds = NB > 0 ? (o <= j && j < o + NB)
+                                      : (unsigned)(j - o) < (unsigned)nb;
+            if (feeds) {
+#pragma unroll
+                for (int a = 0; a < 4; ++a)
+                    acc[a][o] = __fadd_rn(acc[a][o], pl[a]);
+            }
         }
+    };
+    if constexpr (NB > 0) {
+#pragma unroll
+        for (int j = RO + NB - 2; j >= 0; --j) position(j);
+    } else {
+#pragma unroll 1
+        for (int j = RO + nb - 2; j >= 0; --j) position(j);
     }
-    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < RO; ++o)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) acc[a][o] = __fmul_rn(acc[a][o], inv_nb);
 
-    const float* lpi = lp;
-    const float* lpq = lp + nl;
-    const float* lmi = lp + 2 * nl;
-    const float* lmq = lp + 3 * nl;
+    float* orow = xr_i;                  // the metric, staged for the store
+    __syncwarp();                        // every lane's window is read
     float s_dc = 0.0f, s_re = 0.0f, s_im = 0.0f;
-    for (int t = threadIdx.x; t < TILE; t += THREADS) {
-        const int g = g0 + t;
-        if (g >= n) break;
-        const int l = t + 1;
-        const float pp = __fadd_rn(__fmul_rn(lpi[l], lpi[l]),
-                                   __fmul_rn(lpq[l], lpq[l]));
-        const float pm = __fadd_rn(__fmul_rn(lmi[l], lmi[l]),
-                                   __fmul_rn(lmq[l], lmq[l]));
+#pragma unroll
+    for (int o = A; o < RO; ++o) {
+        const float lpi = acc[0][o], lpq = acc[1][o];
+        const float lmi = acc[2][o], lmq = acc[3][o];
+        const float pp = __fadd_rn(__fmul_rn(lpi, lpi), __fmul_rn(lpq, lpq));
+        const float pm = __fadd_rn(__fmul_rn(lmi, lmi), __fmul_rn(lmq, lmq));
         const float met = __fdiv_rn(__fsub_rn(pp, pm),
                                     __fadd_rn(__fadd_rn(pp, pm), 1e-12f));
-        metric[(size_t)c * n + g] = met;
-        s_dc += met;
-        if (AFC && g >= 1) {
-            float a = __fmul_rn(lpi[l], lpi[l - 1]);
-            a = __fadd_rn(a, __fmul_rn(lpq[l], lpq[l - 1]));
-            a = __fadd_rn(a, __fmul_rn(lmi[l], lmi[l - 1]));
-            a = __fadd_rn(a, __fmul_rn(lmq[l], lmq[l - 1]));
-            float b = __fmul_rn(lpq[l], lpi[l - 1]);
-            b = __fsub_rn(b, __fmul_rn(lpi[l], lpq[l - 1]));
-            b = __fadd_rn(b, __fmul_rn(lmq[l], lmi[l - 1]));
-            b = __fsub_rn(b, __fmul_rn(lmi[l], lmq[l - 1]));
+        orow[t0 + o - A] = met;
+        const int g = g0 + t0 + o - A;
+        if (g < n) s_dc += met;
+        if (AFC && g >= 1 && g < n) {
+            float a = __fmul_rn(lpi, acc[0][o - A]);
+            a = __fadd_rn(a, __fmul_rn(lpq, acc[1][o - A]));
+            a = __fadd_rn(a, __fmul_rn(lmi, acc[2][o - A]));
+            a = __fadd_rn(a, __fmul_rn(lmq, acc[3][o - A]));
+            float b = __fmul_rn(lpq, acc[0][o - A]);
+            b = __fsub_rn(b, __fmul_rn(lpi, acc[1][o - A]));
+            b = __fadd_rn(b, __fmul_rn(lmq, acc[2][o - A]));
+            b = __fsub_rn(b, __fmul_rn(lmi, acc[3][o - A]));
             s_re += a;
             s_im += b;
         }
     }
-    const size_t cell = (size_t)c * gridDim.x + blockIdx.x;
-    const float tot = block_sum(s_dc, warp_sums);
-    if (threadIdx.x == 0) dc_part[cell] = tot;
+    __syncwarp();
+    float* mrow = metric + (size_t)c * n + g0;
+    if (vec) {
+        for (int k = 4 * lane; k < TILE && g0 + k < n; k += 4 * 32)
+            *reinterpret_cast<float4*>(mrow + k) =
+                *reinterpret_cast<const float4*>(orow + k);
+    } else {
+        for (int k = lane; k < TILE && g0 + k < n; k += 32) mrow[k] = orow[k];
+    }
+    s_dc = warp_sum(s_dc);
     if (AFC) {
-        const float tre = block_sum(s_re, warp_sums);
-        if (threadIdx.x == 0) re_part[cell] = tre;
-        const float tim = block_sum(s_im, warp_sums);
-        if (threadIdx.x == 0) im_part[cell] = tim;
+        s_re = warp_sum(s_re);
+        s_im = warp_sum(s_im);
+    }
+    if (lane == 0) {
+        const size_t cell = (size_t)c * gridDim.x + blockIdx.x;
+        dc_part[cell] = s_dc;
+        if (AFC) {
+            re_part[cell] = s_re;
+            im_part[cell] = s_im;
+        }
     }
 }
 
-template <bool SKIP, bool AFC>
+template <int NB, bool SKIP, bool AFC>
 int launch(const float* xi, const float* xq, const float* ti, const float* tq,
            const Taps& th, int T, int nb, const float* tc, const float* ts,
            int C, int n, int halo, float* metric, float* dcp, float* rep,
            float* imp, cudaStream_t stream) {
     const int fh = SKIP ? 0 : T - 1;
+    // stage from a multiple of 4 before the block where the tail allows,
+    // so that rows and tables copy in 16-byte words
+    const int need = nb - 1 + (AFC ? 1 : 0) + fh;
+    const int up = (need + 3) / 4 * 4;
+    const int xlead = up <= halo ? up : need;
+    const int nx = TILE + xlead;
+    const bool vec = xlead % 4 == 0 && n % 4 == 0 && halo % 4 == 0 &&
+                     aligned16(xi) && aligned16(xq) && aligned16(ti) &&
+                     aligned16(tq) && aligned16(tc) && aligned16(ts) &&
+                     aligned16(metric);
+    // the tables and CH rows, then the chanfilt rows
     const size_t shm = sizeof(float) *
-        (2 * (TILE + nb + fh) + 4 * (TILE + nb) + 4 * (TILE + 1));
-    if (shm > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const dim3 grid((n + TILE - 1) / TILE, C);
-    dualtone_kernel<SKIP, AFC><<<grid, THREADS, shm, stream>>>(
-        xi, xq, ti, tq, th, T, nb, (float)(1.0 / nb), tc, ts, n, halo, metric,
-        dcp, rep, imp);
+        (2 * nx + 2 * CH * nx + (SKIP ? 0 : 2 * CH * (TILE + xlead - fh)));
+    const cudaError_t err = cudaFuncSetAttribute(
+        dualtone_kernel<NB, SKIP, AFC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((n + TILE - 1) / TILE, (C + CH - 1) / CH);
+    dualtone_kernel<NB, SKIP, AFC><<<grid, THREADS, shm, stream>>>(
+        xi, xq, ti, tq, th, T, nb, (float)(1.0 / nb), tc, ts, C, n, halo,
+        xlead, vec, metric, dcp, rep, imp);
     return (int)cudaGetLastError();
+}
+
+template <bool AFC>
+int dispatch(const float* xi, const float* xq, const float* ti,
+             const float* tq, const Taps& th, int T, int nb, const float* tc,
+             const float* ts, bool skip, int C, int n, int halo,
+             float* metric, float* dcp, float* rep, float* imp,
+             cudaStream_t s) {
+    if (!skip)
+        return launch<0, false, AFC>(xi, xq, ti, tq, th, T, nb, tc, ts, C, n,
+                                     halo, metric, dcp, rep, imp, s);
+    if (nb == 5)
+        return launch<5, true, AFC>(xi, xq, ti, tq, th, T, nb, tc, ts, C, n,
+                                    halo, metric, dcp, rep, imp, s);
+    return launch<0, true, AFC>(xi, xq, ti, tq, th, T, nb, tc, ts, C, n,
+                                halo, metric, dcp, rep, imp, s);
 }
 
 }  // namespace
@@ -201,7 +323,9 @@ SONDETPU_API int sondetpu_dualtone_tiles(int n) {
 // xi, xq [C, n]; ti, tq [C, halo]; hc: host array of T taps (read unless
 // skip_chanfilt); tab_cos, tab_sin [n] (device); metric [C, n];
 // dc_part, re_part, im_part [C, sondetpu_dualtone_tiles(n)] (the last two
-// written only when want_afc).
+// written only when want_afc). Skipped chanfilt with nb = 5 runs the
+// compile-time body, other nb the run-time one; the chanfilt bodies take
+// nb at run time.
 SONDETPU_API int sondetpu_dualtone_frontend(
     const float* xi, const float* xq, const float* ti, const float* tq,
     const float* hc, int T, int nb, const float* tab_cos,
@@ -216,20 +340,11 @@ SONDETPU_API int sondetpu_dualtone_frontend(
     if (!skip_chanfilt)
         for (int u = 0; u < T; ++u) th.h[u] = hc[u];
     cudaStream_t s = (cudaStream_t)stream;
-    if (skip_chanfilt) {
-        if (want_afc)
-            return launch<true, true>(xi, xq, ti, tq, th, T, nb, tab_cos,
-                                      tab_sin, C, n, halo, metric, dc_part,
-                                      re_part, im_part, s);
-        return launch<true, false>(xi, xq, ti, tq, th, T, nb, tab_cos,
-                                   tab_sin, C, n, halo, metric, dc_part,
-                                   re_part, im_part, s);
-    }
     if (want_afc)
-        return launch<false, true>(xi, xq, ti, tq, th, T, nb, tab_cos,
-                                   tab_sin, C, n, halo, metric, dc_part,
-                                   re_part, im_part, s);
-    return launch<false, false>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
-                                C, n, halo, metric, dc_part, re_part,
-                                im_part, s);
+        return dispatch<true>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
+                              skip_chanfilt != 0, C, n, halo, metric, dc_part,
+                              re_part, im_part, s);
+    return dispatch<false>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
+                           skip_chanfilt != 0, C, n, halo, metric, dc_part,
+                           re_part, im_part, s);
 }

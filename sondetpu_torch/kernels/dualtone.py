@@ -28,6 +28,18 @@ def mixer_tables(n: int, dev_over_fs: float):
             np.sin(2.0 * np.pi * frac).astype(np.float32))
 
 
+def dualtone_body(nb: int, skip_chanfilt: bool, want_afc: bool) -> str:
+    """The kernel body that runs these arguments: with the channel filter
+    skipped, nb = 5 (m10's one-chip boxcar at 48 kHz) compiled in or nb at
+    run time; with the channel filter, nb at run time; each with or without
+    the AFC sums."""
+    if skip_chanfilt:
+        name = "skip_nb5" if nb == 5 else "skip_runtime_nb"
+    else:
+        name = "chanfilt"
+    return name + ("_afc" if want_afc else "")
+
+
 def _check_args(iq_i, chan_taps, tab_cos, nb, skip_chanfilt):
     c, n = iq_i.shape
     ntaps = len(chan_taps)
@@ -113,7 +125,8 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
     metric; rot_re/rot_im are the AFC envelope-rotation sums over the pairs
     (k, k-1), 1 <= k < n (zeros unless ``want_afc``).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel body
+    that :func:`dualtone_body` names.
     """
     dev = iq_i.device
     if dev.type == "cpu":
@@ -143,7 +156,8 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
                 tab_sin.data_ptr(), int(skip_chanfilt), int(want_afc), c, n,
                 HALO, metric.data_ptr(), parts[0].data_ptr(),
                 parts[1].data_ptr(), parts[2].data_ptr(),
-                cuda.stream_handle(dev))
+                cuda.stream_handle(dev),
+                body=dualtone_body(nb, skip_chanfilt, want_afc))
     sums = torch.sum(parts, dim=-1)
     return (metric, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
             sums[0] / torch.full((), float(n), dtype=torch.float32,

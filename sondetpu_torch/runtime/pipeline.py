@@ -427,9 +427,8 @@ class Pipeline:
             templates.append(spec.sync_chip_template(alt))
         for b in spec.extra.get("alt_sync_bits", ()):
             templates.append(spec.sync_chip_template(bits=np.asarray(b)))
+        # host arrays: the correlator kernel takes its taps from the host
         self._np_templates = [np.asarray(t, np.float32) for t in templates]
-        self._templates = [torch.from_numpy(t).to(dev)
-                           for t in self._np_templates]
         self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
         self._afsk = spec.modulation == "afsk"
         if self._afsk:
@@ -570,7 +569,7 @@ class Pipeline:
         paths (the original's choice, ``pipeline.py:948-970``)."""
         if self._dualtone or self._afsk:
             return correlate_syncword(chipbuf, self._np_templates[k])
-        return corr_kernel(chipbuf, self._templates[k])
+        return corr_kernel(chipbuf, self._np_templates[k])
 
     def _step_impl(self, state: PipelineState, iq_i: torch.Tensor,
                    iq_q: torch.Tensor):
@@ -645,7 +644,7 @@ class Pipeline:
         corr = self._correlate(chipbuf, 0)
         if spec.extra.get("abs_corr"):
             corr = corr.abs()
-        for k in range(1, len(self._templates)):
+        for k in range(1, len(self._np_templates)):
             corr2 = self._correlate(chipbuf, k)
             if spec.extra.get("abs_corr"):
                 corr2 = corr2.abs()

@@ -28,7 +28,8 @@ from sondetpu.sondes import m10 as jm10
 from sondetpu.sync import coding as jcoding
 from sondetpu.sync import correlator as jcorrelator
 from sondetpu_torch.kernels import cuda
-from sondetpu_torch.kernels.dualtone import (HALO, fused_dualtone_frontend,
+from sondetpu_torch.kernels.dualtone import (HALO, dualtone_body,
+                                             fused_dualtone_frontend,
                                              fused_dualtone_plain,
                                              mixer_tables)
 from sondetpu_torch.runtime import pipeline as tpipe
@@ -101,6 +102,18 @@ def test_dualtone_stream_continuity():
                                rtol=0, atol=0)
     with pytest.raises(ValueError, match="mixer tables"):
         fused_dualtone_plain(x_i, x_q, t_i, t_q, taps, *tabs, 5)
+
+
+@pytest.mark.parametrize("nb,skip,afc,want", [
+    (5, True, False, "skip_nb5"), (5, True, True, "skip_nb5_afc"),
+    (7, True, False, "skip_runtime_nb"), (2, True, True,
+                                          "skip_runtime_nb_afc"),
+    (5, False, False, "chanfilt"), (7, False, True, "chanfilt_afc"),
+])
+def test_dualtone_body(nb, skip, afc, want):
+    """The dual-tone body for the arguments: m10's nb = 5 compiled in when
+    the channel filter is skipped, nb at run time otherwise."""
+    assert dualtone_body(nb, skip, afc) == want
 
 
 def test_line_decoders_match_jax():
@@ -388,3 +401,30 @@ def test_cuda_dualtone_matches_twin(cuda_device):
     assert torch.equal(got[0], want[0])
     for k in (3, 4, 5):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,n,skip,afc,nb", [
+    (16, 48000, True, False, 5), (13, 30001, True, False, 5),
+    (9, 48000, True, True, 5), (8, 30001, True, False, 7),
+    (1, 1003, True, True, 7), (5, 30001, False, False, 3),
+    (3, 4800, False, True, 5),
+], ids=["m10", "edge-c13", "skip-afc", "runtime-nb7", "edge-c1-afc",
+        "chanfilt", "chanfilt-afc"])
+def test_cuda_dualtone_bodies_exact(cuda_device, c, n, skip, afc, nb):
+    """Every body of the dual-tone front end: metric bit-equal to the twin,
+    sums within 1e-5 relative, tails equal, on channel counts that are not
+    a multiple of the block's eight rows and blocks that are not a multiple
+    of the tile."""
+    planes = [T(p).to(cuda_device) for p in _dualtone_inputs(19, c, n)]
+    tabs = [T(t).to(cuda_device) for t in mixer_tables(n, DEV / FS)]
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    cuda.reset_launches()
+    got = fused_dualtone_frontend(*planes, taps, *tabs, nb, afc, skip)
+    want = fused_dualtone_plain(*planes, taps, *tabs, nb, afc, skip)
+    assert cuda.body_launches == {
+        f"fused_dualtone_frontend:{dualtone_body(nb, skip, afc)}": 1}
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for k in (3, 4, 5):
+        scale = max(float(want[k].abs().max()), 1e-30)
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale

@@ -25,7 +25,8 @@ from sondetpu.sync.correlator import find_frame_starts as jax_find_frame_starts
 from sondetpu.sync.timing import oerder_meyr_tau as jax_oerder_meyr_tau
 from sondetpu_torch.fec.syndrome import layout_matrix
 from sondetpu_torch.kernels import cuda
-from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
+from sondetpu_torch.kernels.corr import (corr_body, corr_kernel, corr_plain,
+                                         is_sign_template)
 from sondetpu_torch.dsp.fir import apply_windows
 from sondetpu_torch.kernels.frontend import (HALO, fast_atan2, fused_frontend,
                                              fused_frontend_plain,
@@ -148,6 +149,70 @@ def test_corr_matches_pallas():
     np.testing.assert_allclose(
         got.numpy(), np.asarray(jax_correlate_syncword(jnp.asarray(buf), tmpl)),
         atol=1e-5)
+
+
+def _signs(L, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, L) * 2 - 1).astype(dtype)
+
+
+@pytest.mark.parametrize("tmpl,want", [
+    (SPEC.sync_chip_template(), True), (_signs(32), True),
+    (_signs(64, dtype=np.float64), True), (np.ones(1, np.float32), True),
+    (np.where(_signs(64) > 0, 1.0, 0.0).astype(np.float32), False),
+    (np.where(_signs(64) > 0, 1.0, -0.0).astype(np.float32), False),
+    (np.full(64, 0.5, np.float32), False),
+    (np.where(np.arange(64) == 5, np.nan, _signs(64)).astype(np.float32),
+     False),
+    (np.where(np.arange(64) == 7, np.nextafter(np.float32(1), np.float32(2)),
+              _signs(64)).astype(np.float32), False),
+    (np.where(np.arange(64) < 32, _signs(64), 0.5).astype(np.float32), False),
+    (np.zeros(0, np.float32), False),
+    (_signs(64).reshape(8, 8), False),
+], ids=["rs41", "signs32", "signs-f64", "one", "zeros-and-ones",
+        "negative-zero", "halves", "nan", "one-ulp-high", "mixed", "empty",
+        "2-d"])
+def test_is_sign_template(tmpl, want):
+    """The host check that picks the correlator's sign body: true only when
+    every tap is exactly +1.0 or -1.0 in float32."""
+    assert is_sign_template(tmpl) is want
+
+
+@pytest.mark.parametrize("length,sign,want", [
+    (64, True, "sign_l64"), (32, True, "sign_l32"), (48, True,
+                                                     "sign_runtime_l"),
+    (1, True, "sign_runtime_l"), (64, False, "rounded_l64"),
+    (32, False, "rounded_l32"), (20, False, "rounded_runtime_l"),
+    (65, True, "long_l"), (80, False, "long_l"), (2048, True, "long_l"),
+])
+def test_corr_body(length, sign, want):
+    """The correlator body for a template: compiled L = 64 or 32, L at run
+    time up to 64, the shared-template body above."""
+    assert corr_body(length, sign) == want
+
+
+def test_sign_template_products_are_exact():
+    """What the sign body relies on: t * x for t = +/-1 is x or -x exactly
+    (zeros, subnormals, huge and non-finite values included), so a fused
+    multiply-add rounds once the sum the twin rounds."""
+    rng = np.random.default_rng(15)
+    x = np.concatenate([rng.normal(size=4000) * 10.0 ** rng.integers(
+        -40, 38, 4000), [0.0, -0.0, 1e-45, -1e-45, 3e38, np.inf, -np.inf]]
+    ).astype(np.float32)
+    for t in (np.float32(1.0), np.float32(-1.0)):
+        got = (torch.from_numpy(x) * torch.tensor(t)).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      (x if t > 0 else -x).view(np.uint32))
+
+
+def test_corr_kernel_takes_a_host_template():
+    """The pipeline hands the correlator its NumPy template: the same
+    result as a tensor template."""
+    rng = np.random.default_rng(16)
+    buf = torch.from_numpy(rng.normal(size=(4, 900)).astype(np.float32))
+    t = SPEC.sync_chip_template()
+    assert torch.equal(corr_kernel(buf, t),
+                       corr_kernel(buf, torch.from_numpy(t)))
 
 
 def _frames_clean_and_corrupt(seed, rows):
@@ -332,3 +397,33 @@ def test_cuda_fused_frontend_bodies_exact(cuda_device, decim, ntaps, taps):
     body = (f"decim{decim}_" + ("t41" if ntaps == 41 else "runtime_t")
             + ("_identity" if taps == "delta" else ""))
     assert cuda.body_launches == {f"fused_frontend:{body}": 1}
+
+
+@pytest.mark.parametrize("label,c,n,kind,L,body", [
+    ("rs41", 16, 7360, "rs41", 64, "sign_l64"),
+    ("rounded-l64", 16, 7360, "normal", 64, "rounded_l64"),
+    ("dfm", 8, 10560, "dfm", 32, "sign_l32"),
+    ("rounded-l32", 8, 4000, "normal", 32, "rounded_l32"),
+    ("sign-runtime", 8, 4001, "signs", 48, "sign_runtime_l"),
+    ("rounded-runtime", 8, 4001, "normal", 20, "rounded_runtime_l"),
+    ("long", 4, 9001, "normal", 300, "long_l"),
+    ("edge-c1", 1, 4099, "rs41", 64, "sign_l64"),
+    ("edge-c3-l32", 3, 3871, "signs", 32, "sign_l32"),
+])
+def test_cuda_corr_bodies_exact(cuda_device, label, c, n, kind, L, body):
+    """Every body of the correlator equals its twin bit for bit, on
+    buffers that are not a multiple of the tile (nor, for some, of four)."""
+    from sondetpu_torch.sondes.dfm import SPEC as DFM_SPEC
+
+    rng = np.random.default_rng(17)
+    t = {"rs41": SPEC.sync_chip_template, "dfm": DFM_SPEC.sync_chip_template,
+         "signs": lambda: _signs(L, 18),
+         "normal": lambda: rng.normal(size=L).astype(np.float32)}[kind]()
+    assert len(t) == L
+    buf = torch.from_numpy(rng.normal(size=(c, n)).astype(np.float32)
+                           ).to(cuda_device)
+    cuda.reset_launches()
+    got = corr_kernel(buf, t)
+    assert torch.equal(got, corr_plain(buf, torch.from_numpy(t).to(
+        cuda_device)))
+    assert cuda.body_launches == {f"corr:{body}": 1}
