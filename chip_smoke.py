@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # env, build and step profiles only
-    python3 chip_smoke.py --tune       # env, build, K2 and K7 per R only
+    python3 chip_smoke.py --tune       # env, build, K2/K7/K10 per R, K3 per F
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -25,33 +25,43 @@ before the result line:
    long-template body, edge shapes) and the dual-tone front end every body
    (compiled nb 5 and run-time nb, channel filter, AFC, channel counts
    that are not a multiple of its eight rows), each equal to its twin. The
-   two kernels no path runs (the r4 demod+FIR front end, the lane
-   experiment's FIR) are held to theirs too; plain_correlation checks that
-   the dual-tone and AFSK paths' syncword correlation divides by L.
+   RS syndrome flag runs both bodies (384 and 512 columns) on RS41's 320-
+   and rs41x's 518-byte frames (both timed), one row, row counts that are
+   not a multiple of a block's frames, frames off 4-byte alignment and a
+   61-byte layout, equal to its twin and to the truth. The two kernels no
+   path runs (the r4 demod+FIR front end, the lane experiment's FIR, the
+   latter in both bodies and on edge shapes) are held to theirs too;
+   plain_correlation checks that the dual-tone and AFSK paths' syncword
+   correlation divides by L.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's and body's
    launch count read from that run alone; then an 8-channel run with three
    serials, held byte for byte to the same pipeline on the CPU (plain
-   twins).
+   twins) and its telemetry to the CPU session's.
 5. step: steady-state step time, the real-time channels it implies, and
    peak device memory.
-6. pfb_stream: the 2048-bin channelizer fed blocks shorter than its
+6. rs41x_path: the same path on rs41x's 518-byte extended frames with an
+   ozone reading (2 blocks): serial and ozone aux on every channel, K3's
+   launches read from that run alone; then rs41x_distinct, 8 channels with
+   three serials and readings, card against CPU as in 4.
+7. pfb_stream: the 2048-bin channelizer fed blocks shorter than its
    history (the pfb_fir_timemajor path) equals one long block.
-7. fleet_path: FleetSession.process_wideband at 2048 bins x 4 s (1230
+8. fleet_path: FleetSession.process_wideband at 2048 bins x 4 s (1230
    rs41, 614 m10, 204 dfm channels), 4 blocks with rs41, m10 and dfm
    carriers in bins 1, 6 and 9: their serials decoded, every kernel of the
    path launched.
-8. fleet_distinct: a 16-bin fleet with two channels per family, on the
+9. fleet_distinct: a 16-bin fleet with two channels per family, on the
    card and on the CPU (twins): validity, valid frame bytes and telemetry
    equal.
-9. fleet_step: the fleet's device step, the real-time channels it implies,
-   peak device memory, and process_wideband with readback and host decode.
-10. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
+10. fleet_step: the fleet's device step, the real-time channels it
+    implies, peak device memory, and process_wideband with readback and
+    host decode.
+11. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
     at 2048 channels x 4 s: the truth's telemetry on every channel, the
     front end's identity body and the AFSK tone kernel launched, the
     correlator not; then each family's steady-state device step
     (afsk_step).
-11. afsk_distinct: 8 channels of each family with four distinct truths, on
+12. afsk_distinct: 8 channels of each family with four distinct truths, on
     the card and on the CPU (twins): validity, valid frame bytes and
     telemetry equal.
 
@@ -59,9 +69,10 @@ At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
 bodies and torch.profiler reads the device kernels of three steady steps
 of the RS41, imet4 and c50 paths and of the 2048-bin fleet instead (no
-result line). With --tune, K2 and K7 are rebuilt with other outputs per
-thread (-DSONDETPU_CORR_R, -DSONDETPU_DUALTONE_R) and timed at the path's
-shapes (no result line).
+result line). With --tune, K2, K7 and K10 are rebuilt with other outputs
+per thread (-DSONDETPU_CORR_R, -DSONDETPU_DUALTONE_R,
+-DSONDETPU_LANE_FIR_R) and K3 with other frames per warp
+(-DSONDETPU_RS_CLEAN_F), and timed at the paths' shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run and per step on each path), the card as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
@@ -110,12 +121,26 @@ KERNEL_SOURCES = {
 # own, so each is one operation at half that rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
+# 32-bit integer logic (LOP3): 64 a clock per SM, 132 SMs at the 1.98 GHz
+# boost clock (NVIDIA's H100 SXM data sheet and CUDA's throughput table)
+INT_LOGIC_OPS_PER_S = 64 * 132 * 1.98e9
 # the FM discriminator per output: 4 products and 2 sums, fast_atan2's
 # division, 5 polynomial steps of a product and a sum, 4 more, the scale
 DISC_OPS = 23
 K1_DC_TOL = 1e-5   # K1's block DC is summed in another order than the twin's
 # AFSK families: (mark Hz, space Hz, boxcar win = fs / baud)
 AFSK_TONES = {"imet4": (1200.0, 2200.0, 40), "c50": (2400.0, 4800.0, 20)}
+# the ozone reading of the rs41x path's extended frames, mPa
+RS41X_O3 = 2.25
+# K3's layouts beside RS41's: (frame bytes, RS layout). 61 bytes (not a
+# multiple of 4) with one 8-root codeword, 64 columns; 267 bytes with two
+# interleaved 32-root codewords, 512 columns (the c512 body)
+EDGE_LAYOUTS = {
+    "odd61": (61, {"data_start": 9, "parity_start": 1, "nroots": 8,
+                   "interleave": 1, "fcr": 0, "prim": 0x11D}),
+    "c512": (267, {"data_start": 66, "parity_start": 2, "nroots": 32,
+                   "interleave": 2, "fcr": 0, "prim": 0x11D}),
+}
 # carriers of the fleet path: (bin, family, serial the decoder reports)
 FLEET_CARRIERS = ((1, "rs41", "S1234567"), (6, "m10", "910-2-12345"),
                   (9, "dfm", "1234567"))
@@ -156,17 +181,21 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def rs41_planes(serial: str, n_blocks: int, seed: int):
+def rs41_planes(serial: str, n_blocks: int, seed: int, o3_mpa=None):
     """int16 (i, q) planes [n_blocks * BLOCK_LEN] of back-to-back RS41
     frames with complex noise of std 0.1 per component (the JAX package's
-    bench signal), quantized to cs16."""
-    from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+    bench signal), quantized to cs16. With ``o3_mpa`` the frames are
+    rs41x's 518-byte extended frames carrying that ozone reading."""
+    from sondetpu_torch.sondes.rs41 import (RS41Modulator, RS41Truth,
+                                            RS41XModulator)
 
     n = n_blocks * BLOCK_LEN
-    n_frames = int(np.ceil(n / (FS / 4800.0) / 2560)) + 1
-    iq = RS41Modulator().modulate(
-        [RS41Truth(serial=serial, frame_no=i) for i in range(n_frames)],
-        fs=FS)[:n]
+    ext = o3_mpa is not None
+    bits = 518 * 8 if ext else 2560
+    n_frames = int(np.ceil(n / (FS / 4800.0) / bits)) + 1
+    iq = (RS41XModulator() if ext else RS41Modulator()).modulate(
+        [RS41Truth(serial=serial, frame_no=i, o3_mpa=o3_mpa)
+         for i in range(n_frames)], fs=FS)[:n]
     rng = np.random.default_rng(seed)
     noisy = iq + (rng.normal(size=n) + 1j * rng.normal(size=n)
                   ).astype(np.complex64) * 0.1
@@ -399,16 +428,13 @@ def corr_bound(buf, L: int, sign: bool):
 
 
 def phase_kernels(torch, dev):
-    """K2 in every body and K3 against their twins at the RS41 path's
-    shapes."""
+    """K2 in every body and K3 (phase_syndrome) against their twins at the
+    RS41 path's shapes."""
     import torch.nn.functional as F
 
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.corr import (corr_body, corr_kernel,
                                              corr_plain, is_sign_template)
-    from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
-                                                 rs_clean_plain)
-    from sondetpu_torch.sondes.rs41 import (SPEC, RS41Modulator, RS41Truth)
 
     rng = np.random.default_rng(0)
     results = {}
@@ -454,52 +480,142 @@ def phase_kernels(torch, dev):
     results["corr"] = results.pop("rs41")
     results["corr_rounded_l64"] = results.pop("rounded-l64")
 
-    # K3: RS syndrome flags on 2048 x 9 frame rows, clean and corrupted
-    mod = RS41Modulator()
-    base = np.stack([mod.build_frame(RS41Truth(frame_no=k))
-                     for k in range(64)])
-    rows = CHANNELS * 9
-    frames = base[rng.integers(0, 64, size=rows)]
-    bad = rng.random(rows) < 0.5
-    for r in np.nonzero(bad)[0]:
-        pos = rng.choice(np.arange(8, 320), size=rng.integers(1, 4),
-                         replace=False)
-        frames[r, pos] ^= rng.integers(1, 256, size=pos.size).astype(np.uint8)
-    fr = torch.from_numpy(frames).to(dev).reshape(CHANNELS, 9, 320)
-    layout = SPEC.extra["rs"]
-    got = rs_clean_flags_kernel(fr, layout)
-    want = rs_clean_plain(fr, layout)
-    torch.cuda.synchronize()
-    truth = torch.from_numpy(~bad).to(dev).reshape(CHANNELS, 9)
-    mismatches = int((got != want).sum())
-    check(mismatches == 0, f"rs_clean: {mismatches} rows differ from twin")
-    check(torch.equal(got, truth), "rs_clean: verdicts differ from truth")
-    # each set bit of a frame XORs the 12 packed words of its W row
-    entry = {"phase": "kernel", "name": "rs_clean", "rows": rows,
-             "clean_rows": int((~bad).sum()), "max_abs_err": 0.0, "tol": 0,
-             "ms": cuda_ms(torch, lambda: rs_clean_flags_kernel(fr, layout),
-                           50),
-             "plain_ms": cuda_ms(torch, lambda: rs_clean_plain(fr, layout), 5),
-             "library_ms": None,
-             **bound(frames.nbytes + rows,
-                     12 * int(np.unpackbits(frames).sum()))}
-    emit(entry)
-    results["rs_clean"] = entry
+    results.update(phase_syndrome(torch, dev, rng))
     return results
 
 
-def phase_main_path(torch, dev):
-    """The RS41 kernel path at 2048 channels through DecoderSession."""
+def corrupt_rows(rng, frames, covered):
+    """XOR 1-3 random bytes of ``covered`` into about half the rows (fewer
+    errors than the code's distance, so each such row is dirty). Returns
+    (frames, clean truth)."""
+    bad = rng.random(len(frames)) < 0.5
+    for r in np.nonzero(bad)[0]:
+        pos = rng.choice(covered, size=rng.integers(1, 4), replace=False)
+        frames[r, pos] ^= rng.integers(1, 256, size=pos.size).astype(np.uint8)
+    return frames, ~bad
+
+
+def syndrome_frames(rng, name: str, rows: int):
+    """K3's inputs: (frames [rows, fb] uint8, clean truth [rows], RS
+    layout). rs41 and rs41x: 64 distinct frames of the port's modulator
+    (320 and 518 bytes); the EDGE_LAYOUTS: random data with each codeword's
+    parity from the RS encoder. About half the rows are corrupted."""
+    from sondetpu_torch.fec.rs import ReedSolomon
+    from sondetpu_torch.sondes.rs41 import SPEC, RS41Modulator, RS41Truth
+
+    if name in ("rs41", "rs41x"):
+        ext = name == "rs41x"
+        base = np.stack([RS41Modulator().build_frame(RS41Truth(frame_no=k),
+                                                     extended=ext)
+                         for k in range(64)])
+        fb = base.shape[1]
+        return (*corrupt_rows(rng, base[rng.integers(0, 64, size=rows)],
+                              np.arange(8, fb)), SPEC.extra["rs"])
+    fb, layout = EDGE_LAYOUTS[name]
+    ds, ps, nroots, ilv = (layout[k] for k in ("data_start", "parity_start",
+                                               "nroots", "interleave"))
+    nrs = (fb - ds) // ilv
+    frames = rng.integers(0, 256, size=(rows, fb)).astype(np.uint8)
+    rs = ReedSolomon(nroots, layout["fcr"], layout["prim"])
+    covered = []
+    for i in range(ilv):
+        data = ds + ilv * np.arange(nrs) + i
+        parity = ps + nroots * i + np.arange(nroots)
+        frames[:, parity] = rs.encode(frames[:, data])[:, nrs:]
+        covered += [data, parity]
+    return (*corrupt_rows(rng, frames, np.concatenate(covered)), layout)
+
+
+def phase_syndrome(torch, dev, rng):
+    """K3 against its twin and the truth, in both bodies: RS41's 2048 x 9
+    rows of 320 bytes and rs41x's of 518 (both timed), one row, row counts
+    that are not a multiple of a block's frames, frames that are not
+    4-byte aligned in memory, a 61-byte layout (64 columns) and a 512-column
+    layout."""
+    from sondetpu_torch.fec.syndrome import layout_matrix
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.syndrome import (BODY_COLUMNS,
+                                                 rs_clean_flags_kernel,
+                                                 rs_clean_plain,
+                                                 syndrome_body)
+
+    rows = CHANNELS * 9
+    cases = (  # label, frames, rows, byte offset in memory, timed
+        ("rs41", "rs41", rows, 0, True), ("rs41x", "rs41x", rows, 0, True),
+        ("rows-1", "rs41", 1, 0, False),
+        ("rows-67-rs41x", "rs41x", 67, 0, False),
+        ("unaligned-rs41", "rs41", 1000, 1, False),
+        ("unaligned-rs41x", "rs41x", 1001, 3, False),
+        ("odd61", "odd61", 1000, 0, False), ("c512", "c512", 1001, 0, False))
+    results, bodies = {}, set()
+    for label, name, r, offset, timed in cases:
+        frames, truth, layout = syndrome_frames(rng, name, r)
+        fb = frames.shape[1]
+        flat = torch.zeros(r * fb + offset, dtype=torch.uint8, device=dev)
+        fr = flat[offset:].view(r, fb)
+        fr.copy_(torch.from_numpy(frames))
+        ncols = layout_matrix(fb, layout).shape[1]
+        body = "rs_clean:" + syndrome_body(ncols)
+        cuda.reset_launches()
+        got = rs_clean_flags_kernel(fr, layout)
+        want = rs_clean_plain(fr, layout)
+        torch.cuda.synchronize()
+        check(cuda.body_launches == {body: 1},
+              f"rs_clean {label}: bodies {cuda.body_launches}, expected "
+              f"{body}")
+        check(torch.equal(got, want), f"rs_clean {label}: "
+              f"{int((got != want).sum())} rows differ from the twin")
+        check(torch.equal(got.cpu(), torch.from_numpy(truth)),
+              f"rs_clean {label}: verdicts differ from the truth")
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "rs_clean", "case": label,
+                 "rows": r, "frame_bytes": fb, "columns": ncols,
+                 "data_ptr_mod_4": fr.data_ptr() % 4, "body": body,
+                 "clean_rows": int(truth.sum()), "max_abs_err": 0.0,
+                 "tol": 0}
+        if timed:
+            # the bound as PR 5 set it: frame bytes, and 12 packed-word
+            # XORs per set bit; beside it the column-parity form's LOP3
+            # (rows x padded columns x words) at the integer logic rate
+            width = BODY_COLUMNS[syndrome_body(ncols)]
+            lop3 = r * width * -(-fb // 4)
+            entry.update(
+                ms=cuda_ms(torch, lambda: rs_clean_flags_kernel(fr, layout),
+                           50),
+                plain_ms=cuda_ms(torch, lambda: rs_clean_plain(fr, layout),
+                                 5),
+                library_ms=None, lop3=lop3,
+                lop3_ms_at_integer_rate=lop3 / INT_LOGIC_OPS_PER_S * 1e3,
+                **bound(frames.nbytes + r,
+                        12 * int(np.unpackbits(frames).sum())))
+            results[label] = entry
+        emit(entry)
+        del flat, fr, got, want
+    check(bodies == {f"rs_clean:{b}" for b in BODY_COLUMNS},
+          f"rs_clean: bodies launched {bodies}")
+    results["rs_clean"] = results.pop("rs41")
+    results["rs_clean_rs41x"] = results.pop("rs41x")
+    return results
+
+
+def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4):
+    """The RS41 kernel path at 2048 channels through DecoderSession; with
+    sonde "rs41x", the same path on 518-byte extended frames carrying an
+    ozone reading of RS41X_O3 mPa (K3's second shape)."""
     from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
-    n_blocks = 4
-    cfg = PipelineConfig(sonde="rs41", channels=CHANNELS, block_len=BLOCK_LEN,
+    ext = sonde == "rs41x"
+    label = "rs41x path" if ext else "main path"
+    cfg = PipelineConfig(sonde=sonde, channels=CHANNELS, block_len=BLOCK_LEN,
                          use_pallas=True, compute_dtype="f32",
                          input_dtype="i16")
-    qi, qq = rs41_planes("S1234567", n_blocks, seed=0)
+    check(cfg.spec.frame_bytes == (518 if ext else 320),
+          f"{label}: frames of {cfg.spec.frame_bytes} bytes")
+    qi, qq = rs41_planes("S1234567", n_blocks, seed=0,
+                         o3_mpa=RS41X_O3 if ext else None)
     row_i = torch.from_numpy(qi).to(dev)
     row_q = torch.from_numpy(qq).to(dev)
     blocks = [(row_i[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
@@ -519,79 +635,103 @@ def phase_main_path(torch, dev):
     launches = dict(cuda.launches)
     bodies = dict(cuda.body_launches)
     m = sess.metrics
-    check(native.available(), "main path: the port's native FEC is not "
+    check(native.available(), f"{label}: the port's native FEC is not "
           "loaded")
-    check(m.frames_decoded > 0, "main path: no frames decoded")
+    check(m.frames_decoded > 0, f"{label}: no frames decoded")
     check(m.frames_decoded % CHANNELS == 0,
-          f"main path: {m.frames_decoded} decoded frames do not split evenly "
+          f"{label}: {m.frames_decoded} decoded frames do not split evenly "
           "over identical channels")
     check(sorted(sess.telemetry) == list(range(CHANNELS)),
-          "main path: channels without telemetry")
+          f"{label}: channels without telemetry")
     ref = sess.telemetry[0].to_dict()
-    check(ref.get("serial") == "S1234567", f"main path: telemetry {ref}")
+    check(ref.get("serial") == "S1234567", f"{label}: telemetry {ref}")
+    if ext:
+        check(ref.get("aux_data") == f"O3={RS41X_O3:.2f}mPa",
+              f"{label}: no ozone reading in {ref}")
     # compared as JSON text: NaN fields (uncalibrated PTU) compare equal
     ref_text = json.dumps(ref, sort_keys=True)
     check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
               == ref_text for ch in range(CHANNELS)),
-          "main path: telemetry differs between identical channels")
+          f"{label}: telemetry differs between identical channels")
     for name in ("fused_frontend", "corr", "rs_clean"):
-        check(launches[name] > 0, f"main path: kernel {name} was not "
+        check(launches[name] > 0, f"{label}: kernel {name} was not "
               "launched")
     # RS41's matched filter is a lowpass: the general decim-2 body; its
-    # syncword template is 64 chips of +/-1: the correlator's sign body
+    # syncword template is 64 chips of +/-1: the correlator's sign body; its
+    # 384 syndrome columns: K3's c384 body
     check(bodies == {"fused_frontend:decim2_t41": n_blocks,
-                     "corr:sign_l64": n_blocks},
-          f"main path: bodies {bodies}")
-    emit({"phase": "main_path", "channels": CHANNELS, "block_len": BLOCK_LEN,
-          "blocks": n_blocks, "frames_raw": m.frames_raw,
-          "frames_decoded": m.frames_decoded,
+                     "corr:sign_l64": n_blocks, "rs_clean:c384": n_blocks},
+          f"{label}: bodies {bodies}")
+    emit({"phase": "rs41x_path" if ext else "main_path", "sonde": sonde,
+          "channels": CHANNELS, "block_len": BLOCK_LEN, "blocks": n_blocks,
+          "frame_bytes": cfg.spec.frame_bytes, "k_slots": cfg.k_slots,
+          "frames_raw": m.frames_raw, "frames_decoded": m.frames_decoded,
           "frames_per_channel": m.frames_decoded // CHANNELS,
           "serial": ref.get("serial"), "lat": ref.get("lat"),
           "lon": ref.get("lon"), "alt": ref.get("alt"),
-          "launches": launches, "body_launches": bodies,
-          "process_block_seconds": block_seconds})
+          "aux_data": ref.get("aux_data"),
+          "launches": {k: v for k, v in launches.items() if v},
+          "body_launches": bodies, "process_block_seconds": block_seconds})
     return pipe, blocks, {"launches": launches, "bodies": bodies,
                           "steps": n_blocks}
 
 
-def phase_distinct(torch, dev):
-    """8 channels, three serials: the card's run equals the CPU run of the
-    same pipeline (plain twins) byte for byte, and each channel decodes
-    its own serial."""
+def phase_distinct(torch, dev, sonde: str = "rs41"):
+    """8 channels, three serials (rs41x: each with its own ozone reading):
+    the card's pipeline equals the CPU's (plain twins) byte for byte on
+    validity, valid frames and RS verdicts, the card's session equals the
+    CPU's telemetry, and each channel decodes its own serial."""
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
+    ext = sonde == "rs41x"
     serials = ["S1234567", "T7654321", "R0420042"]
+    o3 = [RS41X_O3 + k for k in range(3)] if ext else [None] * 3
     c, n_blocks = 8, 3
-    sig = [rs41_planes(s, n_blocks, seed=k + 1) for k, s in enumerate(serials)]
+    sig = [rs41_planes(s, n_blocks, seed=k + 1, o3_mpa=o3[k])
+           for k, s in enumerate(serials)]
     qi = np.stack([sig[ch % 3][0] for ch in range(c)])
     qq = np.stack([sig[ch % 3][1] for ch in range(c)])
-    cfg = PipelineConfig(sonde="rs41", channels=c, block_len=BLOCK_LEN,
+    cfg = PipelineConfig(sonde=sonde, channels=c, block_len=BLOCK_LEN,
                          use_pallas=True, compute_dtype="f32",
                          input_dtype="i16")
     gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
     sg, sc = gpu.init_state(), cpu.init_state()
-    sess = DecoderSession(cfg, dev, pipeline=gpu)
+    gsess = DecoderSession(cfg, dev, pipeline=gpu)
+    csess = DecoderSession(cfg, "cpu", pipeline=cpu)
     frames = 0
     for b in range(n_blocks):
         sl = slice(b * BLOCK_LEN, (b + 1) * BLOCK_LEN)
         sg, og = gpu.step(sg, (qi[:, sl], qq[:, sl]))
         sc, oc = cpu.step(sc, (qi[:, sl], qq[:, sl]))
+        check(og.frames.shape[-1] == cfg.spec.frame_bytes,
+              f"{sonde} block {b}: frames of {og.frames.shape[-1]} bytes")
         vg, vc = og.frame_valid.cpu(), oc.frame_valid
-        check(torch.equal(vg, vc), f"block {b}: validity differs from CPU")
+        check(torch.equal(vg, vc), f"{sonde} block {b}: validity differs "
+              "from CPU")
         check(torch.equal(og.frames.cpu()[vg], oc.frames[vc]),
-              f"block {b}: frame bytes differ from CPU")
+              f"{sonde} block {b}: frame bytes differ from CPU")
         check(torch.equal(og.rs_clean.cpu(), oc.rs_clean),
-              f"block {b}: RS verdicts differ from CPU")
+              f"{sonde} block {b}: RS verdicts differ from CPU")
         frames += int(vg.sum())
-        sess.process_block((qi[:, sl], qq[:, sl]))
+        gsess.process_block((qi[:, sl], qq[:, sl]))
+        csess.process_block((qi[:, sl], qq[:, sl]))
     for ch in range(c):
-        got = sess.telemetry.get(ch)
+        got, want = gsess.telemetry.get(ch), csess.telemetry.get(ch)
         check(got is not None and got.serial == serials[ch % 3],
-              f"channel {ch}: telemetry {got}")
-    emit({"phase": "distinct_serials", "channels": c, "blocks": n_blocks,
-          "valid_frames": frames, "frames_decoded": sess.metrics.frames_decoded,
-          "serials": serials, "matches_cpu": True})
+              f"{sonde} channel {ch}: telemetry {got}")
+        check(want is not None and json.dumps(got.to_dict(), sort_keys=True)
+              == json.dumps(want.to_dict(), sort_keys=True),
+              f"{sonde} channel {ch}: telemetry differs from the CPU")
+        if ext:
+            check(got.aux_data == f"O3={o3[ch % 3]:.2f}mPa",
+                  f"{sonde} channel {ch}: aux {got.aux_data!r}")
+    emit({"phase": "rs41x_distinct" if ext else "distinct_serials",
+          "sonde": sonde, "channels": c, "blocks": n_blocks,
+          "frame_bytes": cfg.spec.frame_bytes, "valid_frames": frames,
+          "frames_decoded": gsess.metrics.frames_decoded,
+          "serials": serials, "aux": [t for t in o3 if t is not None],
+          "matches_cpu": True})
 
 
 def phase_step(torch, pipe, blocks, phase: str = "step"):
@@ -950,9 +1090,10 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
     check(bodies.get("corr:sign_l64") == steps
           and bodies.get("corr:sign_l32") == steps
           and launches["corr"] == 2 * steps
+          and bodies.get("rs_clean:c384") == steps == launches["rs_clean"]
           and bodies.get("fused_dualtone_frontend:skip_nb5") == steps
           == launches["fused_dualtone_frontend"],
-          f"fleet_path: correlator and dual-tone bodies {bodies}")
+          f"fleet_path: correlator, K3 and dual-tone bodies {bodies}")
     emit({"phase": "fleet_path", "bins": n_bins, "block_len": block_len,
           "blocks": n_blocks, "groups": groups, "updates": updates,
           "channels_with_telemetry": len(telem),
@@ -1204,20 +1345,47 @@ def phase_unpathed_kernels(torch, dev):
     del i, q, prev, atail
     torch.cuda.empty_cache()
 
-    # K10 at the experiment's shapes: the same operations in the same order
-    # as the twin, so exact
-    h = design_lowpass(0.1, 1.0, 41)
-    for c, n in ((306, 96000), (102, 96000), (616, 96000), (CHANNELS,
-                                                              BLOCK_LEN)):
-        x = randn(c, n + 40)
+    # K10 at the experiment's shapes, then edge cases: one tap, 64 taps
+    # (the run-time body), an output count that is not a multiple of the
+    # tile, rows that are not a multiple of 4 (the 4-byte staging), and a
+    # row start off 16 bytes. The same operations in the same order as the
+    # twin, so equal bit for bit: compared as int32 patterns, so that a
+    # zero's sign counts (a quarter of the inputs are +0, an eighth -0)
+    lowpass = design_lowpass(0.1, 1.0, 41)
+    cases = (  # label, channels, outputs, taps, first float of the rows
+        ("c306", 306, 96000, lowpass, 0), ("c102", 102, 96000, lowpass, 0),
+        ("c616", 616, 96000, lowpass, 0),
+        ("path", CHANNELS, BLOCK_LEN, lowpass, 0),
+        ("t1", 4, 5000, np.float32([-0.75]), 0),
+        ("t64", 3, 7001,
+         np.random.default_rng(9).normal(size=64).astype(np.float32), 0),
+        ("t33-ragged", 5, 3841 * 2 + 7, design_lowpass(0.15, 1.0, 33), 0),
+        ("t41-unaligned-rows", 3, 9603, lowpass, 0),
+        ("t41-offset", 2, 9600, lowpass, 1))
+    bodies = set()
+    for label, c, n, h, offset in cases:
+        ln = n + len(h) - 1
+        flat = randn(c * ln + offset)
+        flat[::4] = 0.0
+        flat[1::8] = -0.0
+        x = flat[offset:].view(c, ln)
+        body = "lane_fir:" + ("t41" if len(h) == 41 else "runtime_t")
+        before = dict(cuda.body_launches)
         got, want = lane_fir(x, h), lane_fir_plain(x, h)
         torch.cuda.synchronize()
+        check(cuda.body_launches.get(body, 0) == before.get(body, 0) + 1,
+              f"lane_fir {label}: bodies {cuda.body_launches}, expected "
+              f"{body}")
         err = float((got - want).abs().max())
-        check(err == 0.0, f"lane_fir [{c}, {n}]: err {err}")
-        entry = {"phase": "kernel", "name": "lane_fir", "shape": [c, n],
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"lane_fir {label}: not bit-equal to its twin (err {err})")
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "lane_fir", "case": label,
+                 "shape": [c, n], "taps": len(h), "body": body,
+                 "vec_staging": ln % 4 == 0 and x.data_ptr() % 16 == 0,
                  "max_abs_err": err, "tol": 0}
         del got, want
-        if c == CHANNELS:
+        if label == "path":
             # the library's one call: conv1d (cuDNN, TF32 off)
             w = torch.from_numpy(np.ascontiguousarray(h, np.float32)).to(
                 dev)[None, None, :]
@@ -1229,7 +1397,9 @@ def phase_unpathed_kernels(torch, dev):
                 **bound(nbytes(x) + 4 * c * n, c * n * (2 * len(h) - 1)))
             results["lane_fir"] = entry
         emit(entry)
-        del x
+        del x, flat
+    check(bodies == {"lane_fir:t41", "lane_fir:runtime_t"},
+          f"lane_fir: bodies launched {bodies}")
     torch.cuda.synchronize()
     launches = {k: cuda.launches[k] for k in ("fused_demod_fir", "lane_fir")}
     torch.cuda.empty_cache()
@@ -1456,12 +1626,20 @@ def profile_steps(torch, label: str, step, steps: int):
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     check(device_ms > 0, f"profile {label}: the profiler saw no device time")
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+
+    def row(e):
+        return [e.key[:90], e.self_device_time_total / 1e3 / steps,
+                e.count / steps]
+
     emit({"phase": "profile", "sonde": label, "steps": steps,
           "step_wall_ms": wall_ms, "device_ms_per_step": device_ms,
           "busy_share": device_ms / wall_ms,
           "kernels_per_step": sum(e.count for e in kernels) / steps,
-          "top": [[e.key[:90], e.self_device_time_total / 1e3 / steps,
-                   e.count / steps] for e in top]})
+          "top": [row(e) for e in top],
+          # the port's own kernels (csrc/, an anonymous namespace), however
+          # small
+          "port_kernels": [row(e) for e in kernels
+                           if "anonymous namespace" in e.key]})
 
 
 def phase_profile_fleet(torch, dev, steps: int = 3):
@@ -1481,9 +1659,12 @@ def phase_profile_fleet(torch, dev, steps: int = 3):
 
 
 def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
-                             "corr.cu", "dualtone.cu"), quiet=False):
-    """Registers and stack of each body of the redesigned kernels, as
-    ptxas reports them (nvcc -Xptxas -v), with the library's flags."""
+                             "corr.cu", "dualtone.cu", "syndrome.cu",
+                             "lane_fir.cu"), quiet=False):
+    """Registers, stack, spills and static shared memory of each body of
+    the redesigned kernels, as ptxas reports them (nvcc -Xptxas -v), with
+    the library's flags. K3's shared memory is dynamic: see
+    csrc/syndrome.cu's launch."""
     import re
 
     from sondetpu_torch.kernels import cuda
@@ -1499,7 +1680,8 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
             m = re.search(r"Compiling entry function '\S*?\d("
                           r"frontend_kernel|afsk_kernel|dft2048_kernel|"
                           r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
-                          r"dualtone_kernel)((?:I|L[ib]-?\d+E)*)", line)
+                          r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel)"
+                          r"((?:I|L[ib]-?\d+E)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling
                 args = re.findall(r"L[ib](-?\d+)E", m.group(2))
@@ -1511,10 +1693,12 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 stack = re.search(r"(\d+) bytes cumulative stack", line)
+                smem = re.search(r"(\d+) bytes smem", line)
                 out[f"{src}:{name}"] = {
                     "registers": int(m.group(1)),
                     "stack_bytes": int(stack.group(1)) if stack else 0,
-                    "spill_store_bytes": spill}
+                    "spill_store_bytes": spill,
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0}
     if not quiet:
         emit({"phase": "resources", "kernels": out})
     return out
@@ -1522,9 +1706,12 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
 
 def phase_tune(torch, dev, variants=(
         (), ("SONDETPU_CORR_R=9",), ("SONDETPU_CORR_R=21",),
-        ("SONDETPU_DUALTONE_R=7",), ("SONDETPU_DUALTONE_R=11",))):
-    """K2 and K7 rebuilt with each variant's -D flags (their outputs per
-    thread, R) and timed at the path's shapes, each checked equal to its
+        ("SONDETPU_DUALTONE_R=7",), ("SONDETPU_DUALTONE_R=11",),
+        ("SONDETPU_RS_CLEAN_F=4",), ("SONDETPU_RS_CLEAN_F=8",),
+        ("SONDETPU_LANE_FIR_R=9",), ("SONDETPU_LANE_FIR_R=21",))):
+    """K2, K7, K3 and K10 rebuilt with each variant's -D flags (K2's, K7's
+    and K10's outputs per thread, R; K3's frames per warp, F) and timed at
+    the paths' shapes (K3 at 320 and 518 bytes), each checked equal to its
     twin, beside ptxas's registers and spills."""
     from sondetpu_torch.dsp.fir import design_lowpass
     from sondetpu_torch.kernels import cuda
@@ -1533,6 +1720,8 @@ def phase_tune(torch, dev, variants=(
                                                  fused_dualtone_plain,
                                                  mixer_tables)
     from sondetpu_torch.kernels.frontend import HALO
+    from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+    from sondetpu_torch.kernels.syndrome import rs_clean_flags_kernel
     from sondetpu_torch.sondes.rs41 import SPEC
 
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -1545,6 +1734,15 @@ def phase_tune(torch, dev, variants=(
         *(torch.from_numpy(x).to(dev)
           for x in mixer_tables(BLOCK_LEN, 12000.0 / FS)), 5, False, True)
     want_k7 = fused_dualtone_plain(*k7)[0]
+    rng = np.random.default_rng(8)
+    k3 = []
+    for name in ("rs41", "rs41x"):
+        frames, truth, layout = syndrome_frames(rng, name, CHANNELS * 9)
+        k3.append((name, torch.from_numpy(frames).to(dev), layout,
+                   torch.from_numpy(truth).to(dev)))
+    h = design_lowpass(0.1, 1.0, 41)
+    x10 = torch.randn((CHANNELS, BLOCK_LEN + 40), generator=gen, device=dev)
+    want_k10 = lane_fir_plain(x10, h)
     base = list(cuda.NVCC_FLAGS)
     try:
         for flags in variants:
@@ -1555,12 +1753,22 @@ def phase_tune(torch, dev, variants=(
                   f"tune {flags}: corr differs from its twin")
             check(torch.equal(fused_dualtone_frontend(*k7)[0], want_k7),
                   f"tune {flags}: metric differs from its twin")
+            for name, fr, layout, truth in k3:
+                check(torch.equal(rs_clean_flags_kernel(fr, layout), truth),
+                      f"tune {flags}: rs_clean {name} differs from the truth")
+            check(torch.equal(lane_fir(x10, h), want_k10),
+                  f"tune {flags}: lane_fir differs from its twin")
             emit({"phase": "tune", "flags": list(flags),
                   "corr_ms": cuda_ms(torch, lambda: corr_kernel(buf, t), 50),
                   "dualtone_ms": cuda_ms(
                       torch, lambda: fused_dualtone_frontend(*k7), 20),
-                  "resources": phase_resources(("corr.cu", "dualtone.cu"),
-                                               quiet=True)})
+                  "rs_clean_ms": {name: cuda_ms(
+                      torch, lambda: rs_clean_flags_kernel(fr, layout), 50)
+                      for name, fr, layout, _ in k3},
+                  "lane_fir_ms": cuda_ms(torch, lambda: lane_fir(x10, h), 20),
+                  "resources": phase_resources(
+                      ("corr.cu", "dualtone.cu", "syndrome.cu",
+                       "lane_fir.cu"), quiet=True)})
     finally:
         cuda.NVCC_FLAGS = base
         cuda._lib = None
@@ -1587,7 +1795,7 @@ def main() -> int:
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tune"]:
-        # K2's and K7's outputs per thread: python3 chip_smoke.py --tune
+        # outputs or frames per thread: python3 chip_smoke.py --tune
         phase_tune(torch, dev)
         print(smi, flush=True)
         return 0
@@ -1606,6 +1814,10 @@ def main() -> int:
     pipe, blocks, runs["rs41"] = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
     phase_step(torch, pipe, blocks)
+    del pipe, blocks
+    torch.cuda.empty_cache()
+    pipe, blocks, runs["rs41x"] = phase_main_path(torch, dev, "rs41x", 2)
+    phase_distinct(torch, dev, "rs41x")
     del pipe, blocks
     torch.cuda.empty_cache()
     runs["pfb_stream"] = phase_pfb_stream(torch, dev)
@@ -1630,7 +1842,7 @@ def main() -> int:
                      "pfb_fir_stream": "fleet", "pfb_dft": "fleet",
                      "fused_dualtone_frontend": "fleet",
                      "pfb_fir_timemajor": "pfb_stream"}
-    paths = ("rs41", "fleet", "imet4", "c50")
+    paths = ("rs41", "fleet", "imet4", "c50", "rs41x")
     table = []
     for name in KERNEL_SOURCES:
         if name in launches_from:
@@ -1658,6 +1870,13 @@ def main() -> int:
         decim1_lowpass=subset(k1["decim1-lowpass"]))
     k8_row = next(e for e in table if e["name"] == "fused_afsk_frontend")
     k8_row["win20"] = subset(k8["c50"])
+    k3_row = next(e for e in table if e["name"] == "rs_clean")
+    k3_row.update(
+        lop3=kres["rs_clean"]["lop3"],
+        lop3_ms_at_integer_rate=kres["rs_clean"]["lop3_ms_at_integer_rate"],
+        rs41x_518_bytes=subset(kres["rs_clean_rs41x"]),
+        bodies_by_path={p: {k: v for k, v in runs[p]["bodies"].items()
+                            if k.startswith("rs_clean")} for p in paths})
     k2_row = next(e for e in table if e["name"] == "corr")
     k2_row.update(
         body=kres["corr"]["body"],

@@ -9,7 +9,8 @@ order of the sum.
 
 :func:`lane_fir` launches the CUDA kernel of ``csrc/lane_fir.cu`` for CUDA
 tensors and runs :func:`lane_fir_plain` for CPU tensors; the two agree bit
-for bit.
+for bit. The kernel compiles in the experiment's 41 taps (body ``t41``) and
+takes any other count up to 64 at run time (``runtime_t``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import numpy as np
 import torch
 
 from sondetpu_torch.kernels import cuda
+
+FIXED_TAPS = 41               # the tap count csrc/lane_fir.cu compiles in
 
 
 def _check_args(x, h):
@@ -58,5 +61,6 @@ def lane_fir(x: torch.Tensor, h) -> torch.Tensor:
     hv = np.ascontiguousarray(h, np.float32)
     y = torch.empty((c, n), dtype=torch.float32, device=dev)
     cuda.launch("lane_fir", "sondetpu_lane_fir", x.data_ptr(), hv.ctypes.data,
-                ntaps, c, n + ntaps - 1, y.data_ptr(), cuda.stream_handle(dev))
+                ntaps, c, n + ntaps - 1, y.data_ptr(), cuda.stream_handle(dev),
+                body="t41" if ntaps == FIXED_TAPS else "runtime_t")
     return y

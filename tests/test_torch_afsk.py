@@ -225,6 +225,26 @@ def test_lane_fir_twin_is_the_experiment_formula():
         lane_fir_plain(T(x[:, :30]), h)
 
 
+@pytest.mark.parametrize("ntaps", [1, 64])
+def test_lane_fir_twin_edge_taps(ntaps):
+    """K10's twin at the kernel's tap limits (one tap, 64 taps) equals the
+    NumPy loop bit for bit, the sign of a zero included: tap 0's product is
+    not added to zero, so -0.0 * h0 stays -0.0 where no later tap adds."""
+    rng = np.random.default_rng(8 + ntaps)
+    x = rng.normal(size=(3, 2001 + ntaps - 1)).astype(np.float32)
+    x[:, ::4] = 0.0
+    x[:, 1::8] = -0.0
+    h = rng.normal(size=ntaps).astype(np.float32)
+    n = x.shape[1] - ntaps + 1
+    want = x[:, 0:n] * h[0]
+    for t in range(1, ntaps):
+        want = want + x[:, t:t + n] * h[t]
+    got = lane_fir(T(x), h).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if ntaps == 1:
+        assert np.signbit(got[x[:, :n] == 0]).any()
+
+
 # --- the pipelines on the kernel path ------------------------------------------
 
 def _truths(family, k, count):
@@ -430,3 +450,10 @@ def test_cuda_demod_fir_and_lane_fir_match_twins(cuda_device):
     x = T(rng.normal(size=(16, 9640)).astype(np.float32)).to(cuda_device)
     h = design_lowpass(0.1, 1.0, 41)
     assert torch.equal(lane_fir(x, h), lane_fir_plain(x, h))
+    for ntaps, ln in ((1, 5003), (64, 7064), (33, 3841 * 2 + 39)):
+        x = T(rng.normal(size=(3, ln)).astype(np.float32)).to(cuda_device)
+        h = rng.normal(size=ntaps).astype(np.float32)
+        cuda.reset_launches()
+        got, want = lane_fir(x, h), lane_fir_plain(x, h)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert cuda.body_launches == {"lane_fir:runtime_t": 1}

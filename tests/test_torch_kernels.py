@@ -19,10 +19,11 @@ from sondetpu.pallas.frontend import fast_atan2 as jax_fast_atan2
 from sondetpu.pallas.frontend import frontend_chunk
 from sondetpu.pallas.frontend import fused_frontend as jax_fused_frontend
 from sondetpu.pallas.syndrome import rs_clean_flags_pallas
-from sondetpu.sondes.rs41 import SPEC, RS41Modulator, RS41Truth
+from sondetpu.sondes.rs41 import SPEC, RS41Modulator, RS41Truth, RS41XModulator
 from sondetpu.sync.correlator import correlate_syncword as jax_correlate_syncword
 from sondetpu.sync.correlator import find_frame_starts as jax_find_frame_starts
 from sondetpu.sync.timing import oerder_meyr_tau as jax_oerder_meyr_tau
+from sondetpu_torch.fec.rs import ReedSolomon
 from sondetpu_torch.fec.syndrome import layout_matrix
 from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.corr import (corr_body, corr_kernel, corr_plain,
@@ -31,9 +32,9 @@ from sondetpu_torch.dsp.fir import apply_windows
 from sondetpu_torch.kernels.frontend import (HALO, fast_atan2, fused_frontend,
                                              fused_frontend_plain,
                                              is_delay_taps)
-from sondetpu_torch.kernels.syndrome import (pack_syndrome_matrix,
+from sondetpu_torch.kernels.syndrome import (pack_syndrome_columns,
                                              rs_clean_flags_kernel,
-                                             rs_clean_plain)
+                                             rs_clean_plain, syndrome_body)
 from sondetpu_torch.sync.correlator import find_frame_starts
 from sondetpu_torch.sync.timing import oerder_meyr_tau, spectral_line_tables
 
@@ -215,48 +216,124 @@ def test_corr_kernel_takes_a_host_template():
                        corr_kernel(buf, torch.from_numpy(t)))
 
 
-def _frames_clean_and_corrupt(seed, rows):
-    """[rows, 320] RS41 frames; about half carry 1-3 corrupted bytes in
-    the RS-covered region. Returns (frames, clean truth)."""
+def _frames_clean_and_corrupt(seed, rows, fb=320):
+    """[rows, fb] RS41 frames (320 standard, 518 extended); about half
+    carry 1-3 corrupted bytes in the RS-covered region. Returns (frames,
+    clean truth)."""
     rng = np.random.default_rng(seed)
-    mod = RS41Modulator()
-    base = np.stack([mod.build_frame(RS41Truth(frame_no=k)) for k in range(8)])
-    frames = base[rng.integers(0, 8, size=rows)]
-    bad = rng.random(rows) < 0.5
+    mod = RS41Modulator() if fb == 320 else RS41XModulator()
+    base = np.stack([mod.build_frame(RS41Truth(frame_no=k), fb != 320)
+                     for k in range(8)])
+    assert base.shape == (8, fb)
+    return _corrupt(rng, base[rng.integers(0, 8, size=rows)],
+                    np.arange(8, fb))
+
+
+def _corrupt(rng, frames, covered):
+    """XOR 1-3 random bytes of ``covered`` into about half the rows (fewer
+    errors than the code's distance, so each such row is dirty)."""
+    bad = rng.random(len(frames)) < 0.5
     for r in np.nonzero(bad)[0]:
-        pos = rng.choice(np.arange(8, 320), size=rng.integers(1, 4),
-                         replace=False)
+        pos = rng.choice(covered, size=rng.integers(1, 4), replace=False)
         frames[r, pos] ^= rng.integers(1, 256, size=pos.size).astype(np.uint8)
     return frames, ~bad
 
 
-def test_rs_clean_matches_pallas():
-    frames, truth = _frames_clean_and_corrupt(2, 40)
-    want = np.asarray(rs_clean_flags_pallas(jnp.asarray(frames.reshape(5, 8, 320)),
+# layouts beside RS41's: a frame of 61 bytes (not a multiple of 4) with one
+# 8-root codeword (64 columns), and one of 267 bytes with two interleaved
+# 32-root codewords (512 columns, the kernel's c512 body)
+EDGE_LAYOUTS = {
+    "odd61": (61, {"data_start": 9, "parity_start": 1, "nroots": 8,
+                   "interleave": 1, "fcr": 0, "prim": 0x11D}),
+    "c512": (267, {"data_start": 66, "parity_start": 2, "nroots": 32,
+                   "interleave": 2, "fcr": 0, "prim": 0x11D}),
+}
+
+
+def _layout_frames(seed, rows, fb, layout):
+    """[rows, fb] frames of random data with each interleaved codeword's
+    parity filled in by the RS encoder, about half then corrupted."""
+    rng = np.random.default_rng(seed)
+    ds, ps, nroots = (layout[k] for k in ("data_start", "parity_start",
+                                          "nroots"))
+    ilv = layout["interleave"]
+    nrs = (fb - ds) // ilv
+    frames = rng.integers(0, 256, size=(rows, fb)).astype(np.uint8)
+    rs = ReedSolomon(nroots, layout["fcr"], layout["prim"])
+    covered = []
+    for i in range(ilv):
+        data = ds + ilv * np.arange(nrs) + i
+        parity = ps + nroots * i + np.arange(nroots)
+        frames[:, parity] = rs.encode(frames[:, data])[:, nrs:]
+        covered += [data, parity]
+    return _corrupt(rng, frames, np.concatenate(covered))
+
+
+def _layout_case(name, seed, rows):
+    """(frames, truth, fb, layout) of a named layout: rs41 (320 B), rs41x
+    (518 B) or one of EDGE_LAYOUTS."""
+    if name in EDGE_LAYOUTS:
+        fb, layout = EDGE_LAYOUTS[name]
+        return (*_layout_frames(seed, rows, fb, layout), fb, layout)
+    fb = 320 if name == "rs41" else 518
+    return (*_frames_clean_and_corrupt(seed, rows, fb), fb, RS)
+
+
+@pytest.mark.parametrize("fb", [320, 518], ids=["rs41", "rs41x"])
+def test_rs_clean_matches_pallas(fb):
+    frames, truth = _frames_clean_and_corrupt(2, 40, fb)
+    want = np.asarray(rs_clean_flags_pallas(jnp.asarray(frames.reshape(5, 8, fb)),
                                             RS, interpret=True))
-    got = rs_clean_flags_kernel(torch.from_numpy(frames.reshape(5, 8, 320)), RS)
+    got = rs_clean_flags_kernel(torch.from_numpy(frames.reshape(5, 8, fb)), RS)
     assert got.dtype == torch.bool and got.shape == (5, 8)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy().reshape(-1), truth)
 
 
-def test_rs_clean_xor_parity_form():
-    """The CUDA kernel's algorithm, run in NumPy: XOR of the packed W rows
-    of every set bit, all zero -> clean. Equals the twin's float product."""
-    frames, truth = _frames_clean_and_corrupt(3, 24)
-    w = layout_matrix(320, RS)
-    packed = pack_syndrome_matrix(w)
-    assert packed.shape == (8 * 320, 12) and packed.dtype == np.uint32
-    unpacked = (packed[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
-    np.testing.assert_array_equal(unpacked.reshape(8 * 320, -1)[:, :w.shape[1]],
+def _column_parity_clean(frames, wt):
+    """The CUDA kernel's word loop in NumPy: the frames as little-endian
+    words (zero past the row), acc[c] = XOR_k (F[k] & WT[k, c]), clean iff
+    every popcount(acc[c]) is even."""
+    rows, fb = frames.shape
+    nw = wt.shape[0]
+    padded = np.zeros((rows, 4 * nw), np.uint8)
+    padded[:, :fb] = frames
+    words = padded.view("<u4")
+    acc = np.zeros((rows, wt.shape[1]), np.uint32)
+    for k in range(nw):
+        acc ^= words[:, k:k + 1] & wt[k][None, :]
+    return ((np.bitwise_count(acc) & 1) == 0).all(axis=1)
+
+
+@pytest.mark.parametrize("name,body", [
+    ("rs41", "c384"), ("rs41x", "c384"), ("odd61", "c384"),
+    ("c512", "c512")])
+def test_rs_clean_column_parity_form(name, body):
+    """The CUDA kernel's algorithm over pack_syndrome_columns, run in
+    NumPy, equals the twin's float product and the truth, at 320 and 518
+    bytes and on the edge layouts."""
+    frames, truth, fb, layout = _layout_case(name, 3, 24)
+    w = layout_matrix(fb, layout)
+    assert syndrome_body(w.shape[1]) == body
+    wt = pack_syndrome_columns(w)
+    width = int(body[1:])
+    assert wt.shape == (-(-fb // 4), width) and wt.dtype == np.uint32
+    unpacked = (wt[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]
+                ) & 1
+    unpacked = unpacked.reshape(-1, width)
+    np.testing.assert_array_equal(unpacked[:8 * fb, :w.shape[1]],
                                   w.astype(np.uint32))
-    bits = ((frames[:, :, None] >> np.arange(8)) & 1).reshape(24, -1)
-    synd = np.bitwise_xor.reduce(np.where(bits[:, :, None] == 1, packed[None],
-                                          np.uint32(0)), axis=1)
-    xor_clean = (synd == 0).all(axis=-1)
-    np.testing.assert_array_equal(xor_clean, truth)
+    assert not unpacked[8 * fb:].any() and not unpacked[:, w.shape[1]:].any()
+    np.testing.assert_array_equal(_column_parity_clean(frames, wt), truth)
     np.testing.assert_array_equal(
-        rs_clean_plain(torch.from_numpy(frames), RS).numpy(), truth)
+        rs_clean_plain(torch.from_numpy(frames), layout).numpy(), truth)
+
+
+def test_syndrome_body_refuses_wide_matrices():
+    assert syndrome_body(1) == "c384" and syndrome_body(385) == "c512"
+    for bad in (0, 513):
+        with pytest.raises(ValueError, match="syndrome columns"):
+            syndrome_body(bad)
 
 
 def test_find_frame_starts_matches_jax():
@@ -365,11 +442,12 @@ def test_cuda_corr_and_rs_clean_match_twins(cuda_device):
                            ).to(cuda_device)
     tmpl = torch.from_numpy(SPEC.sync_chip_template()).to(cuda_device)
     assert torch.equal(corr_kernel(buf, tmpl), corr_plain(buf, tmpl))
-    frames, truth = _frames_clean_and_corrupt(13, 64)
-    fr = torch.from_numpy(frames).to(cuda_device)
-    got = rs_clean_flags_kernel(fr, RS)
-    assert torch.equal(got, rs_clean_plain(fr, RS))
-    np.testing.assert_array_equal(got.cpu().numpy(), truth)
+    for name in ("rs41", "rs41x", "odd61", "c512"):
+        frames, truth, _, layout = _layout_case(name, 13, 67)
+        fr = torch.from_numpy(frames).to(cuda_device)
+        got = rs_clean_flags_kernel(fr, layout)
+        assert torch.equal(got, rs_clean_plain(fr, layout))
+        np.testing.assert_array_equal(got.cpu().numpy(), truth)
     with pytest.raises(ValueError, match="contiguous"):
         corr_kernel(buf.t().contiguous().t(), tmpl)
 

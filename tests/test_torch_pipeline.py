@@ -20,7 +20,7 @@ import torch
 from sondetpu.pallas.corr import corr_kernel as jax_corr_kernel
 from sondetpu.runtime import pipeline as jpipe
 from sondetpu.runtime.session import DecoderSession as JaxSession
-from sondetpu.sondes.rs41 import RS41Modulator, RS41Truth
+from sondetpu.sondes.rs41 import RS41Modulator, RS41Truth, RS41XModulator
 from sondetpu.sync.correlator import find_frame_starts as jax_find_frame_starts
 from sondetpu_torch.kernels.corr import corr_kernel
 from sondetpu_torch.runtime import pipeline as tpipe
@@ -32,15 +32,20 @@ CPU = torch.device("cpu")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _planes(serials, n_blocks, seed=0, noise=0.1):
+def _planes(serials, n_blocks, seed=0, noise=0.1, extended=False):
     """int16 (i, q) [C, n_blocks*BLOCK]: channel ch carries
-    serials[ch % len(serials)], each with its own seeded noise."""
+    serials[ch % len(serials)], each with its own seeded noise. Extended:
+    518-byte rs41x frames (41440 samples each) with an ozone reading of
+    2.25 mPa."""
     n = n_blocks * BLOCK
+    mod, per = (RS41XModulator(), 41440) if extended else (RS41Modulator(),
+                                                           25600)
     rows = {}
     for k, s in enumerate(serials):
-        iq = RS41Modulator().modulate(
-            [RS41Truth(serial=s, frame_no=20 + j) for j in range(n // 25600 + 2)]
-        )[:n]
+        iq = mod.modulate(
+            [RS41Truth(serial=s, frame_no=20 + j,
+                       o3_mpa=2.25 if extended else None)
+             for j in range(n // per + 2)])[:n]
         rng = np.random.default_rng(seed + k)
         iq = iq + noise * (rng.normal(size=n) + 1j * rng.normal(size=n))
         rows[k] = (np.clip(iq.real * 32767, -32768, 32767).astype(np.int16),
@@ -174,6 +179,45 @@ def test_session_telemetry_matches_jax_session(pipelined):
         assert tsess.metrics.to_dict()[key] == jsess.metrics.to_dict()[key]
     np.testing.assert_allclose(tsess.metrics.last_rms, jsess.metrics.last_rms,
                                rtol=1e-5)
+
+
+def test_rs41x_session_matches_jax_session():
+    """rs41x (518-byte frames, K3's second shape): per block validity,
+    valid-slot bytes and RS verdicts equal the JAX session's, and the
+    updates and telemetry are equal, the ozone aux data included."""
+    qi, qq = _planes(["S1234567"], 3, seed=11, extended=True)
+    cfg = {**_config(), "sonde": "rs41x"}
+    jp = jpipe.Pipeline(jpipe.PipelineConfig(**cfg))
+    tp = tpipe.Pipeline(tpipe.PipelineConfig(**cfg), CPU)
+    js, ts = jp.init_state(), tp.init_state()
+    jsess = JaxSession(jpipe.PipelineConfig(**cfg))
+    tsess = DecoderSession(tpipe.PipelineConfig(**cfg), CPU)
+    jup, tup, frames = [], [], 0
+    for b in range(3):
+        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+        block = (qi[:, sl], qq[:, sl])
+        js, jo = jp.step(js, block)
+        ts, to = tp.step(ts, block)
+        jv = np.asarray(jo.frame_valid)
+        np.testing.assert_array_equal(to.frame_valid.numpy(), jv)
+        assert to.frames.shape[-1] == 518
+        np.testing.assert_array_equal(to.frames.numpy()[jv],
+                                      np.asarray(jo.frames)[jv])
+        np.testing.assert_array_equal(to.rs_clean.numpy(),
+                                      np.asarray(jo.rs_clean))
+        frames += int(jv.sum())
+        jup += jsess.process_block(block)
+        tup += tsess.process_block(block)
+    jup += jsess.flush()
+    tup += tsess.flush()
+    assert frames >= C and len(tup) == len(jup) > 0
+    assert ([(ch, repr(u.to_dict())) for ch, u in tup]
+            == [(ch, repr(u.to_dict())) for ch, u in jup])
+    assert sorted(tsess.telemetry) == list(range(C))
+    for ch in range(C):
+        t = tsess.telemetry[ch]
+        assert repr(t.to_dict()) == repr(jsess.telemetry[ch].to_dict())
+        assert t.serial == "S1234567" and t.aux_data == "O3=2.25mPa", t
 
 
 def test_session_fetches_suspect_frames_in_full():
