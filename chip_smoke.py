@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # env, build and step profiles only
-    python3 chip_smoke.py --tune       # env, build, K2/K7/K10 per R, K3 per F
+    python3 chip_smoke.py --tune       # env, build, K2/K7/K10/K9 per R, K3 per F
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -29,10 +29,14 @@ before the result line:
    and rs41x's 518-byte frames (both timed), one row, row counts that are
    not a multiple of a block's frames, frames off 4-byte alignment and a
    61-byte layout, equal to its twin and to the truth. The two kernels no
-   path runs (the r4 demod+FIR front end, the lane experiment's FIR, the
-   latter in both bodies and on edge shapes) are held to theirs too;
-   plain_correlation checks that the dual-tone and AFSK paths' syncword
-   correlation divides by L.
+   path runs are held to theirs too: the r4 demod+FIR front end (two
+   launches) at RS41's processing-rate shape, 33 taps (the run-time body),
+   a block no tile divides, one row and a block of T - 1 samples, each
+   with the DC (within 2e-5) and without it (bit-equal), two runs
+   bit-equal, timed whole and launch by launch beside its bound and the
+   two-pass floor; the lane experiment's FIR in both bodies and on edge
+   shapes. plain_correlation checks that the dual-tone and AFSK paths'
+   syncword correlation divides by L.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's and body's
    launch count read from that run alone; then an 8-channel run with three
@@ -44,6 +48,15 @@ before the result line:
    ozone reading (2 blocks): serial and ozone aux on every channel, K3's
    launches read from that run alone; then rs41x_distinct, 8 channels with
    three serials and readings, card against CPU as in 4.
+6b. plain_path: the plain-op RS41 step (use_pallas=False, bench.py's
+    default shape; the JAX bench's default in bf16) through DecoderSession
+    at 2048 channels x 4 s, 3 blocks in bf16 and in f32: serial S1234567
+    and the same telemetry on every channel, no hand kernel launched, the
+    chip ring in the compute dtype; each with its steady step (plain_step)
+    beside the card's name and power limit. Then plain_distinct, 8 channels
+    of RS41 with three serials in bf16, card against CPU as in 4; one
+    rs41x block in bf16 at 2048 channels; and 8 channels of dfm (three
+    serials, its rational sps) in bf16, card against CPU.
 7. pfb_stream: the 2048-bin channelizer fed blocks shorter than its
    history (the pfb_fir_timemajor path) equals one long block.
 8. fleet_path: FleetSession.process_wideband at 2048 bins x 4 s (1230
@@ -68,11 +81,12 @@ before the result line:
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
 bodies and torch.profiler reads the device kernels of three steady steps
-of the RS41, imet4 and c50 paths and of the 2048-bin fleet instead (no
-result line). With --tune, K2, K7 and K10 are rebuilt with other outputs
-per thread (-DSONDETPU_CORR_R, -DSONDETPU_DUALTONE_R,
--DSONDETPU_LANE_FIR_R) and K3 with other frames per warp
-(-DSONDETPU_RS_CLEAN_F), and timed at the paths' shapes (no result line).
+of the RS41, imet4 and c50 paths, of the bf16 plain RS41 step and of the
+2048-bin fleet instead (no result line). With --tune, K2, K7, K10 and K9
+are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
+-DSONDETPU_DUALTONE_R, -DSONDETPU_LANE_FIR_R, -DSONDETPU_DEMOD_FIR_R) and
+K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
+paths' shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run and per step on each path), the card as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
@@ -128,6 +142,7 @@ INT_LOGIC_OPS_PER_S = 64 * 132 * 1.98e9
 # division, 5 polynomial steps of a product and a sum, 4 more, the scale
 DISC_OPS = 23
 K1_DC_TOL = 1e-5   # K1's block DC is summed in another order than the twin's
+K9_TOL = 2e-5      # K9's block mean is too, on outputs of magnitude ~10
 # AFSK families: (mark Hz, space Hz, boxcar win = fs / baud)
 AFSK_TONES = {"imet4": (1200.0, 2200.0, 40), "c50": (2400.0, 4800.0, 20)}
 # the ozone reading of the rs41x path's extended frames, mPa
@@ -598,19 +613,25 @@ def phase_syndrome(torch, dev, rng):
     return results
 
 
-def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4):
+def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4,
+                    dtype=None):
     """The RS41 kernel path at 2048 channels through DecoderSession; with
     sonde "rs41x", the same path on 518-byte extended frames carrying an
-    ozone reading of RS41X_O3 mPa (K3's second shape)."""
+    ozone reading of RS41X_O3 mPa (K3's second shape). With ``dtype``
+    ("f32" or "bf16"), the plain-op step instead (use_pallas=False, in that
+    compute dtype), which launches no hand kernel, as the original's
+    use_pallas=False step runs none."""
     from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
     ext = sonde == "rs41x"
-    label = "rs41x path" if ext else "main path"
+    plain = dtype is not None
+    label = (f"plain {sonde} {dtype} path" if plain
+             else "rs41x path" if ext else "main path")
     cfg = PipelineConfig(sonde=sonde, channels=CHANNELS, block_len=BLOCK_LEN,
-                         use_pallas=True, compute_dtype="f32",
+                         use_pallas=not plain, compute_dtype=dtype or "f32",
                          input_dtype="i16")
     check(cfg.spec.frame_bytes == (518 if ext else 320),
           f"{label}: frames of {cfg.spec.frame_bytes} bytes")
@@ -653,16 +674,26 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4):
     check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
               == ref_text for ch in range(CHANNELS)),
           f"{label}: telemetry differs between identical channels")
-    for name in ("fused_frontend", "corr", "rs_clean"):
-        check(launches[name] > 0, f"{label}: kernel {name} was not "
-              "launched")
-    # RS41's matched filter is a lowpass: the general decim-2 body; its
-    # syncword template is 64 chips of +/-1: the correlator's sign body; its
-    # 384 syndrome columns: K3's c384 body
-    check(bodies == {"fused_frontend:decim2_t41": n_blocks,
-                     "corr:sign_l64": n_blocks, "rs_clean:c384": n_blocks},
-          f"{label}: bodies {bodies}")
-    emit({"phase": "rs41x_path" if ext else "main_path", "sonde": sonde,
+    if plain:
+        check(not any(launches.values()),
+              f"{label}: hand kernels launched {launches}")
+        check(sess.state.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
+                                           else torch.float32),
+              f"{label}: chip ring in {sess.state.chipbuf.dtype}")
+    else:
+        for name in ("fused_frontend", "corr", "rs_clean"):
+            check(launches[name] > 0, f"{label}: kernel {name} was not "
+                  "launched")
+        # RS41's matched filter is a lowpass: the general decim-2 body; its
+        # syncword template is 64 chips of +/-1: the correlator's sign
+        # body; its 384 syndrome columns: K3's c384 body
+        check(bodies == {"fused_frontend:decim2_t41": n_blocks,
+                         "corr:sign_l64": n_blocks,
+                         "rs_clean:c384": n_blocks},
+              f"{label}: bodies {bodies}")
+    emit({"phase": ("plain_path" if plain else "rs41x_path" if ext
+                    else "main_path"), "sonde": sonde,
+          "use_pallas": cfg.use_pallas, "compute_dtype": cfg.compute_dtype,
           "channels": CHANNELS, "block_len": BLOCK_LEN, "blocks": n_blocks,
           "frame_bytes": cfg.spec.frame_bytes, "k_slots": cfg.k_slots,
           "frames_raw": m.frames_raw, "frames_decoded": m.frames_decoded,
@@ -676,26 +707,45 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4):
                           "steps": n_blocks}
 
 
-def phase_distinct(torch, dev, sonde: str = "rs41"):
+def dfm_planes(serial: str, n_blocks: int, seed: int):
+    """int16 (i, q) planes [n_blocks * BLOCK_LEN] of back-to-back DFM frames
+    carrying ``serial``, complex noise of std 0.1 per component, cs16."""
+    n = n_blocks * BLOCK_LEN
+    iq = narrowband("dfm", serial, n, FS)
+    rng = np.random.default_rng(seed)
+    noisy = iq + (rng.normal(size=n) + 1j * rng.normal(size=n)
+                  ).astype(np.complex64) * 0.1
+    return tuple(np.clip(x * 32767, -32768, 32767).astype(np.int16)
+                 for x in (noisy.real, noisy.imag))
+
+
+def phase_distinct(torch, dev, sonde: str = "rs41", dtype=None):
     """8 channels, three serials (rs41x: each with its own ozone reading):
     the card's pipeline equals the CPU's (plain twins) byte for byte on
     validity, valid frames and RS verdicts, the card's session equals the
-    CPU's telemetry, and each channel decodes its own serial."""
+    CPU's telemetry, and each channel decodes its own serial. With
+    ``dtype``, the plain-op step in that compute dtype (rs41 or dfm), which
+    launches no hand kernel on the card."""
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
     ext = sonde == "rs41x"
-    serials = ["S1234567", "T7654321", "R0420042"]
+    serials = (["1234567", "1235678", "7654321"] if sonde == "dfm"
+               else ["S1234567", "T7654321", "R0420042"])
     o3 = [RS41X_O3 + k for k in range(3)] if ext else [None] * 3
     c, n_blocks = 8, 3
-    sig = [rs41_planes(s, n_blocks, seed=k + 1, o3_mpa=o3[k])
+    sig = [dfm_planes(s, n_blocks, seed=k + 1) if sonde == "dfm"
+           else rs41_planes(s, n_blocks, seed=k + 1, o3_mpa=o3[k])
            for k, s in enumerate(serials)]
     qi = np.stack([sig[ch % 3][0] for ch in range(c)])
     qq = np.stack([sig[ch % 3][1] for ch in range(c)])
     cfg = PipelineConfig(sonde=sonde, channels=c, block_len=BLOCK_LEN,
-                         use_pallas=True, compute_dtype="f32",
-                         input_dtype="i16")
+                         use_pallas=dtype is None,
+                         compute_dtype=dtype or "f32", input_dtype="i16")
     gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
+    torch.cuda.synchronize()
+    cuda.reset_launches()
     sg, sc = gpu.init_state(), cpu.init_state()
     gsess = DecoderSession(cfg, dev, pipeline=gpu)
     csess = DecoderSession(cfg, "cpu", pipeline=cpu)
@@ -726,16 +776,23 @@ def phase_distinct(torch, dev, sonde: str = "rs41"):
         if ext:
             check(got.aux_data == f"O3={o3[ch % 3]:.2f}mPa",
                   f"{sonde} channel {ch}: aux {got.aux_data!r}")
-    emit({"phase": "rs41x_distinct" if ext else "distinct_serials",
-          "sonde": sonde, "channels": c, "blocks": n_blocks,
+    if dtype is not None:
+        check(not any(cuda.launches.values()),
+              f"plain {sonde} {dtype}: hand kernels launched {cuda.launches}")
+    emit({"phase": ("plain_distinct" if dtype is not None
+                    else "rs41x_distinct" if ext else "distinct_serials"),
+          "sonde": sonde, "use_pallas": cfg.use_pallas,
+          "compute_dtype": cfg.compute_dtype,
+          "channels": c, "blocks": n_blocks,
           "frame_bytes": cfg.spec.frame_bytes, "valid_frames": frames,
           "frames_decoded": gsess.metrics.frames_decoded,
           "serials": serials, "aux": [t for t in o3 if t is not None],
           "matches_cpu": True})
 
 
-def phase_step(torch, pipe, blocks, phase: str = "step"):
-    """Steady-state step time at 2048 channels x 4 s."""
+def phase_step(torch, pipe, blocks, phase: str = "step", smi=None):
+    """Steady-state step time at 2048 channels x 4 s (the median of 12
+    unprofiled steps) and peak device memory."""
     torch.cuda.reset_peak_memory_stats()
     state = pipe.init_state()
     for planes in blocks[:2]:                   # warm-up
@@ -750,11 +807,14 @@ def phase_step(torch, pipe, blocks, phase: str = "step"):
     step = statistics.median(times)
     secs = BLOCK_LEN / FS
     emit({"phase": phase, "sonde": pipe.config.sonde,
+          "use_pallas": pipe.config.use_pallas,
+          "compute_dtype": pipe.config.compute_dtype,
           "channels": CHANNELS, "block_seconds": secs,
           "steps": len(times), "step_ms_median": step * 1e3,
           "step_ms_min": min(times) * 1e3, "step_ms_max": max(times) * 1e3,
           "realtime_channels": CHANNELS * secs / step,
-          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()})
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+          **({"nvidia_smi": smi} if smi else {})})
 
 
 def fleet_family(k: int) -> str:
@@ -1292,6 +1352,140 @@ def phase_afsk_kernels(torch, dev):
     return results
 
 
+def check_demod_fir(torch, dev, randn):
+    """K9 against its twin: RS41's processing-rate shape, then the run-time
+    body (33 taps), a block that no tile divides, one row, and a block of
+    T - 1 samples, each with dc_block on and off. With the DC the outputs
+    are within K9_TOL of the twin's (the block mean is summed in another
+    order than torch.mean, which moves outputs of magnitude ~10 by a few
+    ulp); without it they are bit-equal, compared as int32 patterns so that
+    a zero's sign counts (a tenth of the carried tail is -0, and row 0
+    starts with 100 zero samples); two runs are bit-equal. The path shape
+    is timed whole and launch by launch, beside its bound and the two-pass
+    floor."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.frontend import (fused_demod_fir,
+                                                 fused_demod_fir_plain)
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    rs41_taps = design_lowpass(2640.0, FS / 2, 41)
+    scale = float(np.float32(FS / 2 / (2 * np.pi * 2400.0)))
+    cases = (  # label, channels, block, taps
+        ("path", CHANNELS, BLOCK_LEN // 2, rs41_taps),
+        ("t33", 64, 24000, design_lowpass(2000.0, FS, 33)),
+        ("ragged", 9, 2 * 3840 + 2048 + 7, rs41_taps),
+        ("c1", 1, BLOCK_LEN // 2, rs41_taps),
+        ("n-t-minus-1", 8, 40, rs41_taps))
+    bodies, out = set(), None
+    for label, c, n, taps in cases:
+        i, q = randn(c, n), randn(c, n)
+        prev, atail = randn(c, 2), randn(c, len(taps) - 1)
+        atail[:, ::10] = -0.0
+        i[0, :100] = 0.0
+        q[0, :100] = 0.0
+        body = "fused_demod_fir:" + ("t41" if len(taps) == 41
+                                     else "runtime_t")
+        for dc in (True, False):
+            before = dict(cuda.body_launches)
+            got = fused_demod_fir(i, q, prev, atail, taps, scale, dc)
+            again = fused_demod_fir(i, q, prev, atail, taps, scale, dc)
+            want = fused_demod_fir_plain(i, q, prev, atail, taps, scale, dc)
+            torch.cuda.synchronize()
+            for key in (body, "fused_demod_fir:audio"):
+                check(cuda.body_launches.get(key, 0)
+                      == before.get(key, 0) + 2,
+                      f"demod_fir {label}: bodies {cuda.body_launches}, "
+                      f"expected {key}")
+            check(all(torch.isfinite(t).all() for t in got),
+                  f"demod_fir {label}: non-finite")
+            check(all(torch.equal(bits(a), bits(b))
+                      for a, b in zip(got, again)),
+                  f"demod_fir {label} dc_block={dc}: two runs differ")
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            if dc:
+                check(err <= K9_TOL, f"demod_fir {label}: err {err}")
+            else:
+                check(all(torch.equal(bits(a), bits(b))
+                          for a, b in zip(got, want)),
+                      f"demod_fir {label}: not bit-equal to its twin "
+                      f"without the DC (err {err})")
+            entry = {"phase": "kernel", "name": "fused_demod_fir",
+                     "case": label, "dc_block": dc, "shape": [c, n],
+                     "taps": len(taps), "body": body, "max_abs_err": err,
+                     "tol": K9_TOL if dc else 0}
+            del got, again, want
+            if label == "path" and dc:
+                entry.update(time_demod_fir(torch, dev, i, q, prev, atail,
+                                            taps, scale))
+                out = entry
+            emit(entry)
+        bodies.add(body)
+        del i, q, prev, atail
+    check(bodies == {"fused_demod_fir:t41", "fused_demod_fir:runtime_t"},
+          f"demod_fir: bodies launched {bodies}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_demod_fir(torch, dev, i, q, prev, atail, taps, scale, reps=20):
+    """K9 as the wrapper calls it, and its twin; each of its two launches'
+    device time from torch.profiler over ``reps`` wrapper calls; the bound
+    of the function (the planes read once, filt written once: 12 bytes a
+    sample), the floor of two passes (20 bytes a sample: the audio written
+    and read back), and each launch's own bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.frontend import (fused_demod_fir,
+                                                 fused_demod_fir_plain)
+
+    def call():
+        return fused_demod_fir(i, q, prev, atail, taps, scale, True)
+
+    ms = cuda_ms(torch, call, reps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    launch_ms = {}
+    for e in prof.key_averages():
+        for name in ("demod_audio_kernel", "demod_fir_kernel"):
+            if e.device_type == DeviceType.CUDA and name in e.key:
+                check(e.count == reps and name not in launch_ms,
+                      f"demod_fir: profiler saw {name} as {e.key}, "
+                      f"{e.count} launches for {reps} calls")
+                launch_ms[name] = e.self_device_time_total / 1e3 / reps
+    check(len(launch_ms) == 2, f"demod_fir: profiler saw {launch_ms}")
+
+    c, n = i.shape
+    T = len(taps)
+    samples = c * n
+    # launch 1: the discriminator, the audio and one partial sum per block;
+    # launch 2: the DC sum and its subtraction, then the FIR's 2T operations
+    partial = 4 * c * cuda.library().sondetpu_demod_audio_parts(n)
+    b1 = bound(nbytes(i, q, prev) + 4 * samples + partial,
+               samples * (DISC_OPS + 1))
+    b2 = bound(8 * samples + partial + 2 * nbytes(atail),
+               samples * (2 * T + 1))
+    return {"ms": ms,
+            "audio_ms": launch_ms["demod_audio_kernel"],
+            "fir_ms": launch_ms["demod_fir_kernel"],
+            "plain_ms": cuda_ms(torch, lambda: fused_demod_fir_plain(
+                i, q, prev, atail, taps, scale, True), 3),
+            "library_ms": None,
+            **bound(nbytes(i, q, prev) + 2 * nbytes(atail) + 4 * samples,
+                    samples * (DISC_OPS + 2 + 2 * T)),
+            "two_pass_floor_ms": (nbytes(i, q, prev) + 2 * nbytes(atail)
+                                  + 12 * samples) / HBM_BYTES_PER_S * 1e3,
+            "audio_bound_ms": b1["bound_ms"], "audio_bound_by": b1["bound_by"],
+            "fir_bound_ms": b2["bound_ms"], "fir_bound_by": b2["bound_by"]}
+
+
 def phase_unpathed_kernels(torch, dev):
     """K9 and K10, which no pipeline path runs, against their twins; their
     launch counts come from this phase."""
@@ -1299,8 +1493,6 @@ def phase_unpathed_kernels(torch, dev):
 
     from sondetpu_torch.dsp.fir import design_lowpass
     from sondetpu_torch.kernels import cuda
-    from sondetpu_torch.kernels.frontend import (fused_demod_fir,
-                                                 fused_demod_fir_plain)
     from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1310,40 +1502,7 @@ def phase_unpathed_kernels(torch, dev):
 
     torch.cuda.synchronize()
     cuda.reset_launches()
-    results = {}
-    # K9 at RS41's processing-rate shape. Tolerance: kernel and twin round
-    # the discriminator and the FIR alike; the block-mean DC is summed in
-    # another order than torch.mean, which moves outputs of magnitude ~10
-    # by a few ulp
-    k9_tol = 2e-5
-    c, n = CHANNELS, BLOCK_LEN // 2
-    i, q = randn(c, n), randn(c, n)
-    prev, atail = randn(c, 2), randn(c, 40)
-    taps = design_lowpass(2640.0, FS / 2, 41)
-    scale = float(np.float32(FS / 2 / (2 * np.pi * 2400.0)))
-    got = fused_demod_fir(i, q, prev, atail, taps, scale, True)
-    want = fused_demod_fir_plain(i, q, prev, atail, taps, scale, True)
-    torch.cuda.synchronize()
-    err = max(float((got[0] - want[0]).abs().max()),
-              float((got[1] - want[1]).abs().max()))
-    check(torch.isfinite(got[0]).all(), "demod_fir: non-finite")
-    check(err <= k9_tol, f"demod_fir: err {err}")
-    del got, want
-    # per output: the discriminator, the DC sum and subtraction, the FIR;
-    # a fused chain, no single library call
-    entry = {"phase": "kernel", "name": "fused_demod_fir", "shape": [c, n],
-             "max_abs_err": err, "tol": k9_tol,
-             "ms": cuda_ms(torch, lambda: fused_demod_fir(
-                 i, q, prev, atail, taps, scale, True), 20),
-             "plain_ms": cuda_ms(torch, lambda: fused_demod_fir_plain(
-                 i, q, prev, atail, taps, scale, True), 3),
-             "library_ms": None,
-             **bound(nbytes(i, q, prev) + 2 * nbytes(atail) + 4 * c * n,
-                     c * n * (DISC_OPS + 2 + 2 * len(taps)))}
-    emit(entry)
-    results["fused_demod_fir"] = entry
-    del i, q, prev, atail
-    torch.cuda.empty_cache()
+    results = {"fused_demod_fir": check_demod_fir(torch, dev, randn)}
 
     # K10 at the experiment's shapes, then edge cases: one tap, 64 taps
     # (the run-time body), an output count that is not a multiple of the
@@ -1580,13 +1739,14 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
           "families": out, "matches_cpu": True})
 
 
-def phase_profile(torch, dev, family: str, steps: int = 3):
+def phase_profile(torch, dev, family: str, steps: int = 3, dtype=None):
     """torch.profiler over ``steps`` steady device steps of one family at
-    2048 channels x 4 s."""
+    2048 channels x 4 s; with ``dtype``, of the plain-op step in that
+    compute dtype."""
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 
     cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=BLOCK_LEN,
-                         use_pallas=True, compute_dtype="f32",
+                         use_pallas=dtype is None, compute_dtype=dtype or "f32",
                          input_dtype="i16")
     n = steps * BLOCK_LEN
     qi, qq = (rs41_planes("S1234567", steps, seed=0) if family == "rs41"
@@ -1604,7 +1764,8 @@ def phase_profile(torch, dev, family: str, steps: int = 3):
     def step(k):
         holder[0], _ = pipe.step(holder[0], blocks[k])
 
-    profile_steps(torch, family, step, steps)
+    profile_steps(torch, family + (f" plain {dtype}" if dtype else ""), step,
+                  steps)
 
 
 def profile_steps(torch, label: str, step, steps: int):
@@ -1660,7 +1821,7 @@ def phase_profile_fleet(torch, dev, steps: int = 3):
 
 def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                              "corr.cu", "dualtone.cu", "syndrome.cu",
-                             "lane_fir.cu"), quiet=False):
+                             "lane_fir.cu", "demod_fir.cu"), quiet=False):
     """Registers, stack, spills and static shared memory of each body of
     the redesigned kernels, as ptxas reports them (nvcc -Xptxas -v), with
     the library's flags. K3's shared memory is dynamic: see
@@ -1680,7 +1841,8 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
             m = re.search(r"Compiling entry function '\S*?\d("
                           r"frontend_kernel|afsk_kernel|dft2048_kernel|"
                           r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
-                          r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel)"
+                          r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel|"
+                          r"demod_audio_kernel|demod_fir_kernel)"
                           r"((?:I|L[ib]-?\d+E)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling
@@ -1708,18 +1870,21 @@ def phase_tune(torch, dev, variants=(
         (), ("SONDETPU_CORR_R=9",), ("SONDETPU_CORR_R=21",),
         ("SONDETPU_DUALTONE_R=7",), ("SONDETPU_DUALTONE_R=11",),
         ("SONDETPU_RS_CLEAN_F=4",), ("SONDETPU_RS_CLEAN_F=8",),
-        ("SONDETPU_LANE_FIR_R=9",), ("SONDETPU_LANE_FIR_R=21",))):
-    """K2, K7, K3 and K10 rebuilt with each variant's -D flags (K2's, K7's
-    and K10's outputs per thread, R; K3's frames per warp, F) and timed at
-    the paths' shapes (K3 at 320 and 518 bytes), each checked equal to its
-    twin, beside ptxas's registers and spills."""
+        ("SONDETPU_LANE_FIR_R=9",), ("SONDETPU_LANE_FIR_R=21",),
+        ("SONDETPU_DEMOD_FIR_R=9",), ("SONDETPU_DEMOD_FIR_R=15",))):
+    """K2, K7, K3, K10 and K9 rebuilt with each variant's -D flags (K2's,
+    K7's, K10's and K9's outputs per thread, R; K3's frames per warp, F) and
+    timed at the paths' shapes (K3 at 320 and 518 bytes), each checked
+    against its twin (K9 without the DC, bit for bit), beside ptxas's
+    registers and spills."""
     from sondetpu_torch.dsp.fir import design_lowpass
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
     from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                                  fused_dualtone_plain,
                                                  mixer_tables)
-    from sondetpu_torch.kernels.frontend import HALO
+    from sondetpu_torch.kernels.frontend import (HALO, fused_demod_fir,
+                                                 fused_demod_fir_plain)
     from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
     from sondetpu_torch.kernels.syndrome import rs_clean_flags_kernel
     from sondetpu_torch.sondes.rs41 import SPEC
@@ -1743,6 +1908,11 @@ def phase_tune(torch, dev, variants=(
     h = design_lowpass(0.1, 1.0, 41)
     x10 = torch.randn((CHANNELS, BLOCK_LEN + 40), generator=gen, device=dev)
     want_k10 = lane_fir_plain(x10, h)
+    k9 = (*(torch.randn(s, generator=gen, device=dev) for s in (
+        (CHANNELS, BLOCK_LEN // 2), (CHANNELS, BLOCK_LEN // 2), (CHANNELS, 2),
+        (CHANNELS, 40))), design_lowpass(2640.0, FS / 2, 41),
+        float(np.float32(FS / 2 / (2 * np.pi * 2400.0))))
+    want_k9 = fused_demod_fir_plain(*k9, False)[0].view(torch.int32)
     base = list(cuda.NVCC_FLAGS)
     try:
         for flags in variants:
@@ -1758,6 +1928,9 @@ def phase_tune(torch, dev, variants=(
                       f"tune {flags}: rs_clean {name} differs from the truth")
             check(torch.equal(lane_fir(x10, h), want_k10),
                   f"tune {flags}: lane_fir differs from its twin")
+            check(torch.equal(fused_demod_fir(*k9, False)[0].view(
+                torch.int32), want_k9),
+                  f"tune {flags}: demod_fir differs from its twin")
             emit({"phase": "tune", "flags": list(flags),
                   "corr_ms": cuda_ms(torch, lambda: corr_kernel(buf, t), 50),
                   "dualtone_ms": cuda_ms(
@@ -1766,9 +1939,11 @@ def phase_tune(torch, dev, variants=(
                       torch, lambda: rs_clean_flags_kernel(fr, layout), 50)
                       for name, fr, layout, _ in k3},
                   "lane_fir_ms": cuda_ms(torch, lambda: lane_fir(x10, h), 20),
+                  "demod_fir_ms": cuda_ms(
+                      torch, lambda: fused_demod_fir(*k9, True), 20),
                   "resources": phase_resources(
                       ("corr.cu", "dualtone.cu", "syndrome.cu",
-                       "lane_fir.cu"), quiet=True)})
+                       "lane_fir.cu", "demod_fir.cu"), quiet=True)})
     finally:
         cuda.NVCC_FLAGS = base
         cuda._lib = None
@@ -1791,6 +1966,8 @@ def main() -> int:
         for family in ("rs41", "imet4", "c50"):
             phase_profile(torch, dev, family)
             torch.cuda.empty_cache()
+        phase_profile(torch, dev, "rs41", dtype="bf16")
+        torch.cuda.empty_cache()
         phase_profile_fleet(torch, dev)
         print(smi, flush=True)
         return 0
@@ -1813,12 +1990,25 @@ def main() -> int:
     runs = {}
     pipe, blocks, runs["rs41"] = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
-    phase_step(torch, pipe, blocks)
+    phase_step(torch, pipe, blocks, smi=smi)
     del pipe, blocks
     torch.cuda.empty_cache()
     pipe, blocks, runs["rs41x"] = phase_main_path(torch, dev, "rs41x", 2)
     phase_distinct(torch, dev, "rs41x")
     del pipe, blocks
+    torch.cuda.empty_cache()
+    # the plain-op step (use_pallas=False, the JAX bench's default in bf16):
+    # RS41 in bf16 and f32, rs41x and dfm in bf16; no hand kernel
+    for dtype in ("bf16", "f32"):
+        pipe, blocks, runs[f"plain_{dtype}"] = phase_main_path(
+            torch, dev, "rs41", 3, dtype)
+        phase_step(torch, pipe, blocks, phase="plain_step", smi=smi)
+        del pipe, blocks
+        torch.cuda.empty_cache()
+    phase_distinct(torch, dev, "rs41", "bf16")
+    runs["plain_rs41x_bf16"] = phase_main_path(torch, dev, "rs41x", 1,
+                                               "bf16")[2]
+    phase_distinct(torch, dev, "dfm", "bf16")
     torch.cuda.empty_cache()
     runs["pfb_stream"] = phase_pfb_stream(torch, dev)
     fleet, (wi, wq), runs["fleet"] = phase_fleet_path(torch, dev)
@@ -1842,7 +2032,8 @@ def main() -> int:
                      "pfb_fir_stream": "fleet", "pfb_dft": "fleet",
                      "fused_dualtone_frontend": "fleet",
                      "pfb_fir_timemajor": "pfb_stream"}
-    paths = ("rs41", "fleet", "imet4", "c50", "rs41x")
+    paths = ("rs41", "fleet", "imet4", "c50", "rs41x", "plain_bf16",
+             "plain_f32", "plain_rs41x_bf16")
     table = []
     for name in KERNEL_SOURCES:
         if name in launches_from:
@@ -1877,6 +2068,8 @@ def main() -> int:
         rs41x_518_bytes=subset(kres["rs_clean_rs41x"]),
         bodies_by_path={p: {k: v for k, v in runs[p]["bodies"].items()
                             if k.startswith("rs_clean")} for p in paths})
+    k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
+    k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")
     k2_row.update(
         body=kres["corr"]["body"],

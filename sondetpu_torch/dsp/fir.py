@@ -5,7 +5,10 @@
 (the original module imports jax): the port designs the same taps from the
 same config. ``apply_windows``/``conv1d`` are the torch form of
 ``_apply_windows``/``_conv1d``: a causal FIR (correlation with reversed
-taps) with an optional stride, accumulated in float32 in a fixed order.
+taps) with an optional stride, accumulated in float32 in a fixed order. A
+bfloat16 input is filtered with the taps rounded to bfloat16, as the
+original's conv takes them; the products of two bfloat16 values are exact
+in float32.
 """
 
 from __future__ import annotations
@@ -52,6 +55,15 @@ class FIRState(NamedTuple):
     tail: torch.Tensor  # [channels, ntaps-1]
 
 
+def _taps(taps, x: torch.Tensor) -> torch.Tensor:
+    """The taps as float32 on x's device, rounded to bfloat16 first when x
+    is bfloat16."""
+    h = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    if x.dtype == torch.bfloat16:
+        h = h.to(torch.bfloat16).to(torch.float32)
+    return h
+
+
 def conv1d(x: torch.Tensor, kernel, stride: int = 1) -> torch.Tensor:
     """Valid 1-D correlation of every row of ``x`` [C, n] with ``kernel``
     [L]: ``out[c, i] = sum_k kernel[k] * x[c, i*stride + k]``, float32.
@@ -60,7 +72,7 @@ def conv1d(x: torch.Tensor, kernel, stride: int = 1) -> torch.Tensor:
     the order the CUDA kernels use, so a kernel can be held to this bit for
     bit (``F.conv1d`` leaves the order to the backend, and cuDNN rounds to
     TF32 by default on the card)."""
-    k = torch.as_tensor(np.asarray(kernel, np.float32), device=x.device)
+    k = _taps(kernel, x)
     n_out = (x.shape[-1] - k.shape[0]) // stride + 1
     x = x.to(torch.float32)
     acc = torch.zeros((x.shape[0], n_out), dtype=torch.float32, device=x.device)
@@ -74,7 +86,7 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     ``y[m] = sum_u taps[u] * xp[m*stride + ntaps - 1 - u]``, summed in
     ascending u with every operation rounded on its own (see
     :func:`conv1d`)."""
-    h = torch.as_tensor(np.asarray(taps, np.float32), device=xp.device)
+    h = _taps(taps, xp)
     ntaps = h.shape[0]
     n_out = (xp.shape[-1] - ntaps) // stride + 1
     xp = xp.to(torch.float32)

@@ -50,8 +50,9 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sondetpu_afsk_frontend": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                                _P, _P],
-    "sondetpu_demod_fir": [_P, _P, _P, _P, _P, _I, _F, _I, _I, _I, _P, _P,
-                           _P],
+    "sondetpu_demod_audio_parts": [_I],
+    "sondetpu_demod_audio": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
+    "sondetpu_demod_fir": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "sondetpu_lane_fir": [_P, _P, _I, _I, _I, _P, _P],
 }
 

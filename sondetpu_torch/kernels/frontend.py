@@ -200,7 +200,10 @@ def fused_demod_fir(iq_i, iq_q, prev, atail, taps, scale: float,
     DC-removed audio; taps: NumPy float32 array. Returns (filt [C, n], the
     next atail [C, ntaps - 1]).
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel.
+    CPU tensors run the plain twin; CUDA tensors launch the kernel's two
+    launches (two counts): the discriminator with per-block partial sums
+    (body ``audio``), then the DC and the FIR, compiled for 41 taps
+    (``t41``) or for any other count (``runtime_t``).
     """
     dev = iq_i.device
     if dev.type == "cpu":
@@ -213,11 +216,22 @@ def fused_demod_fir(iq_i, iq_q, prev, atail, taps, scale: float,
                            ("prev", prev, (c, 2)),
                            ("atail", atail, (c, T - 1))):
         cuda.check_tensor(name, t, torch.float32, dev, shape)
+    if c > 65535:
+        raise ValueError(f"fused_demod_fir: {c} channels exceed the grid's "
+                         "65535 rows")
     h = np.ascontiguousarray(taps, np.float32)
+    lib = cuda.library()
+    audio = torch.empty((c, n), dtype=torch.float32, device=dev)
+    partial = torch.empty((c, lib.sondetpu_demod_audio_parts(n)),
+                          dtype=torch.float32, device=dev)
     filt = torch.empty((c, n), dtype=torch.float32, device=dev)
     tail = torch.empty((c, T - 1), dtype=torch.float32, device=dev)
-    cuda.launch("fused_demod_fir", "sondetpu_demod_fir", iq_i.data_ptr(),
-                iq_q.data_ptr(), prev.data_ptr(), atail.data_ptr(),
-                h.ctypes.data, T, float(np.float32(scale)), int(dc_block), c,
-                n, filt.data_ptr(), tail.data_ptr(), cuda.stream_handle(dev))
+    stream = cuda.stream_handle(dev)
+    cuda.launch("fused_demod_fir", "sondetpu_demod_audio", iq_i.data_ptr(),
+                iq_q.data_ptr(), prev.data_ptr(), float(np.float32(scale)), c,
+                n, audio.data_ptr(), partial.data_ptr(), stream, body="audio")
+    cuda.launch("fused_demod_fir", "sondetpu_demod_fir", audio.data_ptr(),
+                atail.data_ptr(), partial.data_ptr(), h.ctypes.data, T,
+                int(dc_block), c, n, filt.data_ptr(), tail.data_ptr(), stream,
+                body="t41" if T == FIXED_TAPS else "runtime_t")
     return filt, tail

@@ -1,25 +1,32 @@
-"""The per-block decoding pipeline on the kernel path (counterpart:
+"""The per-block decoding pipeline (counterpart:
 ``sondetpu/runtime/pipeline.py``).
 
 ``PipelineConfig`` and ``unpack_block_output`` are copies of the originals
 (the original module imports jax), so one config drives both packages and
 the wire layout agrees by construction. ``Pipeline`` is the torch form of
-the original's ``use_pallas=True`` step for rs41/rs41x/dfm (the fused front
-end), m10 (the fused dual-tone front end) and imet4/c50 (the fused front
-end at decim 1 with an identity matched filter, then the AFSK tone
-kernel): dequant, front end (kernels), Oerder-Meyr timing, integer- or
-rational-sps symbol sampling, chip ring, syncword correlation (the
-correlator kernel on the fused-front-end path; the plain correlation on
-the dual-tone and AFSK paths, as in the original), peak pick, then
-either the NRZ byte pack and frame gather, or the frame gather with
-Manchester/biphase-M decoding and the Chase weak bits, then
-de-whitening, RS syndrome flag (kernel), and the flat packed buffer. In the
-port ``use_pallas=True`` means "the Hopper kernels"; every other config
-raises ``NotImplementedError`` naming the missing piece.
+the original's step on two paths:
+
+- ``use_pallas=True``, the kernel path (in the port: the Hopper kernels),
+  float32: rs41/rs41x/dfm on the fused front end, m10 on the fused
+  dual-tone front end, imet4/c50 on the fused front end at decim 1 with an
+  identity matched filter, then the AFSK tone kernel.
+- ``use_pallas=False``, the plain-op path of the FM-discriminator families
+  (rs41, rs41x, dfm), in float32 or bfloat16: the original's jnp branch,
+  which runs no kernel (channel filter, ``atan2`` discriminator, mean DC,
+  matched FIR, the plain correlation and the GF(2) matmul RS flag), its
+  sample-rate arrays stored in the compute dtype where the original casts.
+
+Both go on through Oerder-Meyr timing, integer- or rational-sps symbol
+sampling, the chip ring, syncword correlation (the correlator kernel on the
+fused-front-end path; the plain correlation on the other paths, as in the
+original), peak pick, then either the NRZ byte pack and frame gather, or
+the frame gather with Manchester/biphase-M decoding and the Chase weak
+bits, then de-whitening, RS syndrome flag, and the flat packed buffer.
+Every other config raises ``NotImplementedError`` naming the missing piece.
 
 Carry-over state is an explicit tuple of tensors with the original's field
-names; ``state_from_numpy``/``state_to_numpy`` move it between the two
-packages.
+names and dtypes; ``state_from_numpy``/``state_to_numpy`` move it between
+the two packages.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from sondetpu_torch.dsp.fir import FIRState, design_lowpass
+from sondetpu_torch.dsp.fir import FIRState, apply_windows, design_lowpass
+from sondetpu_torch.fec.syndrome import rs_clean_flags
 from sondetpu_torch.kernels.afsk import afsk_tables, fused_afsk_frontend
 from sondetpu_torch.kernels.corr import corr_kernel
 from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
@@ -247,11 +255,15 @@ class PipelineConfig:
 
 
 class PipelineState(NamedTuple):
-    # the original's field names and layout, as tensors on one device
-    chan_tail_i: torch.Tensor  # [C, HALO] raw input carry (I)
-    chan_tail_q: torch.Tensor  # [C, HALO] raw input carry (Q)
-    fm_prev: torch.Tensor      # [C, 2]; carried, unused on the kernel path
-    fir: FIRState              # [C, ntaps-1]; carried, unused there too
+    # the original's field names and layout, as tensors on one device; the
+    # plain path stores the sample-rate fields in the compute dtype
+    chan_tail_i: torch.Tensor  # [C, HALO] raw input carry (I); the plain
+                               # path's [C, ntaps-1]
+    chan_tail_q: torch.Tensor  # the same for Q
+    fm_prev: torch.Tensor      # [C, 2]: the plain path's last filtered
+                               # sample; carried, unused on the kernel path
+    fir: FIRState              # [C, ntaps-1] audio tail of the plain path;
+                               # carried, unused on the kernel path too
     timing: TimingState
     chipbuf: torch.Tensor      # [C, buf_len] soft chips (zeros before lock)
     buf_fill: torch.Tensor     # [C] int32, how many chips in buffer are real
@@ -312,18 +324,40 @@ def _map_state(state, fn):
         aux=tuple(fn(a) for a in state.aux))
 
 
+def _leaf_from_numpy(x, dev) -> torch.Tensor:
+    a = np.array(np.asarray(x))
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (the JAX package's) holds the same 16 bits as
+        # torch.bfloat16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError("state_to_numpy: a bfloat16 leaf needs NumPy's "
+                        "bfloat16 type, which ml_dtypes registers when the "
+                        "caller has loaded it (the JAX package does)") from None
+    return t.view(torch.int16).numpy().view(bf16)
+
+
 def state_from_numpy(jax_state, device) -> PipelineState:
     """The JAX package's PipelineState (or any tuple with its field layout)
     -> the port's state on ``device``; every leaf goes through
-    ``np.asarray``."""
+    ``np.asarray``, a bfloat16 leaf bit for bit to torch.bfloat16."""
     dev = torch.device(device)
-    return _map_state(jax_state, lambda x: torch.from_numpy(
-        np.array(np.asarray(x))).to(dev))
+    return _map_state(jax_state, lambda x: _leaf_from_numpy(x, dev))
 
 
 def state_to_numpy(state: PipelineState) -> PipelineState:
-    """The port's state -> the same field layout with NumPy leaves."""
-    return _map_state(state, lambda t: t.detach().cpu().numpy())
+    """The port's state -> the same field layout with NumPy leaves; a
+    bfloat16 leaf becomes a NumPy bfloat16 array with the same bits."""
+    return _map_state(state, _leaf_to_numpy)
 
 
 def _dualtone_gates(c):
@@ -366,19 +400,47 @@ def _rational_sps(c):
     return None
 
 
+def _sps_missing(c):
+    if not float(c.sps).is_integer() and _rational_sps(c) is None:
+        return (f"sps={c.sps} (only integer sps, or p/q with q <= 16 and "
+                "whole p-sample segments per block; the plain path's "
+                "_linear_interp)")
+    return None
+
+
+def _plain_missing(c):
+    """What the plain-op path (use_pallas=False) lacks for ``c``, or None:
+    it covers the FM-discriminator families with mean DC."""
+    spec = c.spec
+    if spec.modulation == "afsk":
+        return (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
+                "(use_pallas=False)")
+    if spec.extra.get("fsk_dualtone"):
+        if _dualtone_gates(c)[0]:
+            return (f"the jnp dual-tone branch of {c.sonde!r} "
+                    "(use_pallas=False)")
+        return (f"the FM-discriminator fallback of {c.sonde!r} (its "
+                "dual-tone front end needs dev*block/fs integer and "
+                "2 <= sps <= ntaps)")
+    if spec.extra.get("dc_mode") == "midpoint":
+        return f"midpoint DC of {c.sonde!r} (use_pallas=False)"
+    return _sps_missing(c)
+
+
 def _check_slice(c) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
     missing = None
     if c.sonde not in PORTED_SONDES:
         missing = f"sonde {c.sonde!r} (ported: {', '.join(PORTED_SONDES)})"
-    elif not c.use_pallas:
-        missing = "use_pallas=False (the plain-op pipeline)"
-    elif c.compute_dtype != "f32":
-        missing = f"compute_dtype={c.compute_dtype!r}"
     elif c.fine_offsets is not None or c.afc:
         missing = "fine_offsets/afc (the per-channel DDC and AFC loop)"
     elif c.profile_stop:
         missing = "profile_stop (the stage-truncated profiling step)"
+    elif not c.use_pallas:
+        missing = _plain_missing(c)
+    elif c.compute_dtype != "f32":
+        missing = (f"compute_dtype={c.compute_dtype!r} on the kernel path "
+                   "(use_pallas=True)")
     elif c.channels % 8:
         missing = (f"channels={c.channels}, not a multiple of 8 (the kernel "
                    "path's channel gate)")
@@ -397,9 +459,8 @@ def _check_slice(c) -> None:
         missing = (f"the FM-discriminator fallback of {c.sonde!r} (its "
                    "dual-tone front end needs dev*block/fs integer and "
                    "2 <= sps <= ntaps)")
-    elif not float(c.sps).is_integer() and _rational_sps(c) is None:
-        missing = (f"sps={c.sps} (only integer sps, or p/q with q <= 16 "
-                   "and whole p-sample segments per block)")
+    else:
+        missing = _sps_missing(c)
     if missing is not None:
         raise NotImplementedError(f"sondetpu_torch Pipeline: {missing} is not "
                                   "ported")
@@ -431,6 +492,10 @@ class Pipeline:
         self._np_templates = [np.asarray(t, np.float32) for t in templates]
         self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
         self._afsk = spec.modulation == "afsk"
+        # the plain-op path stores its sample-rate arrays in this dtype
+        self._plain = not c.use_pallas
+        self._cdt = (torch.bfloat16 if c.compute_dtype == "bf16"
+                     else torch.float32)
         if self._afsk:
             # stage 1 is the fused front end with an identity matched
             # filter; stage 2 mixes by the host f64 mark/space tables
@@ -448,8 +513,11 @@ class Pipeline:
             self._mix_cos = torch.from_numpy(cos_m).to(dev)
             self._mix_sin = torch.from_numpy(sin_m).to(dev)
         # FM discriminator scale at the processing rate, rounded to f32 as
-        # the original hands it to its kernel
+        # the original hands it to its kernel (and as its jnp branch
+        # multiplies by it)
         self._scale = float(np.float32(c.fs_proc / (2.0 * np.pi * spec.dev)))
+        self._scale_t = torch.tensor(self._scale, dtype=torch.float32,
+                                     device=dev)
         cos_w, sin_w = spectral_line_tables(c.block_len // c.decim, c.sps)
         self._cos_w = torch.from_numpy(cos_w).to(dev)
         self._sin_w = torch.from_numpy(sin_w).to(dev)
@@ -472,14 +540,20 @@ class Pipeline:
         def z(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
+        # the kernel path carries HALO raw input samples per plane, the
+        # plain path ntaps - 1 of them, in the compute dtype as the rest of
+        # its sample-rate carries
+        tail_w = c.ntaps - 1 if self._plain else HALO
+        sdt = self._cdt
         return PipelineState(
-            chan_tail_i=z(c.channels, HALO), chan_tail_q=z(c.channels, HALO),
-            fm_prev=z(c.channels, 2),
+            chan_tail_i=z(c.channels, tail_w, dtype=sdt),
+            chan_tail_q=z(c.channels, tail_w, dtype=sdt),
+            fm_prev=z(c.channels, 2, dtype=sdt),
             # the dual-tone path's layout carries 4 mixed planes per channel
             fir=FIRState(tail=z(c.channels * (4 if self._dualtone else 1),
-                                c.ntaps - 1)),
+                                c.ntaps - 1, dtype=sdt)),
             timing=TimingState(pos=z(c.channels), locked=z(c.channels)),
-            chipbuf=z(c.channels, c.buf_len),
+            chipbuf=z(c.channels, c.buf_len, dtype=sdt),
             buf_fill=z(c.channels, dtype=torch.int32),
             # the AFSK path carries the last HALO DC-removed audio samples
             aux=(z(c.channels, HALO),) if self._afsk else ())
@@ -565,11 +639,48 @@ class Pipeline:
 
     def _correlate(self, chipbuf: torch.Tensor, k: int) -> torch.Tensor:
         """Correlation with template k: the correlator kernel on the fused
-        front end's path, the plain correlation on the dual-tone and AFSK
-        paths (the original's choice, ``pipeline.py:948-970``)."""
-        if self._dualtone or self._afsk:
+        front end's path, the plain correlation on the plain-op, dual-tone
+        and AFSK paths (the original's choice, ``pipeline.py:948-970``)."""
+        if self._plain or self._dualtone or self._afsk:
             return correlate_syncword(chipbuf, self._np_templates[k])
         return corr_kernel(chipbuf, self._np_templates[k])
+
+    def _plain_frontend(self, state: PipelineState, iq_i: torch.Tensor,
+                        iq_q: torch.Tensor):
+        """The original's jnp front end of the FM-discriminator families
+        (``sondetpu/runtime/pipeline.py:765-921``, use_pallas=False): the
+        channel filter over [carried tail | block] at stride decim, the FM
+        discriminator with atan2 in float32, the block-mean DC, the matched
+        FIR over [carried audio tail | audio]. Every sample-rate array is
+        stored in the compute dtype where the original casts it; the
+        filters read it, round bfloat16 taps as the original's conv does,
+        and sum in float32. Returns (filt, new chan tails, fm_prev, fir)."""
+        c = self.config
+        cdt, f32 = self._cdt, torch.float32
+        h = c.ntaps - 1
+        iq_i, iq_q = iq_i.to(cdt), iq_q.to(cdt)
+        ci = apply_windows(torch.cat([state.chan_tail_i, iq_i], dim=-1),
+                           self._chan_taps, stride=c.decim).to(cdt)
+        cq = apply_windows(torch.cat([state.chan_tail_q, iq_q], dim=-1),
+                           self._chan_taps, stride=c.decim).to(cdt)
+        fm_prev = torch.stack([ci[:, -1], cq[:, -1]], dim=-1)
+        ip = torch.cat([state.fm_prev[:, 0:1], ci[:, :-1]], dim=-1).to(f32)
+        qp = torch.cat([state.fm_prev[:, 1:2], cq[:, :-1]], dim=-1).to(f32)
+        ii, qq = ci.to(f32), cq.to(f32)
+        audio = torch.atan2(qq * ip - ii * qp,
+                            ii * ip + qq * qp) * self._scale_t
+        if c.dc_block:
+            # jnp.mean: the sum over a divisor on the device (CUDA
+            # multiplies by the reciprocal of a Python number)
+            dc = torch.sum(audio, dim=-1) / torch.full(
+                (), float(audio.shape[-1]), dtype=f32, device=audio.device)
+            audio = audio - dc[:, None]
+        xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
+        filt = apply_windows(xp, self._taps).to(cdt)
+        # the carried tails as copies: views would keep the whole block
+        # alive until the next step
+        return (filt, iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous(),
+                fm_prev, FIRState(tail=xp[:, -h:].contiguous()))
 
     def _step_impl(self, state: PipelineState, iq_i: torch.Tensor,
                    iq_q: torch.Tensor):
@@ -585,8 +696,14 @@ class Pipeline:
             iq_i = iq_i.to(torch.float32).contiguous()
             iq_q = iq_q.to(torch.float32).contiguous()
         sps = c.sps
+        # the kernel paths carry fm_prev and fir as they are; the plain
+        # path replaces them
+        fm_prev, fir, aux = state.fm_prev, state.fir, ()
 
-        if self._dualtone:
+        if self._plain:
+            filt, new_ctail_i, new_ctail_q, fm_prev, fir = \
+                self._plain_frontend(state, iq_i, iq_q)
+        elif self._dualtone:
             # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
             # + one-chip boxcar + envelope metric; mean DC from the kernel's
             # sums. The boxcar is the matched filter.
@@ -598,7 +715,6 @@ class Pipeline:
                     want_afc=False, skip_chanfilt=self._skip_chanfilt)
             if c.dc_block:
                 filt = filt - dc[:, None]
-            aux = ()
         elif self._afsk:
             # K1 at decim 1 with an identity matched filter gives the
             # DC-removed discriminator audio; K8 mixes it by the mark and
@@ -616,7 +732,6 @@ class Pipeline:
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._taps, self._scale, c.decim,
                 c.dc_block)
-            aux = ()
         n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
@@ -635,12 +750,14 @@ class Pipeline:
                                    locked=torch.ones_like(state.timing.locked))
         soft = self._sample_symbols(filt, start, sps, cpb)
 
-        # chip ring buffer: a constant cpb new chips -> static slice
-        chipbuf = torch.cat([state.chipbuf, soft], dim=-1)[:, cpb:].contiguous()
+        # chip ring buffer: a constant cpb new chips -> static slice, stored
+        # in the compute dtype
+        chipbuf = torch.cat([state.chipbuf, soft.to(self._cdt)],
+                            dim=-1)[:, cpb:].contiguous()
         buf_fill = torch.clamp_max(state.buf_fill + cpb, c.buf_len)
 
-        # syncword correlation (K2 off the dual-tone and AFSK paths);
-        # alternates go through the same correlator
+        # syncword correlation (K2 on the fused front end's path only, see
+        # _correlate); alternates go through the same correlator
         corr = self._correlate(chipbuf, 0)
         if spec.extra.get("abs_corr"):
             corr = corr.abs()
@@ -715,10 +832,12 @@ class Pipeline:
             starts.to(torch.int64))
         soft_rms = torch.sqrt(torch.mean(soft * soft, dim=-1))
 
-        # K3: RS syndrome flag; frames flagged clean skip host FEC
+        # RS syndrome flag (K3; the GF(2) matmul on the plain path, as in
+        # the original); frames flagged clean skip host FEC
         rs_layout = spec.extra.get("rs")
         if rs_layout is not None:
-            rs_clean = rs_clean_flags_kernel(frames, rs_layout) & frame_valid
+            flags = rs_clean_flags if self._plain else rs_clean_flags_kernel
+            rs_clean = flags(frames, rs_layout) & frame_valid
         else:
             rs_clean = torch.zeros_like(frame_valid)
 
@@ -740,6 +859,6 @@ class Pipeline:
                           rs_clean=rs_clean, packed=packed)
         new_state = PipelineState(
             chan_tail_i=new_ctail_i, chan_tail_q=new_ctail_q,
-            fm_prev=state.fm_prev, fir=state.fir, timing=timing_state,
+            fm_prev=fm_prev, fir=fir, timing=timing_state,
             chipbuf=chipbuf, buf_fill=buf_fill, aux=aux)
         return new_state, out

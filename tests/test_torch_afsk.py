@@ -35,8 +35,7 @@ from sondetpu_torch.kernels.afsk import (HALO, afsk_tables,
                                          fused_afsk_frontend,
                                          fused_afsk_frontend_plain)
 from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
-from sondetpu_torch.kernels.frontend import (fused_demod_fir,
-                                             fused_demod_fir_plain)
+from sondetpu_torch.kernels.frontend import fused_demod_fir
 from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
@@ -184,26 +183,43 @@ def test_afsk_stream_continuity():
 
 # --- K9 and K10 ----------------------------------------------------------------
 
-@pytest.mark.parametrize("dc_block", [True, False])
-def test_demod_fir_twin_matches_pallas(dc_block):
-    """K9's twin against the Pallas kernel in interpret mode at the shapes
-    of tests/test_pallas.py (8 x 4800, 41 taps): filtered audio and tail
-    within 2e-5 on audio of magnitude ~10 (the two round the DC sum in
-    their own order)."""
-    rng = np.random.default_rng(0)
-    i, q = (rng.normal(size=(C, 4800)).astype(np.float32) for _ in range(2))
-    prev = rng.normal(size=(C, 2)).astype(np.float32)
-    atail = rng.normal(size=(C, 40)).astype(np.float32)
-    taps = design_lowpass(2640.0, FS, 41)
+# (rows, block, taps): the shapes of tests/test_pallas.py (8 x 4800, 41
+# taps), the run-time body's tap count on a block no tile of the kernel
+# divides, one row, and a block of T - 1 samples; each with and without the
+# DC. The first shape keeps its ids "True" and "False".
+_DEMOD_CASES = [
+    pytest.param(8, 4800, 41, dc, id=label + str(dc))
+    for label, (c, n, t) in (("", (8, 4800, 41)),) for dc in (True, False)
+] + [
+    pytest.param(c, n, t, dc, id=f"{label}-{dc}")
+    for label, (c, n, t) in (("t33-ragged", (8, 2 * 5376 + 7, 33)),
+                             ("one-row", (1, 3000, 41)),
+                             ("n-t-minus-1", (8, 40, 41)))
+    for dc in (True, False)]
+
+
+@pytest.mark.parametrize("rows,n,ntaps,dc_block", _DEMOD_CASES)
+def test_demod_fir_twin_matches_pallas(rows, n, ntaps, dc_block):
+    """K9's twin against the Pallas kernel in interpret mode: filtered
+    audio and tail within 2e-5 on audio of magnitude ~10 (the two round
+    the DC sum in their own order). The Pallas kernel takes rows in groups
+    of 8: one row goes to it as the first of 8."""
+    rng = np.random.default_rng(n + ntaps)
+    i, q = (rng.normal(size=(8, n)).astype(np.float32) for _ in range(2))
+    prev = rng.normal(size=(8, 2)).astype(np.float32)
+    atail = rng.normal(size=(8, ntaps - 1)).astype(np.float32)
+    taps = design_lowpass(2640.0, FS, ntaps)
     scale = np.float32(FS / (2 * np.pi * 2400.0))
     want = jax_demod_fir(jnp.asarray(i), jnp.asarray(q), jnp.asarray(prev),
                          jnp.asarray(atail), jnp.asarray(taps[None]),
-                         jnp.asarray([[scale]]), ntaps=41, dc_block=dc_block,
-                         interpret=True)
-    got = fused_demod_fir(T(i), T(q), T(prev), T(atail), taps, float(scale),
-                          dc_block)
+                         jnp.asarray([[scale]]), ntaps=ntaps,
+                         dc_block=dc_block, interpret=True)
+    got = fused_demod_fir(T(i[:rows]), T(q[:rows]), T(prev[:rows]),
+                          T(atail[:rows]), taps, float(scale), dc_block)
+    assert got[0].shape == (rows, n) and got[1].shape == (rows, ntaps - 1)
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=2e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:rows], rtol=0,
+                                   atol=2e-5)
 
 
 def test_lane_fir_twin_is_the_experiment_formula():
@@ -434,26 +450,3 @@ def test_cuda_correlate_syncword_divides_by_l(cuda_device, name, tmpl):
     want = (conv1d(T(chips), tmpl).double() / len(tmpl)).float()
     assert torch.equal(got, want)
     assert torch.equal(got, tcorrelator.correlate_syncword(T(chips), tmpl))
-
-
-def test_cuda_demod_fir_and_lane_fir_match_twins(cuda_device):
-    rng = np.random.default_rng(6)
-    i, q = (T(rng.normal(size=(16, 9600)).astype(np.float32)).to(cuda_device)
-            for _ in range(2))
-    prev = T(rng.normal(size=(16, 2)).astype(np.float32)).to(cuda_device)
-    atail = T(rng.normal(size=(16, 40)).astype(np.float32)).to(cuda_device)
-    taps = design_lowpass(2640.0, FS, 41)
-    got = fused_demod_fir(i, q, prev, atail, taps, 3.18, True)
-    want = fused_demod_fir_plain(i, q, prev, atail, taps, 3.18, True)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=0, atol=2e-5)
-    x = T(rng.normal(size=(16, 9640)).astype(np.float32)).to(cuda_device)
-    h = design_lowpass(0.1, 1.0, 41)
-    assert torch.equal(lane_fir(x, h), lane_fir_plain(x, h))
-    for ntaps, ln in ((1, 5003), (64, 7064), (33, 3841 * 2 + 39)):
-        x = T(rng.normal(size=(3, ln)).astype(np.float32)).to(cuda_device)
-        h = rng.normal(size=ntaps).astype(np.float32)
-        cuda.reset_launches()
-        got, want = lane_fir(x, h), lane_fir_plain(x, h)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-        assert cuda.body_launches == {"lane_fir:runtime_t": 1}

@@ -77,3 +77,37 @@ def test_session_fleet_and_families_load_no_sondetpu_module():
                          env=dict(os.environ, PYTHONPATH=REPO))
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+
+
+_COLLECT_WITHOUT_JAX = r"""
+import importlib.abc, sys
+class _Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "sondetpu"):
+            raise ImportError("refused in this process: " + name)
+        return None
+sys.meta_path.insert(0, _Refuse())
+import pytest
+sys.exit(pytest.main(["--noconftest", "-p", "no:cacheprovider", "-q",
+                      "--collect-only", "tests/test_torch_cuda.py"]))
+"""
+
+
+def test_card_tests_need_neither_jax_nor_sondetpu():
+    """tests/test_torch_cuda.py is meant for the card's machine, which has
+    no jax: it imports neither jax nor the JAX package, and pytest collects
+    it in a process that refuses both."""
+    path = os.path.join("tests", "test_torch_cuda.py")
+    assert jax_package_imports(path) == []
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    tops = {a.name.split(".")[0] for n in ast.walk(tree)
+            if isinstance(n, ast.Import) for a in n.names}
+    tops |= {n.module.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module}
+    assert not tops & {"jax", "jaxlib", "ml_dtypes"}, tops
+    res = subprocess.run([sys.executable, "-c", _COLLECT_WITHOUT_JAX],
+                         capture_output=True, text=True, cwd=REPO, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=REPO))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "test_cuda_plain_path_matches_cpu" in res.stdout, res.stdout

@@ -315,8 +315,9 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("kw,missing", [
     (dict(sonde="ims100", input_dtype="f32"), "sonde 'ims100'"),
-    (dict(use_pallas=False), "use_pallas=False"),
-    (dict(use_pallas=False, compute_dtype="bf16"), "use_pallas=False"),
+    (dict(sonde="imet4", use_pallas=False), "jnp AFSK front end"),
+    (dict(sonde="m10", use_pallas=False, compute_dtype="bf16"),
+     "jnp dual-tone branch"),
     (dict(fine_offsets=tuple([100.0] * C)), "fine_offsets/afc"),
     (dict(afc=True), "fine_offsets/afc"),
     (dict(profile_stop="corr"), "profile_stop"),
@@ -328,7 +329,9 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
         "channels-12", "fractional-sps", "m10-fm-fallback"])
 def test_pipeline_refuses_configs_outside_the_slice(kw, missing):
     """One JAX PipelineConfig drives both packages; the port names the
-    piece it lacks."""
+    piece it lacks (the plain-op path, use_pallas=False, covers the
+    FM-discriminator families only: "no-pallas" and "bf16" are imet4 and
+    m10 there)."""
     cfg = jpipe.PipelineConfig(**{**_config(), **kw})
     with pytest.raises(NotImplementedError, match=missing):
         tpipe.Pipeline(cfg, CPU)
