@@ -159,6 +159,20 @@ EDGE_LAYOUTS = {
 # carriers of the fleet path: (bin, family, serial the decoder reports)
 FLEET_CARRIERS = ((1, "rs41", "S1234567"), (6, "m10", "910-2-12345"),
                   (9, "dfm", "1234567"))
+# the DDC path's 16 carrier offsets, Hz, channel ch carrying ch % 16: off
+# any grid, over +/-8 kHz (the RS41 channel filter passes 5 kHz), and how
+# far the AFC-tracked frequency may end from its offset
+DDC_OFFSETS = tuple(float(f) for f in np.linspace(-7950.0, 7950.0, 16))
+DDC_AFC_HZ = 50.0
+# carriers of the off-grid fleet: (family, serial, centre Hz) at 48 kHz bins
+OFFGRID_CARRIERS = (("rs41", "S1234567", 1 * FS + 3150.0),
+                    ("m10", "910-2-12345", 5 * FS - 1420.0),
+                    ("dfm", "1234567", -4 * FS + 4275.0))
+# the tracked frequency, card against CPU: K1's block DC and K7's rotation
+# sums are summed in another order than their twins (within 1e-5), which
+# moves the loop by ~beta * dev * 1e-5 a block; CUDA's cosf and sinf are
+# 2 ulp against the CPU's 1
+FLEET_AFC_HZ = 0.25
 
 
 def check(ok, message: str) -> None:
@@ -815,6 +829,7 @@ def phase_step(torch, pipe, blocks, phase: str = "step", smi=None):
           "realtime_channels": CHANNELS * secs / step,
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           **({"nvidia_smi": smi} if smi else {})})
+    return step * 1e3
 
 
 def fleet_family(k: int) -> str:
@@ -1235,9 +1250,12 @@ def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
           "m10_weak_sets_equal": [weak_same, weak_total]})
 
 
-def phase_fleet_step(torch, fleet, wi, wq):
+def phase_fleet_step(torch, fleet, wi, wq, smi):
     """The fleet's device step and its session reading at the path's
-    shape."""
+    shape; then the step of the same fleet with afc=True (every group's
+    DDC and AFC loop, seeded on the grid) and without, in turns."""
+    from sondetpu_torch.runtime.fleet import FleetSession
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for _ in range(2):                          # warm-up
@@ -1256,6 +1274,22 @@ def phase_fleet_step(torch, fleet, wi, wq):
         fleet.process_wideband((wi, wq))
         wall.append(time.perf_counter() - t0)
     fleet.flush()
+    afc = FleetSession(fleet.channels, fleet.n_bins, fleet.device,
+                       fs_chan=FS, block_len=fleet.block_len, afc=True)
+    afc.step(wi, wq)                            # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    turns = {"afc": [], "no_afc": []}
+    for r in range(6):
+        pair = [("afc", afc), ("no_afc", fleet)]
+        for key, f in (pair if r % 2 == 0 else pair[::-1]):
+            for _ in range(2):
+                t0 = time.perf_counter()
+                f.step(wi, wq)
+                torch.cuda.synchronize()
+                turns[key].append((time.perf_counter() - t0) * 1e3)
+    afc_peak = torch.cuda.max_memory_allocated()
+    del afc
     step = statistics.median(times)
     secs = fleet.block_len / FS
     emit({"phase": "fleet_step", "bins": fleet.n_bins, "block_seconds": secs,
@@ -1264,7 +1298,12 @@ def phase_fleet_step(torch, fleet, wi, wq):
           "realtime_channels": fleet.n_bins * secs / step,
           "max_memory_allocated_bytes": peak,
           "process_wideband_ms_median": statistics.median(wall) * 1e3,
-          "process_wideband_ms": [t * 1e3 for t in wall]})
+          "process_wideband_ms": [t * 1e3 for t in wall],
+          "step_ms_median_afc": statistics.median(turns["afc"]),
+          "step_ms_median_no_afc": statistics.median(turns["no_afc"]),
+          "step_ms_afc": turns["afc"], "step_ms_no_afc": turns["no_afc"],
+          "max_memory_allocated_bytes_afc_turns": afc_peak,
+          "nvidia_smi": smi})
 
 
 def afsk_planes(family: str, n: int, seed: int, noise: float = 0.04,
@@ -1739,6 +1778,361 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
           "families": out, "matches_cpu": True})
 
 
+def ddc_blocks(torch, dev, n_blocks: int):
+    """int16 (i, q) blocks [CHANNELS, BLOCK_LEN] on the card: the RS41
+    signal of rs41_planes (one row) moved off the channel centre by each of
+    DDC_OFFSETS (rotated in float64 on the card, quantized to cs16 again),
+    channel ch carrying offset ch % 16."""
+    qi, qq = rs41_planes("S1234567", n_blocks, seed=0)
+    n = qi.size
+    xi = torch.from_numpy(qi).to(dev, torch.float64)
+    xq = torch.from_numpy(qq).to(dev, torch.float64)
+    offs = torch.tensor(DDC_OFFSETS, dtype=torch.float64, device=dev)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    cyc = torch.remainder(offs[:, None] * t / FS, 1.0)
+    c, s = torch.cos(2.0 * np.pi * cyc), torch.sin(2.0 * np.pi * cyc)
+    rot = [torch.round(r).clamp(-32768, 32767).to(torch.int16)
+           for r in (xi * c - xq * s, xi * s + xq * c)]
+    del cyc, c, s
+    rows = torch.arange(CHANNELS, device=dev) % len(DDC_OFFSETS)
+    return [tuple(r[:, b * BLOCK_LEN:(b + 1) * BLOCK_LEN].index_select(0, rows)
+                  .contiguous() for r in rot) for b in range(n_blocks)]
+
+
+def alternate_steps(torch, pipes, blocks, rounds: int = 6, per: int = 2):
+    """Steady-state step times (ms) of each pipeline on the same blocks,
+    taken in turns (a, b, b, a, ...) so that both meet the same card."""
+    states = [p.init_state() for p in pipes]
+    for k, p in enumerate(pipes):               # warm-up
+        for planes in blocks[:2]:
+            states[k], _ = p.step(states[k], planes)
+    torch.cuda.synchronize()
+    times = [[] for _ in pipes]
+    for r in range(rounds):
+        order = range(len(pipes)) if r % 2 == 0 else reversed(range(len(pipes)))
+        for k in order:
+            for j in range(per):
+                t0 = time.perf_counter()
+                states[k], _ = pipes[k].step(states[k],
+                                             blocks[(r * per + j) % len(blocks)])
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_ddc_afc_path(torch, dev, main_step_ms, smi, n_blocks: int = 3):
+    """The RS41 kernel path at 2048 channels x 4 s with every channel off
+    the channel centre (DDC_OFFSETS, beyond the channel filter's 5 kHz
+    without the DDC), fine_offsets and the AFC loop on: decoded telemetry
+    on every channel, each tracked frequency near its offset, K1-K3
+    launched; then the device step with and without the DDC in turns, the
+    DDC alone, and peak device memory."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    offsets = tuple(DDC_OFFSETS[ch % len(DDC_OFFSETS)]
+                    for ch in range(CHANNELS))
+    base = dict(sonde="rs41", channels=CHANNELS, block_len=BLOCK_LEN,
+                use_pallas=True, input_dtype="i16")
+    cfg = PipelineConfig(**base, fine_offsets=offsets, afc=True)
+    blocks = ddc_blocks(torch, dev, n_blocks)
+    pipe = Pipeline(cfg, dev)
+    sess = DecoderSession(cfg, dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    block_seconds = []
+    for planes in blocks:
+        t0 = time.perf_counter()
+        sess.process_block(planes)
+        block_seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
+    session_peak = torch.cuda.max_memory_allocated()
+    m = sess.metrics
+    check(sorted(sess.telemetry) == list(range(CHANNELS)),
+          f"ddc_afc_path: {CHANNELS - len(sess.telemetry)} channels without "
+          "telemetry")
+    ref = sess.telemetry[0].to_dict()
+    check(ref.get("serial") == "S1234567", f"ddc_afc_path: telemetry {ref}")
+    ref_text = json.dumps(ref, sort_keys=True)
+    same = sum(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
+               == ref_text for ch in range(CHANNELS))
+    check(same == CHANNELS, f"ddc_afc_path: telemetry differs between "
+          f"channels ({same} of {CHANNELS} equal channel 0's)")
+    dist = np.abs(sess.afc_freqs - np.asarray(offsets, np.float32))
+    check(float(dist.max()) <= DDC_AFC_HZ, f"ddc_afc_path: a tracked "
+          f"frequency is {float(dist.max())} Hz from its offset")
+    for name in ("fused_frontend", "corr", "rs_clean"):
+        check(launches[name] == n_blocks,
+              f"ddc_afc_path: kernel {name} launched {launches[name]} times")
+    check(bodies == {"fused_frontend:decim2_t41": n_blocks,
+                     "corr:sign_l64": n_blocks, "rs_clean:c384": n_blocks},
+          f"ddc_afc_path: bodies {bodies}")
+    # the step with and without the DDC (the same pipeline without
+    # fine_offsets and afc), in turns on the same blocks
+    plain = Pipeline(PipelineConfig(**base), dev)
+    torch.cuda.reset_peak_memory_stats()
+    t_ddc, t_plain = alternate_steps(torch, [pipe, plain], blocks)
+    step_peak = torch.cuda.max_memory_allocated()
+    # the DDC alone on one dequantized block, and what it must move: two
+    # float32 planes in, two out
+    qs = float(np.float32(1.0 / 32768.0))
+    iq = [x.to(torch.float32) * qs for x in blocks[0]]
+    st = sess.state
+    ddc_ms = cuda_ms(torch, lambda: pipe._downconvert(
+        iq[0], iq[1], st.aux[-1], st.aux[-2]), 10)
+    ddc_bound_ms = 2 * nbytes(*iq) / HBM_BYTES_PER_S * 1e3
+    ddc_med, plain_med = statistics.median(t_ddc), statistics.median(t_plain)
+    emit({"phase": "ddc_afc_path", "sonde": "rs41", "channels": CHANNELS,
+          "block_len": BLOCK_LEN, "blocks": n_blocks,
+          "offsets_hz": list(DDC_OFFSETS), "afc": True,
+          "frames_raw": m.frames_raw, "frames_decoded": m.frames_decoded,
+          "frames_per_channel": m.frames_decoded / CHANNELS,
+          "serial": ref.get("serial"), "lat": ref.get("lat"),
+          "afc_hz_from_offset_max": float(dist.max()),
+          "afc_hz_from_offset_mean": float(dist.mean()),
+          "afc_tol_hz": DDC_AFC_HZ,
+          "launches": {k: v for k, v in launches.items() if v},
+          "body_launches": bodies, "process_block_seconds": block_seconds,
+          "step_ms_median_ddc_afc": ddc_med,
+          "step_ms_median_no_ddc": plain_med,
+          "step_ms_ddc_afc": t_ddc, "step_ms_no_ddc": t_plain,
+          "main_path_step_ms_median": main_step_ms,
+          "ddc_cost_ms": ddc_med - plain_med, "ddc_alone_ms": ddc_ms,
+          "ddc_bytes_bound_ms": ddc_bound_ms,
+          "max_memory_allocated_bytes_session": session_peak,
+          "max_memory_allocated_bytes_steps": step_peak, "nvidia_smi": smi})
+    return {"launches": launches, "bodies": bodies, "steps": n_blocks}
+
+
+def afc_signal(case: str):
+    """complex64 [n] of one AFC case, as tests/test_afc.py builds it:
+    rs41 drifting 1 -> 6.5 kHz (16 frames, cut to whole blocks); imet4
+    drifting 0 -> 14 kHz (16 frames, zero-padded to whole blocks); m10 at a
+    fixed +800 Hz (30 frames, cut to whole blocks)."""
+    from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
+    from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+    from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+
+    blk = int(FS)
+    if case == "rs41":
+        iq = RS41Modulator().modulate([RS41Truth(frame_no=i)
+                                       for i in range(16)], fs=FS)
+        f0, f1, noise, seed = 1000.0, 6500.0, 0.05, 0
+    elif case == "imet4":
+        iq = IMET4Modulator().modulate([IMET4Truth(frame_no=i)
+                                        for i in range(16)], fs=FS)
+        f0, f1, noise, seed = 0.0, 14000.0, 0.03, 3
+    else:
+        iq = M10Modulator().modulate([M10Truth(frame_no=i)
+                                      for i in range(30)], fs=FS)
+        f0, f1, noise, seed = 800.0, 800.0, 0.05, 0
+    n = iq.size
+    finst = f0 + (f1 - f0) * np.arange(n) / n
+    sig = (iq * np.exp(2j * np.pi * np.cumsum(finst) / FS)).astype(np.complex64)
+    rng = np.random.default_rng(seed)
+    sig = sig + (noise * (rng.normal(size=n) + 1j * rng.normal(size=n))
+                 ).astype(np.complex64)
+    if case == "imet4":
+        return np.pad(sig, (0, (-n) % blk))
+    return sig[:n // blk * blk]
+
+
+def phase_afc_drift(torch, dev, c: int = 64):
+    """The AFC cases of tests/test_afc.py on the kernel path, each signal
+    on c channels at 1 s blocks, with afc and without: with it, each
+    channel decodes more frames than without by the original's margin
+    (rs41 2, imet4 4) and ends with its tracked frequency in the original's
+    window; m10 (the dual-tone path) pulls toward +800 Hz and launches K7's
+    AFC body."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    blk = int(FS)
+    cases = {"rs41": (2, (4000.0, 6500.0), {}),
+             "imet4": (4, (9000.0, 14500.0), {"afc_max_hz": 20000.0}),
+             "m10": (None, (400.0, 1200.0), {})}
+    out, run = {}, None
+    for case, (margin, (lo, hi), kw) in cases.items():
+        sig = afc_signal(case)
+        n_blocks = sig.size // blk
+        planes = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+                  for x in (sig.real, sig.imag)]
+        decoded = {}
+        for afc in ((True, False) if margin is not None else (True,)):
+            cfg = PipelineConfig(sonde=case, channels=c, block_len=blk,
+                                 use_pallas=True, afc=afc, **kw)
+            sess = DecoderSession(cfg, dev)
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            for b in range(n_blocks):
+                sess.process_block(tuple(
+                    x[None, b * blk:(b + 1) * blk].expand(c, -1).contiguous()
+                    for x in planes))
+            torch.cuda.synchronize()
+            decoded[afc] = sess.metrics.frames_decoded
+            if afc:
+                freqs = sess.afc_freqs
+                launches = dict(cuda.launches)
+                bodies = dict(cuda.body_launches)
+        check(((lo < freqs) & (freqs < hi)).all(),
+              f"afc_drift {case}: tracked {freqs.min()}..{freqs.max()} Hz, "
+              f"outside ({lo}, {hi})")
+        if margin is not None:
+            check(decoded[True] >= decoded[False] + margin * c,
+                  f"afc_drift {case}: {decoded[True]} frames with afc, "
+                  f"{decoded[False]} without (margin {margin} a channel)")
+        else:
+            check(decoded[True] > 0, f"afc_drift {case}: no frames decoded")
+            check(bodies.get("fused_dualtone_frontend:skip_nb5_afc")
+                  == n_blocks, f"afc_drift m10: K7 bodies {bodies}")
+            run = {"launches": launches, "bodies": bodies, "steps": n_blocks}
+        out[case] = {"blocks": n_blocks,
+                     "frames_decoded_afc": decoded[True],
+                     "frames_decoded_static": decoded.get(False),
+                     "afc_hz_min": float(freqs.min()),
+                     "afc_hz_max": float(freqs.max()), "window": [lo, hi],
+                     "body_launches": bodies}
+    emit({"phase": "afc_drift", "channels": c, "block_len": blk,
+          "cases": out})
+    return run
+
+
+def phase_fleet_offgrid(torch, dev, n_bins: int = 16, n_blocks: int = 3):
+    """A 16-bin fleet with an rs41, an m10 and a dfm carrier off the PFB
+    grid, each mapped to its bin and residual by bin_and_offset, afc on,
+    pipelined, on the card and on the CPU (twins): every serial decodes,
+    each block's validity and valid frame bytes, the telemetry and the
+    tracked frequencies equal the CPU's."""
+    from sondetpu_torch.dsp.channelizer import bin_and_offset
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+    from sondetpu_torch.runtime.pipeline import unpack_block_output
+    from sondetpu_torch.sondes.modulate import freq_shift
+
+    fs_wide = n_bins * FS
+    w = n_bins * int(FS)
+    n = n_blocks * w
+    wide = np.zeros(n, np.complex64)
+    plan = []
+    for i, (family, serial, center) in enumerate(OFFGRID_CARRIERS):
+        k, off = bin_and_offset(center, FS, n_bins)
+        plan.append((k, off, family, serial))
+        wide += freq_shift(narrowband(family, serial, n, fs_wide),
+                           center / fs_wide)
+    rng = np.random.default_rng(12)
+    wide += (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+             ).astype(np.complex64)
+    check(all(off != 0.0 for _, off, _, _ in plan),
+          f"fleet_offgrid: a carrier on the grid {plan}")
+    chans = [FleetChannel(pfb_bin=k, sonde=f, offset_hz=off)
+             for k, off, f, _ in plan]
+    kw = dict(fs_chan=FS, block_len=int(FS), afc=True, pipelined=True)
+    gpu = FleetSession(chans, n_bins, dev, **kw)
+    cpu = FleetSession(chans, n_bins, "cpu", **kw)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    valid = {}
+    for b in range(n_blocks):
+        x = wide[b * w:(b + 1) * w]
+        planes = (np.ascontiguousarray(x.real, np.float32),
+                  np.ascontiguousarray(x.imag, np.float32))
+        gpu.process_wideband(planes)
+        cpu.process_wideband(planes)
+        (pg, fg), (pc, fc) = gpu._pending, cpu._pending
+        hg, hc = pg.cpu().numpy(), pc.numpy()
+        off = 0
+        for (sonde, _, sess), frg, frc in zip(gpu._order, fg, fc):
+            cfg = sess.config
+            size = cfg.channels * cfg.packed_row_bytes
+            ug, uc = (unpack_block_output(h[off:off + size], cfg.k_slots,
+                                          cfg.wire_ncols, cfg.chase_total)
+                      for h in (hg, hc))
+            off += size
+            v = uc[1]
+            check(np.array_equal(ug[1], v),
+                  f"fleet_offgrid block {b} {sonde}: validity differs")
+            check(torch.equal(frg.cpu()[torch.from_numpy(v)],
+                              frc[torch.from_numpy(v)]),
+                  f"fleet_offgrid block {b} {sonde}: frame bytes differ")
+            valid[sonde] = valid.get(sonde, 0) + int(v.sum())
+    gpu.flush()
+    cpu.flush()
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
+    tg, tc = gpu.telemetry, cpu.telemetry
+    for i, (_, _, family, serial) in enumerate(plan):
+        check(i in tg and tg[i].serial == serial,
+              f"fleet_offgrid: channel {i} ({family}) telemetry {tg.get(i)}")
+        check(json.dumps(tg[i].to_dict(), sort_keys=True)
+              == json.dumps(tc[i].to_dict(), sort_keys=True),
+              f"fleet_offgrid: channel {i} telemetry differs from the CPU")
+    freqs = {}
+    for sonde, (idxs, sess) in gpu.groups.items():
+        # the real rows: the pad rows repeat the group's first bin without
+        # its offset, so they carry no centred signal
+        fg_, fc_ = (s.afc_freqs[:len(idxs)] for s in
+                    (sess, cpu.groups[sonde][1]))
+        err = float(np.abs(fg_ - fc_).max())
+        check(err <= FLEET_AFC_HZ, f"fleet_offgrid {sonde}: tracked "
+              f"frequencies {fg_} differ from the CPU's {fc_}")
+        freqs[sonde] = {"seed_hz": sess.config.fine_offsets[0],
+                        "card_hz": float(fg_[0]), "cpu_hz": float(fc_[0]),
+                        "err_hz": err}
+    check(bodies.get("fused_dualtone_frontend:skip_nb5_afc") == n_blocks,
+          f"fleet_offgrid: K7 bodies {bodies}")
+    emit({"phase": "fleet_offgrid", "bins": n_bins, "blocks": n_blocks,
+          "carriers": [{"bin": k, "offset_hz": off, "sonde": f, "serial": s}
+                       for k, off, f, s in plan],
+          "valid_frames": valid, "matches_cpu": True, "afc": freqs,
+          "afc_tol_hz": FLEET_AFC_HZ, "body_launches": bodies})
+    return {"launches": launches, "bodies": bodies, "steps": n_blocks}
+
+
+def phase_session_workers(torch, dev, blocks, workers: int = 8):
+    """The RS41 session at 2048 channels with host_workers=0 and with
+    ``workers`` threads, block by block in turns: identical telemetry, and
+    each one's process_block wall times."""
+    from sondetpu_torch.runtime.pipeline import PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    cfg = PipelineConfig(sonde="rs41", channels=CHANNELS, block_len=BLOCK_LEN,
+                         use_pallas=True, input_dtype="i16")
+    sessions = {0: DecoderSession(cfg, dev),
+                workers: DecoderSession(cfg, dev, host_workers=workers)}
+    wall = {k: [] for k in sessions}
+    for b, planes in enumerate(blocks):
+        for k in (sorted(sessions) if b % 2 == 0
+                  else sorted(sessions, reverse=True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sessions[k].process_block(planes)
+            wall[k].append(time.perf_counter() - t0)
+    text = {k: {ch: json.dumps(t.to_dict(), sort_keys=True)
+                for ch, t in s.telemetry.items()}
+            for k, s in sessions.items()}
+    sessions[workers].close()
+    check(len(text[0]) == CHANNELS and text[0] == text[workers],
+          "session_workers: telemetry differs between 0 and "
+          f"{workers} host workers")
+    check(sessions[0].metrics.frames_decoded
+          == sessions[workers].metrics.frames_decoded,
+          "session_workers: decoded frames differ")
+    emit({"phase": "session_workers", "channels": CHANNELS,
+          "blocks": len(blocks), "host_workers": [0, workers],
+          "frames_decoded": sessions[0].metrics.frames_decoded,
+          "process_block_ms_median": {
+              str(k): statistics.median(v) * 1e3 for k, v in wall.items()},
+          "process_block_ms": {str(k): [t * 1e3 for t in v]
+                               for k, v in wall.items()},
+          "same_telemetry": True})
+
+
 def phase_profile(torch, dev, family: str, steps: int = 3, dtype=None):
     """torch.profiler over ``steps`` steady device steps of one family at
     2048 channels x 4 s; with ``dtype``, of the plain-op step in that
@@ -1990,8 +2384,11 @@ def main() -> int:
     runs = {}
     pipe, blocks, runs["rs41"] = phase_main_path(torch, dev)
     phase_distinct(torch, dev)
-    phase_step(torch, pipe, blocks, smi=smi)
+    main_step_ms = phase_step(torch, pipe, blocks, smi=smi)
+    phase_session_workers(torch, dev, blocks)
     del pipe, blocks
+    torch.cuda.empty_cache()
+    runs["ddc_afc"] = phase_ddc_afc_path(torch, dev, main_step_ms, smi)
     torch.cuda.empty_cache()
     pipe, blocks, runs["rs41x"] = phase_main_path(torch, dev, "rs41x", 2)
     phase_distinct(torch, dev, "rs41x")
@@ -2013,9 +2410,10 @@ def main() -> int:
     runs["pfb_stream"] = phase_pfb_stream(torch, dev)
     fleet, (wi, wq), runs["fleet"] = phase_fleet_path(torch, dev)
     phase_fleet_distinct(torch, dev)
-    phase_fleet_step(torch, fleet, wi, wq)
+    phase_fleet_step(torch, fleet, wi, wq, smi)
     del fleet, wi, wq
     torch.cuda.empty_cache()
+    runs["fleet_offgrid"] = phase_fleet_offgrid(torch, dev)
     for family, n_blocks in (("imet4", 3), ("c50", 2)):
         pipe, blocks, runs[family] = phase_afsk_path(torch, dev, family,
                                                      n_blocks)
@@ -2023,6 +2421,7 @@ def main() -> int:
         del pipe, blocks
         torch.cuda.empty_cache()
     phase_afsk_distinct(torch, dev)
+    runs["afc_m10"] = phase_afc_drift(torch, dev)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -2033,7 +2432,8 @@ def main() -> int:
                      "fused_dualtone_frontend": "fleet",
                      "pfb_fir_timemajor": "pfb_stream"}
     paths = ("rs41", "fleet", "imet4", "c50", "rs41x", "plain_bf16",
-             "plain_f32", "plain_rs41x_bf16")
+             "plain_f32", "plain_rs41x_bf16", "ddc_afc", "fleet_offgrid",
+             "afc_m10")
     table = []
     for name in KERNEL_SOURCES:
         if name in launches_from:
@@ -2068,6 +2468,10 @@ def main() -> int:
         rs41x_518_bytes=subset(kres["rs_clean_rs41x"]),
         bodies_by_path={p: {k: v for k, v in runs[p]["bodies"].items()
                             if k.startswith("rs_clean")} for p in paths})
+    k7_row = next(e for e in table if e["name"] == "fused_dualtone_frontend")
+    k7_row["bodies_by_path"] = {
+        p: {k: v for k, v in runs[p]["bodies"].items()
+            if k.startswith("fused_dualtone_frontend")} for p in paths}
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")

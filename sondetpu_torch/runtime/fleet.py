@@ -8,11 +8,13 @@ row gather per group, each group's step, the groups' packed buffers
 concatenated into one, and one device->host readback per block (one block
 later when ``pipelined``). Every group runs the kernel path
 (``use_pallas=True``) in float32. The step runs eagerly on ``device``.
+A channel's ``offset_hz`` below the PFB grid goes to its group's DDC
+(``fine_offsets``), and ``afc`` runs each group's AFC loop from it.
 
-Not ported: the mesh fleet, fine offsets below the PFB grid (the DDC) and
-AFC; each raises ``NotImplementedError``. The original's 64-row group
-padding and its per-family kernel policy were tuned for the TPU and are
-dropped: a group is padded only to the kernels' multiple of 8 rows.
+Not ported: the mesh fleet, which raises ``NotImplementedError``. The
+original's 64-row group padding and its per-family kernel policy were
+tuned for the TPU and are dropped: a group is padded only to the kernels'
+multiple of 8 rows.
 """
 
 from __future__ import annotations
@@ -54,10 +56,6 @@ class FleetSession:
         if mesh is not None:
             raise NotImplementedError("sondetpu_torch FleetSession: mesh= "
                                       "(the mesh fleet) is not ported")
-        if afc or any(ch.offset_hz for ch in channels):
-            raise NotImplementedError(
-                "sondetpu_torch FleetSession: afc/offset_hz (the per-channel "
-                "DDC and AFC loop) is not ported")
         self.channels = list(channels)
         self.device = torch.device(device)
         self.pfb = PFBChannelizer(n_bins, self.device)
@@ -77,10 +75,15 @@ class FleetSession:
         self._order = []          # [(sonde, bins tensor, session)]
         for sonde, idxs in groups.items():
             pad = (-len(idxs)) % ROW_MULTIPLE
+            # pad rows sit on the grid (sondetpu/runtime/fleet.py:118-125)
+            offs = tuple(self.channels[i].offset_hz for i in idxs) \
+                + (0.0,) * pad
             cfg = PipelineConfig(sonde=sonde, channels=len(idxs) + pad,
                                  fs=fs_chan, block_len=block_len,
                                  sync_threshold=sync_threshold,
-                                 use_pallas=True, compute_dtype="f32")
+                                 use_pallas=True, compute_dtype="f32",
+                                 afc=afc,
+                                 fine_offsets=offs if any(offs) else None)
             sess = DecoderSession(cfg, self.device,
                                   on_update=self._wrap(sonde, idxs, on_update),
                                   pipelined=False)

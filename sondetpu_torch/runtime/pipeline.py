@@ -16,6 +16,12 @@ the original's step on two paths:
   matched FIR, the plain correlation and the GF(2) matmul RS flag), its
   sample-rate arrays stored in the compute dtype where the original casts.
 
+On every path, ``fine_offsets`` or ``afc`` put the per-channel DDC (plain
+torch ops, the original's float32 formula) between the dequant and the
+front end; with ``afc`` its frequency is state, nudged each block by the
+front end's block DC (the dual-tone kernel's envelope-rotation angle on
+that path).
+
 Both go on through Oerder-Meyr timing, integer- or rational-sps symbol
 sampling, the chip ring, syncword correlation (the correlator kernel on the
 fused-front-end path; the plain correlation on the other paths, as in the
@@ -432,8 +438,6 @@ def _check_slice(c) -> None:
     missing = None
     if c.sonde not in PORTED_SONDES:
         missing = f"sonde {c.sonde!r} (ported: {', '.join(PORTED_SONDES)})"
-    elif c.fine_offsets is not None or c.afc:
-        missing = "fine_offsets/afc (the per-channel DDC and AFC loop)"
     elif c.profile_stop:
         missing = "profile_stop (the stage-truncated profiling step)"
     elif not c.use_pallas:
@@ -531,6 +535,14 @@ class Pipeline:
         if not spec.lsb_first:
             self._bit_shift = 7 - self._bit_shift
         self._bit_weight = torch.ones_like(self._bit_shift) << self._bit_shift
+        # the DDC's and the AFC loop's constants: the divisor on the device
+        # (CUDA multiplies by the reciprocal of a Python number), the
+        # fine_offsets and the loop's seed (fine_offsets, or zeros)
+        self._ddc = c.fine_offsets is not None or c.afc
+        self._fs_t = torch.full((), c.fs, dtype=torch.float32, device=dev)
+        self._f_seed = torch.from_numpy(
+            np.asarray(c.fine_offsets, np.float32) if c.fine_offsets is not None
+            else np.zeros(c.channels, np.float32)).to(dev)
 
     # -- state -------------------------------------------------------------
 
@@ -545,6 +557,15 @@ class Pipeline:
         # its sample-rate carries
         tail_w = c.ntaps - 1 if self._plain else HALO
         sdt = self._cdt
+        # aux in the original's order (sondetpu/runtime/pipeline.py:429-447):
+        # the AFSK path's last HALO DC-removed audio samples, the DDC's
+        # phase in cycles, the AFC-tracked frequency in Hz seeded by
+        # fine_offsets (or zeros)
+        aux = (z(c.channels, HALO),) if self._afsk else ()
+        if self._ddc:
+            aux += (z(c.channels),)
+        if c.afc:
+            aux += (self._f_seed.clone(),)
         return PipelineState(
             chan_tail_i=z(c.channels, tail_w, dtype=sdt),
             chan_tail_q=z(c.channels, tail_w, dtype=sdt),
@@ -555,8 +576,7 @@ class Pipeline:
             timing=TimingState(pos=z(c.channels), locked=z(c.channels)),
             chipbuf=z(c.channels, c.buf_len, dtype=sdt),
             buf_fill=z(c.channels, dtype=torch.int32),
-            # the AFSK path carries the last HALO DC-removed audio samples
-            aux=(z(c.channels, HALO),) if self._afsk else ())
+            aux=aux)
 
     # -- the step ------------------------------------------------------------
 
@@ -645,6 +665,41 @@ class Pipeline:
             return correlate_syncword(chipbuf, self._np_templates[k])
         return corr_kernel(chipbuf, self._np_templates[k])
 
+    def _downconvert(self, iq_i: torch.Tensor, iq_q: torch.Tensor,
+                     freq_hz: torch.Tensor, phase0: torch.Tensor):
+        """The per-channel DDC (``sondetpu/runtime/pipeline.py:647-667``):
+        rotate each row by -2*pi*freq_hz*t from its carried phase (in
+        cycles). Returns (i, q, new phase). The original's float32 formula
+        in its order: f_norm = freq_hz / fs on the device, cyc = phase0 +
+        f_norm * k (the product and the sum rounded apart), ang =
+        fl32(-2*pi) * cyc, accurate cos and sin (the angle reaches ~1e5 rad
+        on a 4 s block), and the new phase (phase0 + n * f_norm) mod 1,
+        floored as jnp.mod. Three [C, n] temporaries besides the outputs,
+        freed on return."""
+        n = iq_i.shape[-1]
+        f_norm = freq_hz / self._fs_t
+        ang = f_norm[:, None] * torch.arange(n, dtype=torch.float32,
+                                             device=iq_i.device)
+        ang.add_(phase0[:, None]).mul_(-2.0 * np.pi)
+        cosv = torch.cos(ang)
+        sinv = ang.sin_()
+        out_i = (iq_i * cosv).sub_(iq_q * sinv)
+        out_q = (iq_i * sinv).add_(iq_q * cosv)
+        phase = torch.remainder(phase0 + f_norm * float(n), 1.0)
+        return out_i, out_q, phase
+
+    def _afc_update(self, freq_hz: torch.Tensor, dc: torch.Tensor):
+        """First-order AFC loop (``sondetpu/runtime/pipeline.py:612-629``):
+        ``dc`` is the residual offset in audio/dev units; the clamp bounds
+        the excursion from each channel's seed, not the DDC frequency."""
+        c = self.config
+        maxhz = float(np.float32(c.afc_max_hz if c.afc_max_hz is not None
+                                 else c.spec.bandwidth / 2.0))
+        beta = float(np.float32(c.afc_beta))
+        dev = float(np.float32(c.spec.dev))
+        return self._f_seed + torch.clamp(
+            freq_hz + beta * dc * dev - self._f_seed, -maxhz, maxhz)
+
     def _plain_frontend(self, state: PipelineState, iq_i: torch.Tensor,
                         iq_q: torch.Tensor):
         """The original's jnp front end of the FM-discriminator families
@@ -654,7 +709,9 @@ class Pipeline:
         FIR over [carried audio tail | audio]. Every sample-rate array is
         stored in the compute dtype where the original casts it; the
         filters read it, round bfloat16 taps as the original's conv does,
-        and sum in float32. Returns (filt, new chan tails, fm_prev, fir)."""
+        and sum in float32. Returns (filt, new chan tails, fm_prev, fir,
+        the block-mean audio that the AFC loop reads, or None when neither
+        dc_block nor afc is set)."""
         c = self.config
         cdt, f32 = self._cdt, torch.float32
         h = c.ntaps - 1
@@ -669,18 +726,20 @@ class Pipeline:
         ii, qq = ci.to(f32), cq.to(f32)
         audio = torch.atan2(qq * ip - ii * qp,
                             ii * ip + qq * qp) * self._scale_t
-        if c.dc_block:
+        dc = None
+        if c.dc_block or c.afc:
             # jnp.mean: the sum over a divisor on the device (CUDA
             # multiplies by the reciprocal of a Python number)
             dc = torch.sum(audio, dim=-1) / torch.full(
                 (), float(audio.shape[-1]), dtype=f32, device=audio.device)
+        if c.dc_block:
             audio = audio - dc[:, None]
         xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
         filt = apply_windows(xp, self._taps).to(cdt)
         # the carried tails as copies: views would keep the whole block
         # alive until the next step
         return (filt, iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous(),
-                fm_prev, FIRState(tail=xp[:, -h:].contiguous()))
+                fm_prev, FIRState(tail=xp[:, -h:].contiguous()), dc)
 
     def _step_impl(self, state: PipelineState, iq_i: torch.Tensor,
                    iq_q: torch.Tensor):
@@ -696,30 +755,46 @@ class Pipeline:
             iq_i = iq_i.to(torch.float32).contiguous()
             iq_q = iq_q.to(torch.float32).contiguous()
         sps = c.sps
+        ddc_aux = ()
+        if self._ddc:
+            # with afc the frequency is state (aux[-1]) and the phase comes
+            # before it; without, the constant fine_offsets and the phase
+            # in aux[-1]
+            if c.afc:
+                freq_hz, phase0 = state.aux[-1], state.aux[-2]
+            else:
+                freq_hz, phase0 = self._f_seed, state.aux[-1]
+            iq_i, iq_q, phase = self._downconvert(iq_i, iq_q, freq_hz, phase0)
+            ddc_aux = (phase,)
         # the kernel paths carry fm_prev and fir as they are; the plain
-        # path replaces them
+        # path replaces them. afc_dc: the loop's residual offset in
+        # audio/dev units, per branch as in the original
         fm_prev, fir, aux = state.fm_prev, state.fir, ()
 
         if self._plain:
-            filt, new_ctail_i, new_ctail_q, fm_prev, fir = \
+            filt, new_ctail_i, new_ctail_q, fm_prev, fir, afc_dc = \
                 self._plain_frontend(state, iq_i, iq_q)
         elif self._dualtone:
             # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
             # + one-chip boxcar + envelope metric; mean DC from the kernel's
-            # sums. The boxcar is the matched filter.
+            # sums, AFC from its envelope-rotation sums. The boxcar is the
+            # matched filter.
             nb = max(2, int(round(sps)))
-            filt, new_ctail_i, new_ctail_q, dc, _, _ = \
+            filt, new_ctail_i, new_ctail_q, dc, rot_re, rot_im = \
                 fused_dualtone_frontend(
                     iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                     self._chan_taps, self._mix_cos, self._mix_sin, nb,
-                    want_afc=False, skip_chanfilt=self._skip_chanfilt)
+                    want_afc=c.afc, skip_chanfilt=self._skip_chanfilt)
             if c.dc_block:
                 filt = filt - dc[:, None]
+            afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t if c.afc
+                      else None)
         elif self._afsk:
             # K1 at decim 1 with an identity matched filter gives the
-            # DC-removed discriminator audio; K8 mixes it by the mark and
-            # space tones, boxcars one symbol and forms the soft chips
-            audio, new_ctail_i, new_ctail_q, _ = fused_frontend(
+            # DC-removed discriminator audio and its DC; K8 mixes it by the
+            # mark and space tones, boxcars one symbol and forms the soft
+            # chips
+            audio, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._delta, self._scale, 1, c.dc_block)
             filt, new_atail = fused_afsk_frontend(
@@ -727,11 +802,14 @@ class Pipeline:
             aux = (new_atail,)
         else:
             # K1: channel filter + decimate + FM discriminator + matched
-            # FIR; the carry is the raw HALO-sample input tail per plane
-            filt, new_ctail_i, new_ctail_q, _ = fused_frontend(
+            # FIR, and the block DC; the carry is the raw HALO-sample input
+            # tail per plane
+            filt, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._taps, self._scale, c.decim,
                 c.dc_block)
+        if c.afc:
+            ddc_aux += (self._afc_update(freq_hz, afc_dc),)
         n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
@@ -860,5 +938,5 @@ class Pipeline:
         new_state = PipelineState(
             chan_tail_i=new_ctail_i, chan_tail_q=new_ctail_q,
             fm_prev=fm_prev, fir=fir, timing=timing_state,
-            chipbuf=chipbuf, buf_fill=buf_fill, aux=aux)
+            chipbuf=chipbuf, buf_fill=buf_fill, aux=aux + ddc_aux)
         return new_state, out

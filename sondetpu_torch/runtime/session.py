@@ -4,17 +4,20 @@
 Single-process form of the original's ``DecoderSession``: it steps the
 port's pipeline, reads the packed buffer back to the host, runs the
 family's byte-level FEC and parse (with the device's weakest-bit ranks for
-the Chase repair of m10), and merges fragments into per-channel
-telemetry. The mesh, fan-in, thread-pool and watchdog duties of
-the original are not ported. In pipelined mode the readback of block k
-happens after block k+1 is stepped, so telemetry lags the input by one
-block, as in the original; the readback itself (``packed.cpu()``) still
-waits for the device.
+the Chase repair of m10; over a thread pool on channel-aligned rows with
+``host_workers``), and merges fragments into per-channel telemetry. It
+carries the original's AFC read-out (``afc_freqs``), ``reset_channel``
+(which reseeds a channel's AFC-tracked frequency) and ``watchdog``; the
+mesh and fan-in duties are not ported. In pipelined mode the readback of
+block k happens after block k+1 is stepped, so telemetry lags the input by
+one block, as in the original; the readback itself (``packed.cpu()``)
+still waits for the device.
 """
 
 from __future__ import annotations
 
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,7 +36,7 @@ class DecoderSession:
 
     def __init__(self, config: PipelineConfig, device,
                  on_update: Optional[Callable[[int, SondeTelemetry], None]] = None,
-                 pipelined: bool = False,
+                 pipelined: bool = False, host_workers: int = 0,
                  pipeline: Optional[Pipeline] = None):
         self.config = config
         self.device = torch.device(device)
@@ -50,6 +53,54 @@ class DecoderSession:
         self._last_update_block: Dict[int, int] = {}
         self.pipelined = pipelined
         self._pending = None
+        # host_workers > 1: the byte-level FEC/parse runs on a thread pool
+        # over CHANNEL-ALIGNED row ranges, so each channel's decoder state
+        # has one writer (sondetpu/runtime/session.py:64-74); it gains only
+        # as far as the family's parse releases the GIL
+        self.host_workers = int(host_workers)
+        self._pool = (ThreadPoolExecutor(max_workers=self.host_workers)
+                      if self.host_workers > 1 else None)
+
+    def close(self) -> None:
+        """Stop the host thread pool, if any."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None
+
+    @property
+    def afc_freqs(self):
+        """Per-channel AFC-tracked carrier offsets in Hz (a host [C]
+        float32 array), or None when config.afc is off."""
+        if not self.config.afc:
+            return None
+        return self.state.aux[-1].cpu().numpy()
+
+    def reset_channel(self, channel: int) -> None:
+        """Drop a channel's host state; the device state re-syncs on the
+        next frames by itself, except the AFC-tracked frequency: its row of
+        state.aux[-1] is reseeded to the channel's fine_offsets seed on the
+        device (every other row and leaf untouched), so a loop that
+        mis-tracked to its clamp does not hand the old sonde's offset to
+        the next sonde on this channel."""
+        self.decoder.reset_channel(channel)
+        self.telemetry.pop(channel, None)
+        self._last_update_block.pop(channel, None)
+        if self.config.afc:
+            offs = self.config.fine_offsets
+            freqs = self.state.aux[-1].clone()
+            freqs[channel] = float(np.float32(
+                offs[channel] if offs is not None else 0.0))
+            self.state = self.state._replace(
+                aux=self.state.aux[:-1] + (freqs,))
+
+    def watchdog(self, max_idle_blocks: int) -> List[int]:
+        """Reset the channels that produced no telemetry for more than
+        max_idle_blocks blocks; returns them."""
+        stale = [ch for ch, blk in self._last_update_block.items()
+                 if self.blocks_seen - blk > max_idle_blocks]
+        for ch in stale:
+            self.reset_channel(ch)
+        return stale
 
     def process_block(self, iq) -> List[Tuple[int, SondeTelemetry]]:
         """iq: [channels, block_len] complex64 or (i, q) planes.
@@ -105,20 +156,27 @@ class DecoderSession:
         self.frames_seen += frames.shape[0]
         clean = rs_clean[ch_idx, slot_idx]
         cols = cfg.wire_columns
+        # compact mode: the suspect rows' full frames (for host FEC) come in
+        # ONE device gather, so the workers stay pure NumPy
+        full = None
+        sus_ord = None
+        if cols is not None:
+            suspect = ~clean
+            if suspect.any():
+                full = self._fetch_full(out, ch_idx[suspect], slot_idx[suspect])
+                sus_ord = np.cumsum(suspect) - 1
+        # the original's order of branches (sondetpu/runtime/session.py:
+        # 255-275)
         if weak_all is not None and getattr(self.decoder, "wants_weak_bits",
                                             False):
             # soft-assist families: hand the device's weakest-bit ranks to
             # the Chase repair in the host parser
             frags = self.decoder.decode_byte_frames(
                 frames, ch_idx, weak_bits=weak_all[ch_idx, slot_idx])
+        elif self._pool is not None and ch_idx.size >= 4 * self.host_workers:
+            frags = self._decode_parallel(frames, ch_idx, clean, cols, full,
+                                          sus_ord)
         elif cols is not None:
-            # compact mode: suspect rows need their full frames for host FEC
-            full = None
-            sus_ord = None
-            suspect = ~clean
-            if suspect.any():
-                full = self._fetch_full(out, ch_idx[suspect], slot_idx[suspect])
-                sus_ord = np.cumsum(suspect) - 1
             frags = self._decode_rows(frames, ch_idx, clean, cols, full,
                                       sus_ord, 0)
         elif getattr(self.decoder, "wants_rs_clean", False):
@@ -172,3 +230,32 @@ class DecoderSession:
                 full[sus_ord[rows]], ch[suspect],
                 rs_clean=np.zeros(int(suspect.sum()), bool))
         return frags
+
+    def _decode_parallel(self, frames: np.ndarray, ch_idx: np.ndarray,
+                         clean: np.ndarray, cols, full, sus_ord):
+        """The byte-level decode over the thread pool on channel-aligned
+        row ranges (ch_idx is sorted: np.nonzero's row order), fragments in
+        row order (sondetpu/runtime/session.py:372-398)."""
+        n = ch_idx.size
+        w = self.host_workers
+        bounds = [0]
+        for k in range(1, w):
+            p = k * n // w
+            while 0 < p < n and ch_idx[p] == ch_idx[p - 1]:
+                p += 1                  # never split a channel across workers
+            bounds.append(p)
+        bounds.append(n)
+        ranges = [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+
+        def work(ab):
+            a, b = ab
+            sl = slice(a, b)
+            if cols is not None:
+                return self._decode_rows(frames[sl], ch_idx[sl], clean[sl],
+                                         cols, full, sus_ord, a)
+            if getattr(self.decoder, "wants_rs_clean", False):
+                return self.decoder.decode_byte_frames(
+                    frames[sl], ch_idx[sl], rs_clean=clean[sl])
+            return self.decoder.decode_byte_frames(frames[sl], ch_idx[sl])
+
+        return [f for r in self._pool.map(work, ranges) for f in r]

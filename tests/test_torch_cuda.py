@@ -1,5 +1,6 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels against their
-plain twins, and the plain-op path on the card against the CPU.
+plain twins, and the kernel path, the plain-op path, the DDC and AFC loop
+and the fleet on the card against the CPU.
 
 This file imports neither jax nor the JAX package (sondetpu), so it runs
 on a machine that has only torch and the CUDA toolkit; tests/conftest.py
@@ -11,6 +12,8 @@ Without a CUDA device every test skips (the CUDA kernels have no CPU mode;
 chip_smoke.py drives the same kernels and paths on the card).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +24,22 @@ from sondetpu_torch.kernels.frontend import (fused_demod_fir,
                                              fused_demod_fir_plain)
 from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
 from sondetpu_torch.runtime import pipeline as tpipe
+from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+from sondetpu_torch.sondes.modulate import freq_shift
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
 
 T = torch.from_numpy
 CPU = torch.device("cpu")
 FS = 48000.0
+BLOCK = 48000
+SERIALS = ("S1234567", "T7654321", "R0420042")
+# the AFC-tracked frequency, card against CPU: K1's block DC and K7's
+# rotation sums are summed in another order on the card (within 1e-5 of
+# their twins', chip_smoke.py), which moves the loop by beta * dev * 1e-5
+# a block, ~0.01 Hz; CUDA's cosf and sinf are 2 ulp against the CPU's 1
+AFC_HZ = 0.25
 
 
 @pytest.fixture
@@ -88,38 +102,158 @@ def test_cuda_demod_fir_and_lane_fir_match_twins(cuda_device):
         assert cuda.body_launches == {"lane_fir:runtime_t": 1}
 
 
-def test_cuda_plain_path_matches_cpu(cuda_device):
-    """The bf16 plain-op RS41 step (use_pallas=False) on the card equals
-    the CPU's on validity, valid frame bytes and RS verdicts, 8 channels
-    with three serials over 3 blocks, and launches no hand kernel."""
-    block, n_blocks, c = 48000, 3, 8
-    n = block * n_blocks
+def _rs41_rows(n_blocks, c=8, offsets=None):
+    """complex [c, n_blocks * BLOCK]: channel ch carries SERIALS[ch % 3]
+    from its own point in the frame stream, moved off the channel centre
+    by offsets[ch] Hz when given, with its own noise of std 0.1."""
+    n = BLOCK * n_blocks
     rows = []
-    for k, serial in enumerate(["S1234567", "T7654321", "R0420042"]):
+    for ch in range(c):
+        k = ch % 3
         iq = RS41Modulator().modulate(
-            [RS41Truth(serial=serial, frame_no=20 + j)
+            [RS41Truth(serial=SERIALS[k], frame_no=20 + j)
              for j in range(n // 25600 + 2)])[37 * k:37 * k + n]
-        rng = np.random.default_rng(k)
-        iq = iq + 0.1 * (rng.normal(size=n) + 1j * rng.normal(size=n))
-        rows.append([np.clip(x * 32767, -32768, 32767).astype(np.int16)
-                     for x in (iq.real, iq.imag)])
-    qi = np.stack([rows[ch % 3][0] for ch in range(c)])
-    qq = np.stack([rows[ch % 3][1] for ch in range(c)])
-    cfg = tpipe.PipelineConfig(sonde="rs41", channels=c, block_len=block,
-                               use_pallas=False, compute_dtype="bf16",
-                               input_dtype="i16")
-    gp, cp = tpipe.Pipeline(cfg, cuda_device), tpipe.Pipeline(cfg, CPU)
+        if offsets is not None:
+            iq = iq * np.exp(2j * np.pi * offsets[ch] * np.arange(n) / FS)
+        rng = np.random.default_rng(ch)
+        rows.append(iq + 0.1 * (rng.normal(size=n) + 1j * rng.normal(size=n)))
+    return np.stack(rows)
+
+
+def _cs16(rows):
+    return tuple(np.clip(x * 32767, -32768, 32767).astype(np.int16)
+                 for x in (rows.real, rows.imag))
+
+
+def _card_equals_cpu(cfg, device, planes, n_blocks):
+    """Steps the pipeline on the card and on the CPU over the blocks of
+    ``planes``: validity, valid frame bytes and RS verdicts equal. Returns
+    (card state, CPU state, valid frames)."""
+    gp, cp = tpipe.Pipeline(cfg, device), tpipe.Pipeline(cfg, CPU)
     gs, cs = gp.init_state(), cp.init_state()
-    cuda.reset_launches()
     frames = 0
     for b in range(n_blocks):
-        sl = slice(b * block, (b + 1) * block)
-        gs, go = gp.step(gs, (qi[:, sl], qq[:, sl]))
-        cs, co = cp.step(cs, (qi[:, sl], qq[:, sl]))
+        blk = tuple(x[:, b * BLOCK:(b + 1) * BLOCK] for x in planes)
+        gs, go = gp.step(gs, blk)
+        cs, co = cp.step(cs, blk)
         v = co.frame_valid
         assert torch.equal(go.frame_valid.cpu(), v)
         assert torch.equal(go.frames.cpu()[v], co.frames[v])
         assert torch.equal(go.rs_clean.cpu(), co.rs_clean)
         frames += int(v.sum())
-    assert gs.chipbuf.dtype == torch.bfloat16 and frames >= 3 * c
+    return gs, cs, frames
+
+
+def test_cuda_pipeline_matches_cpu(cuda_device):
+    """The RS41 kernel path on the card equals the CPU's (twins) on valid
+    slots, byte for byte, 8 channels with three serials over 3 blocks."""
+    cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
+                               use_pallas=True, input_dtype="i16")
+    cuda.reset_launches()
+    _, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)), 3)
+    assert frames >= 3 * 8
+    assert all(cuda.launches[k] == 3 for k in ("fused_frontend", "corr",
+                                                "rs_clean"))
+
+
+def test_cuda_plain_path_matches_cpu(cuda_device):
+    """The bf16 plain-op RS41 step (use_pallas=False) on the card equals
+    the CPU's on validity, valid frame bytes and RS verdicts, 8 channels
+    with three serials over 3 blocks, and launches no hand kernel."""
+    cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
+                               use_pallas=False, compute_dtype="bf16",
+                               input_dtype="i16")
+    cuda.reset_launches()
+    gs, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)),
+                                     3)
+    assert gs.chipbuf.dtype == torch.bfloat16 and frames >= 3 * 8
     assert not any(cuda.launches.values()), cuda.launches
+
+
+@pytest.mark.parametrize("sonde", ["rs41", "m10"])
+def test_cuda_ddc_afc_matches_cpu(cuda_device, sonde):
+    """Fine offsets and the AFC loop on the card: 8 channels, each off the
+    channel centre by its own offset (rs41: within +/-7 kHz, beyond the 5
+    kHz channel filter without the DDC; m10: +800 Hz, the loop from a zero
+    seed), 3 blocks. The card equals the CPU on validity, valid frame bytes
+    and RS verdicts, the tracked frequencies within AFC_HZ; rs41 runs K1,
+    m10 K7's AFC body."""
+    n_blocks = 3
+    if sonde == "rs41":
+        offs = tuple(float(f) for f in np.linspace(-7012.5, 6987.5, 8))
+        planes = _cs16(_rs41_rows(n_blocks, offsets=offs))
+        kw = dict(fine_offsets=offs, input_dtype="i16")
+        body = "fused_frontend:decim2_t41"
+    else:
+        n = n_blocks * BLOCK
+        iq = M10Modulator().modulate(
+            [M10Truth(frame_no=i) for i in range(n // 8240 + 2)])[:n]
+        iq = iq * np.exp(2j * np.pi * 800.0 * np.arange(n) / FS)
+        rng = np.random.default_rng(9)
+        rows = iq + 0.05 * (rng.normal(size=(8, n))
+                            + 1j * rng.normal(size=(8, n)))
+        planes = tuple(np.ascontiguousarray(x, np.float32)
+                       for x in (rows.real, rows.imag))
+        kw = {}
+        body = "fused_dualtone_frontend:skip_nb5_afc"
+    cfg = tpipe.PipelineConfig(sonde=sonde, channels=8, block_len=BLOCK,
+                               use_pallas=True, afc=True, **kw)
+    cuda.reset_launches()
+    gs, cs, frames = _card_equals_cpu(cfg, cuda_device, planes, n_blocks)
+    assert frames > 0
+    assert cuda.body_launches.get(body) == n_blocks, cuda.body_launches
+    torch.testing.assert_close(gs.aux[-1].cpu(), cs.aux[-1], rtol=0,
+                               atol=AFC_HZ)
+
+
+# the fleet: an rs41, an m10 and a dfm carrier in bins 1, 3 and 6 of an
+# 8-bin wideband stream
+N_BINS = 8
+FLEET_PLAN = ((1, "rs41"), (3, "m10"), (6, "dfm"))
+
+
+def _fleet_wideband(n_blocks=3):
+    """complex64 [n_blocks * N_BINS * BLOCK]: the plan's carriers, each from
+    the port's modulator at the wideband rate, moved to its bin's centre,
+    plus seeded noise of std 0.02."""
+    fs_wide = N_BINS * FS
+    n = n_blocks * N_BINS * BLOCK
+    sig = {"rs41": RS41Modulator().modulate(
+        [RS41Truth(frame_no=40 + i) for i in range(2 * n_blocks)], fs=fs_wide),
+        "m10": M10Modulator().modulate(
+            [M10Truth(frame_no=8 + i) for i in range(6 * n_blocks)],
+            fs=fs_wide),
+        "dfm": DFMModulator().modulate(
+            [DFMTruth(frame_no=2 + i) for i in range(5 * n_blocks)],
+            fs=fs_wide)}
+    wide = np.zeros(n, np.complex64)
+    for k, family in FLEET_PLAN:
+        center = (k if k < N_BINS / 2 else k - N_BINS) * FS
+        x = freq_shift(sig[family][:n], center / fs_wide)
+        wide[:x.size] += x
+    rng = np.random.default_rng(11)
+    return wide + (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+                   ).astype(np.complex64)
+
+
+def _telemetry_text(telem):
+    return {k: json.dumps(t.to_dict(), sort_keys=True)
+            for k, t in telem.items()}
+
+
+def test_cuda_fleet_matches_cpu(cuda_device):
+    """The 8-bin fleet on the card gives the CPU's telemetry (twins), and
+    launches the PFB and dual-tone kernels."""
+    wide = _fleet_wideband()
+    w = N_BINS * BLOCK
+    chans = [FleetChannel(b, s) for b, s in FLEET_PLAN]
+    gpu = FleetSession(chans, N_BINS, cuda_device)
+    cpu = FleetSession(chans, N_BINS, "cpu")
+    cuda.reset_launches()
+    for i in range(0, wide.size, w):
+        gpu.process_wideband(wide[i:i + w])
+        cpu.process_wideband(wide[i:i + w])
+    assert all(cuda.launches[k] > 0 for k in ("pfb_fir_stream", "pfb_dft",
+                                               "fused_dualtone_frontend"))
+    assert sorted(gpu.telemetry) == [0, 1, 2]
+    assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)

@@ -15,7 +15,6 @@ import torch
 
 from sondetpu.runtime.fleet import FleetChannel as JaxChannel
 from sondetpu.runtime.fleet import FleetSession as JaxFleet
-from sondetpu_torch.kernels import cuda
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
@@ -130,34 +129,20 @@ def test_fleet_step_is_one_packed_buffer(wideband):
 
 
 def test_fleet_refuses_what_is_not_ported():
+    """The mesh fleet and the configs the port lacks raise; afc and
+    offset_hz below the grid (the groups' DDC and AFC loop) are taken and
+    reach each group's config, pad rows on the grid."""
     chans = [FleetChannel(1, "rs41")]
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetSession(chans, N_BINS, "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="afc"):
-        FleetSession(chans, N_BINS, "cpu", afc=True)
-    with pytest.raises(NotImplementedError, match="offset_hz"):
-        FleetSession([FleetChannel(1, "rs41", offset_hz=300.0)], N_BINS,
-                     "cpu")
     with pytest.raises(NotImplementedError, match="block_len=100"):
         FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu", block_len=100)
     with pytest.raises(NotImplementedError, match="ims100"):
         FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu")
-
-
-# --- on the card -----------------------------------------------------------
-
-def test_cuda_fleet_matches_cpu(wideband):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no CPU "
-                    "mode); chip_smoke.py runs the fleet on the card")
-    wide, w = wideband
-    chans = [FleetChannel(b, s) for b, s in PLAN]
-    gpu = FleetSession(chans, N_BINS, torch.device("cuda", 0))
-    cpu = FleetSession(chans, N_BINS, "cpu")
-    cuda.reset_launches()
-    for i in range(0, wide.size, w):
-        gpu.process_wideband(wide[i:i + w])
-        cpu.process_wideband(wide[i:i + w])
-    assert all(cuda.launches[k] > 0 for k in ("pfb_fir_stream", "pfb_dft",
-                                               "fused_dualtone_frontend"))
-    assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)
+    fleet = FleetSession(chans, N_BINS, "cpu", afc=True)
+    cfg = fleet.groups["rs41"][1].config
+    assert cfg.afc and cfg.fine_offsets is None
+    fleet = FleetSession([FleetChannel(1, "rs41", offset_hz=300.0)], N_BINS,
+                         "cpu")
+    cfg = fleet.groups["rs41"][1].config
+    assert not cfg.afc and cfg.fine_offsets == (300.0,) + (0.0,) * 7

@@ -318,15 +318,16 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
     (dict(sonde="imet4", use_pallas=False), "jnp AFSK front end"),
     (dict(sonde="m10", use_pallas=False, compute_dtype="bf16"),
      "jnp dual-tone branch"),
-    (dict(fine_offsets=tuple([100.0] * C)), "fine_offsets/afc"),
-    (dict(afc=True), "fine_offsets/afc"),
+    (dict(sonde="mrzn1", input_dtype="f32"), "sonde 'mrzn1'"),
+    (dict(sonde="m10", compute_dtype="bf16", input_dtype="f32"),
+     "compute_dtype='bf16' on the kernel path"),
     (dict(profile_stop="corr"), "profile_stop"),
     (dict(channels=12), "multiple of 8"),
     (dict(fs=50000.0, block_len=50000), r"sps=5\.208.* q <= 16"),
     (dict(sonde="m10", block_len=48005, input_dtype="f32"),
      "FM-discriminator fallback"),
-], ids=["ims100", "no-pallas", "bf16", "fine-offsets", "afc", "profile-stop",
-        "channels-12", "fractional-sps", "m10-fm-fallback"])
+], ids=["ims100", "no-pallas", "bf16", "mrzn1", "m10-bf16-kernel",
+        "profile-stop", "channels-12", "fractional-sps", "m10-fm-fallback"])
 def test_pipeline_refuses_configs_outside_the_slice(kw, missing):
     """One JAX PipelineConfig drives both packages; the port names the
     piece it lacks (the plain-op path, use_pallas=False, covers the
@@ -355,23 +356,3 @@ def test_fetch_frames_matches_frames():
     np.testing.assert_array_equal(got, out.frames.numpy()[[0, 3, 7], [1, 0, 2]])
     assert tp.fetch_frames(out.frames, [], []).shape == (0, 320)
 
-
-def test_cuda_pipeline_matches_cpu():
-    """On the card: the kernel path equals the CPU path (twins) on valid
-    slots, byte for byte."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no CPU "
-                    "mode); chip_smoke.py runs this path on the card")
-    dev = torch.device("cuda", 0)
-    qi, qq = _planes(["S1234567", "T7654321"], 3, seed=2)
-    gp = tpipe.Pipeline(tpipe.PipelineConfig(**_config()), dev)
-    cp = tpipe.Pipeline(tpipe.PipelineConfig(**_config()), CPU)
-    gs, cs = gp.init_state(), cp.init_state()
-    for b in range(3):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
-        gs, go = gp.step(gs, (qi[:, sl], qq[:, sl]))
-        cs, co = cp.step(cs, (qi[:, sl], qq[:, sl]))
-        v = co.frame_valid
-        assert torch.equal(go.frame_valid.cpu(), v)
-        assert torch.equal(go.frames.cpu()[v], co.frames[v])
-        assert torch.equal(go.rs_clean.cpu(), co.rs_clean)
