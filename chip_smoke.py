@@ -14,7 +14,8 @@ before the result line:
 3. kernels: each CUDA kernel against its plain torch twin on the card, at
    the shapes its path gives it (the RS41 path: 2048 channels x 192000
    samples; the fleet: 2048 PFB bins x 4 s, m10 group 616 x 192000; the
-   AFSK paths: 2048 x 192000), with the tolerance stated beside it, timed
+   AFSK paths and ims100's K7 with its channel filter: 2048 x 192000),
+   with the tolerance stated beside it, timed
    with CUDA events around runs of back-to-back launches beside its twin,
    its bound (bytes or operations, from this run's shapes) and, where one
    PyTorch call computes the same function, that call. The fused front end
@@ -77,12 +78,30 @@ before the result line:
 12. afsk_distinct: 8 channels of each family with four distinct truths, on
     the card and on the CPU (twins): validity, valid frame bytes and
     telemetry equal.
+13. session_workers, ddc_afc_path, fleet_offgrid, afc_drift: the RS41
+    session with 0 and 8 host workers; RS41 at 2048 channels off the
+    centre with fine_offsets and afc; a 16-bin off-grid fleet with afc
+    against the CPU; the AFC cases of tests/test_afc.py on 64 channels.
+14. ims100_path (3 blocks) and mrzn1_path (2 blocks): the kernel path at
+    2048 channels x 4 s, one signal from the family's modulator on every
+    channel (noise std 0.04): the truth's serial and telemetry on every
+    channel, K7's chanfilt body once a step and no other kernel; then the
+    steady step (ims100_step, mrzn1_step), the midpoint DC alone on one
+    block's metric and peak device memory.
+15. dualtone_distinct: ims100 and mrzn1, 8 channels with four truths, with
+    and without afc, card against CPU (twins): validity, valid frame bytes
+    and telemetry equal.
+16. plain_dualtone: m10, ims100 and mrzn1 on the plain-op step
+    (use_pallas=False) in f32 and bf16, 8 channels with four truths, card
+    against CPU, no hand kernel; then the 2048-channel m10 bf16 plain step
+    (plain_dualtone_step) and its peak memory.
 
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
 bodies and torch.profiler reads the device kernels of three steady steps
-of the RS41, imet4 and c50 paths, of the bf16 plain RS41 step and of the
-2048-bin fleet instead (no result line). With --tune, K2, K7, K10 and K9
+of the RS41, imet4, c50 and ims100 paths, of the bf16 plain RS41 and m10
+steps and of the 2048-bin fleet instead (no result line). With --tune, K2,
+K7, K10 and K9
 are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
 -DSONDETPU_DUALTONE_R, -DSONDETPU_LANE_FIR_R, -DSONDETPU_DEMOD_FIR_R) and
 K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
@@ -1028,6 +1047,7 @@ def phase_fleet_kernels(torch, dev):
     taps = design_lowpass(0.45 * FS, FS, 41)
     cases = (  # label, channels, samples, skip chanfilt, AFC, nb, timed
         ("m10", 616, m, True, False, 5, True),
+        ("ims100", CHANNELS, m, False, False, 20, True),
         ("chanfilt-afc", 256, 48000, False, True, 5, False),
         ("chanfilt", 64, 48000, False, False, 7, False),
         ("skip-afc", 256, 48000, True, True, 5, False),
@@ -1064,18 +1084,23 @@ def phase_fleet_kernels(torch, dev):
                  "want_afc": afc, "nb": nb, "body": body, "max_abs_err": 0.0,
                  "tol": 0, "sums_rel_err": sums_err, "sums_tol": sum_tol}
         if timed:
-            # per position: the +/-dev mix of both planes (12), the nb = 5
-            # boxcars of four products and their scale (24), the metric
-            # (10), its DC sum (1); a fused chain, no single library call
+            # per position: the channel filter of both planes unless it is
+            # skipped (2 x 41 products and sums), the +/-dev mix of both
+            # planes (12), the nb-tap boxcars of four planes and their
+            # scale (4 (nb + 1)), the metric (10), its DC sum (1): 47 for
+            # m10's nb = 5, 271 for ims100's channel filter and nb = 20; a
+            # fused chain, no single library call
+            ops = (0 if skip else 4 * len(taps)) + 12 + 4 * (nb + 1) + 11
             entry.update(
                 ms=cuda_ms(torch, lambda: fused_dualtone_frontend(
                     *args, taps, *tabs, nb, afc, skip), 20),
                 plain_ms=cuda_ms(torch, lambda: fused_dualtone_plain(
                     *args, taps, *tabs, nb, afc, skip), 3),
-                library_ms=None,
+                library_ms=None, ops_per_position=ops,
                 **bound(nbytes(*args, *tabs) + nbytes(*args[2:]) + 4 * c * n,
-                        c * n * 47))
-            results["fused_dualtone_frontend"] = entry
+                        c * n * ops))
+            results["fused_dualtone_frontend" if label == "m10"
+                    else "fused_dualtone_frontend_chanfilt"] = entry
         emit(entry)
         del args, tabs
     check(len(bodies) == 6, f"dualtone: bodies launched {bodies}")
@@ -1486,6 +1511,11 @@ def time_demod_fir(torch, dev, i, q, prev, atail, taps, scale, reps=20):
         return fused_demod_fir(i, q, prev, atail, taps, scale, True)
 
     ms = cuda_ms(torch, call, reps)
+    # the first profiler session of a process can miss a launch while the
+    # tracer starts (a run saw 19 of 20): one session on one call first
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        call()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1776,6 +1806,284 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
                        "frames_decoded": gsess.metrics.frames_decoded}
     emit({"phase": "afsk_distinct", "channels": c, "blocks": n_blocks,
           "families": out, "matches_cpu": True})
+
+
+# the dual-tone families on their paths: ims100 and mrzn1 keep K7's
+# channel filter (20 kHz channels) and take midpoint DC; m10 skips it.
+# m10's four truth sets are these serials
+M10_SERIALS = ("910-2-12345", "A05-3-54321", "C12-1-00042", "D03-2-00117")
+
+
+def dualtone_planes(family: str, n: int, seed: int, noise: float = 0.04,
+                    k: int = 0):
+    """int16 (i, q) planes [n] of back-to-back ``family`` frames from the
+    port's modulator (truth set ``k``: ims100 serial 2136051 + k, lat 35.7
+    + k; mrzn1 serial_lo 42 + k, lat 55.8 + k; m10 M10_SERIALS[k]),
+    with complex noise of std ``noise`` per component, quantized to
+    cs16."""
+    from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
+    from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
+    from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
+
+    if family == "ims100":
+        iq = IMS100Modulator().modulate(
+            [IMS100Truth(serial=str(2136051 + k), frame_no=2 + i,
+                         lat=35.7 + k) for i in range(n // 11520 + 2)],
+            fs=FS)
+    elif family == "mrzn1":
+        iq = MRZN1Modulator().modulate(
+            [MRZN1Truth(serial_lo=42 + k, frame_no=1 + i, lat=55.8 + k)
+             for i in range(n // 5120 + 2)], fs=FS)
+    else:
+        iq = M10Modulator().modulate(
+            [M10Truth(serial=M10_SERIALS[k], frame_no=5 + i)
+             for i in range(n // 8000 + 2)], fs=FS)
+    iq = iq[:n]
+    rng = np.random.default_rng(seed)
+    noisy = iq + (rng.normal(size=n) + 1j * rng.normal(size=n)
+                  ).astype(np.complex64) * noise
+    return tuple(np.clip(x * 32767, -32768, 32767).astype(np.int16)
+                 for x in (noisy.real, noisy.imag))
+
+
+def dualtone_truth(family: str, t, k: int = 0) -> bool:
+    """The decoded telemetry ``t`` is truth set ``k`` of dualtone_planes."""
+    if family == "ims100":
+        return (t.serial == str(2136051 + k)
+                and abs(t.lat - 35.7 - k) <= 1e-5
+                and abs(t.lon - 139.7) <= 1e-5
+                and abs(t.alt - 18000.0) <= 0.01
+                and abs(t.temp + 60.0) <= 0.01 and abs(t.rh - 8.0) <= 0.01)
+    if family == "mrzn1":
+        return (t.serial == f"MRZ-{42 + k:03d}"
+                and abs(t.lat - 55.8 - k) <= 1e-6
+                and abs(t.alt - 9000.0) <= 0.01
+                and abs(t.temp + 35.0) <= 0.01)
+    return t.serial == M10_SERIALS[k] and abs(t.lat - 52.2) <= 1e-4
+
+
+def time_midpoint(torch, pipe, planes, reps: int = 5):
+    """The midpoint DC alone on the metric of one block: K7 on the
+    dequantized planes, then midpoint_dc timed with CUDA events (ms), and
+    that call's peak device memory beside the metric's."""
+    from sondetpu_torch.kernels.dualtone import fused_dualtone_frontend
+    from sondetpu_torch.runtime.pipeline import midpoint_dc
+
+    scale = float(np.float32(1.0 / 32768.0))
+    i, q = (p.to(torch.float32) * scale for p in planes)
+    st = pipe.init_state()
+    met = fused_dualtone_frontend(
+        i, q, st.chan_tail_i, st.chan_tail_q, pipe._chan_taps,
+        pipe._mix_cos, pipe._mix_sin, pipe._nb,
+        skip_chanfilt=pipe._skip_chanfilt)[0]
+    del i, q
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: midpoint_dc(met), reps)
+    extra = torch.cuda.max_memory_allocated() - base
+    return {"midpoint_ms": ms, "midpoint_extra_bytes": extra,
+            "metric_bytes": nbytes(met), "metric_shape": list(met.shape)}
+
+
+def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
+    """ims100 or mrzn1 on the kernel path through DecoderSession at 2048
+    channels x 4 s, one signal on every channel: the truth's telemetry on
+    every channel, K7's channel-filter body once a step and nothing else;
+    then the steady step, the midpoint DC alone and peak device memory."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    cfg = PipelineConfig(sonde=family, channels=CHANNELS,
+                         block_len=BLOCK_LEN, use_pallas=True,
+                         compute_dtype="f32", input_dtype="i16")
+    qi, qq = dualtone_planes(family, n_blocks * BLOCK_LEN, seed=9)
+    row_i = torch.from_numpy(qi).to(dev)
+    row_q = torch.from_numpy(qq).to(dev)
+    blocks = [(row_i[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous(),
+               row_q[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous()) for b in range(n_blocks)]
+    pipe = Pipeline(cfg, dev)
+    check(pipe._dualtone and pipe._midpoint and not pipe._skip_chanfilt
+          and not pipe._plain, f"{family} path: not K7 with its channel "
+          "filter and midpoint DC")
+    sess = DecoderSession(cfg, dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    block_seconds = []
+    for planes in blocks:
+        t0 = time.perf_counter()
+        sess.process_block(planes)
+        block_seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
+    m = sess.metrics
+    label = f"{family} path"
+    check(m.frames_decoded > 0, f"{label}: no frames decoded")
+    check(sorted(sess.telemetry) == list(range(CHANNELS)),
+          f"{label}: channels without telemetry")
+    t = sess.telemetry[0]
+    ref = t.to_dict()
+    ref_text = json.dumps(ref, sort_keys=True)
+    check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True)
+              == ref_text for ch in range(CHANNELS)),
+          f"{label}: telemetry differs between identical channels")
+    check(dualtone_truth(family, t), f"{label}: telemetry {ref}")
+    check(launches["fused_dualtone_frontend"] == n_blocks
+          and sum(launches.values()) == n_blocks,
+          f"{label}: launches {launches}")
+    check(bodies == {"fused_dualtone_frontend:chanfilt": n_blocks},
+          f"{label}: bodies {bodies}")
+    emit({"phase": f"{family}_path", "sonde": family, "channels": CHANNELS,
+          "block_len": BLOCK_LEN, "blocks": n_blocks,
+          "k_slots": cfg.k_slots,
+          "frames_raw": m.frames_raw, "frames_decoded": m.frames_decoded,
+          "frames_per_channel": m.frames_decoded / CHANNELS,
+          "telemetry": {f: ref.get(f) for f in
+                        ("serial", "lat", "lon", "alt", "temp", "rh")},
+          "process_block_seconds": block_seconds,
+          "launches": {k: v for k, v in launches.items() if v},
+          "body_launches": bodies})
+    step_ms = phase_step(torch, pipe, blocks, phase=f"{family}_step",
+                         smi=smi)
+    mid = time_midpoint(torch, pipe, blocks[0])
+    emit({"phase": f"{family}_midpoint", "sonde": family,
+          "step_ms_median": step_ms, **mid, "nvidia_smi": smi})
+    return {"launches": launches, "bodies": bodies, "steps": n_blocks,
+            "step_ms": step_ms, **mid}
+
+
+def distinct_rows(family: str, c: int, n_blocks: int, truths: int):
+    """int16 (i, q) [c, n_blocks * BLOCK_LEN]: channel ch carries truth set
+    ch % truths of dualtone_planes with its own noise."""
+    sig = [dualtone_planes(family, n_blocks * BLOCK_LEN, seed=30 + k, k=k)
+           for k in range(truths)]
+    return (np.stack([sig[ch % truths][0] for ch in range(c)]),
+            np.stack([sig[ch % truths][1] for ch in range(c)]))
+
+
+def card_equals_cpu(torch, dev, cfg, qi, qq, n_blocks, truths, label):
+    """Steps the pipeline and the session on the card and on the CPU over
+    the blocks: validity and valid frame bytes equal block by block, the
+    telemetry equal and each channel's its truth's. Returns (valid frames,
+    frames decoded on the card, launches on the card by body: two a block,
+    the pipeline's step and the session's)."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    c = cfg.channels
+    gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    gsess = DecoderSession(cfg, dev, pipeline=gpu)
+    csess = DecoderSession(cfg, "cpu", pipeline=cpu)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    frames = 0
+    for b in range(n_blocks):
+        sl = slice(b * BLOCK_LEN, (b + 1) * BLOCK_LEN)
+        sg, og = gpu.step(sg, (qi[:, sl], qq[:, sl]))
+        sc, oc = cpu.step(sc, (qi[:, sl], qq[:, sl]))
+        vg, vc = og.frame_valid.cpu(), oc.frame_valid
+        check(torch.equal(vg, vc), f"{label} block {b}: validity differs "
+              "from CPU")
+        check(torch.equal(og.frames.cpu()[vg], oc.frames[vc]),
+              f"{label} block {b}: frame bytes differ from CPU")
+        frames += int(vg.sum())
+        gsess.process_block((qi[:, sl], qq[:, sl]))
+        csess.process_block((qi[:, sl], qq[:, sl]))
+    torch.cuda.synchronize()
+    bodies = dict(cuda.body_launches)
+    for ch in range(c):
+        tg, tc = gsess.telemetry.get(ch), csess.telemetry.get(ch)
+        check(tg is not None and tc is not None
+              and json.dumps(tg.to_dict(), sort_keys=True)
+              == json.dumps(tc.to_dict(), sort_keys=True),
+              f"{label} channel {ch}: telemetry differs from the CPU")
+        check(dualtone_truth(cfg.sonde, tg, ch % truths),
+              f"{label} channel {ch}: telemetry {tg.to_dict()}")
+    return frames, gsess.metrics.frames_decoded, bodies
+
+
+def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
+    """ims100 and mrzn1 on the kernel path, 8 channels carrying four
+    truths, with and without afc: the card equals the CPU (twins) on
+    validity, valid frame bytes and telemetry, each channel its truth,
+    K7's chanfilt body (chanfilt_afc with afc) once a step."""
+    from sondetpu_torch.runtime.pipeline import PipelineConfig
+
+    c, out = 8, {}
+    for family in ("ims100", "mrzn1"):
+        qi, qq = distinct_rows(family, c, n_blocks, 4)
+        for afc in (False, True):
+            cfg = PipelineConfig(sonde=family, channels=c,
+                                 block_len=BLOCK_LEN, use_pallas=True,
+                                 compute_dtype="f32", input_dtype="i16",
+                                 afc=afc)
+            label = f"{family}{' afc' if afc else ''}"
+            frames, decoded, bodies = card_equals_cpu(
+                torch, dev, cfg, qi, qq, n_blocks, 4, label)
+            body = "fused_dualtone_frontend:chanfilt" + ("_afc" if afc
+                                                         else "")
+            check(bodies == {body: 2 * n_blocks}, f"{label}: bodies {bodies}")
+            out[label] = {"valid_frames": frames, "frames_decoded": decoded}
+    emit({"phase": "dualtone_distinct", "channels": c, "blocks": n_blocks,
+          "block_len": BLOCK_LEN, "runs": out, "matches_cpu": True})
+
+
+def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
+    """The plain-op dual-tone step (use_pallas=False; the JAX CLI's
+    default) for m10, ims100 and mrzn1 in f32 and bf16 at 8 channels with
+    four truths, card against CPU as in dualtone_distinct, no hand kernel
+    launched; then the 2048-channel m10 bf16 plain step (one signal on
+    every channel): its valid frames, steady step and peak memory."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    c, out = 8, {}
+    for family in ("m10", "ims100", "mrzn1"):
+        qi, qq = distinct_rows(family, c, n_blocks, 4)
+        for dtype in ("f32", "bf16"):
+            cfg = PipelineConfig(sonde=family, channels=c,
+                                 block_len=BLOCK_LEN, use_pallas=False,
+                                 compute_dtype=dtype, input_dtype="i16")
+            label = f"plain {family} {dtype}"
+            frames, decoded, bodies = card_equals_cpu(
+                torch, dev, cfg, qi, qq, n_blocks, 4, label)
+            check(not bodies and not any(cuda.launches.values()),
+                  f"{label}: hand kernels launched {cuda.launches}")
+            out[f"{family}_{dtype}"] = {"valid_frames": frames,
+                                        "frames_decoded": decoded}
+    emit({"phase": "plain_dualtone", "channels": c, "blocks": n_blocks,
+          "block_len": BLOCK_LEN, "runs": out, "matches_cpu": True})
+    cfg = PipelineConfig(sonde="m10", channels=CHANNELS, block_len=BLOCK_LEN,
+                         use_pallas=False, compute_dtype="bf16",
+                         input_dtype="i16")
+    qi, qq = dualtone_planes("m10", 3 * BLOCK_LEN, seed=9)
+    row_i = torch.from_numpy(qi).to(dev)
+    row_q = torch.from_numpy(qq).to(dev)
+    blocks = [(row_i[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous(),
+               row_q[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+               .expand(CHANNELS, -1).contiguous()) for b in range(3)]
+    pipe = Pipeline(cfg, dev)
+    cuda.reset_launches()
+    state = pipe.init_state()
+    valid = []
+    for planes in blocks:
+        state, o = pipe.step(state, planes)
+        valid.append(int(o.frame_valid.sum()))
+    torch.cuda.synchronize()
+    check(not any(cuda.launches.values()),
+          f"plain m10 bf16 2048: hand kernels launched {cuda.launches}")
+    check(state.chipbuf.dtype == torch.bfloat16 and valid[-1] > 0
+          and valid[-1] % CHANNELS == 0,
+          f"plain m10 bf16 2048: valid frames per block {valid}")
+    emit({"phase": "plain_dualtone_m10_2048", "valid_frames_per_block": valid})
+    phase_step(torch, pipe, blocks, phase="plain_dualtone_step", smi=smi)
 
 
 def ddc_blocks(torch, dev, n_blocks: int):
@@ -2144,6 +2452,8 @@ def phase_profile(torch, dev, family: str, steps: int = 3, dtype=None):
                          input_dtype="i16")
     n = steps * BLOCK_LEN
     qi, qq = (rs41_planes("S1234567", steps, seed=0) if family == "rs41"
+              else dualtone_planes(family, n, seed=9)
+              if family in ("m10", "ims100", "mrzn1")
               else afsk_planes(family, n, seed=7))
     blocks = [tuple(torch.from_numpy(x[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN])
                     .to(dev).expand(CHANNELS, -1).contiguous()
@@ -2357,10 +2667,12 @@ def main() -> int:
     if sys.argv[1:] == ["--profile"]:
         # the step breakdowns only: python3 chip_smoke.py --profile
         phase_resources()
-        for family in ("rs41", "imet4", "c50"):
+        for family in ("rs41", "imet4", "c50", "ims100"):
             phase_profile(torch, dev, family)
             torch.cuda.empty_cache()
         phase_profile(torch, dev, "rs41", dtype="bf16")
+        torch.cuda.empty_cache()
+        phase_profile(torch, dev, "m10", dtype="bf16")
         torch.cuda.empty_cache()
         phase_profile_fleet(torch, dev)
         print(smi, flush=True)
@@ -2422,6 +2734,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase_afsk_distinct(torch, dev)
     runs["afc_m10"] = phase_afc_drift(torch, dev)
+    torch.cuda.empty_cache()
+    # the last two families: K7's channel-filter body with midpoint DC
+    for family, n_blocks in (("ims100", 3), ("mrzn1", 2)):
+        runs[family] = phase_dualtone_path(torch, dev, family, n_blocks, smi)
+        torch.cuda.empty_cache()
+    phase_dualtone_distinct(torch, dev)
+    phase_plain_dualtone(torch, dev, smi)
+    torch.cuda.empty_cache()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -2433,7 +2753,7 @@ def main() -> int:
                      "pfb_fir_timemajor": "pfb_stream"}
     paths = ("rs41", "fleet", "imet4", "c50", "rs41x", "plain_bf16",
              "plain_f32", "plain_rs41x_bf16", "ddc_afc", "fleet_offgrid",
-             "afc_m10")
+             "afc_m10", "ims100", "mrzn1")
     table = []
     for name in KERNEL_SOURCES:
         if name in launches_from:
@@ -2472,6 +2792,7 @@ def main() -> int:
     k7_row["bodies_by_path"] = {
         p: {k: v for k, v in runs[p]["bodies"].items()
             if k.startswith("fused_dualtone_frontend")} for p in paths}
+    k7_row["chanfilt_nb20"] = subset(kres["fused_dualtone_frontend_chanfilt"])
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")

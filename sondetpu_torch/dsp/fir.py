@@ -8,7 +8,9 @@ same config. ``apply_windows``/``conv1d`` are the torch form of
 taps) with an optional stride, accumulated in float32 in a fixed order. A
 bfloat16 input is filtered with the taps rounded to bfloat16, as the
 original's conv takes them; the products of two bfloat16 values are exact
-in float32.
+in float32. The sums are taken in place (the same rounding as a new
+accumulator each tap), so a call holds one accumulator and one product
+beside its input.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def conv1d(x: torch.Tensor, kernel, stride: int = 1) -> torch.Tensor:
     x = x.to(torch.float32)
     acc = torch.zeros((x.shape[0], n_out), dtype=torch.float32, device=x.device)
     for j in range(k.shape[0]):
-        acc = acc + k[j] * x[:, j: j + stride * (n_out - 1) + 1: stride]
+        acc += k[j] * x[:, j: j + stride * (n_out - 1) + 1: stride]
     return acc
 
 
@@ -94,5 +96,5 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
                       device=xp.device)
     for u in range(ntaps):
         o = ntaps - 1 - u
-        acc = acc + h[u] * xp[:, o: o + stride * (n_out - 1) + 1: stride]
+        acc += h[u] * xp[:, o: o + stride * (n_out - 1) + 1: stride]
     return acc

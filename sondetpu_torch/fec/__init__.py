@@ -1,7 +1,7 @@
 """Host FEC and the device-side RS syndrome check (counterparts:
-``sondetpu/fec/{gf256,crc,rs,hamming,native,syndrome}.py``).
+``sondetpu/fec/{gf256,crc,rs,hamming,bch,native,syndrome}.py``).
 
-``gf256``, ``crc``, ``rs`` and ``hamming`` are copies of the originals;
-``native`` builds the port's copy of the C++ FEC (``csrc/sondefec.cpp``) at
-first use; ``syndrome`` carries the syndrome matrices and the plain torch
-form of the RS flag."""
+``gf256``, ``crc``, ``rs``, ``hamming`` and ``bch`` are copies of the
+originals; ``native`` builds the port's copy of the C++ FEC
+(``csrc/sondefec.cpp``) at first use; ``syndrome`` carries the syndrome
+matrices and the plain torch form of the RS flag."""

@@ -4,10 +4,10 @@
 ``csrc/sondefec.cpp`` (a copy of the JAX package's C++ FEC) is compiled
 with the host's C++ compiler at first use into ``build/sondetpu_torch/``
 beside the package, named by a hash of the source and flags, and loaded
-with ctypes. RS(255,231) per suspect frame and the per-block CRC16 run
-there; the NumPy implementations of this package stay the oracle and run
-when no compiler or library is at hand. Nothing here runs when the module
-is imported.
+with ctypes. RS(255,231) per suspect frame, BCH(63,51) for ims100 and the
+per-block CRC16 run there; the NumPy implementations of this package stay
+the oracle and run when no compiler or library is at hand. Nothing here
+runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.fec_rs_decode_batch.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, i32p, u8p]
+    lib.fec_bch63_decode_batch.argtypes = [u8p, ctypes.c_int64, i32p, u8p]
     lib.fec_crc16_batch.argtypes = [
         u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint16, u16p]
     _lib = lib
@@ -102,6 +103,21 @@ def rs_decode(recv: np.ndarray, nroots: int, fcr: int, prim_poly: int
     ok = np.zeros(batch, dtype=np.uint8)
     lib.fec_rs_decode_batch(
         _u8p(out), batch, n, nroots, fcr, prim_poly,
+        nerr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _u8p(ok))
+    return out, nerr.astype(np.int64), ok.astype(bool)
+
+
+def bch63_decode(bits: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Native BCH(63,51) t=2 decode: bits [batch, 63] -> (corrected, nerr, ok)."""
+    lib = _load()
+    assert lib is not None
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    batch = bits.shape[0]
+    out = bits.copy()
+    nerr = np.zeros(batch, dtype=np.int32)
+    ok = np.zeros(batch, dtype=np.uint8)
+    lib.fec_bch63_decode_batch(
+        _u8p(out), batch,
         nerr.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), _u8p(ok))
     return out, nerr.astype(np.int64), ok.astype(bool)
 

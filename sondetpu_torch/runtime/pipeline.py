@@ -4,23 +4,33 @@
 ``PipelineConfig`` and ``unpack_block_output`` are copies of the originals
 (the original module imports jax), so one config drives both packages and
 the wire layout agrees by construction. ``Pipeline`` is the torch form of
-the original's step on two paths:
+the original's step for all eight families, on the front end that the
+original's gates pick (``_route``):
 
 - ``use_pallas=True``, the kernel path (in the port: the Hopper kernels),
-  float32: rs41/rs41x/dfm on the fused front end, m10 on the fused
-  dual-tone front end, imet4/c50 on the fused front end at decim 1 with an
-  identity matched filter, then the AFSK tone kernel.
-- ``use_pallas=False``, the plain-op path of the FM-discriminator families
-  (rs41, rs41x, dfm), in float32 or bfloat16: the original's jnp branch,
-  which runs no kernel (channel filter, ``atan2`` discriminator, mean DC,
-  matched FIR, the plain correlation and the GF(2) matmul RS flag), its
-  sample-rate arrays stored in the compute dtype where the original casts.
+  float32: rs41/rs41x/dfm on the fused front end; the dual-tone families
+  (m10, ims100, mrzn1) on the fused dual-tone front end (ims100 and mrzn1
+  keep its channel filter); imet4/c50 on the fused front end at decim 1
+  with an identity matched filter, then the AFSK tone kernel. A dual-tone
+  family whose dual-tone gates fail falls back to the FM discriminator
+  with the original's warning: m10 on the fused front end, ims100 and
+  mrzn1 on the plain-op front end, since the fused one has no midpoint DC.
+- ``use_pallas=False``, the plain-op path, in float32 or bfloat16: the
+  original's jnp branch, which runs no kernel: the channel filter, then the
+  ``atan2`` discriminator and matched FIR, or for the dual-tone families
+  the +/-dev mix, the one-chip boxcar and the envelope metric; the block
+  DC; the plain correlation and the GF(2) matmul RS flag; its sample-rate
+  arrays stored in the compute dtype where the original casts.
+
+The block DC is the block mean, or for the unwhitened NRZ families
+(``dc_mode == "midpoint"``: ims100, mrzn1) the midpoint of the 10th and
+90th percentiles, ``midpoint_dc``, equal to ``jnp.quantile``'s bit for bit.
 
 On every path, ``fine_offsets`` or ``afc`` put the per-channel DDC (plain
 torch ops, the original's float32 formula) between the dequant and the
 front end; with ``afc`` its frequency is state, nudged each block by the
-front end's block DC (the dual-tone kernel's envelope-rotation angle on
-that path).
+front end's block DC (the dual-tone envelope-rotation angle on that
+family's path).
 
 Both go on through Oerder-Meyr timing, integer- or rational-sps symbol
 sampling, the chip ring, syncword correlation (the correlator kernel on the
@@ -37,6 +47,7 @@ the two packages.
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import NamedTuple, Optional
@@ -58,9 +69,6 @@ from sondetpu_torch.sync.correlator import (correlate_syncword,
                                             find_frame_starts, gather_frames)
 from sondetpu_torch.sync.timing import (TimingState, oerder_meyr_tau,
                                         spectral_line_tables)
-
-PORTED_SONDES = ("rs41", "rs41x", "m10", "dfm", "imet4", "c50")
-
 
 @dataclass(frozen=True)
 class PipelineConfig:
@@ -107,10 +115,6 @@ class PipelineConfig:
     profile_stop: Optional[str] = None
 
     def __post_init__(self):
-        if self.sonde not in PORTED_SONDES:
-            raise NotImplementedError(
-                f"sonde {self.sonde!r} is not ported to sondetpu_torch "
-                f"(ported: {', '.join(PORTED_SONDES)})")
         if self.input_dtype not in ("f32", "i16", "i8"):
             raise ValueError(f"input_dtype {self.input_dtype!r}")
         if self.ntaps % 2 == 0:
@@ -414,33 +418,42 @@ def _sps_missing(c):
     return None
 
 
+def _route(c):
+    """The front end that the original's gates pick for ``c``
+    (``sondetpu/runtime/pipeline.py:380-409``): "afsk" (K1, then K8),
+    "dualtone" (K7) or "fused" (K1) on the kernel path, or None for the
+    jnp path, which the plain-op front end ports: every config with
+    use_pallas=False; a dual-tone family off K7's gates (decim 1, the
+    boxcar inside the carried tail); and the FM-discriminator fallback of a
+    midpoint-DC family, which the fused front end does not implement."""
+    if not c.use_pallas:
+        return None
+    if c.spec.modulation == "afsk":
+        return "afsk"
+    if _dualtone_gates(c)[0]:
+        nb = max(2, round(c.sps))
+        return ("dualtone" if c.decim == 1 and nb + c.ntaps - 1 <= HALO
+                else None)
+    if c.spec.extra.get("dc_mode") == "midpoint":
+        return None
+    return "fused"
+
+
 def _plain_missing(c):
-    """What the plain-op path (use_pallas=False) lacks for ``c``, or None:
-    it covers the FM-discriminator families with mean DC."""
-    spec = c.spec
-    if spec.modulation == "afsk":
+    """What the plain-op front end lacks for ``c``, or None: it covers the
+    FM-discriminator and dual-tone families, not the AFSK ones."""
+    if c.spec.modulation == "afsk":
         return (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
                 "(use_pallas=False)")
-    if spec.extra.get("fsk_dualtone"):
-        if _dualtone_gates(c)[0]:
-            return (f"the jnp dual-tone branch of {c.sonde!r} "
-                    "(use_pallas=False)")
-        return (f"the FM-discriminator fallback of {c.sonde!r} (its "
-                "dual-tone front end needs dev*block/fs integer and "
-                "2 <= sps <= ntaps)")
-    if spec.extra.get("dc_mode") == "midpoint":
-        return f"midpoint DC of {c.sonde!r} (use_pallas=False)"
     return _sps_missing(c)
 
 
 def _check_slice(c) -> None:
     """Raise NotImplementedError for a config outside the ported slice."""
-    missing = None
-    if c.sonde not in PORTED_SONDES:
-        missing = f"sonde {c.sonde!r} (ported: {', '.join(PORTED_SONDES)})"
-    elif c.profile_stop:
+    route = _route(c)
+    if c.profile_stop:
         missing = "profile_stop (the stage-truncated profiling step)"
-    elif not c.use_pallas:
+    elif route is None:
         missing = _plain_missing(c)
     elif c.compute_dtype != "f32":
         missing = (f"compute_dtype={c.compute_dtype!r} on the kernel path "
@@ -452,22 +465,73 @@ def _check_slice(c) -> None:
         missing = (f"block_len={c.block_len}, ntaps={c.ntaps} (the kernel "
                    f"path needs block_len >= {HALO} and "
                    f"decim*ntaps + ntaps - 1 <= {HALO})")
-    elif c.spec.modulation == "afsk" and (
+    elif route == "afsk" and (
             (p := _afsk_params(c))[0] - 1 > HALO or c.block_len % p[1]):
         win, L = p
         missing = (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
                    f"(the AFSK kernel path needs win - 1 <= {HALO} and the "
                    f"tones' joint period L = {L} to divide block_len = "
                    f"{c.block_len}; win = {win})")
-    elif c.spec.extra.get("fsk_dualtone") and not _dualtone_gates(c)[0]:
-        missing = (f"the FM-discriminator fallback of {c.sonde!r} (its "
-                   "dual-tone front end needs dev*block/fs integer and "
-                   "2 <= sps <= ntaps)")
     else:
         missing = _sps_missing(c)
     if missing is not None:
         raise NotImplementedError(f"sondetpu_torch Pipeline: {missing} is not "
                                   "ported")
+
+
+def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """fl32(a * b + c) rounded once, for float32 ``a``, ``c`` and a float32
+    value ``b``: the fused multiply-add that XLA on the CPU makes of
+    ``jnp.quantile``'s ``lo * (1 - w) + hi * w``. In float64 the product is
+    exact; the sum is taken with its rounding error (TwoSum) and rounded to
+    odd, so that the final rounding to float32 is the single one."""
+    f64 = torch.float64
+    x = a.to(f64) * b
+    y = c.to(f64)
+    s = x + y
+    bb = s - x
+    err = (x - (s - bb)) + (y - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, float("inf")), err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def midpoint_dc(x: torch.Tensor) -> torch.Tensor:
+    """Per-row midpoint ``0.5 * (q10 + q90)`` of ``x`` [C, n] in x's dtype:
+    the original's ``0.5 * (jnp.quantile(x, 0.10, axis=-1) +
+    jnp.quantile(x, 0.90, axis=-1))`` bit for bit (midpoint DC,
+    ``sondetpu/runtime/pipeline.py:715-718, 881-889``).
+
+    As ``jnp.quantile`` computes it: the position q * (n - 1) in float32
+    (0.1 and 0.9 rounded to float32 first) sets the order statistics at its
+    floor and ceil and the weight w of the upper one; the quantile is
+    ``lo * (1 - w) + hi * w`` in float32, the first product fused into the
+    sum as XLA on the CPU fuses it, cast back to x's dtype; the midpoint is
+    formed in x's dtype. A row holding a NaN gives NaN. The order
+    statistics come from ``torch.kthvalue`` (exact, whatever the method of
+    selection); ``torch.quantile`` refuses rows of more than 2**24
+    elements in all and interpolates with lerp."""
+    n = x.shape[-1]
+    f32 = torch.float32
+    stats = {}
+
+    def order_stat(k):
+        if k not in stats:
+            stats[k] = torch.kthvalue(x, k + 1, dim=-1).values.to(f32)
+        return stats[k]
+
+    qs = []
+    for q in (np.float32(0.1), np.float32(0.9)):
+        pos = np.float32(q * np.float32(n - 1))
+        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+        w = np.float32(pos - np.floor(pos))
+        hw = order_stat(hi) * torch.tensor(w, dtype=f32, device=x.device)
+        qs.append(_fma_f32(order_stat(lo), float(np.float32(1.0) - w),
+                           hw).to(x.dtype))
+    mid = (qs[0] + qs[1]) * 0.5
+    return torch.where(torch.isnan(x).any(dim=-1),
+                       torch.full_like(mid, float("nan")), mid)
 
 
 class Pipeline:
@@ -495,9 +559,23 @@ class Pipeline:
         # host arrays: the correlator kernel takes its taps from the host
         self._np_templates = [np.asarray(t, np.float32) for t in templates]
         self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
+        if (spec.extra.get("fsk_dualtone") and not self._dualtone
+                and spec.modulation in ("gfsk", "fsk")):
+            # the original's warning, word for word
+            # (sondetpu/runtime/pipeline.py:340-356)
+            turns = spec.dev * (c.block_len // c.decim) / c.fs_proc
+            why = ("dev*block/fs_proc=%g not integer (mixer would lose "
+                   "phase continuity)" % turns
+                   if abs(turns - round(turns)) >= 1e-6 else
+                   "sps=%g outside [2, ntaps=%d]" % (c.sps, c.ntaps))
+            warnings.warn(
+                f"{c.sonde}: fsk_dualtone requested but unavailable for "
+                f"this config ({why}); falling back to the FM "
+                f"discriminator (worse low-SNR FER)", stacklevel=3)
         self._afsk = spec.modulation == "afsk"
+        self._midpoint = spec.extra.get("dc_mode") == "midpoint"
         # the plain-op path stores its sample-rate arrays in this dtype
-        self._plain = not c.use_pallas
+        self._plain = _route(c) is None
         self._cdt = (torch.bfloat16 if c.compute_dtype == "bf16"
                      else torch.float32)
         if self._afsk:
@@ -516,6 +594,11 @@ class Pipeline:
                                         spec.dev / c.fs_proc)
             self._mix_cos = torch.from_numpy(cos_m).to(dev)
             self._mix_sin = torch.from_numpy(sin_m).to(dev)
+            # the plain path's one-chip boxcar, padded to ntaps so its
+            # carried tail has the state's width
+            self._box = np.zeros(c.ntaps, np.float32)
+            self._nb = max(2, int(round(c.sps)))
+            self._box[-self._nb:] = 1.0 / self._nb
         # FM discriminator scale at the processing rate, rounded to f32 as
         # the original hands it to its kernel (and as its jnp branch
         # multiplies by it)
@@ -702,44 +785,110 @@ class Pipeline:
 
     def _plain_frontend(self, state: PipelineState, iq_i: torch.Tensor,
                         iq_q: torch.Tensor):
-        """The original's jnp front end of the FM-discriminator families
-        (``sondetpu/runtime/pipeline.py:765-921``, use_pallas=False): the
-        channel filter over [carried tail | block] at stride decim, the FM
-        discriminator with atan2 in float32, the block-mean DC, the matched
-        FIR over [carried audio tail | audio]. Every sample-rate array is
-        stored in the compute dtype where the original casts it; the
-        filters read it, round bfloat16 taps as the original's conv does,
-        and sum in float32. Returns (filt, new chan tails, fm_prev, fir,
-        the block-mean audio that the AFC loop reads, or None when neither
-        dc_block nor afc is set)."""
+        """The original's jnp front end (``sondetpu/runtime/pipeline.py:
+        765-921``, use_pallas=False, and the FM-discriminator fallback of a
+        midpoint-DC family): the channel filter over [carried tail | block]
+        at stride decim (skipped where the dual-tone gate skips it), then
+        the FM discriminator with atan2 in float32 or, for a dual-tone
+        family, the mix, boxcar and envelope metric of
+        :meth:`_plain_dualtone`; the block DC (mean or midpoint); the
+        matched FIR over [carried audio tail | audio] after the
+        discriminator. Every sample-rate array is stored in the compute
+        dtype where the original casts it; the filters read it, round
+        bfloat16 taps as the original's conv does, and sum in float32.
+        Returns (filt, new chan tails, fm_prev, fir, the residual offset the
+        AFC loop reads in audio/dev units, or None when neither dc_block
+        nor afc is set)."""
         c = self.config
         cdt, f32 = self._cdt, torch.float32
         h = c.ntaps - 1
         iq_i, iq_q = iq_i.to(cdt), iq_q.to(cdt)
-        ci = apply_windows(torch.cat([state.chan_tail_i, iq_i], dim=-1),
-                           self._chan_taps, stride=c.decim).to(cdt)
-        cq = apply_windows(torch.cat([state.chan_tail_q, iq_q], dim=-1),
-                           self._chan_taps, stride=c.decim).to(cdt)
+        # the carried tails as copies: views would keep the whole block
+        # alive until the next step
+        tail_i, tail_q = iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous()
+        ci, cq = iq_i, iq_q
+        if not self._skip_chanfilt:
+            ci = apply_windows(torch.cat([state.chan_tail_i, iq_i], dim=-1),
+                               self._chan_taps, stride=c.decim).to(cdt)
+            cq = apply_windows(torch.cat([state.chan_tail_q, iq_q], dim=-1),
+                               self._chan_taps, stride=c.decim).to(cdt)
+        del iq_i, iq_q
         fm_prev = torch.stack([ci[:, -1], cq[:, -1]], dim=-1)
-        ip = torch.cat([state.fm_prev[:, 0:1], ci[:, :-1]], dim=-1).to(f32)
-        qp = torch.cat([state.fm_prev[:, 1:2], cq[:, :-1]], dim=-1).to(f32)
-        ii, qq = ci.to(f32), cq.to(f32)
-        audio = torch.atan2(qq * ip - ii * qp,
-                            ii * ip + qq * qp) * self._scale_t
+        rot_dc = None
+        if self._dualtone:
+            audio, fir, rot_dc = self._plain_dualtone(state.fir, ci, cq)
+        else:
+            ip = torch.cat([state.fm_prev[:, 0:1], ci[:, :-1]], dim=-1).to(f32)
+            qp = torch.cat([state.fm_prev[:, 1:2], cq[:, :-1]], dim=-1).to(f32)
+            ii, qq = ci.to(f32), cq.to(f32)
+            audio = torch.atan2(qq * ip - ii * qp,
+                                ii * ip + qq * qp) * self._scale_t
+        del ci, cq
         dc = None
         if c.dc_block or c.afc:
             # jnp.mean: the sum over a divisor on the device (CUDA
             # multiplies by the reciprocal of a Python number)
-            dc = torch.sum(audio, dim=-1) / torch.full(
-                (), float(audio.shape[-1]), dtype=f32, device=audio.device)
+            dc = (midpoint_dc(audio) if self._midpoint
+                  else torch.sum(audio, dim=-1) / torch.full(
+                      (), float(audio.shape[-1]), dtype=f32,
+                      device=audio.device))
         if c.dc_block:
             audio = audio - dc[:, None]
-        xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
-        filt = apply_windows(xp, self._taps).to(cdt)
-        # the carried tails as copies: views would keep the whole block
-        # alive until the next step
-        return (filt, iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous(),
-                fm_prev, FIRState(tail=xp[:, -h:].contiguous()), dc)
+        if self._dualtone:
+            # the envelope metric is already matched-filtered
+            filt = audio.to(cdt)
+        else:
+            xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
+            filt = apply_windows(xp, self._taps).to(cdt)
+            fir = FIRState(tail=xp[:, -h:].contiguous())
+        return (filt, tail_i, tail_q, fm_prev, fir,
+                rot_dc if rot_dc is not None else dc)
+
+    def _plain_dualtone(self, fir: FIRState, ci: torch.Tensor,
+                        cq: torch.Tensor):
+        """The original's jnp dual-tone branch (``sondetpu/runtime/
+        pipeline.py:790-865``) on the channel-filtered planes: mix both by
+        the host f64 +/-dev table into four planes (formed in float32,
+        stored in the compute dtype behind the carried [4C, ntaps - 1]
+        tail), one ``apply_windows`` of the nb-tap boxcar padded to ntaps
+        over all four, and the metric ``(P+ - P-) / (P+ + P- + 1e-12)`` in
+        float32. With ``afc`` also the power-weighted envelope rotation of
+        the lowpassed planes, as an angle in audio/dev units. Returns
+        (metric [C, n], FIRState, that angle or None)."""
+        c = self.config
+        f32 = torch.float32
+        h = c.ntaps - 1
+        cc, n = ci.shape
+        ii, qq = ci.to(f32), cq.to(f32)
+        cv, sv = self._mix_cos, self._mix_sin
+        # [tail | planes] written in place, each plane rounded once to the
+        # compute dtype: no [4C, n] float32 copy of the planes
+        xp4 = torch.empty((4 * cc, h + n), dtype=self._cdt, device=ci.device)
+        xp4[:, :h] = fir.tail
+        xp4[0 * cc:1 * cc, h:] = ii * cv + qq * sv     # +tone I (x e^{-j})
+        xp4[1 * cc:2 * cc, h:] = qq * cv - ii * sv     # +tone Q
+        xp4[2 * cc:3 * cc, h:] = ii * cv - qq * sv     # -tone I (x e^{+j})
+        xp4[3 * cc:4 * cc, h:] = qq * cv + ii * sv     # -tone Q
+        del ii, qq
+        new_fir = FIRState(tail=xp4[:, -h:].contiguous())
+        lp = apply_windows(xp4, self._box)
+        del xp4
+        pi_, pq_, mi_, mq_ = lp[:cc], lp[cc:2 * cc], lp[2 * cc:3 * cc], \
+            lp[3 * cc:]
+        pp = pi_ * pi_ + pq_ * pq_
+        pm = mi_ * mi_ + mq_ * mq_
+        eps = torch.tensor(np.float32(1e-12), device=ci.device)
+        audio = (pp - pm) / (pp + pm + eps)
+        del pp, pm
+        rot_dc = None
+        if c.afc:
+            rot_re = (pi_[:, 1:] * pi_[:, :-1] + pq_[:, 1:] * pq_[:, :-1]
+                      + mi_[:, 1:] * mi_[:, :-1] + mq_[:, 1:] * mq_[:, :-1])
+            rot_im = (pq_[:, 1:] * pi_[:, :-1] - pi_[:, 1:] * pq_[:, :-1]
+                      + mq_[:, 1:] * mi_[:, :-1] - mi_[:, 1:] * mq_[:, :-1])
+            rot_dc = torch.atan2(torch.sum(rot_im, dim=-1),
+                                 torch.sum(rot_re, dim=-1)) * self._scale_t
+        return audio, new_fir, rot_dc
 
     def _step_impl(self, state: PipelineState, iq_i: torch.Tensor,
                    iq_q: torch.Tensor):
@@ -777,15 +926,16 @@ class Pipeline:
         elif self._dualtone:
             # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
             # + one-chip boxcar + envelope metric; mean DC from the kernel's
-            # sums, AFC from its envelope-rotation sums. The boxcar is the
-            # matched filter.
-            nb = max(2, int(round(sps)))
+            # sums or the midpoint of its metric, AFC from its
+            # envelope-rotation sums. The boxcar is the matched filter.
             filt, new_ctail_i, new_ctail_q, dc, rot_re, rot_im = \
                 fused_dualtone_frontend(
                     iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
-                    self._chan_taps, self._mix_cos, self._mix_sin, nb,
+                    self._chan_taps, self._mix_cos, self._mix_sin, self._nb,
                     want_afc=c.afc, skip_chanfilt=self._skip_chanfilt)
             if c.dc_block:
+                if self._midpoint:
+                    dc = midpoint_dc(filt)
                 filt = filt - dc[:, None]
             afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t if c.afc
                       else None)

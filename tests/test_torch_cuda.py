@@ -1,6 +1,8 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels against their
-plain twins, and the kernel path, the plain-op path, the DDC and AFC loop
-and the fleet on the card against the CPU.
+plain twins (K7 in every body, K9, K10), and the kernel path (rs41, ims100
+and mrzn1), the plain-op path (rs41, and the dual-tone families m10,
+ims100 and mrzn1), the DDC and AFC loop and the fleet on the card against
+the CPU.
 
 This file imports neither jax nor the JAX package (sondetpu), so it runs
 on a machine that has only torch and the CUDA toolkit; tests/conftest.py
@@ -20,14 +22,20 @@ import torch
 
 from sondetpu_torch.dsp.fir import design_lowpass
 from sondetpu_torch.kernels import cuda
-from sondetpu_torch.kernels.frontend import (fused_demod_fir,
+from sondetpu_torch.kernels.dualtone import (dualtone_body,
+                                             fused_dualtone_frontend,
+                                             fused_dualtone_plain,
+                                             mixer_tables)
+from sondetpu_torch.kernels.frontend import (HALO, fused_demod_fir,
                                              fused_demod_fir_plain)
 from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift
+from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
 
 T = torch.from_numpy
@@ -102,6 +110,60 @@ def test_cuda_demod_fir_and_lane_fir_match_twins(cuda_device):
         assert cuda.body_launches == {"lane_fir:runtime_t": 1}
 
 
+# K7 (the dual-tone front end): m10's deviation at 48 kHz
+DEV = 12000.0
+
+
+def _dualtone_inputs(seed, c, n):
+    rng = np.random.default_rng(seed)
+    return ([T(rng.normal(size=(c, n)).astype(np.float32)) for _ in range(2)]
+            + [T(rng.normal(size=(c, HALO)).astype(np.float32))
+               for _ in range(2)])
+
+
+def test_cuda_dualtone_matches_twin(cuda_device):
+    planes = [p.to(cuda_device) for p in _dualtone_inputs(12, 16, 48000)]
+    tabs = [T(t).to(cuda_device) for t in mixer_tables(BLOCK, DEV / FS)]
+    taps = design_lowpass(0.45 * FS, FS, 41)
+    before = cuda.launches["fused_dualtone_frontend"]
+    got = fused_dualtone_frontend(*planes, taps, *tabs, 5, True, False)
+    want = fused_dualtone_plain(*planes, taps, *tabs, 5, True, False)
+    assert cuda.launches["fused_dualtone_frontend"] == before + 1
+    assert torch.equal(got[0], want[0])
+    for k in (3, 4, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,n,skip,afc,nb", [
+    (16, 48000, True, False, 5), (13, 30001, True, False, 5),
+    (9, 48000, True, True, 5), (8, 30001, True, False, 7),
+    (1, 1003, True, True, 7), (5, 30001, False, False, 3),
+    (3, 4800, False, True, 5), (8, 48000, False, False, 20),
+    (11, 48000, False, True, 20),
+], ids=["m10", "edge-c13", "skip-afc", "runtime-nb7", "edge-c1-afc",
+        "chanfilt", "chanfilt-afc", "chanfilt-nb20", "chanfilt-nb20-afc"])
+def test_cuda_dualtone_bodies_exact(cuda_device, c, n, skip, afc, nb):
+    """Every body of the dual-tone front end: metric bit-equal to the twin,
+    sums within 1e-5 relative, tails equal, on channel counts that are not
+    a multiple of the block's eight rows and blocks that are not a multiple
+    of the tile; nb 20 with the channel filter is ims100's and mrzn1's
+    (their 10 kHz taps)."""
+    planes = [p.to(cuda_device) for p in _dualtone_inputs(19, c, n)]
+    dev_hz = 2400.0 if nb == 20 else DEV
+    tabs = [T(t).to(cuda_device) for t in mixer_tables(n, dev_hz / FS)]
+    taps = design_lowpass(10000.0 if nb == 20 else 0.45 * FS, FS, 41)
+    cuda.reset_launches()
+    got = fused_dualtone_frontend(*planes, taps, *tabs, nb, afc, skip)
+    want = fused_dualtone_plain(*planes, taps, *tabs, nb, afc, skip)
+    assert cuda.body_launches == {
+        f"fused_dualtone_frontend:{dualtone_body(nb, skip, afc)}": 1}
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    for k in (3, 4, 5):
+        scale = max(float(want[k].abs().max()), 1e-30)
+        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale
+
+
 def _rs41_rows(n_blocks, c=8, offsets=None):
     """complex [c, n_blocks * BLOCK]: channel ch carries SERIALS[ch % 3]
     from its own point in the frame stream, moved off the channel centre
@@ -167,6 +229,77 @@ def test_cuda_plain_path_matches_cpu(cuda_device):
     gs, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)),
                                      3)
     assert gs.chipbuf.dtype == torch.bfloat16 and frames >= 3 * 8
+    assert not any(cuda.launches.values()), cuda.launches
+
+
+DUALTONE_SERIALS = {"m10": ("910-2-12345", "A05-3-54321", "C12-1-00042"),
+                    "ims100": ("2136051", "2136052", "2136053"),
+                    "mrzn1": (40, 41, 42)}
+
+
+def _dualtone_rows(sonde, n_blocks, c=8):
+    """complex [c, n_blocks * BLOCK]: channel ch carries serial ch % 3 of
+    the family from its own point in the frame stream, with its own noise
+    of std 0.05."""
+    n = BLOCK * n_blocks
+    rows = []
+    for ch in range(c):
+        k = ch % 3
+        serial = DUALTONE_SERIALS[sonde][k]
+        if sonde == "m10":
+            iq = M10Modulator().modulate(
+                [M10Truth(serial=serial, frame_no=5 + j)
+                 for j in range(n // 8000 + 3)])
+        elif sonde == "ims100":
+            iq = IMS100Modulator().modulate(
+                [IMS100Truth(serial=serial, frame_no=2 + j)
+                 for j in range(n // 11520 + 3)])
+        else:
+            iq = MRZN1Modulator().modulate(
+                [MRZN1Truth(serial_lo=serial, frame_no=1 + j)
+                 for j in range(n // 5120 + 3)])
+        iq = iq[37 * k:37 * k + n]
+        rng = np.random.default_rng(40 + ch)
+        rows.append(iq + 0.05 * (rng.normal(size=n)
+                                 + 1j * rng.normal(size=n)))
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("sonde,afc", [("ims100", False), ("mrzn1", False),
+                                       ("ims100", True), ("mrzn1", True)])
+def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
+    """ims100 and mrzn1 on the kernel path, 8 channels with three serials,
+    3 blocks: the card equals the CPU on validity and valid frame bytes,
+    K7's channel-filter body (its _afc body with afc) once a block; with
+    afc the tracked frequencies within AFC_HZ of the CPU's."""
+    cfg = tpipe.PipelineConfig(sonde=sonde, channels=8, block_len=BLOCK,
+                               use_pallas=True, input_dtype="i16", afc=afc)
+    cuda.reset_launches()
+    gs, cs, frames = _card_equals_cpu(cfg, cuda_device,
+                                      _cs16(_dualtone_rows(sonde, 3)), 3)
+    assert frames >= 3 * 8
+    body = "fused_dualtone_frontend:chanfilt" + ("_afc" if afc else "")
+    assert cuda.body_launches == {body: 3}, cuda.body_launches
+    if afc:
+        torch.testing.assert_close(gs.aux[-1].cpu(), cs.aux[-1], rtol=0,
+                                   atol=AFC_HZ)
+
+
+@pytest.mark.parametrize("sonde", ["m10", "ims100", "mrzn1"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_plain_dualtone_matches_cpu(cuda_device, sonde, dtype):
+    """The plain-op dual-tone step (use_pallas=False) on the card equals
+    the CPU's on validity and valid frame bytes, 8 channels with three
+    serials over 3 blocks, and launches no hand kernel."""
+    cfg = tpipe.PipelineConfig(sonde=sonde, channels=8, block_len=BLOCK,
+                               use_pallas=False, compute_dtype=dtype,
+                               input_dtype="i16")
+    cuda.reset_launches()
+    gs, _, frames = _card_equals_cpu(cfg, cuda_device,
+                                     _cs16(_dualtone_rows(sonde, 3)), 3)
+    assert frames >= 3 * 8
+    assert gs.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
+                                else torch.float32)
     assert not any(cuda.launches.values()), cuda.launches
 
 

@@ -1,7 +1,9 @@
-"""The port's m10 and dfm families against the JAX package: the dual-tone
-front end, line decoding, frame gather, rational-sps sampling, the host
-copies of the two families, their pipelines on the kernel path, and the
-session's hand-off of the Chase weak bits.
+"""The port's m10, dfm, ims100 and mrzn1 families against the JAX package:
+the dual-tone front end, line decoding, frame gather, rational-sps
+sampling, the host copies of the families, their pipelines on the kernel
+path (ims100 and mrzn1 on K7's channel-filter body with midpoint DC, with
+and without AFC), the FM-discriminator fallback of a dual-tone family, and
+the session's hand-off of the Chase weak bits.
 
 On the CPU every wrapper runs its plain torch twin; the JAX Pallas kernels
 run in interpret mode (the JAX pipelines take them on their own with
@@ -10,6 +12,7 @@ from numpy seeds and go to both packages.
 """
 
 import dataclasses
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +27,11 @@ from sondetpu.runtime.session import DecoderSession as JaxSession
 from sondetpu.sondes import c50 as jc50
 from sondetpu.sondes import dfm as jdfm
 from sondetpu.sondes import imet4 as jimet4
+from sondetpu.sondes import ims100 as jims100
 from sondetpu.sondes import m10 as jm10
+from sondetpu.sondes import mrzn1 as jmrzn1
 from sondetpu.sync import coding as jcoding
 from sondetpu.sync import correlator as jcorrelator
-from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.dualtone import (HALO, dualtone_body,
                                              fused_dualtone_frontend,
                                              fused_dualtone_plain,
@@ -37,7 +41,9 @@ from sondetpu_torch.runtime.session import DecoderSession
 from sondetpu_torch.sondes import c50 as tc50
 from sondetpu_torch.sondes import dfm as tdfm
 from sondetpu_torch.sondes import imet4 as timet4
+from sondetpu_torch.sondes import ims100 as tims100
 from sondetpu_torch.sondes import m10 as tm10
+from sondetpu_torch.sondes import mrzn1 as tmrzn1
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync import coding as tcoding
 from sondetpu_torch.sync import correlator as tcorrelator
@@ -168,11 +174,14 @@ def test_rational_sps_sampling_matches_jax():
 # --- the host copies ---------------------------------------------------------
 
 FAMILIES = {"m10": (jm10, tm10), "dfm": (jdfm, tdfm),
-            "imet4": (jimet4, timet4), "c50": (jc50, tc50)}
+            "imet4": (jimet4, timet4), "c50": (jc50, tc50),
+            "ims100": (jims100, tims100), "mrzn1": (jmrzn1, tmrzn1)}
 MODULATORS = {"m10": "M10Modulator", "dfm": "DFMModulator",
-              "imet4": "IMET4Modulator", "c50": "C50Modulator"}
+              "imet4": "IMET4Modulator", "c50": "C50Modulator",
+              "ims100": "IMS100Modulator", "mrzn1": "MRZN1Modulator"}
 DECODERS = {"m10": "M10Decoder", "dfm": "DFMDecoder",
-            "imet4": "IMET4Decoder", "c50": "C50Decoder"}
+            "imet4": "IMET4Decoder", "c50": "C50Decoder",
+            "ims100": "IMS100Decoder", "mrzn1": "MRZN1Decoder"}
 
 
 def _truths(mod, family, k=6):
@@ -186,17 +195,30 @@ def _truths(mod, family, k=6):
     if family == "c50":
         return [mod.C50Truth(serial_num=12345 + i, frame_no=1 + i)
                 for i in range(k)]
+    if family == "ims100":
+        # iMS-100 and RS-11G frames, a southern/western fix, a climb
+        return [mod.IMS100Truth(frame_no=4 + i, rs11g=(i >= 4),
+                                lat=-35.7 if i == 2 else 35.7,
+                                lon=-139.7 if i == 2 else 139.7,
+                                alt=18000.0 + 20.0 * i,
+                                time_utc=1.7e9 + i)
+                for i in range(k)]
+    if family == "mrzn1":
+        return [mod.MRZN1Truth(serial_lo=40 + i, frame_no=1 + i,
+                               lat=55.8 - i, vu=-3.0 if i % 2 else 4.2)
+                for i in range(k)]
     return [mod.DFMTruth(serial_num=7654321, frame_no=1 + i)
             for i in range(k)]
 
 
 def _built_frames(family, modulator, truths):
-    """The byte frames the device hands the family's decoder: m10 and dfm
-    frames, c50's 9-byte telegrams, or imet4's 80-byte windows of the UART
-    bit stream at each packet start."""
-    if family == "m10":
+    """The byte frames the device hands the family's decoder: m10, dfm,
+    ims100 (even and odd halves) and mrzn1 frames, c50's 9-byte telegrams,
+    or imet4's 80-byte windows of the UART bit stream at each packet
+    start."""
+    if family in ("m10", "mrzn1"):
         return np.stack([modulator.build_frame(t) for t in truths])
-    if family == "dfm":
+    if family in ("dfm", "ims100"):
         return np.stack([modulator.build_frame(t, k)
                          for k, t in enumerate(truths)])
     if family == "c50":
@@ -219,10 +241,13 @@ def _frag_dicts(frags):
     return [(int(ch), repr(dataclasses.asdict(f))) for ch, f in frags]
 
 
-@pytest.mark.parametrize("family", ["m10", "dfm", "imet4", "c50"])
+@pytest.mark.parametrize("family", ["m10", "dfm", "imet4", "c50", "ims100",
+                                    "mrzn1"])
 def test_family_copies_equal_originals(family):
     """Spec fields, built frames, modulated IQ and decoded fragments (with
-    clean, repairable and broken frames) equal the originals."""
+    clean, repairable and broken frames) equal the originals; ims100's
+    per-channel state (subtype, the climb from successive fixes) too, and
+    after reset_channel."""
     jmod, tmod = FAMILIES[family]
     js, ts = jmod.SPEC, tmod.SPEC
     for f in dataclasses.fields(js):
@@ -257,29 +282,53 @@ def test_family_copies_equal_originals(family):
     want = _frag_dicts(jax_dec.decode_byte_frames(frames, chans, **kw))
     got = _frag_dicts(port_dec.decode_byte_frames(frames, chans, **kw))
     assert got == want and len(want) >= 3
+    if family == "ims100":
+        assert ({ch: port_dec.subtype(ch) for ch in range(3)}
+                == {ch: jax_dec.subtype(ch) for ch in range(3)})
+        assert port_dec.subtype(0) in ("iMS-100", "RS-11G")
+        for dec in (port_dec, jax_dec):
+            dec.reset_channel(0)
+        assert port_dec.subtype(0) is None is jax_dec.subtype(0)
+        assert (_frag_dicts(port_dec.decode_byte_frames(frames, chans))
+                == _frag_dicts(jax_dec.decode_byte_frames(frames, chans)))
 
 
 # --- the pipelines on the kernel path ----------------------------------------
 
 SERIALS = {"m10": ["910-2-12345", "A05-3-54321", "C12-1-00042"],
-           "dfm": [1234567, 1235678, 7654321]}
+           "dfm": [1234567, 1235678, 7654321],
+           "ims100": ["2136051", "2136052", "R2136053"],
+           "mrzn1": ["MRZ-040", "MRZ-041", "MRZ-042"]}
 
 
-def _family_planes(family, n_blocks, seed=0, noise=0.1):
-    """int16 (i, q) [C, n_blocks * BLOCK]: channel ch carries serial
+def _family_iq(family, serial, n):
+    """complex [n] at 48 kHz: back-to-back frames of ``family`` carrying
+    ``serial`` (an "R" prefix makes ims100 frames RS-11G ones)."""
+    if family == "m10":
+        return tm10.M10Modulator().modulate(
+            [tm10.M10Truth(serial=serial, frame_no=5 + j)
+             for j in range(n // 8000 + 2)])
+    if family == "ims100":
+        return tims100.IMS100Modulator().modulate(
+            [tims100.IMS100Truth(serial=serial, frame_no=2 + j,
+                                 rs11g=serial.startswith("R"))
+             for j in range(n // 11520 + 2)])
+    if family == "mrzn1":
+        return tmrzn1.MRZN1Modulator().modulate(
+            [tmrzn1.MRZN1Truth(serial_lo=int(serial[4:]), frame_no=1 + j)
+             for j in range(n // 5120 + 2)])
+    return tdfm.DFMModulator().modulate(
+        [tdfm.DFMTruth(serial_num=serial, frame_no=2 + j)
+         for j in range(n // 10000 + 2)])
+
+
+def _family_planes(family, n_blocks, seed=0, noise=0.1, block=BLOCK):
+    """int16 (i, q) [C, n_blocks * block]: channel ch carries serial
     ch % 3 with its own offset into the frame stream and its own noise."""
-    n = n_blocks * BLOCK
+    n = n_blocks * block
     rows = []
     for k, serial in enumerate(SERIALS[family]):
-        if family == "m10":
-            iq = tm10.M10Modulator().modulate(
-                [tm10.M10Truth(serial=serial, frame_no=5 + j)
-                 for j in range(n // 8000 + 2)])
-        else:
-            iq = tdfm.DFMModulator().modulate(
-                [tdfm.DFMTruth(serial_num=serial, frame_no=2 + j)
-                 for j in range(n // 10000 + 2)])
-        iq = iq[37 * k:37 * k + n]
+        iq = _family_iq(family, serial, n + 37 * k)[37 * k:37 * k + n]
         rng = np.random.default_rng(seed + k)
         iq = iq + noise * (rng.normal(size=n) + 1j * rng.normal(size=n))
         rows.append((np.clip(iq.real * 32767, -32768, 32767).astype(np.int16),
@@ -289,29 +338,21 @@ def _family_planes(family, n_blocks, seed=0, noise=0.1):
 
 
 def _config(family, **kw):
-    return dict(sonde=family, channels=C, block_len=BLOCK, use_pallas=True,
-                compute_dtype="f32", input_dtype="i16", **kw)
+    return {**dict(sonde=family, channels=C, block_len=BLOCK, use_pallas=True,
+                   compute_dtype="f32", input_dtype="i16"), **kw}
 
 
-@pytest.mark.parametrize("family", ["m10", "dfm"])
-def test_family_pipeline_matches_jax(family):
-    """3 blocks at C=8 on the kernel path: validity, valid-slot bytes and
-    the packed buffer's valid rows equal the JAX use_pallas=True pipeline;
-    m10's weak bits are equal as sets per valid frame; the sessions'
-    telemetry is identical and each channel reports its serial."""
-    qi, qq = _family_planes(family, 3)
-    jsess = JaxSession(jpipe.PipelineConfig(**_config(family)))
-    jp = jsess.pipeline            # one compiled step for both comparisons
-    tp = tpipe.Pipeline(tpipe.PipelineConfig(**_config(family)), CPU)
-    assert (jp._pallas_dualtone, jp._pallas) == (
-        (True, False) if family == "m10" else (False, True))
-    assert tp._dualtone == (family == "m10")
+def _steps_equal(jp, tp, qi, qq, n_blocks, block=BLOCK):
+    """Steps both pipelines over the blocks: validity, valid-slot bytes and
+    the packed buffer's valid rows equal, timing within 5e-3, weak bits
+    equal as sets per valid frame. Returns (JAX state, port state, valid
+    frames)."""
     cfg = tp.config
     js, ts = jp.init_state(), tp.init_state()
     assert ts.fir.tail.shape == np.asarray(js.fir.tail).shape
     frames = 0
-    for b in range(3):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+    for b in range(n_blocks):
+        sl = slice(b * block, (b + 1) * block)
         js, jo = jp.step(js, (qi[:, sl], qq[:, sl]))
         ts, to = tp.step(ts, (qi[:, sl], qq[:, sl]))
         jv = np.asarray(jo.frame_valid)
@@ -325,17 +366,23 @@ def test_family_pipeline_matches_jax(family):
                                        cfg.wire_ncols, cfg.chase_total)
         ju = jpipe.unpack_block_output(np.asarray(jo.packed), cfg.k_slots,
                                        cfg.wire_ncols, cfg.chase_total)
-        assert len(tu) == len(ju) == (5 if family == "m10" else 4)
+        assert len(tu) == len(ju) == (5 if cfg.chase_m else 4)
         np.testing.assert_array_equal(tu[0][tv], ju[0][jv])
         np.testing.assert_array_equal(tu[1], ju[1])
-        if family == "m10":
+        np.testing.assert_array_equal(tu[2], ju[2])
+        if cfg.chase_m:
             for ch, k in zip(*np.nonzero(jv)):
                 assert set(tu[4][ch, k]) == set(ju[4][ch, k])
         frames += int(jv.sum())
-    assert frames >= C * 4
-    tsess = DecoderSession(tpipe.PipelineConfig(**_config(family)), CPU)
-    for b in range(3):
-        sl = slice(b * BLOCK, (b + 1) * BLOCK)
+    return js, ts, frames
+
+
+def _sessions_equal(cfg, jsess, qi, qq, n_blocks, family, block=BLOCK):
+    """The port's DecoderSession over the blocks gives the JAX session's
+    telemetry on every channel, each channel its own serial."""
+    tsess = DecoderSession(tpipe.PipelineConfig(**cfg), CPU)
+    for b in range(n_blocks):
+        sl = slice(b * block, (b + 1) * block)
         jsess.process_block((qi[:, sl], qq[:, sl]))
         tsess.process_block((qi[:, sl], qq[:, sl]))
     assert sorted(tsess.telemetry) == sorted(jsess.telemetry) == list(range(C))
@@ -345,6 +392,83 @@ def test_family_pipeline_matches_jax(family):
         assert tsess.telemetry[ch].serial == str(SERIALS[family][ch % 3])
     assert (tsess.metrics.frames_decoded == jsess.metrics.frames_decoded
             > 0)
+    return tsess
+
+
+@pytest.mark.parametrize("family,afc", [
+    pytest.param("m10", False, id="m10"), pytest.param("dfm", False, id="dfm"),
+    pytest.param("ims100", False, id="ims100"),
+    pytest.param("mrzn1", False, id="mrzn1"),
+    pytest.param("ims100", True, id="ims100-afc"),
+    pytest.param("mrzn1", True, id="mrzn1-afc")])
+def test_family_pipeline_matches_jax(family, afc):
+    """3 blocks at C=8 on the kernel path: validity, valid-slot bytes and
+    the packed buffer's valid rows equal the JAX use_pallas=True pipeline;
+    m10's weak bits are equal as sets per valid frame; the sessions'
+    telemetry is identical and each channel reports its serial. ims100 and
+    mrzn1 run K7's channel-filter body (nb 20) with midpoint DC, and with
+    ``afc`` its rotation sums feed the loop: the tracked frequencies within
+    0.05 Hz of JAX's (the sums are taken in another order). The ims100
+    session's reset_channel clears that channel's subtype."""
+    kw = _config(family, afc=afc)
+    qi, qq = _family_planes(family, 3)
+    jsess = JaxSession(jpipe.PipelineConfig(**kw))
+    jp = jsess.pipeline            # one compiled step for both comparisons
+    tp = tpipe.Pipeline(tpipe.PipelineConfig(**kw), CPU)
+    dualtone = family != "dfm"
+    assert (jp._pallas_dualtone, jp._pallas) == (dualtone, not dualtone)
+    assert (tp._dualtone, tp._plain) == (dualtone, False)
+    assert tp._skip_chanfilt == jp._skip_chanfilt == (family == "m10")
+    js, ts, frames = _steps_equal(jp, tp, qi, qq, 3)
+    assert frames >= C * 4
+    if afc:
+        np.testing.assert_allclose(ts.aux[-1].numpy(), np.asarray(js.aux[-1]),
+                                   rtol=0, atol=0.05)
+    tsess = _sessions_equal(kw, jsess, qi, qq, 3, family)
+    if family == "ims100":
+        # the session's reset_channel reaches the decoder's per-channel
+        # subtype (channel 2 carries RS-11G frames)
+        dec = tsess.decoder
+        assert (dec.subtype(0), dec.subtype(2)) == ("iMS-100", "RS-11G")
+        tsess.reset_channel(2)
+        assert dec.subtype(2) is None and 2 not in tsess.telemetry
+        assert dec.subtype(0) == "iMS-100" and 0 in tsess.telemetry
+
+
+@pytest.mark.parametrize("family,use_pallas", [
+    ("ims100", True), ("ims100", False), ("m10", True), ("m10", False)])
+def test_dualtone_fm_fallback_matches_jax(family, use_pallas):
+    """A dual-tone family whose dual-tone gates fail falls back to the FM
+    discriminator with the original's warning, word for word. ims100 with
+    19 taps (sps 20 > ntaps; a block length cannot fail its gate, since
+    its deviation equals its baud rate and dev * block / fs counts the
+    block's symbols) runs the plain-op front end with midpoint DC on both
+    settings, as the original's jnp path; m10 at a block of 48005 samples
+    (dev * block / fs = 12001.25) runs K1 with use_pallas and the plain-op
+    front end without. 3 blocks: as test_family_pipeline_matches_jax, and
+    the sessions' telemetry on ims100."""
+    extra = (dict(ntaps=19) if family == "ims100" else dict(block_len=48005))
+    kw = {**_config(family, use_pallas=use_pallas), **extra}
+    block = kw["block_len"]
+    qi, qq = _family_planes(family, 3, block=block)
+    with warnings.catch_warnings(record=True) as jw:
+        warnings.simplefilter("always")
+        jsess = JaxSession(jpipe.PipelineConfig(**kw))
+    with warnings.catch_warnings(record=True) as tw:
+        warnings.simplefilter("always")
+        tp = tpipe.Pipeline(tpipe.PipelineConfig(**kw), CPU)
+    jmsg = [str(w.message) for w in jw if "fsk_dualtone" in str(w.message)]
+    tmsg = [str(w.message) for w in tw]
+    assert tmsg == jmsg and len(tmsg) == 1, (tmsg, jmsg)
+    assert "falling back to the FM discriminator" in tmsg[0]
+    jp = jsess.pipeline
+    kernel = use_pallas and family == "m10"
+    assert not (jp._dualtone or jp._pallas_dualtone or tp._dualtone)
+    assert (jp._pallas, tp._plain) == (kernel, not kernel)
+    _, _, frames = _steps_equal(jp, tp, qi, qq, 3, block)
+    assert frames >= C * 3
+    if family == "ims100":
+        _sessions_equal(kw, jsess, qi, qq, 3, family, block)
 
 
 def test_session_hands_weak_bits_to_the_chase_repair():
@@ -378,53 +502,3 @@ def test_session_hands_weak_bits_to_the_chase_repair():
     assert (raw, decoded) == (1, 1)
     assert [ch for ch, _ in updates] == [2]
     assert sess.telemetry[2].serial == "910-2-12345"
-
-
-# --- on the card -----------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no "
-                    "CPU mode); chip_smoke.py runs these on the card")
-    return torch.device("cuda", 0)
-
-
-def test_cuda_dualtone_matches_twin(cuda_device):
-    planes = [T(p).to(cuda_device) for p in _dualtone_inputs(12, 16, 48000)]
-    tabs = [T(t).to(cuda_device) for t in mixer_tables(BLOCK, DEV / FS)]
-    taps = design_lowpass(0.45 * FS, FS, 41)
-    before = cuda.launches["fused_dualtone_frontend"]
-    got = fused_dualtone_frontend(*planes, taps, *tabs, 5, True, False)
-    want = fused_dualtone_plain(*planes, taps, *tabs, 5, True, False)
-    assert cuda.launches["fused_dualtone_frontend"] == before + 1
-    assert torch.equal(got[0], want[0])
-    for k in (3, 4, 5):
-        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
-
-
-@pytest.mark.parametrize("c,n,skip,afc,nb", [
-    (16, 48000, True, False, 5), (13, 30001, True, False, 5),
-    (9, 48000, True, True, 5), (8, 30001, True, False, 7),
-    (1, 1003, True, True, 7), (5, 30001, False, False, 3),
-    (3, 4800, False, True, 5),
-], ids=["m10", "edge-c13", "skip-afc", "runtime-nb7", "edge-c1-afc",
-        "chanfilt", "chanfilt-afc"])
-def test_cuda_dualtone_bodies_exact(cuda_device, c, n, skip, afc, nb):
-    """Every body of the dual-tone front end: metric bit-equal to the twin,
-    sums within 1e-5 relative, tails equal, on channel counts that are not
-    a multiple of the block's eight rows and blocks that are not a multiple
-    of the tile."""
-    planes = [T(p).to(cuda_device) for p in _dualtone_inputs(19, c, n)]
-    tabs = [T(t).to(cuda_device) for t in mixer_tables(n, DEV / FS)]
-    taps = design_lowpass(0.45 * FS, FS, 41)
-    cuda.reset_launches()
-    got = fused_dualtone_frontend(*planes, taps, *tabs, nb, afc, skip)
-    want = fused_dualtone_plain(*planes, taps, *tabs, nb, afc, skip)
-    assert cuda.body_launches == {
-        f"fused_dualtone_frontend:{dualtone_body(nb, skip, afc)}": 1}
-    assert torch.equal(got[0], want[0])
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    for k in (3, 4, 5):
-        scale = max(float(want[k].abs().max()), 1e-30)
-        assert float((got[k] - want[k]).abs().max()) <= 1e-5 * scale

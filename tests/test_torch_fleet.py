@@ -17,8 +17,10 @@ from sondetpu.runtime.fleet import FleetChannel as JaxChannel
 from sondetpu.runtime.fleet import FleetSession as JaxFleet
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift, gfsk_modulate
+from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
 
 N_BINS = 8
@@ -129,7 +131,9 @@ def test_fleet_step_is_one_packed_buffer(wideband):
 
 
 def test_fleet_refuses_what_is_not_ported():
-    """The mesh fleet and the configs the port lacks raise; afc and
+    """The mesh fleet and the configs the port lacks (m10's 100-sample
+    block below the kernels' carried tail; an ims100 group at 48.1 kHz,
+    whose sps 20.04 needs _linear_interp) raise; afc and
     offset_hz below the grid (the groups' DDC and AFC loop) are taken and
     reach each group's config, pad rows on the grid."""
     chans = [FleetChannel(1, "rs41")]
@@ -137,8 +141,9 @@ def test_fleet_refuses_what_is_not_ported():
         FleetSession(chans, N_BINS, "cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="block_len=100"):
         FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu", block_len=100)
-    with pytest.raises(NotImplementedError, match="ims100"):
-        FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu")
+    with pytest.raises(NotImplementedError, match="_linear_interp"):
+        FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu",
+                     fs_chan=48100.0, block_len=48100)
     fleet = FleetSession(chans, N_BINS, "cpu", afc=True)
     cfg = fleet.groups["rs41"][1].config
     assert cfg.afc and cfg.fine_offsets is None
@@ -146,3 +151,62 @@ def test_fleet_refuses_what_is_not_ported():
                          "cpu")
     cfg = fleet.groups["rs41"][1].config
     assert not cfg.afc and cfg.fine_offsets == (300.0,) + (0.0,) * 7
+
+
+# --- ims100 and mrzn1 beside rs41 ----------------------------------------------
+
+N_BINS_16 = 16
+FS_16 = N_BINS_16 * 48000.0
+PLAN_16 = ((2, "rs41"), (5, "ims100"), (13, "mrzn1"))
+
+
+def _wideband_16():
+    """2 blocks of a 16-bin stream: rs41, ims100 and mrzn1 frames, each
+    from the port's modulator at the wideband rate, at the centres of bins
+    2, 5 and 13 (-3), plus seeded noise of std 0.02."""
+    n = 2 * N_BINS_16 * 48000
+    sig = {"rs41": RS41Modulator().modulate(
+        [RS41Truth(frame_no=40 + i) for i in range(5)], fs=FS_16),
+        "ims100": IMS100Modulator().modulate(
+            [IMS100Truth(frame_no=6 + i) for i in range(10)], fs=FS_16),
+        "mrzn1": MRZN1Modulator().modulate(
+            [MRZN1Truth(frame_no=3 + i) for i in range(20)], fs=FS_16)}
+    centers = FleetSession([FleetChannel(1, "rs41")], N_BINS_16,
+                           "cpu").pfb.center_freqs(FS_16)
+    wide = np.zeros(n, np.complex64)
+    for k, family in PLAN_16:
+        x = freq_shift(sig[family][:n], centers[k] / FS_16)
+        wide[:x.size] += x
+    rng = np.random.default_rng(16)
+    return wide + (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+                   ).astype(np.complex64)
+
+
+@pytest.mark.parametrize("afc", [False, True])
+def test_fleet_with_ims100_and_mrzn1_matches_jax_fleet(afc):
+    """A 16-bin fleet with ims100 and mrzn1 carriers beside rs41, with and
+    without afc: block by block the same updates and telemetry as the JAX
+    fleet (use_pallas=True); ims100 and mrzn1 run K7's channel-filter body
+    with midpoint DC (its twin here); every carrier reports its serial;
+    with afc the tracked frequencies of the carriers' rows within 0.05 Hz
+    of JAX's (K7's rotation sums are summed in another order)."""
+    wide = _wideband_16()
+    w = N_BINS_16 * 48000
+    jf = JaxFleet([JaxChannel(b, s) for b, s in PLAN_16], N_BINS_16,
+                  use_pallas=True, afc=afc)
+    tf = FleetSession([FleetChannel(b, s) for b, s in PLAN_16], N_BINS_16,
+                      "cpu", afc=afc)
+    for sonde in ("ims100", "mrzn1"):
+        pipe = tf.groups[sonde][1].pipeline
+        assert pipe._dualtone and not pipe._skip_chanfilt and pipe._midpoint
+    for i in range(0, wide.size, w):
+        assert (tf.process_wideband(wide[i:i + w])
+                == jf.process_wideband(wide[i:i + w]))
+        assert _telemetry_text(tf.telemetry) == _telemetry_text(jf.telemetry)
+    assert [tf.telemetry[i].serial for i in range(3)] \
+        == ["S1234567", "2136051", "MRZ-042"]
+    if afc:
+        for family, (idxs, sess) in tf.groups.items():
+            np.testing.assert_allclose(
+                sess.afc_freqs[:len(idxs)],
+                jf.groups[family][1].afc_freqs[:len(idxs)], rtol=0, atol=0.05)

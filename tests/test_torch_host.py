@@ -2,8 +2,8 @@
 
 sondetpu_torch imports nothing of sondetpu, so it carries copies of the
 host modules it needs (sync/coding, dsp/fir design, sondes/base, geo,
-modulate, rs41, fec/syndrome matrices, fec gf256/crc/rs/hamming and the
-native C++ FEC, telemetry, physics, c64_to_planes, PipelineConfig,
+modulate, rs41, fec/syndrome matrices, fec gf256/crc/rs/hamming/bch and
+the native C++ FEC, telemetry, physics, c64_to_planes, PipelineConfig,
 unpack_block_output, Metrics). Each is held here to its original on the
 same NumPy inputs.
 """
@@ -20,6 +20,7 @@ import torch
 from sondetpu import physics as jphysics
 from sondetpu import telemetry as jtelemetry
 from sondetpu.dsp import fir as jfir
+from sondetpu.fec import bch as jbch
 from sondetpu.fec import crc as jcrc
 from sondetpu.fec import gf256 as jgf256
 from sondetpu.fec import hamming as jhamming
@@ -36,6 +37,7 @@ from sondetpu.sync import correlator as jcorrelator
 from sondetpu_torch import physics as tphysics
 from sondetpu_torch import telemetry as ttelemetry
 from sondetpu_torch.dsp import fir as tfir
+from sondetpu_torch.fec import bch as tbch
 from sondetpu_torch.fec import crc as tcrc
 from sondetpu_torch.fec import gf256 as tgf256
 from sondetpu_torch.fec import hamming as thamming
@@ -219,8 +221,9 @@ def test_pipeline_config_validation_equal():
             jpipe.PipelineConfig(**bad)
         with pytest.raises(ValueError):
             tpipe.PipelineConfig(**bad)
-    with pytest.raises(NotImplementedError, match="ims100"):
-        tpipe.PipelineConfig(sonde="ims100")
+    for pipe in (jpipe, tpipe):
+        with pytest.raises(KeyError, match="unknown sonde type 'rs92'"):
+            pipe.PipelineConfig(sonde="rs92")
 
 
 @pytest.mark.parametrize("chase_m", [0, 3])
@@ -299,6 +302,34 @@ def test_rs_decode_equal(n, fec_backend):
     assert got[2][fixed].all()
     np.testing.assert_array_equal(got[0][fixed], cw[fixed])
     np.testing.assert_array_equal(got[1][fixed], nerrs[fixed])
+
+
+def test_bch_63_51_equal(fec_backend):
+    """BCH(63,51) t=2: the generator, systematic encoding, and decoding of
+    words with 0 to 4 bit errors (t = 2 corrects up to 2) and of random
+    words: the same corrections, counts and verdicts, on the native decoder
+    and on NumPy."""
+    tc, jc = tbch.BCH_63_51, jbch.BCH_63_51
+    assert (tc.n, tc.k, tc.t) == (jc.n, jc.k, jc.t) == (63, 51, 2)
+    np.testing.assert_array_equal(tc.genpoly, jc.genpoly)
+    np.testing.assert_array_equal(tc.gf.exp, jc.gf.exp)
+    rng = np.random.default_rng(63)
+    nerrs = np.repeat(np.arange(5), 12)
+    msg = rng.integers(0, 2, size=(nerrs.size, 51), dtype=np.uint8)
+    cw = tc.encode(msg)
+    np.testing.assert_array_equal(cw, jc.encode(msg))
+    recv = cw.copy()
+    for r, k in enumerate(nerrs):
+        recv[r, rng.choice(63, size=k, replace=False)] ^= 1
+    recv = np.concatenate([recv, rng.integers(0, 2, size=(20, 63),
+                                              dtype=np.uint8)])
+    got, want = tc.decode(recv), jc.decode(recv)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    fixed = np.concatenate([nerrs <= 2, np.zeros(20, bool)])
+    assert got[2][fixed].all()
+    np.testing.assert_array_equal(got[0][fixed], cw[nerrs <= 2])
+    np.testing.assert_array_equal(got[1][fixed], nerrs[nerrs <= 2])
 
 
 def test_gf256_tables_equal():

@@ -13,6 +13,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -314,28 +315,72 @@ def test_chip_smoke_imports_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("kw,missing", [
-    (dict(sonde="ims100", input_dtype="f32"), "sonde 'ims100'"),
+    (dict(sonde="ims100", fs=48100.0, block_len=48100, use_pallas=False),
+     r"sps=20\.04.*_linear_interp"),
     (dict(sonde="imet4", use_pallas=False), "jnp AFSK front end"),
-    (dict(sonde="m10", use_pallas=False, compute_dtype="bf16"),
-     "jnp dual-tone branch"),
-    (dict(sonde="mrzn1", input_dtype="f32"), "sonde 'mrzn1'"),
+    (dict(sonde="mrzn1", compute_dtype="bf16", input_dtype="f32"),
+     "compute_dtype='bf16' on the kernel path"),
+    (dict(sonde="mrzn1", fs=48100.0, block_len=48100),
+     r"sps=20\.04.*_linear_interp"),
     (dict(sonde="m10", compute_dtype="bf16", input_dtype="f32"),
      "compute_dtype='bf16' on the kernel path"),
     (dict(profile_stop="corr"), "profile_stop"),
     (dict(channels=12), "multiple of 8"),
     (dict(fs=50000.0, block_len=50000), r"sps=5\.208.* q <= 16"),
-    (dict(sonde="m10", block_len=48005, input_dtype="f32"),
-     "FM-discriminator fallback"),
+    (dict(sonde="m10", block_len=48005, compute_dtype="bf16",
+          input_dtype="f32"), "compute_dtype='bf16' on the kernel path"),
 ], ids=["ims100", "no-pallas", "bf16", "mrzn1", "m10-bf16-kernel",
         "profile-stop", "channels-12", "fractional-sps", "m10-fm-fallback"])
 def test_pipeline_refuses_configs_outside_the_slice(kw, missing):
     """One JAX PipelineConfig drives both packages; the port names the
-    piece it lacks (the plain-op path, use_pallas=False, covers the
-    FM-discriminator families only: "no-pallas" and "bf16" are imet4 and
-    m10 there)."""
+    piece it lacks: ``_linear_interp`` for an sps that is neither integer
+    nor a small fraction (ims100 on the plain-op path, mrzn1 on K7's), the
+    jnp AFSK front end, bfloat16 on a kernel path (K7 for mrzn1 and m10,
+    K1 for m10's FM-discriminator fallback at a block of 48005 samples,
+    where dev * block / fs is not an integer), profile_stop, and the kernel
+    path's channel gate."""
     cfg = jpipe.PipelineConfig(**{**_config(), **kw})
     with pytest.raises(NotImplementedError, match=missing):
         tpipe.Pipeline(cfg, CPU)
+
+
+def _jax_midpoint(x):
+    return 0.5 * (jnp.quantile(x, 0.10, axis=-1)
+                  + jnp.quantile(x, 0.90, axis=-1))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [48000, 191999, 10001, 7, 2, 1])
+def test_midpoint_dc_equals_jnp_quantile(n, dtype):
+    """midpoint_dc equals the original's 0.5 * (q10 + q90) bit for bit, in
+    float32 and bfloat16, on rows of seeded noise at many scales, rows with
+    ties, a constant row and a row holding a NaN (NaN in both). At n =
+    10001 the position 0.9 * 10000 rounds to 9000 in float32 (8999.9998 in
+    float64), so the order statistic itself depends on the float32
+    product."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(64, n))
+         * rng.uniform(1e-3, 1e3, size=(64, 1))).astype(np.float32)
+    x[:8] = np.round(x[:8])
+    x[8] = 0.25
+    x[9, n // 2] = np.nan
+    if dtype == "bf16":
+        xt = torch.from_numpy(x).to(torch.bfloat16)
+        xj = jnp.asarray(xt.view(torch.int16).numpy()).view(jnp.bfloat16)
+    else:
+        xt, xj = torch.from_numpy(x), jnp.asarray(x)
+    want = np.asarray(jax.jit(_jax_midpoint)(xj).astype(jnp.float32))
+    got = tpipe.midpoint_dc(xt)
+    assert got.dtype == xt.dtype and got.shape == (64,)
+    got = got.to(torch.float32).numpy()
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    assert nan[9] and nan.sum() == 1
+    assert torch.equal(torch.from_numpy(got[~nan]),
+                       torch.from_numpy(want[~nan]))
+    if n == 10001:
+        pos = np.float32(0.9) * np.float32(n - 1)
+        assert pos == 9000.0 and np.float64(np.float32(0.9)) * (n - 1) < 9000
 
 
 def test_pipeline_refuses_mismatched_planes():
