@@ -95,6 +95,30 @@ before the result line:
     (use_pallas=False) in f32 and bf16, 8 channels with four truths, card
     against CPU, no hand kernel; then the 2048-channel m10 bf16 plain step
     (plain_dualtone_step) and its peak memory.
+17. bf16 kernels (in the kernel phase): every K1 and K7 body on bfloat16
+    planes and tails, bit-equal to the float32 body on the widened input;
+    K4 and K5 in bf16 torch.equal to their twin run in bfloat16, K6 on
+    bfloat16 u within one bfloat16 step at max|y| plus 1e-4 of max|y| of
+    the float32 FFT; K1 (decim 1 lowpass, decim 2), K7 (skip_nb5, chanfilt)
+    and K4-K6 timed in bf16 beside their bound at the bytes they move.
+18. pfb_stream (bf16) and fleet_path_bf16: the 2048-bin fleet in bf16
+    (bench.py's fleet default, use_pallas left at None: every group on its
+    kernel route), 3 blocks: the carriers decode, the PFB's and K7's bf16
+    bodies once a step; fleet_bf16_step; then a 16-bin bf16 fleet with
+    rs41, m10, imet4, c50 and dfm carriers, card against CPU.
+19. plain_afsk_path: imet4 and c50 on the jnp AFSK front end
+    (use_pallas=False, the JAX CLI's default, f32) at 2048 channels x 4 s,
+    2 blocks: the truth on every channel, no hand kernel; plain_afsk_step;
+    plain_afsk_distinct, 8 channels with four truths, card against CPU.
+20. ims100_bf16 and m10_fallback_bf16: ims100 on K7's chanfilt_bf16 body,
+    and m10's FM fallback (a block of 4 s + 5 samples) on K1's
+    decim1_t41_bf16 body with K2 on the widened bfloat16 ring, at 2048
+    channels, i16, use_pallas=True, bf16: the truth on every channel and
+    only those bodies; each one's bf16 and f32 steps in turns and peaks.
+21. gates: use_pallas=True where the original's gates send the config to
+    its jnp path (rs41 at 12 channels, m10 at 200-sample blocks: no hand
+    kernel) or to K7 with linear_interp (ims100 at 48.1 kHz), card against
+    CPU block by block and in telemetry.
 
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
@@ -348,7 +372,8 @@ def check_frontend(torch, args, label: str):
     DC within K1_DC_TOL, the carried tails equal, and the body the host
     picks is the one launched. Returns the DC error."""
     from sondetpu_torch.kernels import cuda
-    from sondetpu_torch.kernels.frontend import (FIXED_TAPS, fused_frontend,
+    from sondetpu_torch.kernels.frontend import (frontend_body,
+                                                 fused_frontend,
                                                  fused_frontend_plain,
                                                  is_delay_taps)
 
@@ -357,9 +382,8 @@ def check_frontend(torch, args, label: str):
     got = fused_frontend(*planes, ct, mt, scale, decim, False)
     want = fused_frontend_plain(*planes, ct, mt, scale, decim, False)
     torch.cuda.synchronize()
-    body = (f"fused_frontend:decim{decim}_"
-            + ("t41" if len(ct) == FIXED_TAPS else "runtime_t")
-            + ("_identity" if is_delay_taps(mt) else ""))
+    body = "fused_frontend:" + frontend_body(decim, len(ct),
+                                             is_delay_taps(mt))
     check(cuda.body_launches == {body: 1},
           f"fused_frontend {label}: bodies {cuda.body_launches}, "
           f"expected {body}")
@@ -425,6 +449,84 @@ def phase_frontend(torch, dev):
         del args
         torch.cuda.empty_cache()
     check(len(bodies) == 8, f"fused_frontend: bodies launched {bodies}")
+    results.update(phase_frontend_bf16(torch, dev, gen, cases))
+    return results
+
+
+def check_bf16_equals_widened(torch, name, label, body, fn, planes):
+    """A kernel on bfloat16 planes and tails gives bit for bit what it gives
+    on the same values widened to float32 (every output but the carried
+    tails, which are the bfloat16 input), and launches ``body`` for that.
+    Returns the bfloat16 outputs."""
+    from sondetpu_torch.kernels import cuda
+
+    cuda.reset_launches()
+    got = fn(*planes)
+    bodies = dict(cuda.body_launches)
+    want = fn(*(p.float() for p in planes))
+    torch.cuda.synchronize()
+    check(bodies == {body: 1}, f"{name} {label} bf16: bodies {bodies}, "
+          f"expected {body}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.bfloat16:
+            check(torch.equal(g, planes[0][:, -g.shape[1]:]) if k == 1
+                  else torch.equal(g, planes[1][:, -g.shape[1]:]),
+                  f"{name} {label} bf16: carried tails are not the input")
+        else:
+            check(torch.equal(g, w), f"{name} {label} bf16: output {k} not "
+                  "bit-equal to the float32 body on the widened input")
+    return got
+
+
+def phase_frontend_bf16(torch, dev, gen, cases):
+    """K1 on bfloat16 planes and tails in every body (the _bf16 bodies):
+    bit-equal to the float32 kernel on the widened input, DC included (the
+    same sums in the same order); the RS41 shape and the decim-1 lowpass
+    shape (m10's FM fallback in bf16, the path that reads bfloat16 into K1)
+    timed beside their bound at 2 bytes a sample."""
+    from sondetpu_torch.kernels.frontend import (frontend_body,
+                                                 fused_frontend,
+                                                 fused_frontend_plain,
+                                                 is_delay_taps)
+
+    results, bodies = {}, set()
+    for label, c, n, decim, ntaps, ident, timed in cases:
+        args = frontend_inputs(torch, dev, gen, c, n, decim, ntaps, ident)
+        planes = [a.to(torch.bfloat16) for a in args[:4]]
+        ct, mt, scale = args[4:7]
+        del args
+        body = "fused_frontend:" + frontend_body(decim, ntaps,
+                                                 is_delay_taps(mt), True)
+
+        def k1(*p, dc=True):
+            return fused_frontend(*p, ct, mt, scale, decim, dc)
+
+        check_bf16_equals_widened(torch, "fused_frontend", label, body, k1,
+                                  planes)
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "fused_frontend", "case": label,
+                 "dtype": "bf16", "shape": [c, n], "decim": decim,
+                 "taps": ntaps, "body": body,
+                 "equal_to_f32_on_widened_input": True}
+        if timed and label in ("rs41", "decim1-lowpass"):
+            got = k1(*planes)
+            want = fused_frontend_plain(*planes, ct, mt, scale, decim, True)
+            torch.cuda.synchronize()
+            err = max(float((got[0] - want[0]).abs().max()),
+                      float((got[3] - want[3]).abs().max()))
+            check(err <= K1_DC_TOL, f"fused_frontend {label} bf16: err {err}")
+            entry.update(
+                max_abs_err=err, tol=K1_DC_TOL,
+                ms=cuda_ms(torch, lambda: k1(*planes), 20),
+                plain_ms=cuda_ms(torch, lambda: fused_frontend_plain(
+                    *planes, ct, mt, scale, decim, True), 3),
+                library_ms=None,
+                **frontend_bound(planes + [ct, mt, scale, decim]))
+            results[f"{label}_bf16"] = entry
+        emit(entry)
+        del planes
+        torch.cuda.empty_cache()
+    check(len(bodies) == 8, f"fused_frontend bf16: bodies launched {bodies}")
     return results
 
 
@@ -858,12 +960,29 @@ def fleet_family(k: int) -> str:
 
 def narrowband(family: str, serial: str, n: int, fs: float) -> np.ndarray:
     """complex64 [n] at rate fs: back-to-back frames of ``family`` from the
-    port's modulator, carrying ``serial``."""
+    port's modulator, carrying ``serial`` (the serial its decoder reports;
+    imet4 sends none, "" here, and reports lat 40)."""
+    from sondetpu_torch.sondes.c50 import C50Modulator, C50Truth
     from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+    from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
+    from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
     from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
     from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
 
-    if family == "rs41":
+    secs = n / fs
+    if family == "imet4":
+        iq = IMET4Modulator().modulate(
+            [IMET4Truth(frame_no=1 + i, lat=40.0)
+             for i in range(int(secs / 0.43) + 2)], fs=fs)
+    elif family == "c50":
+        iq = C50Modulator().modulate(
+            [C50Truth(serial_num=int(serial[4:]), frame_no=1 + i)
+             for i in range(int(secs / 0.21) + 2)], fs=fs)
+    elif family == "ims100":
+        iq = IMS100Modulator().modulate(
+            [IMS100Truth(serial=serial, frame_no=2 + i)
+             for i in range(int(secs / 0.24) + 2)], fs=fs)
+    elif family == "rs41":
         k = int(np.ceil(n / (fs / 4800.0) / 2560)) + 1
         iq = RS41Modulator().modulate(
             [RS41Truth(serial=serial, frame_no=i) for i in range(k)], fs=fs)
@@ -1039,6 +1158,7 @@ def phase_fleet_kernels(torch, dev):
         del u_i, u_q
     results["pfb_dft"] = dict(k6, max_abs_err=max(errs))
     torch.cuda.empty_cache()
+    results.update(phase_pfb_bf16(torch, dev, randn, hcol))
 
     # K7 in every body. Metric: the same operations in the same order as
     # the twin, so torch.equal; the dc and rotation sums differ only in the
@@ -1105,18 +1225,169 @@ def phase_fleet_kernels(torch, dev):
         del args, tabs
     check(len(bodies) == 6, f"dualtone: bodies launched {bodies}")
     torch.cuda.empty_cache()
+    # K7 on bfloat16 planes and tails in every body: bit-equal to the
+    # float32 body on the widened input, the m10 and ims100 shapes timed at
+    # 2 bytes a sample
+    bodies = set()
+    for label, c, n, skip, afc, nb, timed in cases:
+        planes = [randn(*s).to(torch.bfloat16)
+                  for s in ((c, n), (c, n), (c, HALO), (c, HALO))]
+        tabs = tuple(torch.from_numpy(t).to(dev)
+                     for t in mixer_tables(n, 12000.0 / FS))
+        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc, True)
+
+        def k7(*p):
+            return fused_dualtone_frontend(*p, taps, *tabs, nb, afc, skip)
+
+        check_bf16_equals_widened(torch, "dualtone", label, body, k7, planes)
+        bodies.add(body)
+        entry = {"phase": "kernel", "name": "fused_dualtone_frontend",
+                 "case": label, "dtype": "bf16", "shape": [c, n],
+                 "skip_chanfilt": skip, "want_afc": afc, "nb": nb,
+                 "body": body, "equal_to_f32_on_widened_input": True}
+        if timed:
+            got = k7(*planes)
+            want = fused_dualtone_plain(*planes, taps, *tabs, nb, afc, skip)
+            torch.cuda.synchronize()
+            check(torch.equal(got[0], want[0]),
+                  f"dualtone {label} bf16: metric not equal to its twin")
+            ops = (0 if skip else 4 * len(taps)) + 12 + 4 * (nb + 1) + 11
+            entry.update(
+                max_abs_err=0.0, tol=0,
+                ms=cuda_ms(torch, lambda: k7(*planes), 20),
+                plain_ms=cuda_ms(torch, lambda: fused_dualtone_plain(
+                    *planes, taps, *tabs, nb, afc, skip), 3),
+                library_ms=None, ops_per_position=ops,
+                **bound(nbytes(*planes, *tabs) + nbytes(*planes[2:])
+                        + 4 * c * n, c * n * ops))
+            results["fused_dualtone_frontend_bf16" if label == "m10"
+                    else "fused_dualtone_frontend_chanfilt_bf16"] = entry
+        emit(entry)
+        del planes, tabs
+    check(len(bodies) == 6, f"dualtone bf16: bodies launched {bodies}")
+    torch.cuda.empty_cache()
     return results
 
 
-def phase_pfb_stream(torch, dev):
-    """The 2048-bin channelizer over blocks shorter than its history
-    (pfb_fir_timemajor, the tail carried through a concatenation) equals
-    one call on the whole stream (pfb_fir_stream): the same arithmetic, so
-    the outputs must be equal exactly."""
+def phase_pfb_bf16(torch, dev, randn, hcol):
+    """The PFB kernels in bfloat16 at the fleet's shape: K4 and K5 (body
+    bf16: float32 planes rounded to bfloat16 on the read, every product and
+    sum rounded to bfloat16, bfloat16 out) torch.equal to their twin run in
+    bfloat16; K6 on bfloat16 u (float32 transform, one rounding on the
+    store) within one bfloat16 step at max|y| plus 1e-4 of max|y| of the
+    float32 FFT of the widened u. Each timed beside its bound at the bytes
+    it moves (K4/K5 read 4 and write 2 bytes a sample, K6 2 and 2)."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.pfb import (TPP, pfb_dft, pfb_dft_plain,
+                                            pfb_fir_plain, pfb_fir_stream,
+                                            pfb_fir_timemajor)
+
+    bf = torch.bfloat16
+    m = BLOCK_LEN
+    results = {}
+    x_i, x_q, t_i, t_q = randn(m, N_BINS), randn(m, N_BINS), \
+        randn(8, N_BINS), randn(8, N_BINS)
+    cuda.reset_launches()
+    got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol, bf)
+    bodies = dict(cuda.body_launches)
+    want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol,
+                         bf)
+    torch.cuda.synchronize()
+    check(bodies == {"pfb_fir_stream:bf16": 1},
+          f"pfb_fir_stream bf16: bodies {bodies}")
+    check(got[0].dtype == bf and torch.equal(got[0], want[0])
+          and torch.equal(got[1], want[1]),
+          "pfb_fir_stream bf16: not equal to its twin in bfloat16")
+    fir_ops = 2 * TPP - 1
+    results["pfb_fir_stream_bf16"] = entry = {
+        "phase": "kernel", "name": "pfb_fir_stream", "dtype": "bf16",
+        "shape": [m, N_BINS], "body": "bf16", "max_abs_err": 0.0, "tol": 0,
+        "ms": cuda_ms(torch, lambda: pfb_fir_stream(x_i, x_q, t_i, t_q, hcol,
+                                                    bf), 20),
+        "plain_ms": cuda_ms(torch, lambda: pfb_fir_plain(
+            torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol, bf), 3),
+        "library_ms": None,
+        **bound(nbytes(x_i, x_q, t_i, t_q, hcol) + nbytes(*got),
+                2 * m * N_BINS * fir_ops)}
+    emit(entry)
+    u_i, u_q = got
+    del got, want
+    for rows in (4, m):
+        vv_i = torch.cat([t_i, x_i[:rows]])
+        vv_q = torch.cat([t_q, x_q[:rows]])
+        got = pfb_fir_timemajor(vv_i, vv_q, hcol, bf)
+        want = pfb_fir_plain(vv_i, vv_q, hcol, bf)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"pfb_fir_timemajor bf16 m={rows}: not equal to its twin")
+        entry = {"phase": "kernel", "name": "pfb_fir_timemajor",
+                 "dtype": "bf16", "shape": [TPP + rows, N_BINS],
+                 "body": "bf16", "max_abs_err": 0.0, "tol": 0}
+        if rows == m:
+            entry.update(
+                ms=cuda_ms(torch, lambda: pfb_fir_timemajor(
+                    vv_i, vv_q, hcol, bf), 20),
+                plain_ms=cuda_ms(torch, lambda: pfb_fir_plain(
+                    vv_i, vv_q, hcol, bf), 3),
+                library_ms=None,
+                **bound(nbytes(vv_i, vv_q, hcol) + nbytes(*got),
+                        2 * rows * N_BINS * fir_ops))
+            results["pfb_fir_timemajor_bf16"] = entry
+        emit(entry)
+        del vv_i, vv_q, got, want
+    del x_i, x_q
+    torch.cuda.empty_cache()
+    errs = []
+    for rows, nb in ((m, N_BINS), (1003, N_BINS), (4096, 16)):
+        ui, uq = ((u_i, u_q) if rows == m else
+                  (randn(rows, nb).to(bf), randn(rows, nb).to(bf)))
+        cuda.reset_launches()
+        y = pfb_dft(ui, uq)
+        bodies = dict(cuda.body_launches)
+        ref = pfb_dft_plain(ui.float(), uq.float())
+        torch.cuda.synchronize()
+        body = "pfb_dft:" + ("n2048" if nb == 2048 else "radix2") + "_bf16"
+        check(bodies == {body: 1}, f"pfb_dft bf16 N={nb}: bodies {bodies}")
+        top = max(float(ref[0].abs().max()), float(ref[1].abs().max()))
+        tol = 2.0 ** (np.floor(np.log2(top)) - 7) + 1e-4 * top
+        err = max(float((y[0].float() - ref[0]).abs().max()),
+                  float((y[1].float() - ref[1]).abs().max()))
+        check(y[0].dtype == bf and err <= tol,
+              f"pfb_dft bf16 N={nb}: err {err} beyond {tol}")
+        errs.append(err / top)
+        entry = {"phase": "kernel", "name": "pfb_dft", "dtype": "bf16",
+                 "shape": [rows, nb], "body": body, "max_abs_err": err,
+                 "tol": tol, "max_err_over_max_abs_y": err / top}
+        if rows == m:
+            # the library's one call: cuFFT of the same values, widened
+            # (it takes no bfloat16)
+            z = torch.complex(ui.float(), uq.float())
+            entry.update(
+                ms=cuda_ms(torch, lambda: pfb_dft(ui, uq), 20),
+                plain_ms=cuda_ms(torch, lambda: pfb_dft_plain(
+                    ui.float(), uq.float()), 5),
+                library_ms=cuda_ms(torch, lambda: torch.fft.fft(z, dim=-1),
+                                   20),
+                **bound(2 * nbytes(ui, uq) + 4 * nb,
+                        rows * 5 * nb * int(np.log2(nb))))
+            del z
+            results["pfb_dft_bf16"] = entry
+        emit(entry)
+        del ui, uq, y, ref
+    del u_i, u_q
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_pfb_stream(torch, dev, dtype: str = "f32"):
+    """The 2048-bin channelizer (in ``dtype``) over blocks shorter than its
+    history (pfb_fir_timemajor, the tail carried through a concatenation)
+    equals one call on the whole stream (pfb_fir_stream): the same
+    arithmetic, so the outputs must be equal exactly."""
     from sondetpu_torch.dsp.channelizer import PFBChannelizer
     from sondetpu_torch.kernels import cuda
 
-    pfb = PFBChannelizer(N_BINS, dev)
+    pfb = PFBChannelizer(N_BINS, dev, dtype)
     gen = torch.Generator(device=dev).manual_seed(2)
     short, n_short = 4 * N_BINS, 6              # 4 rows < tpp = 8
     x_i, x_q = (torch.randn(short * n_short, generator=gen, device=dev)
@@ -1132,30 +1403,43 @@ def phase_pfb_stream(torch, dev):
         ys_q.append(y_q)
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
     _, w_i, w_q = pfb(pfb.init_state(), x_i, x_q)
     same = (torch.equal(torch.cat(ys_i, dim=1), w_i)
             and torch.equal(torch.cat(ys_q, dim=1), w_q))
     check(same, "pfb_stream: short blocks differ from one long block")
-    check(launches["pfb_fir_timemajor"] == n_short,
+    check(launches["pfb_fir_timemajor"] == n_short
+          and bodies.get("pfb_fir_timemajor:" + dtype) == n_short,
           f"pfb_stream: pfb_fir_timemajor launched "
           f"{launches['pfb_fir_timemajor']} times")
-    emit({"phase": "pfb_stream", "bins": N_BINS, "block_samples": short,
+    check(y_i.dtype == (torch.bfloat16 if dtype == "bf16"
+                        else torch.float32), f"pfb_stream: y in {y_i.dtype}")
+    emit({"phase": "pfb_stream", "dtype": dtype, "bins": N_BINS,
+          "block_samples": short,
           "blocks": n_short, "equal_to_one_block": same,
           "launches": {k: v for k, v in launches.items() if v}})
-    return {"launches": launches, "steps": n_short}
+    return {"launches": launches, "bodies": bodies, "steps": n_short}
 
 
 def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
-                     block_len: int = BLOCK_LEN, n_blocks: int = 4):
-    """FleetSession.process_wideband at n_bins x block_len, pipelined, f32,
-    every group on the kernel path."""
+                     block_len: int = BLOCK_LEN, n_blocks: int = 4,
+                     compute_dtype: str = "f32"):
+    """FleetSession.process_wideband at n_bins x block_len, pipelined, in
+    ``compute_dtype`` with the default use_pallas (every group on the
+    kernel path). In bf16 (bench.py's fleet default) the PFB runs its bf16
+    bodies and the m10 group K7's, the rs41 and dfm groups stay float32."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 
+    bf = "_bf16" if compute_dtype == "bf16" else ""
     chans = [FleetChannel(pfb_bin=k, sonde=fleet_family(k))
              for k in range(n_bins)]
     fleet = FleetSession(chans, n_bins, dev, fs_chan=FS, block_len=block_len,
-                         pipelined=True)
+                         pipelined=True, compute_dtype=compute_dtype)
+    check({s: sess.config.compute_dtype for s, (_, sess)
+           in fleet.groups.items()}
+          == {"rs41": "f32", "m10": compute_dtype, "dfm": "f32"},
+          f"fleet_path {compute_dtype}: group dtypes")
     groups = {s: [len(idxs), sess.config.channels]
               for s, (idxs, sess) in fleet.groups.items()}
     blocks = fleet_blocks(torch, dev, n_blocks, seed=3, n_bins=n_bins,
@@ -1182,8 +1466,10 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
                  "pfb_dft", "fused_dualtone_frontend"):
         check(launches[name] > 0, f"fleet_path: kernel {name} was not "
               "launched")
-    check(bodies.get("pfb_dft:n2048") == launches["pfb_dft"],
-          f"fleet_path: DFT bodies {bodies}")
+    check(bodies.get("pfb_dft:n2048" + bf) == launches["pfb_dft"]
+          and bodies.get("pfb_fir_stream:" + (bf[1:] or "f32"))
+          == launches["pfb_fir_stream"],
+          f"fleet_path: PFB bodies {bodies}")
     # the correlator's sign bodies (rs41 L 64, dfm L 32) and the m10
     # front end's compiled nb = 5 body, once per step each
     steps = launches["pfb_dft"]
@@ -1191,10 +1477,11 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
           and bodies.get("corr:sign_l32") == steps
           and launches["corr"] == 2 * steps
           and bodies.get("rs_clean:c384") == steps == launches["rs_clean"]
-          and bodies.get("fused_dualtone_frontend:skip_nb5") == steps
+          and bodies.get("fused_dualtone_frontend:skip_nb5" + bf) == steps
           == launches["fused_dualtone_frontend"],
           f"fleet_path: correlator, K3 and dual-tone bodies {bodies}")
-    emit({"phase": "fleet_path", "bins": n_bins, "block_len": block_len,
+    emit({"phase": "fleet_path" + bf, "bins": n_bins, "block_len": block_len,
+          "compute_dtype": compute_dtype,
           "blocks": n_blocks, "groups": groups, "updates": updates,
           "channels_with_telemetry": len(telem),
           "carriers": {str(k): {f: telem[k].to_dict()[f] for f in
@@ -1206,16 +1493,27 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
                          "steps": n_blocks}
 
 
-def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
-    """A 16-bin fleet, two channels per family with their own serials and
-    noise, built at the wideband rate: the card equals the CPU (twins)."""
+FLEET_DISTINCT_PLAN = ((1, "rs41", "S1234567"), (3, "rs41", "T7654321"),
+                       (5, "m10", "910-2-12345"), (9, "m10", "A05-3-54321"),
+                       (12, "dfm", "1234567"), (14, "dfm", "7654321"))
+# the bf16 16-bin fleet adds the AFSK families (imet4 reports no serial)
+FLEET_AFSK_PLAN = ((1, "rs41", "S1234567"), (5, "m10", "910-2-12345"),
+                   (7, "imet4", ""), (10, "c50", "C50-12345"),
+                   (12, "dfm", "1234567"))
+
+
+def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3,
+                         plan=FLEET_DISTINCT_PLAN,
+                         compute_dtype: str = "f32"):
+    """A 16-bin fleet, the ``plan``'s carriers with their own serials and
+    noise, built at the wideband rate, in ``compute_dtype``: the card
+    equals the CPU (twins) in validity, frame bytes, m10's weak-bit sets
+    and telemetry."""
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
     from sondetpu_torch.runtime.pipeline import unpack_block_output
     from sondetpu_torch.sondes.modulate import freq_shift
 
-    plan = ((1, "rs41", "S1234567"), (3, "rs41", "T7654321"),
-            (5, "m10", "910-2-12345"), (9, "m10", "A05-3-54321"),
-            (12, "dfm", "1234567"), (14, "dfm", "7654321"))
     fs_wide = n_bins * FS
     w = n_bins * int(FS)
     n = n_blocks * w
@@ -1228,9 +1526,11 @@ def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
         wide += iq + (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
                       ).astype(np.complex64)
     chans = [FleetChannel(pfb_bin=k, sonde=f) for k, f, _ in plan]
-    gpu = FleetSession(chans, n_bins, dev, fs_chan=FS, block_len=int(FS))
-    cpu = FleetSession(chans, n_bins, "cpu", fs_chan=FS, block_len=int(FS))
-    valid, weak_same, weak_total = {}, 0, 0
+    kw = dict(fs_chan=FS, block_len=int(FS), compute_dtype=compute_dtype)
+    gpu = FleetSession(chans, n_bins, dev, **kw)
+    cpu = FleetSession(chans, n_bins, "cpu", **kw)
+    cuda.reset_launches()
+    valid, weak_same, weak_total, ring_equal = {}, 0, 0, {}
     for b in range(n_blocks):
         x = wide[b * w:(b + 1) * w]
         wi = torch.from_numpy(np.ascontiguousarray(x.real, np.float32))
@@ -1239,7 +1539,10 @@ def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
         pc, fc = cpu.step(wi, wq)
         hg, hc = pg.cpu().numpy(), pc.numpy()
         off = 0
-        for (sonde, _, sess), frg, frc in zip(gpu._order, fg, fc):
+        for (sonde, _, sess), (_, _, csess), frg, frc in zip(
+                gpu._order, cpu._order, fg, fc):
+            ring_equal.setdefault(sonde, []).append(torch.equal(
+                sess.state.chipbuf.cpu(), csess.state.chipbuf))
             cfg = sess.config
             nbytes = cfg.channels * cfg.packed_row_bytes
             ug, uc = (unpack_block_output(h[off:off + nbytes], cfg.k_slots,
@@ -1267,12 +1570,24 @@ def phase_fleet_distinct(torch, dev, n_bins: int = 16, n_blocks: int = 3):
         check(json.dumps(tg[i].to_dict(), sort_keys=True)
               == json.dumps(tc[i].to_dict(), sort_keys=True),
               f"fleet_distinct: channel {i} telemetry differs from the CPU")
-    check(all(valid.get(f, 0) > 0 for f in ("rs41", "m10", "dfm")),
+    families = {f for _, f, _ in plan}
+    check(all(valid.get(f, 0) > 0 for f in families),
           f"fleet_distinct: valid frames per group {valid}")
+    check(weak_total > 0 and weak_same == weak_total,
+          f"fleet_distinct: m10 weak-bit sets equal the CPU's for "
+          f"{weak_same} of {weak_total} frames (chip rings equal per "
+          f"block: {ring_equal})")
+    check(all(cuda.launches[k] > 0 for k in
+              ["pfb_fir_stream", "pfb_dft", "fused_dualtone_frontend"]
+              + ["fused_afsk_frontend"] * ("imet4" in families)),
+          f"fleet_distinct: launches {cuda.launches}")
     emit({"phase": "fleet_distinct", "bins": n_bins, "blocks": n_blocks,
+          "compute_dtype": compute_dtype, "families": sorted(families),
+          "body_launches": dict(cuda.body_launches),
           "valid_frames": valid, "matches_cpu": True,
           "serials": [s for _, _, s in plan],
-          "m10_weak_sets_equal": [weak_same, weak_total]})
+          "m10_weak_sets_equal": [weak_same, weak_total],
+          "chip_rings_equal": ring_equal})
 
 
 def phase_fleet_step(torch, fleet, wi, wq, smi):
@@ -1679,15 +1994,17 @@ def phase_plain_correlation(torch, dev):
           "divides_by_l": True})
 
 
-def phase_afsk_path(torch, dev, family: str, n_blocks: int):
+def phase_afsk_path(torch, dev, family: str, n_blocks: int,
+                    use_pallas: bool = True):
     """One AFSK family through DecoderSession at 2048 channels x 4 s, the
-    same signal on every channel."""
+    same signal on every channel; with use_pallas False the jnp AFSK front
+    end (the JAX CLI's default), which launches no hand kernel."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
     cfg = PipelineConfig(sonde=family, channels=CHANNELS,
-                         block_len=BLOCK_LEN, use_pallas=True,
+                         block_len=BLOCK_LEN, use_pallas=use_pallas,
                          compute_dtype="f32", input_dtype="i16")
     qi, qq = afsk_planes(family, n_blocks * BLOCK_LEN, seed=7)
     row_i = torch.from_numpy(qi).to(dev)
@@ -1731,17 +2048,21 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int):
     else:
         check(t.serial == "C50-12345" and abs(t.lat - 46.8) <= 1e-5
               and abs(t.temp + 15.0) <= 0.02, f"c50 path: telemetry {ref}")
-    for name in ("fused_frontend", "fused_afsk_frontend"):
-        check(launches[name] > 0, f"{family} path: kernel {name} was not "
-              "launched")
-    check(launches["corr"] == 0, f"{family} path: the correlator kernel ran "
-          "(the AFSK path correlates with the plain correlation)")
-    # the identity matched taps take the front end's identity body
     win = AFSK_TONES[family][2]
-    check(bodies == {"fused_frontend:decim1_t41_identity": n_blocks,
-                     f"fused_afsk_frontend:win{win}": n_blocks},
-          f"{family} path: bodies {bodies}")
-    emit({"phase": "afsk_path", "sonde": family, "channels": CHANNELS,
+    if not use_pallas:
+        check(pipe._route is None and len(sess.state.aux) == 5
+              and sess.state.aux[4].dtype == torch.int32,
+              f"plain {family} path: not the jnp AFSK front end")
+        check(not any(launches.values()),
+              f"plain {family} path: hand kernels launched {launches}")
+    else:
+        # the identity matched taps take the front end's identity body; the
+        # AFSK path correlates with the plain correlation, not K2
+        check(bodies == {"fused_frontend:decim1_t41_identity": n_blocks,
+                         f"fused_afsk_frontend:win{win}": n_blocks},
+              f"{family} path: bodies {bodies}")
+    emit({"phase": "afsk_path" if use_pallas else "plain_afsk_path",
+          "sonde": family, "channels": CHANNELS, "use_pallas": use_pallas,
           "block_len": BLOCK_LEN, "blocks": n_blocks,
           "k_slots": cfg.k_slots, "frames_raw": m.frames_raw,
           "frames_decoded": m.frames_decoded,
@@ -1755,10 +2076,13 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int):
                           "steps": n_blocks}
 
 
-def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
+def phase_afsk_distinct(torch, dev, n_blocks: int = 3,
+                        use_pallas: bool = True):
     """Per family, 8 channels carrying four distinct truths: the card
     equals the CPU (twins) on validity, valid frame bytes and telemetry,
-    and each channel reports its own truth."""
+    and each channel reports its own truth; with use_pallas False on the
+    jnp AFSK front end, no hand kernel launched."""
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
 
@@ -1770,10 +2094,11 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
         qi = np.stack([sig[ch % 4][0] for ch in range(c)])
         qq = np.stack([sig[ch % 4][1] for ch in range(c)])
         cfg = PipelineConfig(sonde=family, channels=c, block_len=BLOCK_LEN,
-                             use_pallas=True, compute_dtype="f32",
+                             use_pallas=use_pallas, compute_dtype="f32",
                              input_dtype="i16")
         gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
         sg, sc = gpu.init_state(), cpu.init_state()
+        cuda.reset_launches()
         gsess = DecoderSession(cfg, dev, pipeline=gpu)
         csess = DecoderSession(cfg, "cpu", pipeline=cpu)
         frames = 0
@@ -1802,9 +2127,13 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3):
             else:
                 check(tg.serial == f"C50-{12345 + k}",
                       f"c50 channel {ch}: telemetry {tg.to_dict()}")
+        if not use_pallas:
+            check(not any(cuda.launches.values()),
+                  f"plain {family} distinct: launches {cuda.launches}")
         out[family] = {"valid_frames": frames,
                        "frames_decoded": gsess.metrics.frames_decoded}
-    emit({"phase": "afsk_distinct", "channels": c, "blocks": n_blocks,
+    emit({"phase": "afsk_distinct" if use_pallas else "plain_afsk_distinct",
+          "channels": c, "blocks": n_blocks, "use_pallas": use_pallas,
           "families": out, "matches_cpu": True})
 
 
@@ -2441,6 +2770,236 @@ def phase_session_workers(torch, dev, blocks, workers: int = 8):
           "same_telemetry": True})
 
 
+# m10 at this block (4 s + 5 samples): dev * n / fs = 48001.25 is not an
+# integer, so the dual-tone gate fails and m10 falls back to the FM
+# discriminator on K1; in bf16 the one config the original accepts whose
+# fused front end reads bfloat16 planes
+M10_FALLBACK_BLOCK = BLOCK_LEN + 5
+
+
+def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
+    """A bf16 kernel route through DecoderSession at 2048 channels, i16, one
+    signal on every channel: ims100 on K7's chanfilt_bf16 body (4 s
+    blocks), or m10's FM fallback (M10_FALLBACK_BLOCK) on K1's
+    decim1_t41_bf16 body with K2's long_l and sign_l64 bodies (m10's and
+    M20's templates) on the widened bfloat16 ring. The truth's telemetry on every channel and exactly those bodies
+    once a step; then the bf16 and the f32 step of the same config in
+    turns, each one's peak device memory."""
+    import dataclasses
+    import warnings
+
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    fallback = family == "m10"
+    block = M10_FALLBACK_BLOCK if fallback else BLOCK_LEN
+    # m10's FM fallback correlates its 80-chip template (K2's long body)
+    # and the M20 alternate's 64 chips (the sign body) on the bf16 ring
+    want = ({"fused_frontend:decim1_t41_bf16": n_blocks,
+             "corr:long_l": n_blocks, "corr:sign_l64": n_blocks}
+            if fallback else
+            {"fused_dualtone_frontend:chanfilt_bf16": n_blocks})
+    label = "m10_fallback_bf16" if fallback else f"{family}_bf16"
+    cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=block,
+                         use_pallas=True, compute_dtype="bf16",
+                         input_dtype="i16")
+    qi, qq = dualtone_planes(family, n_blocks * block, seed=9)
+    row_i = torch.from_numpy(qi).to(dev)
+    row_q = torch.from_numpy(qq).to(dev)
+    blocks = [(row_i[None, b * block:(b + 1) * block]
+               .expand(CHANNELS, -1).contiguous(),
+               row_q[None, b * block:(b + 1) * block]
+               .expand(CHANNELS, -1).contiguous()) for b in range(n_blocks)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")        # the fallback warns
+        pipe = Pipeline(cfg, dev)
+        f32 = Pipeline(dataclasses.replace(cfg, compute_dtype="f32"), dev)
+    check(pipe._route == ("fused" if fallback else "dualtone"),
+          f"{label}: route {pipe._route}")
+    sess = DecoderSession(cfg, dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    block_seconds = []
+    for planes in blocks:
+        t0 = time.perf_counter()
+        sess.process_block(planes)
+        block_seconds.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    bodies = dict(cuda.body_launches)
+    m = sess.metrics
+    check(m.frames_decoded > 0, f"{label}: no frames decoded")
+    check(sorted(sess.telemetry) == list(range(CHANNELS)),
+          f"{label}: channels without telemetry")
+    t = sess.telemetry[0]
+    ref = json.dumps(t.to_dict(), sort_keys=True)
+    check(all(json.dumps(sess.telemetry[ch].to_dict(), sort_keys=True) == ref
+              for ch in range(CHANNELS)),
+          f"{label}: telemetry differs between identical channels")
+    check(dualtone_truth(family, t), f"{label}: telemetry {t.to_dict()}")
+    check(bodies == want, f"{label}: bodies {bodies}, expected {want}")
+    check(sess.state.chipbuf.dtype == torch.bfloat16
+          and sess.state.chan_tail_i.dtype == torch.bfloat16,
+          f"{label}: state not in bfloat16")
+    emit({"phase": label, "sonde": family, "channels": CHANNELS,
+          "block_len": block, "blocks": n_blocks, "compute_dtype": "bf16",
+          "frames_raw": m.frames_raw, "frames_decoded": m.frames_decoded,
+          "frames_per_channel": m.frames_decoded / CHANNELS,
+          "serial": t.serial, "lat": t.lat,
+          "process_block_seconds": block_seconds,
+          "launches": {k: v for k, v in launches.items() if v},
+          "body_launches": bodies})
+    del sess
+    peaks = {}
+    for key, p in (("bf16", pipe), ("f32", f32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = p.init_state()
+        for planes in blocks:
+            st, _ = p.step(st, planes)
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated()
+        del st
+    turns = alternate_steps(torch, [pipe, f32], blocks)
+    emit({"phase": label + "_step", "sonde": family, "channels": CHANNELS,
+          "block_len": block,
+          "step_ms_median_bf16": statistics.median(turns[0]),
+          "step_ms_median_f32": statistics.median(turns[1]),
+          "step_ms_bf16": turns[0], "step_ms_f32": turns[1],
+          "max_memory_allocated_bytes_bf16": peaks["bf16"],
+          "max_memory_allocated_bytes_f32": peaks["f32"],
+          "nvidia_smi": smi})
+    return {"launches": launches, "bodies": bodies, "steps": n_blocks,
+            "step_ms": statistics.median(turns[0])}
+
+
+def gate_rows(family: str, c: int, n: int, fs: float):
+    """int16 (i, q) [c, n] at rate fs: channel ch carries truth ch % 3 of
+    the family (rs41, m10 or ims100 serials), from its own offset into the
+    stream, with its own noise of std 0.05, cs16."""
+    serials = {"rs41": ("S1234567", "T7654321", "R0420042"),
+               "m10": M10_SERIALS[:3],
+               "ims100": ("2136051", "2136052", "2136053")}[family]
+    rows = []
+    for k, serial in enumerate(serials):
+        iq = narrowband(family, serial, n + 37 * k, fs)[37 * k:37 * k + n]
+        rng = np.random.default_rng(70 + k)
+        iq = iq + 0.05 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+        rows.append([np.clip(x * 32767, -32768, 32767).astype(np.int16)
+                     for x in (iq.real, iq.imag)])
+    return (np.stack([rows[ch % 3][0] for ch in range(c)]),
+            np.stack([rows[ch % 3][1] for ch in range(c)]), serials)
+
+
+def phase_gates(torch, dev):
+    """The original's kernel gates on the card, use_pallas=True: rs41 at 12
+    channels (not a multiple of 8) and m10 at 200-sample blocks (below
+    HALO) take the plain-op front end and launch no kernel; ims100 at 48.1
+    kHz (sps 20.04) takes K7's chanfilt body and linear_interp. Each on
+    the card equals the CPU block by block (validity, valid frame bytes, RS
+    verdicts), and the sessions' telemetry is equal, each channel its
+    truth."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import (Pipeline, PipelineConfig,
+                                                 _rational_sps)
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    cases = (  # label, config, blocks, bodies per block
+        ("rs41-channels-12", dict(sonde="rs41", channels=12), 3, {}),
+        ("m10-block-200", dict(sonde="m10", block_len=200), 288, {}),
+        ("ims100-48100", dict(sonde="ims100", fs=48100.0, block_len=48100),
+         3, {"fused_dualtone_frontend:chanfilt": 1}))
+    out = {}
+    for label, kw, n_blocks, per in cases:
+        cfg = PipelineConfig(**{**dict(channels=8, block_len=int(FS),
+                                       use_pallas=True, input_dtype="i16"),
+                                **kw})
+        block = cfg.block_len
+        qi, qq, serials = gate_rows(cfg.sonde, cfg.channels,
+                                    n_blocks * block, cfg.fs)
+        gpu, cpu = Pipeline(cfg, dev), Pipeline(cfg, "cpu")
+        check(gpu._route == ("dualtone" if per else None),
+              f"gates {label}: route {gpu._route}")
+        gsess = DecoderSession(cfg, dev, pipeline=gpu)
+        csess = DecoderSession(cfg, "cpu", pipeline=cpu)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        frames = 0
+        sg, sc = gpu.init_state(), cpu.init_state()
+        for b in range(n_blocks):
+            blk = (qi[:, b * block:(b + 1) * block],
+                   qq[:, b * block:(b + 1) * block])
+            sg, og = gpu.step(sg, blk)
+            sc, oc = cpu.step(sc, blk)
+            v = oc.frame_valid
+            check(torch.equal(og.frame_valid.cpu(), v)
+                  and torch.equal(og.frames.cpu()[v], oc.frames[v])
+                  and torch.equal(og.rs_clean.cpu(), oc.rs_clean),
+                  f"gates {label} block {b}: the card differs from the CPU")
+            frames += int(v.sum())
+            gsess.process_block(blk)
+            csess.process_block(blk)
+        torch.cuda.synchronize()
+        bodies = dict(cuda.body_launches)
+        want = {k: 2 * n_blocks * v for k, v in per.items()}
+        check(bodies == want and (per or not any(cuda.launches.values())),
+              f"gates {label}: bodies {bodies}, expected {want}")
+        for ch in range(cfg.channels):
+            tg, tc = gsess.telemetry.get(ch), csess.telemetry.get(ch)
+            check(tg is not None and tc is not None
+                  and tg.serial == serials[ch % 3]
+                  and json.dumps(tg.to_dict(), sort_keys=True)
+                  == json.dumps(tc.to_dict(), sort_keys=True),
+                  f"gates {label} channel {ch}: telemetry {tg}")
+        out[label] = {"channels": cfg.channels, "block_len": block,
+                      "blocks": n_blocks, "valid_frames": frames,
+                      "route": gpu._route or "plain",
+                      "linear_interp": (not float(cfg.sps).is_integer()
+                                        and _rational_sps(cfg) is None),
+                      "body_launches": bodies}
+    emit({"phase": "gates", "cases": out, "matches_cpu": True})
+
+
+def phase_fleet_bf16_step(torch, fleet, wi, wq, smi):
+    """The bf16 fleet's device step and the same fleet's in f32, in turns
+    (a, b, b, a, ...: 12 steps each), each one's peak device memory."""
+    from sondetpu_torch.runtime.fleet import FleetSession
+
+    f32 = FleetSession(fleet.channels, fleet.n_bins, fleet.device,
+                       fs_chan=FS, block_len=fleet.block_len)
+    peaks = {}
+    for key, f in (("bf16", fleet), ("f32", f32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):                      # warm-up
+            f.step(wi, wq)
+        torch.cuda.synchronize()
+        peaks[key] = torch.cuda.max_memory_allocated()
+    turns = {"bf16": [], "f32": []}
+    for r in range(6):
+        pair = [("bf16", fleet), ("f32", f32)]
+        for key, f in (pair if r % 2 == 0 else pair[::-1]):
+            for _ in range(2):
+                t0 = time.perf_counter()
+                f.step(wi, wq)
+                torch.cuda.synchronize()
+                turns[key].append((time.perf_counter() - t0) * 1e3)
+    del f32
+    step = statistics.median(turns["bf16"])
+    secs = fleet.block_len / FS
+    emit({"phase": "fleet_bf16_step", "bins": fleet.n_bins,
+          "block_seconds": secs, "steps": len(turns["bf16"]),
+          "step_ms_median": step,
+          "step_ms_median_f32": statistics.median(turns["f32"]),
+          "step_ms": turns["bf16"], "step_ms_f32": turns["f32"],
+          "realtime_channels": fleet.n_bins * secs / step * 1e3,
+          "max_memory_allocated_bytes": peaks["bf16"],
+          "max_memory_allocated_bytes_f32": peaks["f32"],
+          "nvidia_smi": smi})
+    return step
+
+
 def phase_profile(torch, dev, family: str, steps: int = 3, dtype=None):
     """torch.profiler over ``steps`` steady device steps of one family at
     2048 channels x 4 s; with ``dtype``, of the plain-op step in that
@@ -2725,6 +3284,15 @@ def main() -> int:
     phase_fleet_step(torch, fleet, wi, wq, smi)
     del fleet, wi, wq
     torch.cuda.empty_cache()
+    # the bf16 fleet (bench.py's fleet default): the PFB's bf16 bodies
+    runs["pfb_stream_bf16"] = phase_pfb_stream(torch, dev, "bf16")
+    fleet, (wi, wq), runs["fleet_bf16"] = phase_fleet_path(
+        torch, dev, n_blocks=3, compute_dtype="bf16")
+    phase_fleet_bf16_step(torch, fleet, wi, wq, smi)
+    del fleet, wi, wq
+    torch.cuda.empty_cache()
+    phase_fleet_distinct(torch, dev, plan=FLEET_AFSK_PLAN,
+                         compute_dtype="bf16")
     runs["fleet_offgrid"] = phase_fleet_offgrid(torch, dev)
     for family, n_blocks in (("imet4", 3), ("c50", 2)):
         pipe, blocks, runs[family] = phase_afsk_path(torch, dev, family,
@@ -2733,6 +3301,14 @@ def main() -> int:
         del pipe, blocks
         torch.cuda.empty_cache()
     phase_afsk_distinct(torch, dev)
+    # the jnp AFSK front end (use_pallas=False, the JAX CLI's default)
+    for family in AFSK_TONES:
+        pipe, blocks, runs[f"plain_{family}"] = phase_afsk_path(
+            torch, dev, family, 2, use_pallas=False)
+        phase_step(torch, pipe, blocks, phase="plain_afsk_step", smi=smi)
+        del pipe, blocks
+        torch.cuda.empty_cache()
+    phase_afsk_distinct(torch, dev, 2, use_pallas=False)
     runs["afc_m10"] = phase_afc_drift(torch, dev)
     torch.cuda.empty_cache()
     # the last two families: K7's channel-filter body with midpoint DC
@@ -2742,6 +3318,13 @@ def main() -> int:
     phase_dualtone_distinct(torch, dev)
     phase_plain_dualtone(torch, dev, smi)
     torch.cuda.empty_cache()
+    # bf16 on the kernel routes: K7's chanfilt body, and K1 (with K2 on the
+    # widened ring) on m10's FM fallback; then the original's kernel gates
+    for family in ("ims100", "m10"):
+        key = "m10_fallback_bf16" if family == "m10" else f"{family}_bf16"
+        runs[key] = phase_bf16_path(torch, dev, family, smi)
+        torch.cuda.empty_cache()
+    phase_gates(torch, dev)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -2753,7 +3336,8 @@ def main() -> int:
                      "pfb_fir_timemajor": "pfb_stream"}
     paths = ("rs41", "fleet", "imet4", "c50", "rs41x", "plain_bf16",
              "plain_f32", "plain_rs41x_bf16", "ddc_afc", "fleet_offgrid",
-             "afc_m10", "ims100", "mrzn1")
+             "afc_m10", "ims100", "mrzn1", "fleet_bf16", "plain_imet4",
+             "plain_c50", "ims100_bf16", "m10_fallback_bf16")
     table = []
     for name in KERNEL_SOURCES:
         if name in launches_from:
@@ -2805,6 +3389,38 @@ def main() -> int:
                             if k.split(":")[0] in (
                                 "corr", "fused_dualtone_frontend")}
                         for p in paths})
+    # the bf16 bodies, a row each: (kernel, its timed entry, the path
+    # whose run gives its launches, the body)
+    bf16_rows = (
+        ("fused_frontend", k1["decim1-lowpass_bf16"], "m10_fallback_bf16",
+         "fused_frontend:decim1_t41_bf16"),
+        ("fused_dualtone_frontend", kres["fused_dualtone_frontend_bf16"],
+         "fleet_bf16", "fused_dualtone_frontend:skip_nb5_bf16"),
+        ("pfb_fir_stream", kres["pfb_fir_stream_bf16"], "fleet_bf16",
+         "pfb_fir_stream:bf16"),
+        ("pfb_fir_timemajor", kres["pfb_fir_timemajor_bf16"],
+         "pfb_stream_bf16", "pfb_fir_timemajor:bf16"),
+        ("pfb_dft", kres["pfb_dft_bf16"], "fleet_bf16",
+         "pfb_dft:n2048_bf16"))
+    for name, entry, frm, body in bf16_rows:
+        n = runs[frm]["bodies"].get(body, 0)
+        check(n > 0, f"kernel {name} bf16: no launches of {body} on {frm}")
+        row = {"name": f"{name} (bf16)", "route": "cuda",
+               "source": KERNEL_SOURCES[name][0],
+               "replaces": KERNEL_SOURCES[name][1], "launches": n,
+               "launches_from": frm, "body": body, **subset(entry),
+               "launches_per_step": {
+                   p: runs[p]["bodies"].get(body, 0) / runs[p]["steps"]
+                   for p in paths if "bodies" in runs[p]}}
+        check(all(k in row for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")),
+              f"kernel {name} bf16: row lacks a number {row}")
+        table.append(row)
+    table[-5].update(decim2_rs41_shape=subset(k1["rs41_bf16"]))
+    table[-4].update(chanfilt_nb20=subset(
+        kres["fused_dualtone_frontend_chanfilt_bf16"]),
+        ims100_bf16_launches=runs["ims100_bf16"]["bodies"].get(
+            "fused_dualtone_frontend:chanfilt_bf16", 0))
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -6,6 +6,7 @@
 // refused launch reaches the Python wrapper, which raises.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,6 +49,75 @@ static __device__ __forceinline__ void cp_async_f32x4(float* dst,
 
 static __host__ __device__ __forceinline__ bool aligned16(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Input element types of the kernels that read float32 or bfloat16
+// planes: a bfloat16 value widens to float32 exactly, so a kernel that
+// widens on the load and computes in float32 gives on bfloat16 input x
+// bit for bit what it gives on x.float().
+static __device__ __forceinline__ float to_f32(const float x) { return x; }
+static __device__ __forceinline__ float to_f32(const __nv_bfloat16 x) {
+    return __bfloat162float(x);
+}
+template <typename T>
+static __device__ __forceinline__ T from_f32(const float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(const float x) {
+    return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    const float x) {
+    return __float2bfloat16_rn(x);
+}
+// x rounded to the nearest bfloat16 (ties to even), as a float
+static __device__ __forceinline__ float round_bf16(const float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A word of V = 1 or 4 bfloat16 values, loaded raw (2 or 8 bytes) and
+// widened to float32 on its store to shared memory. A kernel that stages
+// bfloat16 planes issues a batch of these loads before their stores, where
+// one load and its store at a time would wait out every load's latency
+// (float32 planes stage by cp.async, which does not wait).
+template <int V>
+struct Bf16Word;
+template <>
+struct Bf16Word<1> {
+    unsigned short v;
+};
+template <>
+struct Bf16Word<4> {
+    uint2 v;
+};
+
+// the word at src (aligned to V values), or zeros when valid is false
+// (then nothing is read)
+template <int V>
+static __device__ __forceinline__ Bf16Word<V> load_bf16(
+    const __nv_bfloat16* src, const bool valid) {
+    Bf16Word<V> w{};
+    if (valid) {
+        if constexpr (V == 4)
+            w.v = *reinterpret_cast<const uint2*>(src);
+        else
+            w.v = *reinterpret_cast<const unsigned short*>(src);
+    }
+    return w;
+}
+
+// dst[0 .. V) = the word's values as floats (dst 16-byte aligned for V = 4)
+template <int V>
+static __device__ __forceinline__ void store_widened(float* dst,
+                                                     const Bf16Word<V> w) {
+    if constexpr (V == 4) {
+        *reinterpret_cast<float4*>(dst) = make_float4(
+            __uint_as_float(w.v.x << 16), __uint_as_float(w.v.x & 0xffff0000u),
+            __uint_as_float(w.v.y << 16),
+            __uint_as_float(w.v.y & 0xffff0000u));
+    } else {
+        *dst = __uint_as_float((unsigned)w.v << 16);
+    }
 }
 
 static __device__ __forceinline__ void cp_async_wait_all() {

@@ -49,6 +49,15 @@
 // (chip_smoke.py --tune); at 11 the skip_nb5_afc body spills at the 64
 // registers that __launch_bounds__(256, 4) allows.
 //
+// The planes and tails come in float32 or bfloat16 (bf16 groups and the
+// bf16 compute dtype store the sample-rate planes in bfloat16; the Pallas
+// kernel casts them to float32 in VMEM). A bfloat16 row is widened to
+// float32 on its way into shared memory, 8 bytes (four values) a load and
+// four loads of each plane in flight where float32 takes a 16-byte
+// cp.async, and every operation after the staging is the float32 body's:
+// on bfloat16 input x each body gives bit for bit what it gives on
+// x.float().
+//
 // Every product and sum is rounded on its own (__fmul_rn/__fadd_rn, no FMA
 // contraction: cos and sin are not +/-1) in the order of the plain twin
 // (sondetpu_torch/kernels/dualtone.py:fused_dualtone_plain), so the metric
@@ -66,6 +75,16 @@ constexpr int CH = 8;                    // channel rows per block, one a warp
 constexpr int THREADS = 32 * CH;
 constexpr int TILE = 32 * R;             // positions per block and row
 
+// a row pointer from which four values copy as one word: 16 bytes of
+// float32, 8 of bfloat16
+__host__ __device__ __forceinline__ bool aligned_words4(const float* p) {
+    return aligned16(p);
+}
+__host__ __device__ __forceinline__ bool aligned_words4(
+    const __nv_bfloat16* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
 template <int V>
 __device__ __forceinline__ void cp_async_v(float* dst, const float* src,
                                            const bool valid) {
@@ -75,16 +94,16 @@ __device__ __forceinline__ void cp_async_v(float* dst, const float* src,
         cp_async_f32(dst, src, valid);
 }
 
-// Stage positions x0 .. x0 + nx - 1 in words of V floats: the tables
+// Stage positions x0 .. x0 + nx - 1 in words of V values: the tables
 // (position mod n) by the whole block, the row's I and Q (the tail below 0)
 // by its warp; past n nothing is read and the words are zero (they feed no
 // output). With V = 4, x0, nx, n and halo are multiples of 4.
-template <int V>
+template <int V, typename In>
 __device__ __forceinline__ void stage(
     const int x0, const int nx, const int n, const int halo,
     const float* __restrict__ tab_cos, const float* __restrict__ tab_sin,
-    const float* __restrict__ row_i, const float* __restrict__ row_q,
-    const float* __restrict__ tail_i, const float* __restrict__ tail_q,
+    const In* __restrict__ row_i, const In* __restrict__ row_q,
+    const In* __restrict__ tail_i, const In* __restrict__ tail_q,
     const bool row_valid, float* tc, float* ts, float* xr_i, float* xr_q) {
     for (int k = V * threadIdx.x; k < nx; k += V * THREADS) {
         const int P = x0 + k;
@@ -99,12 +118,37 @@ __device__ __forceinline__ void stage(
     }
     if (!row_valid) return;
     const int lane = threadIdx.x & 31;
-    for (int k = V * lane; k < nx; k += V * 32) {
-        const int P = x0 + k;              // >= -halo, checked by the host
-        const bool tail = P < 0, in = P < n;
-        const int at = tail ? halo + P : (in ? P : 0);
-        cp_async_v<V>(xr_i + k, (tail ? tail_i : row_i) + at, in);
-        cp_async_v<V>(xr_q + k, (tail ? tail_q : row_q) + at, in);
+    if constexpr (sizeof(In) == 4) {
+        for (int k = V * lane; k < nx; k += V * 32) {
+            const int P = x0 + k;          // >= -halo, checked by the host
+            const bool tail = P < 0, in = P < n;
+            const int at = tail ? halo + P : (in ? P : 0);
+            cp_async_v<V>(xr_i + k, (tail ? tail_i : row_i) + at, in);
+            cp_async_v<V>(xr_q + k, (tail ? tail_q : row_q) + at, in);
+        }
+    } else {
+        // bfloat16: BATCH words of each plane in flight, then their stores
+        constexpr int BATCH = 4;
+        for (int k0 = V * lane; k0 < nx; k0 += BATCH * V * 32) {
+            Bf16Word<V> wi[BATCH], wq[BATCH];
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int k = k0 + b * V * 32;
+                const int P = x0 + k;
+                const bool tail = P < 0, in = k < nx && P < n;
+                const int at = tail ? halo + P : (in ? P : 0);
+                wi[b] = load_bf16<V>((tail ? tail_i : row_i) + at, in);
+                wq[b] = load_bf16<V>((tail ? tail_q : row_q) + at, in);
+            }
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int k = k0 + b * V * 32;
+                if (k < nx) {
+                    store_widened<V>(xr_i + k, wi[b]);
+                    store_widened<V>(xr_q + k, wq[b]);
+                }
+            }
+        }
     }
 }
 
@@ -113,10 +157,10 @@ __device__ __forceinline__ float warp_sum(float s) {
     return s;
 }
 
-template <int NB, bool SKIP, bool AFC>
+template <int NB, bool SKIP, bool AFC, typename In>
 __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
-    const float* __restrict__ xi, const float* __restrict__ xq,
-    const float* __restrict__ ti, const float* __restrict__ tq,
+    const In* __restrict__ xi, const In* __restrict__ xq,
+    const In* __restrict__ ti, const In* __restrict__ tq,
     const Taps hc, const int T, const int nb_run, const float inv_nb,
     const float* __restrict__ tab_cos, const float* __restrict__ tab_sin,
     const int C, const int n, const int halo, const int xlead,
@@ -145,11 +189,11 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     const bool row_valid = c < C;
     const size_t rc = row_valid ? (size_t)c : 0;
     if (vec)
-        stage<4>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
+        stage<4, In>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
                  xq + rc * n, ti + rc * halo, tq + rc * halo, row_valid, tc,
                  ts, xr_i, xr_q);
     else
-        stage<1>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
+        stage<1, In>(g0 - xlead, nx, n, halo, tab_cos, tab_sin, xi + rc * n,
                  xq + rc * n, ti + rc * halo, tq + rc * halo, row_valid, tc,
                  ts, xr_i, xr_q);
     cp_async_wait_all();
@@ -267,42 +311,46 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     }
 }
 
-template <int NB, bool SKIP, bool AFC>
-int launch(const float* xi, const float* xq, const float* ti, const float* tq,
+template <int NB, bool SKIP, bool AFC, typename In>
+int launch(const In* xi, const In* xq, const In* ti, const In* tq,
            const Taps& th, int T, int nb, const float* tc, const float* ts,
            int C, int n, int halo, float* metric, float* dcp, float* rep,
            float* imp, cudaStream_t stream) {
     const int fh = SKIP ? 0 : T - 1;
     // stage from a multiple of 4 before the block where the tail allows,
-    // so that rows and tables copy in 16-byte words
+    // so that rows and tables copy in words of four values
     const int need = nb - 1 + (AFC ? 1 : 0) + fh;
     const int up = (need + 3) / 4 * 4;
     const int xlead = up <= halo ? up : need;
     const int nx = TILE + xlead;
     const bool vec = xlead % 4 == 0 && n % 4 == 0 && halo % 4 == 0 &&
-                     aligned16(xi) && aligned16(xq) && aligned16(ti) &&
-                     aligned16(tq) && aligned16(tc) && aligned16(ts) &&
-                     aligned16(metric);
+                     aligned_words4(xi) && aligned_words4(xq) &&
+                     aligned_words4(ti) && aligned_words4(tq) &&
+                     aligned16(tc) && aligned16(ts) && aligned16(metric);
     // the tables and CH rows, then the chanfilt rows
     const size_t shm = sizeof(float) *
         (2 * nx + 2 * CH * nx + (SKIP ? 0 : 2 * CH * (TILE + xlead - fh)));
     const cudaError_t err = cudaFuncSetAttribute(
-        dualtone_kernel<NB, SKIP, AFC>,
+        dualtone_kernel<NB, SKIP, AFC, In>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((n + TILE - 1) / TILE, (C + CH - 1) / CH);
-    dualtone_kernel<NB, SKIP, AFC><<<grid, THREADS, shm, stream>>>(
+    dualtone_kernel<NB, SKIP, AFC, In><<<grid, THREADS, shm, stream>>>(
         xi, xq, ti, tq, th, T, nb, (float)(1.0 / nb), tc, ts, C, n, halo,
         xlead, vec, metric, dcp, rep, imp);
     return (int)cudaGetLastError();
 }
 
-template <bool AFC>
-int dispatch(const float* xi, const float* xq, const float* ti,
-             const float* tq, const Taps& th, int T, int nb, const float* tc,
+template <bool AFC, typename In>
+int dispatch(const void* xi_, const void* xq_, const void* ti_,
+             const void* tq_, const Taps& th, int T, int nb, const float* tc,
              const float* ts, bool skip, int C, int n, int halo,
              float* metric, float* dcp, float* rep, float* imp,
              cudaStream_t s) {
+    const In* xi = static_cast<const In*>(xi_);
+    const In* xq = static_cast<const In*>(xq_);
+    const In* ti = static_cast<const In*>(ti_);
+    const In* tq = static_cast<const In*>(tq_);
     if (!skip)
         return launch<0, false, AFC>(xi, xq, ti, tq, th, T, nb, tc, ts, C, n,
                                      halo, metric, dcp, rep, imp, s);
@@ -313,6 +361,19 @@ int dispatch(const float* xi, const float* xq, const float* ti,
                                 halo, metric, dcp, rep, imp, s);
 }
 
+template <typename In>
+int dispatch_afc(const void* xi, const void* xq, const void* ti,
+                 const void* tq, const Taps& th, int T, int nb,
+                 const float* tc, const float* ts, bool skip, bool afc,
+                 int C, int n, int halo, float* metric, float* dcp,
+                 float* rep, float* imp, cudaStream_t s) {
+    if (afc)
+        return dispatch<true, In>(xi, xq, ti, tq, th, T, nb, tc, ts, skip, C,
+                                  n, halo, metric, dcp, rep, imp, s);
+    return dispatch<false, In>(xi, xq, ti, tq, th, T, nb, tc, ts, skip, C, n,
+                               halo, metric, dcp, rep, imp, s);
+}
+
 }  // namespace
 
 // Tiles per channel for a block of n samples: the width of the partials.
@@ -320,17 +381,17 @@ SONDETPU_API int sondetpu_dualtone_tiles(int n) {
     return (n + TILE - 1) / TILE;
 }
 
-// xi, xq [C, n]; ti, tq [C, halo]; hc: host array of T taps (read unless
-// skip_chanfilt); tab_cos, tab_sin [n] (device); metric [C, n];
-// dc_part, re_part, im_part [C, sondetpu_dualtone_tiles(n)] (the last two
-// written only when want_afc). Skipped chanfilt with nb = 5 runs the
-// compile-time body, other nb the run-time one; the chanfilt bodies take
-// nb at run time.
+// xi, xq [C, n]; ti, tq [C, halo], float32, or bfloat16 when bf16 is set;
+// hc: host array of T taps (read unless skip_chanfilt); tab_cos, tab_sin
+// [n] (device); metric [C, n]; dc_part, re_part, im_part [C,
+// sondetpu_dualtone_tiles(n)] (the last two written only when want_afc).
+// Skipped chanfilt with nb = 5 runs the compile-time body, other nb the
+// run-time one; the chanfilt bodies take nb at run time.
 SONDETPU_API int sondetpu_dualtone_frontend(
-    const float* xi, const float* xq, const float* ti, const float* tq,
+    const void* xi, const void* xq, const void* ti, const void* tq,
     const float* hc, int T, int nb, const float* tab_cos,
-    const float* tab_sin, int skip_chanfilt, int want_afc, int C, int n,
-    int halo, float* metric, float* dc_part, float* re_part,
+    const float* tab_sin, int skip_chanfilt, int want_afc, int bf16, int C,
+    int n, int halo, float* metric, float* dc_part, float* re_part,
     float* im_part, void* stream) {
     const int fh = skip_chanfilt ? 0 : T - 1;
     if (T < 1 || T > SONDETPU_MAX_TAPS || nb < 1 || nb + fh > halo ||
@@ -340,11 +401,11 @@ SONDETPU_API int sondetpu_dualtone_frontend(
     if (!skip_chanfilt)
         for (int u = 0; u < T; ++u) th.h[u] = hc[u];
     cudaStream_t s = (cudaStream_t)stream;
-    if (want_afc)
-        return dispatch<true>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
-                              skip_chanfilt != 0, C, n, halo, metric, dc_part,
-                              re_part, im_part, s);
-    return dispatch<false>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
-                           skip_chanfilt != 0, C, n, halo, metric, dc_part,
-                           re_part, im_part, s);
+    if (bf16)
+        return dispatch_afc<__nv_bfloat16>(
+            xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin, skip_chanfilt != 0,
+            want_afc != 0, C, n, halo, metric, dc_part, re_part, im_part, s);
+    return dispatch_afc<float>(xi, xq, ti, tq, th, T, nb, tab_cos, tab_sin,
+                               skip_chanfilt != 0, want_afc != 0, C, n, halo,
+                               metric, dc_part, re_part, im_part, s);
 }

@@ -53,6 +53,14 @@
 // 50% occupancy) run per SM, each thread with R independent sums.
 // The TPU kernel's HALO alignment, even/odd deinterleave pass and chunk
 // padding are layout artefacts of the TPU and have no counterpart here.
+//
+// The planes and tails come in float32 or bfloat16 (the bf16 compute dtype
+// stores the sample-rate planes in bfloat16 before the front end, as the
+// original does; its Pallas kernel casts them to float32 in VMEM). A
+// bfloat16 word is widened to float32 on its way into shared memory (plain
+// loads, four of each plane in flight, where float32 takes cp.async), and
+// every operation after the staging is the float32 body's: on bfloat16
+// input x each body gives bit for bit what it gives on x.float().
 #include "common.cuh"
 
 namespace {
@@ -63,10 +71,10 @@ constexpr int SPAN = R * THREADS;                 // outputs of one pass
 constexpr int TILE = SPAN - SONDETPU_MAX_TAPS;    // filt outputs per block
 constexpr int T_FIXED = 41;                       // every path's tap count
 
-template <int D, int TT, bool IDENT>
+template <int D, int TT, bool IDENT, typename In>
 __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
-    const float* __restrict__ xi, const float* __restrict__ xq,
-    const float* __restrict__ ti, const float* __restrict__ tq,
+    const In* __restrict__ xi, const In* __restrict__ xq,
+    const In* __restrict__ ti, const In* __restrict__ tq,
     const Taps hc, const Taps hm, const int t_run, const float scale,
     const int n, const int halo,
     float* __restrict__ filt, float* __restrict__ partial) {
@@ -85,18 +93,43 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
     float* au = xs_i;                        // stage 2 overwrites the input
     float* out = cf_i;                       // stage 3 overwrites cf
 
-    const float* row_i = xi + (size_t)c * n;
-    const float* row_q = xq + (size_t)c * n;
-    const float* tail_i = ti + (size_t)c * halo;
-    const float* tail_q = tq + (size_t)c * halo;
+    const In* row_i = xi + (size_t)c * n;
+    const In* row_q = xq + (size_t)c * n;
+    const In* tail_i = ti + (size_t)c * halo;
+    const In* tail_q = tq + (size_t)c * halo;
     // xs[j] = x[x0 + j]; x0 >= -halo is checked by the entry point
     const long x0 = (long)D * (g0 - T) - (T - 1);
-    for (int j = threadIdx.x; j < nx; j += THREADS) {
-        const long gi = x0 + j;          // past the block: zeros, no output
-        const bool tail = gi < 0;
-        const long at = tail ? halo + gi : (gi < n ? gi : 0);
-        cp_async_f32(xs_i + j, (tail ? tail_i : row_i) + at, gi < n);
-        cp_async_f32(xs_q + j, (tail ? tail_q : row_q) + at, gi < n);
+    if constexpr (sizeof(In) == 4) {
+        for (int j = threadIdx.x; j < nx; j += THREADS) {
+            const long gi = x0 + j;      // past the block: zeros, no output
+            const bool tail = gi < 0;
+            const long at = tail ? halo + gi : (gi < n ? gi : 0);
+            cp_async_f32(xs_i + j, (tail ? tail_i : row_i) + at, gi < n);
+            cp_async_f32(xs_q + j, (tail ? tail_q : row_q) + at, gi < n);
+        }
+    } else {
+        // bfloat16: BATCH loads of each plane in flight, then their stores
+        constexpr int BATCH = 4;
+        for (int j0 = threadIdx.x; j0 < nx; j0 += BATCH * THREADS) {
+            Bf16Word<1> wi[BATCH], wq[BATCH];
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int j = j0 + b * THREADS;
+                const long gi = x0 + j;
+                const bool tail = gi < 0, in = j < nx && gi < n;
+                const long at = tail ? halo + gi : (in ? gi : 0);
+                wi[b] = load_bf16<1>((tail ? tail_i : row_i) + at, in);
+                wq[b] = load_bf16<1>((tail ? tail_q : row_q) + at, in);
+            }
+#pragma unroll
+            for (int b = 0; b < BATCH; ++b) {
+                const int j = j0 + b * THREADS;
+                if (j < nx) {
+                    store_widened<1>(xs_i + j, wi[b]);
+                    store_widened<1>(xs_q + j, wq[b]);
+                }
+            }
+        }
     }
     cp_async_wait_all();
     __syncthreads();
@@ -178,38 +211,54 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
     }
 }
 
-template <int D, int TT, bool IDENT>
-int launch(const float* xi, const float* xq, const float* ti, const float* tq,
+template <int D, int TT, bool IDENT, typename In>
+int launch(const In* xi, const In* xq, const In* ti, const In* tq,
            const Taps& th, const Taps& tm, int T, float scale, int C, int n,
            int halo, float* filt, float* partial, cudaStream_t stream) {
     const int N = n / D;
     const dim3 grid((N + TILE - 1) / TILE, C);
     const size_t shm = sizeof(float) * (2 * (D * (SPAN - 1) + T) + 2 * SPAN);
     const cudaError_t err = cudaFuncSetAttribute(
-        frontend_kernel<D, TT, IDENT>,
+        frontend_kernel<D, TT, IDENT, In>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
     if (err != cudaSuccess) return (int)err;
-    frontend_kernel<D, TT, IDENT><<<grid, THREADS, shm, stream>>>(
+    frontend_kernel<D, TT, IDENT, In><<<grid, THREADS, shm, stream>>>(
         xi, xq, ti, tq, th, tm, T, scale, n, halo, filt, partial);
     return (int)cudaGetLastError();
 }
 
-template <int D>
-int dispatch(const float* xi, const float* xq, const float* ti,
-             const float* tq, const Taps& th, const Taps& tm, int T,
-             float scale, bool identity, int C, int n, int halo, float* filt,
+template <int D, typename In>
+int dispatch(const void* xi, const void* xq, const void* ti, const void* tq,
+             const Taps& th, const Taps& tm, int T, float scale,
+             bool identity, int C, int n, int halo, float* filt,
              float* partial, cudaStream_t s) {
+    const In* pi = static_cast<const In*>(xi);
+    const In* pq = static_cast<const In*>(xq);
+    const In* ptq = static_cast<const In*>(tq);
+    const In* pti = static_cast<const In*>(ti);
     if (T == T_FIXED)
         return identity
-            ? launch<D, T_FIXED, true>(xi, xq, ti, tq, th, tm, T, scale, C,
+            ? launch<D, T_FIXED, true>(pi, pq, pti, ptq, th, tm, T, scale, C,
                                        n, halo, filt, partial, s)
-            : launch<D, T_FIXED, false>(xi, xq, ti, tq, th, tm, T, scale, C,
-                                        n, halo, filt, partial, s);
+            : launch<D, T_FIXED, false>(pi, pq, pti, ptq, th, tm, T, scale,
+                                        C, n, halo, filt, partial, s);
     return identity
-        ? launch<D, 0, true>(xi, xq, ti, tq, th, tm, T, scale, C, n, halo,
+        ? launch<D, 0, true>(pi, pq, pti, ptq, th, tm, T, scale, C, n, halo,
                              filt, partial, s)
-        : launch<D, 0, false>(xi, xq, ti, tq, th, tm, T, scale, C, n, halo,
+        : launch<D, 0, false>(pi, pq, pti, ptq, th, tm, T, scale, C, n, halo,
                               filt, partial, s);
+}
+
+template <typename In>
+int dispatch_decim(const void* xi, const void* xq, const void* ti,
+                   const void* tq, const Taps& th, const Taps& tm, int T,
+                   float scale, int decim, bool identity, int C, int n,
+                   int halo, float* filt, float* partial, cudaStream_t s) {
+    if (decim == 2)
+        return dispatch<2, In>(xi, xq, ti, tq, th, tm, T, scale, identity, C,
+                               n, halo, filt, partial, s);
+    return dispatch<1, In>(xi, xq, ti, tq, th, tm, T, scale, identity, C, n,
+                           halo, filt, partial, s);
 }
 
 }  // namespace
@@ -220,15 +269,16 @@ SONDETPU_API int sondetpu_frontend_tiles(int n, int decim) {
     return (n / decim + TILE - 1) / TILE;
 }
 
-// xi, xq [C, n]; ti, tq [C, halo]; hc, hm: host arrays of T taps;
-// identity: hm is exactly [0, ..., 0, 1] (the caller's host check; checked
-// again here); filt [C, n/decim]; partial [C, sondetpu_frontend_tiles].
-// T = 41 runs the compile-time body, any other T the run-time one.
+// xi, xq [C, n]; ti, tq [C, halo], float32, or bfloat16 when bf16 is
+// set; hc, hm: host arrays of T taps; identity: hm is exactly [0, ..., 0,
+// 1] (the caller's host check; checked again here); filt [C, n/decim];
+// partial [C, sondetpu_frontend_tiles]. T = 41 runs the compile-time body,
+// any other T the run-time one.
 SONDETPU_API int sondetpu_fused_frontend(
-    const float* xi, const float* xq, const float* ti, const float* tq,
+    const void* xi, const void* xq, const void* ti, const void* tq,
     const float* hc, const float* hm, int T, float scale, int decim,
-    int identity, int C, int n, int halo, float* filt, float* partial,
-    void* stream) {
+    int identity, int bf16, int C, int n, int halo, float* filt,
+    float* partial, void* stream) {
     if (T < 1 || T > SONDETPU_MAX_TAPS || (decim != 1 && decim != 2) ||
         decim * T + T - 1 > halo || n % decim != 0 || C < 1 || n < 1)
         return (int)cudaErrorInvalidValue;
@@ -240,9 +290,10 @@ SONDETPU_API int sondetpu_fused_frontend(
             return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
-    if (decim == 2)
-        return dispatch<2>(xi, xq, ti, tq, th, tm, T, scale, identity != 0, C,
-                           n, halo, filt, partial, s);
-    return dispatch<1>(xi, xq, ti, tq, th, tm, T, scale, identity != 0, C, n,
-                       halo, filt, partial, s);
+    if (bf16)
+        return dispatch_decim<__nv_bfloat16>(xi, xq, ti, tq, th, tm, T, scale,
+                                             decim, identity != 0, C, n, halo,
+                                             filt, partial, s);
+    return dispatch_decim<float>(xi, xq, ti, tq, th, tm, T, scale, decim,
+                                 identity != 0, C, n, halo, filt, partial, s);
 }

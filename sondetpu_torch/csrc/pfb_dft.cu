@@ -37,6 +37,12 @@
 // Twiddles come from a table built on the host in f64 and rounded once to
 // f32 (never __sinf/__cosf), staged in shared memory; the 16- and 8-point
 // DFTs use f32 literals of the same values. Everything is f32.
+//
+// With bf16 set, u and y are bfloat16: each u value is widened to float32
+// on its load, the FFT runs in float32 as above, and each y value is
+// rounded to bfloat16 once, on its store. That is the Pallas DFT's bf16
+// form (bfloat16 operands, float32 accumulation, one rounding on the
+// store) with the FFT's order of operations.
 #include "common.cuh"
 
 namespace {
@@ -49,11 +55,12 @@ constexpr int SMEM_FLOATS = 16384;
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS) pfb_dft_kernel(
-    const float* __restrict__ ui, const float* __restrict__ uq,
+    const T* __restrict__ ui, const T* __restrict__ uq,
     const float* __restrict__ twc, const float* __restrict__ tws,
     const int m, const int n, const int logn, const int tm,
-    float* __restrict__ yi, float* __restrict__ yq) {
+    T* __restrict__ yi, T* __restrict__ yq) {
     extern __shared__ float smem[];
     const int stride = n + (n >> 5) + 1;
     float* re = smem;                       // [tm][stride]
@@ -68,14 +75,14 @@ __global__ void __launch_bounds__(THREADS) pfb_dft_kernel(
         wc[x] = twc[x];
         ws[x] = tws[x];
     }
-    const float* pi = ui + r0 * n;
-    const float* pq = uq + r0 * n;
+    const T* pi = ui + r0 * n;
+    const T* pq = uq + r0 * n;
     for (int e = threadIdx.x; e < rows * n; e += THREADS) {
         const int row = e >> logn;
         const int j = e & (n - 1);
         const int jr = __brev((unsigned)j) >> (32 - logn);
-        re[row * stride + pad(jr)] = pi[e];
-        im[row * stride + pad(jr)] = pq[e];
+        re[row * stride + pad(jr)] = to_f32(pi[e]);
+        im[row * stride + pad(jr)] = to_f32(pq[e]);
     }
     __syncthreads();
 
@@ -141,8 +148,8 @@ __global__ void __launch_bounds__(THREADS) pfb_dft_kernel(
         const int k = e / rows;
         const int row = e - k * rows;
         const size_t o = (size_t)k * m + r0 + row;
-        yi[o] = re[row * stride + pad(k)];
-        yq[o] = im[row * stride + pad(k)];
+        yi[o] = from_f32<T>(re[row * stride + pad(k)]);
+        yq[o] = from_f32<T>(im[row * stride + pad(k)]);
     }
 }
 
@@ -247,11 +254,12 @@ __device__ __forceinline__ void rotate2k(const float* wc, const float* ws,
     xr = tr;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(ROWS2K * RT, 1)   // 64 registers a thread
 dft2048_kernel(
-    const float* __restrict__ ui, const float* __restrict__ uq,
+    const T* __restrict__ ui, const T* __restrict__ uq,
     const float* __restrict__ twc, const float* __restrict__ tws,
-    const int m, float* __restrict__ yi, float* __restrict__ yq) {
+    const int m, T* __restrict__ yi, T* __restrict__ yq) {
     extern __shared__ float smem[];
     const int row = threadIdx.x / RT;
     const int j = threadIdx.x % RT;
@@ -269,8 +277,8 @@ dft2048_kernel(
     const size_t base = (size_t)(live ? r0 + row : 0) * N2K + j;
 #pragma unroll
     for (int s = 0; s < 16; ++s) {
-        xr[s] = live ? ui[base + RT * s] : 0.0f;
-        xi[s] = live ? uq[base + RT * s] : 0.0f;
+        xr[s] = live ? to_f32(ui[base + RT * s]) : 0.0f;
+        xi[s] = live ? to_f32(uq[base + RT * s]) : 0.0f;
     }
     for (int x = threadIdx.x; x < N2K / 2; x += ROWS2K * RT) {
         wc[x] = twc[x];
@@ -330,50 +338,65 @@ dft2048_kernel(
         const int k = e / ROWS2K, rr = e % ROWS2K;
         if (r0 + rr < m) {
             const size_t o = (size_t)k * m + r0 + rr;
-            yi[o] = tre[k * (ROWS2K + 1) + rr];
-            yq[o] = tim[k * (ROWS2K + 1) + rr];
+            yi[o] = from_f32<T>(tre[k * (ROWS2K + 1) + rr]);
+            yq[o] = from_f32<T>(tim[k * (ROWS2K + 1) + rr]);
         }
     }
 }
 
-int launch_2048(const float* ui, const float* uq, const float* twc,
-                const float* tws, int m, float* yi, float* yq,
-                cudaStream_t stream) {
+template <typename T>
+int launch_2048(const T* ui, const T* uq, const float* twc, const float* tws,
+                int m, T* yi, T* yq, cudaStream_t stream) {
     const size_t shm = sizeof(float) * SMEM2K;
     cudaError_t err = cudaFuncSetAttribute(
-        dft2048_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dft2048_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)shm);
     if (err != cudaSuccess) return (int)err;
     const long blocks = ((long)m + ROWS2K - 1) / ROWS2K;
     if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
-    dft2048_kernel<<<(unsigned)blocks, ROWS2K * RT, shm, stream>>>(
+    dft2048_kernel<T><<<(unsigned)blocks, ROWS2K * RT, shm, stream>>>(
         ui, uq, twc, tws, m, yi, yq);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dft(const void* ui_, const void* uq_, const float* twc,
+               const float* tws, int m, int n, int logn, void* yi_,
+               void* yq_, cudaStream_t stream) {
+    const T* ui = static_cast<const T*>(ui_);
+    const T* uq = static_cast<const T*>(uq_);
+    T* yi = static_cast<T*>(yi_);
+    T* yq = static_cast<T*>(yq_);
+    if (n == N2K) return launch_2048<T>(ui, uq, twc, tws, m, yi, yq, stream);
+    const int tm = rows_per_block(n);
+    const size_t shm =
+        sizeof(float) * ((size_t)2 * tm * (n + (n >> 5) + 1) + n);
+    cudaError_t err = cudaFuncSetAttribute(
+        pfb_dft_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shm);
+    if (err != cudaSuccess) return (int)err;
+    const long blocks = ((long)m + tm - 1) / tm;
+    if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
+    pfb_dft_kernel<T><<<(unsigned)blocks, THREADS, shm, stream>>>(
+        ui, uq, twc, tws, m, n, logn, tm, yi, yq);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// u_i, u_q [m, n]; twc, tws [n/2] = cos, sin(2 pi x / n) (device);
-// y_i, y_q [n, m]. N = 2048 runs dft2048_kernel, other N pfb_dft_kernel.
+// u_i, u_q [m, n]; twc, tws [n/2] = cos, sin(2 pi x / n) (device, float32);
+// y_i, y_q [n, m]; u and y float32, or bfloat16 when bf16 is set. N = 2048
+// runs dft2048_kernel, other N pfb_dft_kernel.
 SONDETPU_API int sondetpu_pfb_dft(
-    const float* ui, const float* uq, const float* twc, const float* tws,
-    int m, int n, float* yi, float* yq, void* stream) {
+    const void* ui, const void* uq, const float* twc, const float* tws,
+    int m, int n, int bf16, void* yi, void* yq, void* stream) {
     int logn = 0;
     while ((1 << logn) < n) ++logn;
     if (n < 8 || n > 4096 || (1 << logn) != n || m < 1)
         return (int)cudaErrorInvalidValue;
-    if (n == N2K)
-        return launch_2048(ui, uq, twc, tws, m, yi, yq, (cudaStream_t)stream);
-    const int tm = rows_per_block(n);
-    const size_t shm =
-        sizeof(float) * ((size_t)2 * tm * (n + (n >> 5) + 1) + n);
-    cudaError_t err = cudaFuncSetAttribute(
-        pfb_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shm);
-    if (err != cudaSuccess) return (int)err;
-    const long blocks = ((long)m + tm - 1) / tm;
-    if (blocks > 2147483647L) return (int)cudaErrorInvalidValue;
-    pfb_dft_kernel<<<(unsigned)blocks, THREADS, shm, (cudaStream_t)stream>>>(
-        ui, uq, twc, tws, m, n, logn, tm, yi, yq);
-    return (int)cudaGetLastError();
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return launch_dft<__nv_bfloat16>(ui, uq, twc, tws, m, n, logn, yi, yq,
+                                         s);
+    return launch_dft<float>(ui, uq, twc, tws, m, n, logn, yi, yq, s);
 }

@@ -16,6 +16,11 @@ the DFT runs ``pfb_dft``, which writes channel k at row k.
 
 Streaming: the last ``N * tpp`` wideband samples carry across blocks, so
 chunked channelization equals unchunked.
+
+``dtype="bf16"`` runs both stages in bfloat16 as the original's bf16
+channelizer does (the branch FIR rounds to bfloat16 on its read and after
+every operation; the DFT reads bfloat16 and rounds its float32 transform
+once): y comes out in bfloat16, and the carried tail stays float32.
 """
 
 from __future__ import annotations
@@ -46,11 +51,16 @@ def bin_and_offset(center_hz: float, fs_chan: float, n_bins: int):
 
 
 class PFBChannelizer:
-    """Critically sampled N-channel analysis filter bank on ``device``
-    (f32), with the original's defaults: ``TPP`` taps per phase (the
-    FIR kernel's only size) and a cutoff of ``CUTOFF_FRAC``."""
+    """Critically sampled N-channel analysis filter bank on ``device``,
+    in ``dtype`` "f32" or "bf16", with the original's defaults: ``TPP``
+    taps per phase (the FIR kernel's only size) and a cutoff of
+    ``CUTOFF_FRAC``."""
 
-    def __init__(self, n_channels: int, device):
+    def __init__(self, n_channels: int, device, dtype: str = "f32"):
+        if dtype not in ("f32", "bf16"):
+            raise ValueError(dtype)
+        self.dtype = dtype
+        self._cdt = torch.bfloat16 if dtype == "bf16" else torch.float32
         self.n = int(n_channels)
         self.tpp = TPP
         self.device = torch.device(device)
@@ -92,7 +102,7 @@ class PFBChannelizer:
                  x_q: torch.Tensor):
         """One block: wideband planes [W] float32 on the channelizer's
         device, W % N == 0 -> (state, y_i [N, W/N], y_q [N, W/N]) in natural
-        channel order."""
+        channel order, in the channelizer's dtype."""
         n, tpp, L = self.n, self.tpp, self.history
         w = x_i.shape[-1]
         if x_i.dim() != 1 or x_q.shape != x_i.shape or w % n:
@@ -104,14 +114,14 @@ class PFBChannelizer:
         if w >= L:
             u_i, u_q = pfb_fir_stream(
                 x_i.view(m, n), x_q.view(m, n), state.tail_i.view(tpp, n),
-                state.tail_q.view(tpp, n), self._hcol_t)
+                state.tail_q.view(tpp, n), self._hcol_t, self._cdt)
             new_state = ChannelizerState(tail_i=x_i[-L:].clone(),
                                          tail_q=x_q[-L:].clone())
         else:
             xp_i = torch.cat([state.tail_i, x_i])
             xp_q = torch.cat([state.tail_q, x_q])
             u_i, u_q = pfb_fir_timemajor(xp_i.view(-1, n), xp_q.view(-1, n),
-                                         self._hcol_t)
+                                         self._hcol_t, self._cdt)
             new_state = ChannelizerState(tail_i=xp_i[-L:].clone(),
                                          tail_q=xp_q[-L:].clone())
         y_i, y_q = pfb_dft(u_i, u_q, self._twiddles)

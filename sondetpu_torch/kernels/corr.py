@@ -3,7 +3,10 @@
 :func:`corr_kernel` launches the CUDA kernel of ``csrc/corr.cu`` for CUDA
 tensors and runs :func:`corr_plain` for CPU tensors; the two agree bit for
 bit (same order of operations, each rounded on its own). The kernel has a
-body per template kind and length, which :func:`corr_body` names.
+body per template kind and length, which :func:`corr_body` names. A
+bfloat16 chip ring (the bf16 compute dtype's) is widened to float32 before
+either runs: exact, as the original's Pallas correlator promotes its
+float32 template times a bfloat16 buffer to float32.
 """
 
 from __future__ import annotations
@@ -22,10 +25,11 @@ def corr_plain(chipbuf: torch.Tensor, template: torch.Tensor) -> torch.Tensor:
     """chipbuf [C, buf], template [L] -> corr [C, buf - L + 1]:
     ``(sum_k t[k] * buf[c, i + k]) * float32(1/L)``, as the Pallas
     correlator scales it (``sondetpu/pallas/corr.py:28``). The plain
-    ``correlate_syncword`` divides by L instead."""
+    ``correlate_syncword`` divides by L instead. A bfloat16 ``chipbuf`` is
+    widened to float32 first."""
     t = template.cpu().numpy()
     inv_l = torch.tensor(np.float32(1.0 / t.shape[0]), device=chipbuf.device)
-    return conv1d(chipbuf, t) * inv_l
+    return conv1d(chipbuf.to(torch.float32), t) * inv_l
 
 
 def is_sign_template(template) -> bool:
@@ -50,7 +54,8 @@ def corr_body(length: int, sign: bool) -> str:
 
 
 def corr_kernel(chipbuf: torch.Tensor, template) -> torch.Tensor:
-    """chipbuf [C, buf] float32 -> corr [C, buf - L + 1] float32,
+    """chipbuf [C, buf] float32 (or bfloat16, widened to float32 here: one
+    elementwise pass over the ring) -> corr [C, buf - L + 1] float32,
     normalized so a perfect hard match scores 1.0. ``template`` [L] is a
     float32 NumPy array or tensor; the kernel takes up to 64 taps from the
     host, so a template on the card is copied back (the pipeline passes
@@ -61,6 +66,8 @@ def corr_kernel(chipbuf: torch.Tensor, template) -> torch.Tensor:
         return corr_plain(chipbuf, torch.as_tensor(template))
     if dev.type != "cuda":
         raise ValueError(f"corr_kernel: unsupported device {dev}")
+    if chipbuf.dtype == torch.bfloat16:
+        chipbuf = chipbuf.to(torch.float32)
     cuda.check_tensor("chipbuf", chipbuf, torch.float32, dev, (None, None))
     if isinstance(template, torch.Tensor):
         cuda.check_tensor("template", template, torch.float32,

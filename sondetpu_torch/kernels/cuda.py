@@ -39,15 +39,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "sondetpu_frontend_tiles": [_I, _I],
     "sondetpu_fused_frontend": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I,
-                                _I, _I, _P, _P, _P],
+                                _I, _I, _I, _P, _P, _P],
     "sondetpu_corr": [_P, _P, _P, _I, _F, _I, _I, _I, _P, _P],
     "sondetpu_rs_clean": [_P, _P, _I, _I, _I, _P, _P],
-    "sondetpu_pfb_fir_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sondetpu_pfb_fir_timemajor": [_P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "sondetpu_pfb_dft": [_P, _P, _P, _P, _I, _I, _P, _P, _P],
+    "sondetpu_pfb_fir_stream": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                _P],
+    "sondetpu_pfb_fir_timemajor": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "sondetpu_pfb_dft": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     "sondetpu_dualtone_tiles": [_I],
     "sondetpu_dualtone_frontend": [_P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                                   _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "sondetpu_afsk_frontend": [_P, _P, _P, _P, _P, _P, _I, _F, _I, _I, _I,
                                _P, _P],
     "sondetpu_demod_audio_parts": [_I],

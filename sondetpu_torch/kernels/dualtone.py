@@ -5,7 +5,10 @@
 ``csrc/dualtone.cu`` for CUDA tensors and runs :func:`fused_dualtone_plain`
 for CPU tensors. The two take every product and sum in the same order, each
 rounded on its own, so the metric agrees bit for bit and the DC and
-rotation sums up to their order of summation.
+rotation sums up to their order of summation. Both read float32 or
+bfloat16 planes and tails and compute in float32 (the original's Pallas
+kernel casts bfloat16 input in VMEM): on bfloat16 input x they give
+exactly what they give on x.float().
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 
 from sondetpu_torch.dsp.fir import apply_windows
 from sondetpu_torch.kernels import cuda
-from sondetpu_torch.kernels.frontend import HALO
+from sondetpu_torch.kernels.frontend import HALO, input_dtype
 
 
 def mixer_tables(n: int, dev_over_fs: float):
@@ -28,19 +31,22 @@ def mixer_tables(n: int, dev_over_fs: float):
             np.sin(2.0 * np.pi * frac).astype(np.float32))
 
 
-def dualtone_body(nb: int, skip_chanfilt: bool, want_afc: bool) -> str:
+def dualtone_body(nb: int, skip_chanfilt: bool, want_afc: bool,
+                  bf16: bool = False) -> str:
     """The kernel body that runs these arguments: with the channel filter
     skipped, nb = 5 (m10's one-chip boxcar at 48 kHz) compiled in or nb at
     run time; with the channel filter, nb at run time; each with or without
-    the AFC sums."""
+    the AFC sums, for float32 or (``_bf16``) bfloat16 input."""
     if skip_chanfilt:
         name = "skip_nb5" if nb == 5 else "skip_runtime_nb"
     else:
         name = "chanfilt"
-    return name + ("_afc" if want_afc else "")
+    return name + ("_afc" if want_afc else "") + ("_bf16" if bf16 else "")
 
 
-def _check_args(iq_i, chan_taps, tab_cos, nb, skip_chanfilt):
+def _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos, nb,
+                skip_chanfilt):
+    input_dtype(iq_i, iq_q, tail_i, tail_q)
     c, n = iq_i.shape
     ntaps = len(chan_taps)
     if nb < 1:
@@ -59,12 +65,13 @@ def fused_dualtone_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
                          skip_chanfilt: bool = False):
     """Plain torch twin of :func:`fused_dualtone_frontend` (same arguments
     and results)."""
-    c, n, T = _check_args(iq_i, chan_taps, tab_cos, nb, skip_chanfilt)
+    c, n, T = _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
+                          nb, skip_chanfilt)
     dev = iq_i.device
 
     def chanfilt(tail, x):
-        # cf at positions [-nb, n)
-        xw = torch.cat([tail, x], dim=-1)
+        # cf at positions [-nb, n), from the input widened to float32
+        xw = torch.cat([tail, x], dim=-1).to(torch.float32)
         if skip_chanfilt:
             return xw[:, HALO - nb:]
         return apply_windows(xw[:, HALO - nb - (T - 1):], chan_taps)
@@ -118,11 +125,11 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
     ``nb``-tap boxcar on the four mixed planes -> envelope metric
     ``(P+ - P-) / (P+ + P- + 1e-12)``.
 
-    iq planes [C, n] float32; tails [C, HALO] float32, the raw input that
-    precedes the block; chan_taps: NumPy float32 array (ignored when
-    ``skip_chanfilt``). Returns (metric [C, n], new tail_i, new tail_q
-    [C, HALO], dc [C], rot_re [C], rot_im [C]): dc is the block-mean
-    metric; rot_re/rot_im are the AFC envelope-rotation sums over the pairs
+    iq planes [C, n] and tails [C, HALO] (the raw input that precedes the
+    block), all float32 or all bfloat16; chan_taps: NumPy float32 array
+    (ignored when ``skip_chanfilt``). Returns (metric [C, n], new tail_i,
+    new tail_q [C, HALO] in the planes' dtype, dc [C], rot_re [C], rot_im
+    [C]; the rest float32): dc is the block-mean metric; rot_re/rot_im are the AFC envelope-rotation sums over the pairs
     (k, k-1), 1 <= k < n (zeros unless ``want_afc``).
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel body
@@ -135,13 +142,15 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
                                     skip_chanfilt)
     if dev.type != "cuda":
         raise ValueError(f"fused_dualtone_frontend: unsupported device {dev}")
-    c, n, T = _check_args(iq_i, chan_taps, tab_cos, nb, skip_chanfilt)
+    c, n, T = _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
+                          nb, skip_chanfilt)
+    bf16 = iq_i.dtype == torch.bfloat16
     for name, t, shape in (("iq_i", iq_i, (c, n)), ("iq_q", iq_q, (c, n)),
                            ("tail_i", tail_i, (c, HALO)),
-                           ("tail_q", tail_q, (c, HALO)),
-                           ("tab_cos", tab_cos, (n,)),
-                           ("tab_sin", tab_sin, (n,))):
-        cuda.check_tensor(name, t, torch.float32, dev, shape)
+                           ("tail_q", tail_q, (c, HALO))):
+        cuda.check_tensor(name, t, iq_i.dtype, dev, shape)
+    for name, t in (("tab_cos", tab_cos), ("tab_sin", tab_sin)):
+        cuda.check_tensor(name, t, torch.float32, dev, (n,))
     if c > 65535:
         raise ValueError(f"fused_dualtone_frontend: {c} channels exceed the "
                          "grid's 65535 rows")
@@ -153,11 +162,11 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
     cuda.launch("fused_dualtone_frontend", "sondetpu_dualtone_frontend",
                 iq_i.data_ptr(), iq_q.data_ptr(), tail_i.data_ptr(),
                 tail_q.data_ptr(), hc.ctypes.data, T, nb, tab_cos.data_ptr(),
-                tab_sin.data_ptr(), int(skip_chanfilt), int(want_afc), c, n,
-                HALO, metric.data_ptr(), parts[0].data_ptr(),
+                tab_sin.data_ptr(), int(skip_chanfilt), int(want_afc),
+                int(bf16), c, n, HALO, metric.data_ptr(), parts[0].data_ptr(),
                 parts[1].data_ptr(), parts[2].data_ptr(),
                 cuda.stream_handle(dev),
-                body=dualtone_body(nb, skip_chanfilt, want_afc))
+                body=dualtone_body(nb, skip_chanfilt, want_afc, bf16))
     sums = torch.sum(parts, dim=-1)
     return (metric, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
             sums[0] / torch.full((), float(n), dtype=torch.float32,

@@ -8,7 +8,10 @@ and :func:`fused_demod_fir` that of ``csrc/demod_fir.cu``, for CUDA
 tensors; for CPU tensors they run :func:`fused_frontend_plain` and
 :func:`fused_demod_fir_plain`. Kernel and twin take every product and sum
 in the same order, each rounded on its own, so they agree bit for bit up to
-the order of the DC sum.
+the order of the DC sum. :func:`fused_frontend` reads float32 or bfloat16
+planes and tails and computes in float32 (the original's Pallas kernel
+casts bfloat16 input in VMEM): on bfloat16 input x it gives exactly what it
+gives on x.float().
 """
 
 from __future__ import annotations
@@ -57,7 +60,22 @@ def is_delay_taps(taps) -> bool:
                 and not np.any(h[:-1]))
 
 
+INPUT_DTYPES = (torch.float32, torch.bfloat16)   # K1's and K7's load types
+
+
+def input_dtype(*planes) -> torch.dtype:
+    """The one element type of a kernel's sample planes and tails: float32
+    or bfloat16."""
+    dt = planes[0].dtype
+    if dt not in INPUT_DTYPES or any(p.dtype != dt for p in planes):
+        raise TypeError("planes and tails must all be float32 or all "
+                        "bfloat16, got " + ", ".join(str(p.dtype)
+                                                     for p in planes))
+    return dt
+
+
 def _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps, decim):
+    input_dtype(iq_i, iq_q, tail_i, tail_q)
     if decim not in (1, 2):
         raise ValueError(f"decim must be 1 or 2, got {decim}")
     c, n = iq_i.shape
@@ -72,6 +90,15 @@ def _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps, decim):
     return c, n, ntaps
 
 
+def frontend_body(decim: int, ntaps: int, identity: bool,
+                  bf16: bool = False) -> str:
+    """The kernel body that runs these arguments: decim 1 or 2, 41 taps
+    compiled in or a run-time count, the identity matched taps or a FIR,
+    float32 or bfloat16 input."""
+    return (f"decim{decim}_" + ("t41" if ntaps == FIXED_TAPS else "runtime_t")
+            + ("_identity" if identity else "") + ("_bf16" if bf16 else ""))
+
+
 def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                          scale: float, decim: int, dc_block: bool = True):
     """Plain torch twin of :func:`fused_frontend` (same arguments and
@@ -83,7 +110,9 @@ def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     s0 = HALO - (decim * T + T - 1)
 
     def chanfilt(tail, x):
-        xcat = torch.cat([tail, x], dim=-1)[:, s0:]
+        # widened first: float32 arithmetic and float32 taps on either
+        # input type
+        xcat = torch.cat([tail, x], dim=-1)[:, s0:].to(torch.float32)
         return apply_windows(xcat, chan_taps, stride=decim)[:, :nproc + T]
 
     cf_i = chanfilt(tail_i, iq_i)
@@ -108,15 +137,17 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     (``fast_atan2`` x ``scale``) -> matched FIR (``match_taps``), with the
     block DC subtracted when ``dc_block`` is set.
 
-    iq planes [C, n] float32; tails [C, HALO] float32, the raw input that
-    precedes the block; taps: NumPy float32 arrays of equal odd length.
-    Returns (filt [C, n/decim], new tail_i, new tail_q [C, HALO], dc [C]),
-    dc being the block-mean discriminator audio.
+    iq planes [C, n] and tails [C, HALO] (the raw input that precedes the
+    block), all float32 or all bfloat16; taps: NumPy float32 arrays of
+    equal odd length. Returns (filt [C, n/decim] float32, new tail_i, new
+    tail_q [C, HALO] in the planes' dtype, dc [C] float32), dc being the
+    block-mean discriminator audio.
 
     CPU tensors run the plain twin; CUDA tensors launch the kernel: the
     body for 41 taps or for any other count, and, when
     :func:`is_delay_taps` holds for ``match_taps``, the body that writes
-    the delayed audio instead of the matched FIR (the same result).
+    the delayed audio instead of the matched FIR (the same result); each
+    for float32 or (``_bf16``) bfloat16 input.
     """
     dev = iq_i.device
     if dev.type == "cpu":
@@ -126,13 +157,15 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
         raise ValueError(f"fused_frontend: unsupported device {dev}")
     c, n, T = _check_args(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                           decim)
+    dt = iq_i.dtype
     for name, t, shape in (("iq_i", iq_i, (c, n)), ("iq_q", iq_q, (c, n)),
                            ("tail_i", tail_i, (c, HALO)),
                            ("tail_q", tail_q, (c, HALO))):
-        cuda.check_tensor(name, t, torch.float32, dev, shape)
+        cuda.check_tensor(name, t, dt, dev, shape)
     if c > 65535:
         raise ValueError(f"fused_frontend: {c} channels exceed the grid's "
                          "65535 rows")
+    bf16 = dt == torch.bfloat16
     hc = np.ascontiguousarray(chan_taps, np.float32)
     hm = np.ascontiguousarray(match_taps, np.float32)
     identity = is_delay_taps(hm)
@@ -141,14 +174,13 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     ntiles = lib.sondetpu_frontend_tiles(n, decim)
     filt = torch.empty((c, nproc), dtype=torch.float32, device=dev)
     partial = torch.empty((c, ntiles), dtype=torch.float32, device=dev)
-    body = (f"decim{decim}_" + ("t41" if T == FIXED_TAPS else "runtime_t")
-            + ("_identity" if identity else ""))
+    body = frontend_body(decim, T, identity, bf16)
     cuda.launch("fused_frontend", "sondetpu_fused_frontend",
                 iq_i.data_ptr(), iq_q.data_ptr(), tail_i.data_ptr(),
                 tail_q.data_ptr(), hc.ctypes.data, hm.ctypes.data, T,
-                float(np.float32(scale)), decim, int(identity), c, n, HALO,
-                filt.data_ptr(), partial.data_ptr(), cuda.stream_handle(dev),
-                body=body)
+                float(np.float32(scale)), decim, int(identity), int(bf16), c,
+                n, HALO, filt.data_ptr(), partial.data_ptr(),
+                cuda.stream_handle(dev), body=body)
     # a divisor on the device: CUDA multiplies by the reciprocal of a
     # Python number, which rounds otherwise than the twin on the CPU
     dc = torch.sum(partial, dim=-1) / torch.full(

@@ -6,15 +6,25 @@ sonde type, and each group advances through its type's pipeline as a batch.
 This is the original's single-process fused ``FleetSession`` step: PFB, a
 row gather per group, each group's step, the groups' packed buffers
 concatenated into one, and one device->host readback per block (one block
-later when ``pipelined``). Every group runs the kernel path
-(``use_pallas=True``) in float32. The step runs eagerly on ``device``.
-A channel's ``offset_hz`` below the PFB grid goes to its group's DDC
+later when ``pipelined``). The step runs eagerly on ``device``. A channel's
+``offset_hz`` below the PFB grid goes to its group's DDC
 (``fine_offsets``), and ``afc`` runs each group's AFC loop from it.
 
-Not ported: the mesh fleet, which raises ``NotImplementedError``. The
-original's 64-row group padding and its per-family kernel policy were
-tuned for the TPU and are dropped: a group is padded only to the kernels'
-multiple of 8 rows.
+``compute_dtype="bf16"`` runs the PFB itself in bfloat16, and each group
+takes the original's dtype rule (``sondetpu/runtime/fleet.py:107-113``):
+AFSK groups, and groups on a kernel route that are not dual-tone, in
+float32, the rest in bfloat16; the gathered planes flow in the PFB's dtype
+and each group's step casts them. ``use_pallas=True`` or ``False`` puts
+every group on the kernel path or the plain-op path. ``use_pallas=None``
+puts every group on the kernel path too: the original's ``None`` is a
+per-family policy measured on a TPU v5e (dual-tone groups on the kernel,
+the rest on the jnp path), which on any other backend than a TPU means no
+kernels at all; the policy for this card is for the benchmark to measure.
+
+Not ported: the mesh fleet, which raises ``NotImplementedError``, and the
+unfused per-group dispatch (``fused=False``). The original's 64-row group
+padding was tuned for the TPU and is dropped: a group is padded only to
+the kernels' multiple of 8 rows, and only when it takes a kernel route.
 """
 
 from __future__ import annotations
@@ -28,11 +38,12 @@ import torch
 
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
 from sondetpu_torch.runtime.pipeline import (BlockOutput, PipelineConfig,
-                                             c64_to_planes)
+                                             _route, c64_to_planes)
 from sondetpu_torch.runtime.session import DecoderSession
+from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.telemetry import SondeTelemetry
 
-ROW_MULTIPLE = 8   # the kernel path's channel gate (pipeline._check_slice)
+ROW_MULTIPLE = 8   # the kernel path's channel gate (pipeline._route)
 
 
 @dataclass
@@ -51,14 +62,19 @@ class FleetSession:
 
     def __init__(self, channels: Sequence[FleetChannel], n_bins: int, device,
                  fs_chan: float = 48000.0, block_len: int = 48000,
-                 sync_threshold: float = 0.55, on_update=None, mesh=None,
+                 sync_threshold: float = 0.55, use_pallas: bool = None,
+                 on_update=None, mesh=None, compute_dtype: str = "f32",
                  afc: bool = False, pipelined: bool = False):
         if mesh is not None:
             raise NotImplementedError("sondetpu_torch FleetSession: mesh= "
                                       "(the mesh fleet) is not ported")
         self.channels = list(channels)
         self.device = torch.device(device)
-        self.pfb = PFBChannelizer(n_bins, self.device)
+        self.pfb = PFBChannelizer(
+            n_bins, self.device,
+            dtype="bf16" if compute_dtype == "bf16" else "f32")
+        # None: every group on its kernel route (see the module docstring)
+        self.use_pallas = True if use_pallas is None else bool(use_pallas)
         self.pfb_state = self.pfb.init_state()
         self.block_len = block_len
         self.n_bins = n_bins
@@ -74,16 +90,30 @@ class FleetSession:
         self.groups: Dict[str, tuple] = {}
         self._order = []          # [(sonde, bins tensor, session)]
         for sonde, idxs in groups.items():
-            pad = (-len(idxs)) % ROW_MULTIPLE
-            # pad rows sit on the grid (sondetpu/runtime/fleet.py:118-125)
-            offs = tuple(self.channels[i].offset_hz for i in idxs) \
-                + (0.0,) * pad
-            cfg = PipelineConfig(sonde=sonde, channels=len(idxs) + pad,
-                                 fs=fs_chan, block_len=block_len,
-                                 sync_threshold=sync_threshold,
-                                 use_pallas=True, compute_dtype="f32",
-                                 afc=afc,
-                                 fine_offsets=offs if any(offs) else None)
+            spec = get_sonde(sonde)["spec"]
+            dualtone = bool(spec.extra.get("fsk_dualtone"))
+            # the original's group dtype rule
+            group_cdt = ("f32" if spec.modulation == "afsk"
+                         or (self.use_pallas and not dualtone)
+                         else compute_dtype)
+
+            def config(pad, sonde=sonde, idxs=idxs, cdt=group_cdt):
+                # pad rows sit on the grid (sondetpu/runtime/fleet.py:
+                # 118-125)
+                offs = tuple(self.channels[i].offset_hz for i in idxs) \
+                    + (0.0,) * pad
+                return PipelineConfig(
+                    sonde=sonde, channels=len(idxs) + pad, fs=fs_chan,
+                    block_len=block_len, sync_threshold=sync_threshold,
+                    use_pallas=self.use_pallas, compute_dtype=cdt, afc=afc,
+                    fine_offsets=offs if any(offs) else None)
+
+            pad = (-len(idxs)) % ROW_MULTIPLE if self.use_pallas else 0
+            cfg = config(pad)
+            if pad and _route(cfg) is None:
+                # a kernel gate other than the channels' fails: no pad rows
+                pad = 0
+                cfg = config(0)
             sess = DecoderSession(cfg, self.device,
                                   on_update=self._wrap(sonde, idxs, on_update),
                                   pipelined=False)
@@ -115,7 +145,8 @@ class FleetSession:
 
     def step(self, wi: torch.Tensor, wq: torch.Tensor):
         """The device step of one wideband block (planes [W] float32 on the
-        fleet's device): PFB, every group's row gather and pipeline step.
+        fleet's device): PFB, every group's row gather (in the PFB's dtype)
+        and pipeline step.
         Advances the states and returns (the groups' packed buffers
         concatenated, [each group's frames])."""
         self.pfb_state, yi, yq = self.pfb(self.pfb_state, wi, wq)

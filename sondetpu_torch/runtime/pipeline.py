@@ -3,28 +3,37 @@
 
 ``PipelineConfig`` and ``unpack_block_output`` are copies of the originals
 (the original module imports jax), so one config drives both packages and
-the wire layout agrees by construction. ``Pipeline`` is the torch form of
-the original's step for all eight families, on the front end that the
-original's gates pick (``_route``):
+the wire layout agrees by construction; the copy refuses what the original
+refuses (bf16 with AFSK, or with use_pallas outside the dual-tone
+families). ``Pipeline`` is the torch form of the original's step for every
+config the original accepts, on the front end that the original's gates
+pick (``_route``):
 
-- ``use_pallas=True``, the kernel path (in the port: the Hopper kernels),
-  float32: rs41/rs41x/dfm on the fused front end; the dual-tone families
-  (m10, ims100, mrzn1) on the fused dual-tone front end (ims100 and mrzn1
-  keep its channel filter); imet4/c50 on the fused front end at decim 1
-  with an identity matched filter, then the AFSK tone kernel. A dual-tone
-  family whose dual-tone gates fail falls back to the FM discriminator
-  with the original's warning: m10 on the fused front end, ims100 and
-  mrzn1 on the plain-op front end, since the fused one has no midpoint DC.
-- ``use_pallas=False``, the plain-op path, in float32 or bfloat16: the
+- ``use_pallas=True`` where the gates hold (channels a multiple of 8, a
+  block of at least HALO samples, the taps inside the carried tail), the
+  kernel path (in the port: the Hopper kernels): rs41/rs41x/dfm on the
+  fused front end; the dual-tone families (m10, ims100, mrzn1) on the
+  fused dual-tone front end (ims100 and mrzn1 keep its channel filter);
+  imet4/c50 on the fused front end at decim 1 with an identity matched
+  filter, then the AFSK tone kernel. A dual-tone family whose dual-tone
+  gates fail falls back to the FM discriminator with the original's
+  warning: m10 on the fused front end, ims100 and mrzn1 on the plain-op
+  front end, since the fused one has no midpoint DC. The kernels read the
+  sample-rate planes in the compute dtype (bfloat16 on a bf16 dual-tone
+  config) and compute in float32.
+- Every other config, the plain-op path, in float32 or bfloat16: the
   original's jnp branch, which runs no kernel: the channel filter, then the
   ``atan2`` discriminator and matched FIR, or for the dual-tone families
-  the +/-dev mix, the one-chip boxcar and the envelope metric; the block
-  DC; the plain correlation and the GF(2) matmul RS flag; its sample-rate
-  arrays stored in the compute dtype where the original casts.
+  the +/-dev mix, the one-chip boxcar and the envelope metric, or for the
+  AFSK families the discriminator and the jnp mark/space front end with its
+  carried tails and LO phase counter; the block DC; the plain correlation
+  and the GF(2) matmul RS flag.
 
-The block DC is the block mean, or for the unwhitened NRZ families
-(``dc_mode == "midpoint"``: ims100, mrzn1) the midpoint of the 10th and
-90th percentiles, ``midpoint_dc``, equal to ``jnp.quantile``'s bit for bit.
+The sample-rate arrays are stored in the compute dtype where the original
+casts them. The block DC is the block mean, or for the unwhitened NRZ
+families (``dc_mode == "midpoint"``: ims100, mrzn1) the midpoint of the
+10th and 90th percentiles, ``midpoint_dc``, equal to ``jnp.quantile``'s bit
+for bit.
 
 On every path, ``fine_offsets`` or ``afc`` put the per-channel DDC (plain
 torch ops, the original's float32 formula) between the dequant and the
@@ -32,13 +41,15 @@ front end; with ``afc`` its frequency is state, nudged each block by the
 front end's block DC (the dual-tone envelope-rotation angle on that
 family's path).
 
-Both go on through Oerder-Meyr timing, integer- or rational-sps symbol
-sampling, the chip ring, syncword correlation (the correlator kernel on the
-fused-front-end path; the plain correlation on the other paths, as in the
-original), peak pick, then either the NRZ byte pack and frame gather, or
-the frame gather with Manchester/biphase-M decoding and the Chase weak
-bits, then de-whitening, RS syndrome flag, and the flat packed buffer.
-Every other config raises ``NotImplementedError`` naming the missing piece.
+Both go on through Oerder-Meyr timing, symbol sampling (integer sps,
+rational sps in whole segments, or ``linear_interp`` for any other), the
+chip ring, syncword correlation (the correlator kernel on the fused front
+end's path; the plain correlation on the other paths, as in the original),
+peak pick, then either the NRZ byte pack and frame gather, or the frame
+gather with Manchester/biphase-M decoding and the Chase weak bits, then
+de-whitening, RS syndrome flag, and the flat packed buffer. With
+``profile_stop`` the step returns the original's checksum scalar of the
+named stage instead.
 
 Carry-over state is an explicit tuple of tensors with the original's field
 names and dtypes; ``state_from_numpy``/``state_to_numpy`` move it between
@@ -67,7 +78,8 @@ from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync.coding import biphase_m_decode, manchester_decode
 from sondetpu_torch.sync.correlator import (correlate_syncword,
                                             find_frame_starts, gather_frames)
-from sondetpu_torch.sync.timing import (TimingState, oerder_meyr_tau,
+from sondetpu_torch.sync.timing import (TimingState, linear_interp,
+                                        oerder_meyr_tau,
                                         spectral_line_tables)
 
 @dataclass(frozen=True)
@@ -410,73 +422,34 @@ def _rational_sps(c):
     return None
 
 
-def _sps_missing(c):
-    if not float(c.sps).is_integer() and _rational_sps(c) is None:
-        return (f"sps={c.sps} (only integer sps, or p/q with q <= 16 and "
-                "whole p-sample segments per block; the plain path's "
-                "_linear_interp)")
-    return None
-
-
 def _route(c):
     """The front end that the original's gates pick for ``c``
-    (``sondetpu/runtime/pipeline.py:380-409``): "afsk" (K1, then K8),
+    (``sondetpu/runtime/pipeline.py:380-417``): "afsk" (K1, then K8),
     "dualtone" (K7) or "fused" (K1) on the kernel path, or None for the
-    jnp path, which the plain-op front end ports: every config with
-    use_pallas=False; a dual-tone family off K7's gates (decim 1, the
-    boxcar inside the carried tail); and the FM-discriminator fallback of a
-    midpoint-DC family, which the fused front end does not implement."""
-    if not c.use_pallas:
+    jnp path, which the plain-op front end ports. Every kernel route needs
+    use_pallas, channels % 8 == 0 and a block of at least HALO samples (the
+    original's ``frontend_chunk`` is None only below HALO); then AFSK needs
+    2 * ntaps - 1 <= HALO, win - 1 <= HALO and the tones' joint period L
+    to divide the block; a dual-tone family on its gates needs decim 1 and
+    the boxcar inside the carried tail; any other family
+    decim * ntaps + ntaps - 1 <= HALO and mean DC (the fused front end
+    implements no midpoint DC). A dual-tone family off its gates takes the
+    FM discriminator, on K1 where its gates hold."""
+    if not c.use_pallas or c.channels % 8 or c.block_len < HALO:
         return None
     if c.spec.modulation == "afsk":
-        return "afsk"
+        win, L = _afsk_params(c)
+        ok = (2 * c.ntaps - 1 <= HALO and win - 1 <= HALO
+              and c.block_len % L == 0)
+        return "afsk" if ok else None
     if _dualtone_gates(c)[0]:
         nb = max(2, round(c.sps))
         return ("dualtone" if c.decim == 1 and nb + c.ntaps - 1 <= HALO
                 else None)
-    if c.spec.extra.get("dc_mode") == "midpoint":
+    if (c.decim * c.ntaps + c.ntaps - 1 > HALO
+            or c.spec.extra.get("dc_mode") == "midpoint"):
         return None
     return "fused"
-
-
-def _plain_missing(c):
-    """What the plain-op front end lacks for ``c``, or None: it covers the
-    FM-discriminator and dual-tone families, not the AFSK ones."""
-    if c.spec.modulation == "afsk":
-        return (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
-                "(use_pallas=False)")
-    return _sps_missing(c)
-
-
-def _check_slice(c) -> None:
-    """Raise NotImplementedError for a config outside the ported slice."""
-    route = _route(c)
-    if c.profile_stop:
-        missing = "profile_stop (the stage-truncated profiling step)"
-    elif route is None:
-        missing = _plain_missing(c)
-    elif c.compute_dtype != "f32":
-        missing = (f"compute_dtype={c.compute_dtype!r} on the kernel path "
-                   "(use_pallas=True)")
-    elif c.channels % 8:
-        missing = (f"channels={c.channels}, not a multiple of 8 (the kernel "
-                   "path's channel gate)")
-    elif c.block_len < HALO or c.decim * c.ntaps + c.ntaps - 1 > HALO:
-        missing = (f"block_len={c.block_len}, ntaps={c.ntaps} (the kernel "
-                   f"path needs block_len >= {HALO} and "
-                   f"decim*ntaps + ntaps - 1 <= {HALO})")
-    elif route == "afsk" and (
-            (p := _afsk_params(c))[0] - 1 > HALO or c.block_len % p[1]):
-        win, L = p
-        missing = (f"the jnp AFSK front end _afsk_frontend of {c.sonde!r} "
-                   f"(the AFSK kernel path needs win - 1 <= {HALO} and the "
-                   f"tones' joint period L = {L} to divide block_len = "
-                   f"{c.block_len}; win = {win})")
-    else:
-        missing = _sps_missing(c)
-    if missing is not None:
-        raise NotImplementedError(f"sondetpu_torch Pipeline: {missing} is not "
-                                  "ported")
 
 
 def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
@@ -534,11 +507,17 @@ def midpoint_dc(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(mid, float("nan")), mid)
 
 
+def _int32_sum(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sum of an int32, bool or uint8 array as the original's
+    profile_stop takes it (``frames.astype(int32)`` for the bytes): an
+    int32 scalar."""
+    return torch.sum(x.to(torch.int32), dtype=torch.int32)
+
+
 class Pipeline:
     """Per-block decoder front end for one sonde type, on ``device``."""
 
     def __init__(self, config: PipelineConfig, device):
-        _check_slice(config)
         self.config = config
         self.device = torch.device(device)
         c = config
@@ -574,20 +553,33 @@ class Pipeline:
                 f"discriminator (worse low-SNR FER)", stacklevel=3)
         self._afsk = spec.modulation == "afsk"
         self._midpoint = spec.extra.get("dc_mode") == "midpoint"
-        # the plain-op path stores its sample-rate arrays in this dtype
-        self._plain = _route(c) is None
+        self._route = _route(c)
+        self._plain = self._route is None
+        # the sample-rate arrays are stored in this dtype from the
+        # original's cast after the dequant and the DDC on
         self._cdt = (torch.bfloat16 if c.compute_dtype == "bf16"
                      else torch.float32)
         if self._afsk:
+            self._afsk_win, self._afsk_L = _afsk_params(c)
+        if self._route == "afsk":
             # stage 1 is the fused front end with an identity matched
             # filter; stage 2 mixes by the host f64 mark/space tables
-            self._afsk_win = _afsk_params(c)[0]
             self._delta = np.zeros(c.ntaps, np.float32)
             self._delta[-1] = 1.0
             self._afsk_tabs = tuple(torch.from_numpy(t).to(dev)
                                     for t in afsk_tables(
                                         c.block_len, spec.afsk_mark / c.fs,
                                         spec.afsk_space / c.fs))
+        elif self._afsk:
+            # the jnp front end's tone frequencies in rad/sample, the
+            # Python float 2*pi*f/fs rounded to float32 as jnp takes it,
+            # its win-tap boxcar and its 1e-9
+            self._afsk_w = tuple(
+                torch.tensor(np.float32(2.0 * np.pi * f / c.fs), device=dev)
+                for f in (spec.afsk_mark, spec.afsk_space))
+            self._afsk_box = np.ones(self._afsk_win, np.float32) / \
+                self._afsk_win
+            self._afsk_eps = torch.tensor(np.float32(1e-9), device=dev)
         if self._dualtone:
             # +/-dev mixer, block-periodic: one host f64 table per block
             cos_m, sin_m = mixer_tables(c.block_len // c.decim,
@@ -637,14 +629,20 @@ class Pipeline:
 
         # the kernel path carries HALO raw input samples per plane, the
         # plain path ntaps - 1 of them, in the compute dtype as the rest of
-        # its sample-rate carries
+        # the sample-rate carries
         tail_w = c.ntaps - 1 if self._plain else HALO
         sdt = self._cdt
-        # aux in the original's order (sondetpu/runtime/pipeline.py:429-447):
-        # the AFSK path's last HALO DC-removed audio samples, the DDC's
-        # phase in cycles, the AFC-tracked frequency in Hz seeded by
-        # fine_offsets (or zeros)
-        aux = (z(c.channels, HALO),) if self._afsk else ()
+        # aux in the original's order (sondetpu/runtime/pipeline.py:418-447):
+        # the AFSK kernel path's last HALO DC-removed audio samples, or the
+        # jnp AFSK front end's four [C, win - 1] mixed-tone tails and its
+        # int32 [1] LO phase counter; the DDC's phase in cycles; the
+        # AFC-tracked frequency in Hz seeded by fine_offsets (or zeros)
+        aux = ()
+        if self._route == "afsk":
+            aux = (z(c.channels, HALO),)
+        elif self._afsk:
+            aux = tuple(z(c.channels, self._afsk_win - 1) for _ in range(4)) \
+                + (z(1, dtype=torch.int32),)
         if self._ddc:
             aux += (z(c.channels),)
         if c.afc:
@@ -666,7 +664,8 @@ class Pipeline:
     def step(self, state: PipelineState, iq):
         """iq: [channels, block_len] complex64 (host) or an (i, q) plane pair
         (NumPy arrays or tensors; integer planes when input_dtype is
-        "i16"/"i8") -> (state, BlockOutput)."""
+        "i16"/"i8") -> (state, BlockOutput), or with ``profile_stop`` the
+        original's checksum scalar of that stage."""
         if isinstance(iq, tuple):
             i, q = iq
         else:
@@ -711,7 +710,10 @@ class Pipeline:
         each segment with a one-hot interpolation matrix; this takes the
         same two non-zero terms of that contraction directly, in float32,
         so no matrix product (and no TF32) is involved. Position p reads
-        the next segment's first sample."""
+        the next segment's first sample.
+
+        Any other sps: the original's ``_linear_interp`` at positions
+        ``start + k * sps``."""
         if float(sps).is_integer():
             isps = int(sps)
             s0 = torch.floor(start).to(torch.int64)        # [C] in [0, sps)
@@ -721,7 +723,13 @@ class Pipeline:
             a = torch.gather(fp, 1, idx)
             b = torch.gather(fp, 1, idx + 1)
             return (1.0 - frac) * a + frac * b
-        p, q = _rational_sps(self.config)
+        rational = _rational_sps(self.config)
+        if rational is None:
+            k = torch.arange(cpb, dtype=torch.float32, device=filt.device)
+            pos = start[:, None] + k[None, :] * torch.tensor(
+                np.float32(sps), device=filt.device)
+            return linear_interp(filt, pos)
+        p, q = rational
         c = filt.shape[0]
         g = filt.shape[-1] // p
         j = torch.arange(q, dtype=torch.float32, device=filt.device)
@@ -744,7 +752,7 @@ class Pipeline:
         """Correlation with template k: the correlator kernel on the fused
         front end's path, the plain correlation on the plain-op, dual-tone
         and AFSK paths (the original's choice, ``pipeline.py:948-970``)."""
-        if self._plain or self._dualtone or self._afsk:
+        if self._route != "fused":
             return correlate_syncword(chipbuf, self._np_templates[k])
         return corr_kernel(chipbuf, self._np_templates[k])
 
@@ -783,26 +791,28 @@ class Pipeline:
         return self._f_seed + torch.clamp(
             freq_hz + beta * dc * dev - self._f_seed, -maxhz, maxhz)
 
-    def _plain_frontend(self, state: PipelineState, iq_i: torch.Tensor,
-                        iq_q: torch.Tensor):
+    def _plain_frontend(self, state: PipelineState, planes: list):
         """The original's jnp front end (``sondetpu/runtime/pipeline.py:
-        765-921``, use_pallas=False, and the FM-discriminator fallback of a
-        midpoint-DC family): the channel filter over [carried tail | block]
-        at stride decim (skipped where the dual-tone gate skips it), then
-        the FM discriminator with atan2 in float32 or, for a dual-tone
-        family, the mix, boxcar and envelope metric of
-        :meth:`_plain_dualtone`; the block DC (mean or midpoint); the
-        matched FIR over [carried audio tail | audio] after the
-        discriminator. Every sample-rate array is stored in the compute
-        dtype where the original casts it; the filters read it, round
-        bfloat16 taps as the original's conv does, and sum in float32.
-        Returns (filt, new chan tails, fm_prev, fir, the residual offset the
-        AFC loop reads in audio/dev units, or None when neither dc_block
-        nor afc is set)."""
+        765-910``) on ``planes`` = [i, q] in the compute dtype, which it
+        empties, so that each plane is freed as soon as it is used: the
+        channel filter over [carried tail | block] at stride decim (skipped
+        where the dual-tone gate skips it), then the FM discriminator with
+        atan2 in float32 or, for a dual-tone family, the mix, boxcar and
+        envelope metric of :meth:`_plain_dualtone`; the block DC (mean or
+        midpoint); then the matched FIR over [carried audio tail | audio],
+        or for AFSK :meth:`_plain_afsk`. The filters read the compute dtype,
+        round bfloat16 taps as the original's conv does, and sum in float32,
+        and the filtered planes are stored in the compute dtype. Returns
+        (filt in float32, the new [C, ntaps - 1] chan tails, fm_prev, fir,
+        the residual offset the AFC loop reads in audio/dev units or None
+        when neither dc_block nor afc is set, the AFSK aux or ()); with
+        profile_stop "chanfilt" the original's sum of the filtered planes
+        instead."""
         c = self.config
         cdt, f32 = self._cdt, torch.float32
         h = c.ntaps - 1
-        iq_i, iq_q = iq_i.to(cdt), iq_q.to(cdt)
+        iq_i, iq_q = planes
+        planes.clear()
         # the carried tails as copies: views would keep the whole block
         # alive until the next step
         tail_i, tail_q = iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous()
@@ -813,6 +823,8 @@ class Pipeline:
             cq = apply_windows(torch.cat([state.chan_tail_q, iq_q], dim=-1),
                                self._chan_taps, stride=c.decim).to(cdt)
         del iq_i, iq_q
+        if c.profile_stop == "chanfilt":
+            return torch.sum(ci) + torch.sum(cq)
         fm_prev = torch.stack([ci[:, -1], cq[:, -1]], dim=-1)
         rot_dc = None
         if self._dualtone:
@@ -823,6 +835,7 @@ class Pipeline:
             ii, qq = ci.to(f32), cq.to(f32)
             audio = torch.atan2(qq * ip - ii * qp,
                                 ii * ip + qq * qp) * self._scale_t
+            del ip, qp, ii, qq
         del ci, cq
         dc = None
         if c.dc_block or c.afc:
@@ -834,15 +847,52 @@ class Pipeline:
                       device=audio.device))
         if c.dc_block:
             audio = audio - dc[:, None]
-        if self._dualtone:
+        aux = ()
+        if self._afsk:
+            filt, aux = self._plain_afsk(state.aux, audio)
+            fir = state.fir
+        elif self._dualtone:
             # the envelope metric is already matched-filtered
-            filt = audio.to(cdt)
+            filt = audio
         else:
             xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
-            filt = apply_windows(xp, self._taps).to(cdt)
+            del audio
+            filt = apply_windows(xp, self._taps)
             fir = FIRState(tail=xp[:, -h:].contiguous())
         return (filt, tail_i, tail_q, fm_prev, fir,
-                rot_dc if rot_dc is not None else dc)
+                rot_dc if rot_dc is not None else dc, aux)
+
+    def _plain_afsk(self, aux: tuple, audio: torch.Tensor):
+        """The original's jnp AFSK front end (``sondetpu/runtime/
+        pipeline.py:510-541``) on the DC-removed float32 audio: mix by the
+        mark and space tones, cos and sin of ``w * (count + k)`` in float32
+        (w the float32 2*pi*f/fs, count the carried LO phase counter), a
+        ``win``-tap boxcar over [carried mixed tail | mixed] per tone and
+        plane, and ``soft = (Em - Es) / (Em + Es + 1e-9)``. Returns (soft
+        [C, n] float32, the new aux: the four [C, win - 1] mixed tails, then
+        the counter (count + n) mod L as int32 [1]); each plane's
+        temporaries are freed before the next is made."""
+        f32 = torch.float32
+        n = audio.shape[-1]
+        h = self._afsk_win - 1
+        count = aux[4]
+        idx = count.to(f32) + torch.arange(n, dtype=f32, device=audio.device)
+        energies, tails = [], []
+        for j, w in enumerate(self._afsk_w):
+            arg = w * idx
+            fl = []
+            for k, trig in enumerate((torch.cos, torch.sin)):
+                xp = torch.cat([aux[2 * j + k], audio * trig(arg)], dim=-1)
+                tails.append(xp[:, -h:].contiguous())
+                fl.append(apply_windows(xp, self._afsk_box))
+                del xp
+            fi, fq = fl
+            energies.append(fi * fi + fq * fq)
+            del fl, fi, fq
+        em, es = energies
+        soft = (em - es) / (em + es + self._afsk_eps)
+        new_count = torch.remainder(count + n, self._afsk_L).to(torch.int32)
+        return soft, tuple(tails) + (new_count,)
 
     def _plain_dualtone(self, fir: FIRState, ci: torch.Tensor,
                         cq: torch.Tensor):
@@ -894,15 +944,19 @@ class Pipeline:
                    iq_q: torch.Tensor):
         c = self.config
         spec = c.spec
+        cdt, f32 = self._cdt, torch.float32
+        stop = c.profile_stop
         if c.input_dtype != "f32":
             # device-side dequant of raw SDR integer planes
             qs = float(np.float32(1.0 / 32768.0 if c.input_dtype == "i16"
                                   else 1.0 / 128.0))
-            iq_i = iq_i.to(torch.float32) * qs
-            iq_q = iq_q.to(torch.float32) * qs
-        else:
-            iq_i = iq_i.to(torch.float32).contiguous()
-            iq_q = iq_q.to(torch.float32).contiguous()
+            iq_i = iq_i.to(f32) * qs
+            iq_q = iq_q.to(f32) * qs
+        elif self._ddc or iq_i.dtype not in (f32, torch.bfloat16):
+            # the DDC's arithmetic is float32 (a bfloat16 plane, as a bf16
+            # fleet hands it over, widens exactly); any other type becomes
+            # float32 first, as the original's float32 upload does
+            iq_i, iq_q = iq_i.to(f32), iq_q.to(f32)
         sps = c.sps
         ddc_aux = ()
         if self._ddc:
@@ -915,15 +969,25 @@ class Pipeline:
                 freq_hz, phase0 = self._f_seed, state.aux[-1]
             iq_i, iq_q, phase = self._downconvert(iq_i, iq_q, freq_hz, phase0)
             ddc_aux = (phase,)
+        # the sample-rate planes are stored in the compute dtype from here
+        # on (sondetpu/runtime/pipeline.py:668-671); every front end reads
+        # them so
+        iq_i = iq_i.to(cdt).contiguous()
+        iq_q = iq_q.to(cdt).contiguous()
         # the kernel paths carry fm_prev and fir as they are; the plain
         # path replaces them. afc_dc: the loop's residual offset in
         # audio/dev units, per branch as in the original
         fm_prev, fir, aux = state.fm_prev, state.fir, ()
 
         if self._plain:
-            filt, new_ctail_i, new_ctail_q, fm_prev, fir, afc_dc = \
-                self._plain_frontend(state, iq_i, iq_q)
-        elif self._dualtone:
+            planes = [iq_i, iq_q]
+            del iq_i, iq_q
+            out = self._plain_frontend(state, planes)
+            if stop == "chanfilt":
+                return out
+            filt, new_ctail_i, new_ctail_q, fm_prev, fir, afc_dc, aux = out
+            del out
+        elif self._route == "dualtone":
             # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
             # + one-chip boxcar + envelope metric; mean DC from the kernel's
             # sums or the midpoint of its metric, AFC from its
@@ -939,7 +1003,9 @@ class Pipeline:
                 filt = filt - dc[:, None]
             afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t if c.afc
                       else None)
-        elif self._afsk:
+            if stop == "chanfilt":
+                return torch.sum(filt)
+        elif self._route == "afsk":
             # K1 at decim 1 with an identity matched filter gives the
             # DC-removed discriminator audio and its DC; K8 mixes it by the
             # mark and space tones, boxcars one symbol and forms the soft
@@ -947,6 +1013,8 @@ class Pipeline:
             audio, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._delta, self._scale, 1, c.dc_block)
+            if stop == "chanfilt":
+                return torch.sum(audio)
             filt, new_atail = fused_afsk_frontend(
                 audio, state.aux[0], self._afsk_tabs, self._afsk_win)
             aux = (new_atail,)
@@ -958,8 +1026,14 @@ class Pipeline:
                 iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
                 self._chan_taps, self._taps, self._scale, c.decim,
                 c.dc_block)
+            if stop == "chanfilt":       # chanfilt is demod here, as there
+                return torch.sum(filt)
         if c.afc:
             ddc_aux += (self._afc_update(freq_hz, afc_dc),)
+        if stop == "demod":
+            return torch.sum(filt)
+        # the compute dtype for the strided sample reads (:912-913)
+        filt = filt.to(cdt)
         n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
@@ -976,7 +1050,11 @@ class Pipeline:
         next_pos = start + cpb * sps - n
         timing_state = TimingState(pos=next_pos,
                                    locked=torch.ones_like(state.timing.locked))
+        if stop == "timing":
+            return torch.sum(start) + torch.sum(next_pos)
         soft = self._sample_symbols(filt, start, sps, cpb)
+        if stop == "sample":
+            return torch.sum(soft)
 
         # chip ring buffer: a constant cpb new chips -> static slice, stored
         # in the compute dtype
@@ -995,9 +1073,13 @@ class Pipeline:
                 corr2 = corr2.abs()
             m = min(corr.shape[-1], corr2.shape[-1])
             corr = torch.maximum(corr[:, :m], corr2[:, :m])
+        if stop == "corr":
+            return torch.sum(corr)
         min_dist = max(c.min_frame_chips // 4, self._template.shape[0])
         starts, ok = find_frame_starts(corr, c.sync_threshold, c.k_slots,
                                        min_dist)
+        if stop == "peaks":
+            return _int32_sum(starts) + _int32_sum(ok)
         # dedup across blocks: only frames whose END lies in the new chips,
         # and whose start lies within real (filled) history
         is_new = (starts + c.frame_chips) > (c.buf_len - cpb)
@@ -1033,15 +1115,17 @@ class Pipeline:
                 # soft-decision assist: gather soft chips, slice them, and
                 # rank each decoded bit's reliability as min(|a|, |b|) of
                 # its chip pair; the chase_m weakest per span ride the
-                # packed buffer (torch.topk in place of approx_max_k: the
-                # host compares them as a set of candidates)
+                # packed buffer (an exact ranking in place of approx_max_k,
+                # by (reliability, index) through a stable sort: bfloat16
+                # reliabilities tie often, and torch.topk breaks ties one
+                # way on the CPU and another on a CUDA device)
                 soft_fr, _ = gather_frames(chipbuf, starts, ok, c.frame_chips)
                 chips = (soft_fr > 0).to(torch.uint8)
                 rel = torch.minimum(soft_fr[..., 0::2].abs(),
                                     soft_fr[..., 1::2].abs())
                 weak = torch.cat([
-                    torch.topk(rel[..., a:b], c.chase_m, dim=-1,
-                               largest=False).indices + a
+                    torch.sort(rel[..., a:b], dim=-1, stable=True
+                               ).indices[..., :c.chase_m] + a
                     for a, b in c.chase_spans], dim=-1)    # [C, K, S*M]
             else:
                 chips, _ = gather_frames((chipbuf > 0).to(torch.uint8),
@@ -1053,6 +1137,8 @@ class Pipeline:
             bits8 = chips.reshape(cc, kk, fb, 8).to(torch.int32)
             frames = torch.sum(bits8 * self._bit_weight, dim=-1).to(
                 torch.uint8)
+        if stop == "gather":
+            return _int32_sum(frames)
         if self._whiten is not None:
             frames = torch.bitwise_xor(frames, self._whiten)
         score = torch.gather(
@@ -1064,10 +1150,13 @@ class Pipeline:
         # the original); frames flagged clean skip host FEC
         rs_layout = spec.extra.get("rs")
         if rs_layout is not None:
-            flags = rs_clean_flags if self._plain else rs_clean_flags_kernel
+            flags = (rs_clean_flags_kernel if self._route == "fused"
+                     else rs_clean_flags)
             rs_clean = flags(frames, rs_layout) & frame_valid
         else:
             rs_clean = torch.zeros_like(frame_valid)
+        if stop == "syndrome":
+            return _int32_sum(rs_clean) + _int32_sum(frame_valid)
 
         wire = frames if self._wire_cols is None else frames.index_select(
             -1, self._wire_cols)

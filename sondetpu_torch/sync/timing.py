@@ -1,5 +1,5 @@
 """Feed-forward symbol timing (counterpart: ``sondetpu/sync/timing.py``,
-``TimingState`` and ``oerder_meyr_tau``).
+``TimingState``, ``oerder_meyr_tau`` and ``_linear_interp``).
 """
 
 from __future__ import annotations
@@ -49,3 +49,17 @@ def oerder_meyr_tau(x: torch.Tensor, sps: float, cos_w: torch.Tensor,
     two_pi = torch.tensor(np.float32(2.0 * math.pi), device=x.device)
     tau = -torch.atan2(ci, cr) / two_pi * float(sps)
     return torch.remainder(tau, float(sps))
+
+
+def linear_interp(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Linearly interpolate x [channels, n] at fractional positions pos
+    [channels, m]; out-of-range positions clamp to the edges. The
+    original's ``_linear_interp`` in its dtypes: ``b - a`` in x's dtype,
+    then ``a + (b - a) * frac`` promoted to float32 by the float32
+    ``frac``."""
+    n = x.shape[-1]
+    p0 = torch.clamp(torch.floor(pos).to(torch.int64), 0, n - 2)
+    frac = torch.clamp(pos - p0.to(pos.dtype), 0.0, 1.0)
+    a = torch.gather(x, -1, p0)
+    b = torch.gather(x, -1, p0 + 1)
+    return a + (b - a) * frac

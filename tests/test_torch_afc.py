@@ -52,6 +52,7 @@ from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 CPU = torch.device("cpu")
 FS = 48000.0

@@ -45,6 +45,7 @@ from sondetpu_torch.sondes import imet4 as timet4
 from sondetpu_torch.sondes.modulate import afsk_modulate, freq_shift
 from sondetpu_torch.sync import correlator as tcorrelator
 from sondetpu_torch.sync.coding import np_bytes_to_bits
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 T = torch.from_numpy
 CPU = torch.device("cpu")
@@ -350,14 +351,44 @@ def test_afsk_pipeline_matches_jax(family):
 
 
 def test_afsk_gate_refuses_blocks_the_tone_period_does_not_divide():
-    """imet4's tones repeat every L = 240 samples; a 48040-sample block
-    (whole symbols, L does not divide it) needs the jnp _afsk_frontend,
-    which is not ported."""
-    cfg = tpipe.PipelineConfig(**_config("imet4", block_len=48040))
-    assert not jpipe.Pipeline(jpipe.PipelineConfig(
-        **_config("imet4", block_len=48040)))._pallas_afsk
-    with pytest.raises(NotImplementedError, match="_afsk_frontend.*L = 240"):
-        tpipe.Pipeline(cfg, CPU)
+    """imet4's tones repeat every L = 240 samples; with use_pallas=True a
+    48040-sample block (whole symbols, L does not divide it) fails the
+    AFSK kernel's gate, and both packages' sessions run the jnp AFSK front
+    end: 3 blocks, per block validity and valid-slot bytes equal and the
+    LO phase counter equal; then identical telemetry."""
+    block = 48040
+    kw = _config("imet4", block_len=block)
+    jsess = JaxSession(jpipe.PipelineConfig(**kw))
+    tsess = DecoderSession(tpipe.PipelineConfig(**kw), CPU)
+    jp, tp = jsess.pipeline, tsess.pipeline
+    assert not jp._pallas_afsk and tp._route is None and tp._afsk
+    recs = ([], [])
+    for pipe, rec in zip((jp, tp), recs):
+        def wrapped(state, iq, step=pipe.step, rec=rec):
+            state, out = step(state, iq)     # copied at once: JAX donates
+            rec.append([np.array(np.asarray(x)) for x in
+                        (out.frame_valid, out.frames, state.aux[4])])
+            return state, out
+        pipe.step = wrapped
+    qi, qq = _afsk_planes("imet4", 4)
+    for b in range(3):
+        sl = slice(b * block, (b + 1) * block)
+        jsess.process_block((qi[:, sl], qq[:, sl]))
+        tsess.process_block((qi[:, sl], qq[:, sl]))
+    assert len(recs[0]) == len(recs[1]) == 3
+    frames = 0
+    for b, ((jv, jf, jn), (tv, tf, tn)) in enumerate(zip(*recs)):
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tf[jv], jf[jv])
+        np.testing.assert_array_equal(tn, jn)
+        assert int(tn[0]) == (b + 1) * block % 240
+        frames += int(jv.sum())
+    assert frames >= C * 4
+    assert ({ch: json.dumps(t.to_dict(), sort_keys=True)
+             for ch, t in tsess.telemetry.items()}
+            == {ch: json.dumps(t.to_dict(), sort_keys=True)
+                for ch, t in jsess.telemetry.items()})
+    assert sorted(tsess.telemetry) == list(range(C))
 
 
 # --- the fleet with AFSK bins ---------------------------------------------------

@@ -1,8 +1,11 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels against their
-plain twins (K7 in every body, K9, K10), and the kernel path (rs41, ims100
-and mrzn1), the plain-op path (rs41, and the dual-tone families m10,
-ims100 and mrzn1), the DDC and AFC loop and the fleet on the card against
-the CPU.
+plain twins (K1 and K7 in every body, on float32 and bfloat16 input, K4-K6
+in float32 and bfloat16, K9, K10), and the kernel path (rs41, ims100 and
+mrzn1), the plain-op path (rs41, and the dual-tone families m10, ims100
+and mrzn1), the configs the kernel gates send to the plain-op path, the
+jnp AFSK front end, the bfloat16 kernel routes, the DDC and AFC loop and
+the fleet (float32, and bfloat16 with AFSK bins) on the card against the
+CPU.
 
 This file imports neither jax nor the JAX package (sondetpu), so it runs
 on a machine that has only torch and the CUDA toolkit; tests/conftest.py
@@ -20,18 +23,26 @@ import numpy as np
 import pytest
 import torch
 
+from sondetpu_torch.dsp.channelizer import PFBChannelizer
 from sondetpu_torch.dsp.fir import design_lowpass
 from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.dualtone import (dualtone_body,
                                              fused_dualtone_frontend,
                                              fused_dualtone_plain,
                                              mixer_tables)
-from sondetpu_torch.kernels.frontend import (HALO, fused_demod_fir,
-                                             fused_demod_fir_plain)
+from sondetpu_torch.kernels.frontend import (HALO, frontend_body,
+                                             fused_demod_fir,
+                                             fused_demod_fir_plain,
+                                             fused_frontend,
+                                             fused_frontend_plain)
 from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
+                                        pfb_fir_stream, pfb_fir_timemajor)
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+from sondetpu_torch.sondes.c50 import C50Modulator, C50Truth
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
+from sondetpu_torch.sondes.imet4 import IMET4Modulator, IMET4Truth
 from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift
@@ -389,4 +400,306 @@ def test_cuda_fleet_matches_cpu(cuda_device):
     assert all(cuda.launches[k] > 0 for k in ("pfb_fir_stream", "pfb_dft",
                                                "fused_dualtone_frontend"))
     assert sorted(gpu.telemetry) == [0, 1, 2]
+    assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)
+
+
+# --- K1 (moved here, jax-free inputs) and K1, K7 on bfloat16 input ----------
+
+def _frontend_args(seed, c, n, decim, ntaps=41, delta=False,
+                   dtype=torch.float32, device=CPU):
+    """K1's arguments: seeded planes and tails, RS41's channel filter and
+    a lowpass matched filter, or the exact delay [0, ..., 0, 1]."""
+    rng = np.random.default_rng(seed)
+    planes = [T(rng.normal(size=s).astype(np.float32)).to(device, dtype)
+              for s in ((c, n), (c, n), (c, HALO), (c, HALO))]
+    ct = design_lowpass(5000.0, FS, ntaps)
+    if delta:
+        mt = np.zeros(ntaps, np.float32)
+        mt[-1] = 1.0
+    else:
+        mt = design_lowpass(2640.0, FS / decim, ntaps)
+    return planes, ct, mt, float(np.float32(FS / decim / (2 * np.pi * 2400)))
+
+
+@pytest.mark.parametrize("decim", [1, 2])
+def test_cuda_fused_frontend_matches_twin(cuda_device, decim):
+    planes, ct, mt, scale = _frontend_args(11, 16, 48000, decim,
+                                           device=cuda_device)
+    before = cuda.launches["fused_frontend"]
+    got = fused_frontend(*planes, ct, mt, scale, decim, True)
+    want = fused_frontend_plain(*planes, ct, mt, scale, decim, True)
+    assert cuda.launches["fused_frontend"] == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-5)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("taps", ["lowpass", "delta"])
+@pytest.mark.parametrize("ntaps", [41, 33])
+@pytest.mark.parametrize("decim", [1, 2])
+def test_cuda_fused_frontend_bodies_exact(cuda_device, decim, ntaps, taps):
+    """Every body of the front end (41 taps at compile time or T at run
+    time, matched FIR or identity) equals its twin bit for bit before the
+    DC, on a block that is not a multiple of the tile."""
+    planes, ct, mt, _ = _frontend_args(14, 3, 2 * 4803, decim, ntaps,
+                                       taps == "delta", device=cuda_device)
+    cuda.reset_launches()
+    got = fused_frontend(*planes, ct, mt, 3.2, decim, False)
+    want = fused_frontend_plain(*planes, ct, mt, 3.2, decim, False)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[3], want[3], rtol=0, atol=1e-5)
+    body = frontend_body(decim, ntaps, taps == "delta")
+    assert cuda.body_launches == {f"fused_frontend:{body}": 1}
+
+
+_BF16_BODIES = (
+    [pytest.param("k1", d, t, delta, id=f"k1-decim{d}-t{t}"
+                  + ("-identity" if delta else ""))
+     for d in (1, 2) for t in (41, 33) for delta in (False, True)]
+    + [pytest.param("k7", nb, skip, afc, id=f"k7-{body}")
+       for nb, skip, afc, body in (
+           (5, True, False, "skip_nb5"), (5, True, True, "skip_nb5_afc"),
+           (7, True, False, "skip_runtime_nb"),
+           (7, True, True, "skip_runtime_nb_afc"),
+           (20, False, False, "chanfilt"), (20, False, True, "chanfilt_afc"))])
+
+
+@pytest.mark.parametrize("kernel,a,b,c", _BF16_BODIES)
+def test_cuda_bf16_input_equals_f32_on_widened(cuda_device, kernel, a, b, c):
+    """K1 and K7 in every body on bfloat16 planes and tails (the body
+    named with _bf16) give bit for bit what the float32 body gives on the
+    same values widened to float32, on 13 channels (not a multiple of K7's
+    eight rows) and a block no tile divides; the carried tails are the
+    bfloat16 input."""
+    bf = torch.bfloat16
+    rows, n = 13, 30001
+    if kernel == "k1":
+        decim, ntaps, delta = a, b, c
+        n += n % 2 if decim == 2 else 0
+        planes, ct, mt, scale = _frontend_args(15, rows, n, decim, ntaps,
+                                               delta, bf, cuda_device)
+        cuda.reset_launches()
+        got = fused_frontend(*planes, ct, mt, scale, decim, True)
+        want = fused_frontend(*(p.float() for p in planes), ct, mt, scale,
+                              decim, True)
+        body = "fused_frontend:" + frontend_body(decim, ntaps, delta, True)
+    else:
+        nb, skip, afc = a, b, c
+        rng = np.random.default_rng(16)
+        planes = [T(rng.normal(size=s).astype(np.float32)).to(cuda_device, bf)
+                  for s in ((rows, n), (rows, n), (rows, HALO), (rows, HALO))]
+        taps = design_lowpass(0.45 * FS, FS, 41)
+        tabs = [T(t).to(cuda_device) for t in mixer_tables(n, 0.25)]
+        cuda.reset_launches()
+        got = fused_dualtone_frontend(*planes, taps, *tabs, nb, afc, skip)
+        want = fused_dualtone_frontend(*(p.float() for p in planes), taps,
+                                       *tabs, nb, afc, skip)
+        body = ("fused_dualtone_frontend:"
+                + dualtone_body(nb, skip, afc, True))
+    assert cuda.body_launches.get(body) == 1, cuda.body_launches
+    for g, w in zip(got, want):
+        if g.dtype == bf:
+            continue
+        assert torch.equal(g, w)
+    assert got[1].dtype == bf and torch.equal(got[1], planes[0][:, -HALO:])
+
+
+def _pfb_planes(device, m, n, seed):
+    rng = np.random.default_rng(seed)
+    return [T(rng.normal(size=s).astype(np.float32)).to(device)
+            for s in ((m, n), (m, n), (8, n), (8, n))]
+
+
+def test_cuda_pfb_kernels_match_twins(cuda_device):
+    n, m = 512, 300
+    x_i, x_q, t_i, t_q = _pfb_planes(cuda_device, m, n, 10)
+    hcol = PFBChannelizer(n, cuda_device)._hcol_t
+    got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol)
+    want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got_tm = pfb_fir_timemajor(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]),
+                               hcol)
+    assert torch.equal(got_tm[0], got[0]) and torch.equal(got_tm[1], got[1])
+    y = pfb_dft(*got)
+    w = pfb_dft_plain(*got)
+    for a, b in zip(y, w):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [2048, 16])
+def test_cuda_bf16_pfb_kernels_match_twins(cuda_device, n):
+    """K4 and K5 in bfloat16 are torch.equal to their twin run in bfloat16
+    (every product and sum rounded to bfloat16, body bf16); K6 on bfloat16
+    u (its n2048_bf16 or radix2_bf16 body) within one bfloat16 step at
+    max|y| plus 1e-4 of max|y| (K6's float32 tolerance) of the float32
+    transform of the widened u."""
+    bf = torch.bfloat16
+    m = 1003
+    x_i, x_q, t_i, t_q = _pfb_planes(cuda_device, m, n, 12)
+    hcol = PFBChannelizer(n, cuda_device)._hcol_t
+    cuda.reset_launches()
+    got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol, bf)
+    want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol,
+                         bf)
+    assert got[0].dtype == bf
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    vv = [torch.cat([t, x[:5]]) for t, x in ((t_i, x_i), (t_q, x_q))]
+    tm = pfb_fir_timemajor(*vv, hcol, bf)
+    tw = pfb_fir_plain(*vv, hcol, bf)
+    assert torch.equal(tm[0], tw[0]) and torch.equal(tm[1], tw[1])
+    y = pfb_dft(*got)
+    w = pfb_dft_plain(*(u.float() for u in got))
+    for a, b in zip(y, w):
+        top = float(b.abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+        assert a.dtype == bf
+        assert float((a.float() - b).abs().max()) <= ulp + 1e-4 * top
+    body = "n2048_bf16" if n == 2048 else "radix2_bf16"
+    assert cuda.body_launches == {"pfb_fir_stream:bf16": 1,
+                                  "pfb_fir_timemajor:bf16": 1,
+                                  f"pfb_dft:{body}": 1}, cuda.body_launches
+
+
+# --- the configs of the kernel gates, the jnp AFSK front end, bf16 routes ------
+
+def _family_rows(sonde, n, fs=FS, c=8, noise=0.05):
+    """cs16 (i, q) [c, n] at rate fs: channel ch carries truth ch % 3 of
+    the family from its own point in the frame stream, with its own
+    noise."""
+    rows = []
+    for ch in range(c):
+        k = ch % 3
+        m = n + 37 * k
+        if sonde == "rs41":
+            iq = RS41Modulator().modulate(
+                [RS41Truth(serial=SERIALS[k], frame_no=20 + j)
+                 for j in range(m // 25000 + 2)], fs=fs)
+        elif sonde == "m10":
+            iq = M10Modulator().modulate(
+                [M10Truth(serial=DUALTONE_SERIALS["m10"][k], frame_no=5 + j)
+                 for j in range(m // 8000 + 2)], fs=fs)
+        elif sonde == "ims100":
+            iq = IMS100Modulator().modulate(
+                [IMS100Truth(serial=DUALTONE_SERIALS["ims100"][k],
+                             frame_no=2 + j)
+                 for j in range(m // 11000 + 2)], fs=fs)
+        elif sonde == "imet4":
+            iq = IMET4Modulator().modulate(
+                [IMET4Truth(frame_no=1 + j, lat=40.0 + k)
+                 for j in range(m // 20000 + 2)], fs=fs)
+        else:
+            iq = C50Modulator().modulate(
+                [C50Truth(serial_num=12345 + k, frame_no=1 + j)
+                 for j in range(m // 10000 + 2)], fs=fs)
+        iq = iq[37 * k:37 * k + n]
+        rng = np.random.default_rng(60 + ch)
+        rows.append(iq + noise * (rng.normal(size=n)
+                                  + 1j * rng.normal(size=n)))
+    return _cs16(np.stack(rows))
+
+
+# id -> (config, blocks, the bodies launched per block on the card)
+_ROUTED = {
+    "channels-12": (dict(sonde="rs41", channels=12), 3, {}),
+    "block-200": (dict(sonde="m10", block_len=200), 240, {}),
+    "fractional-sps": (dict(sonde="rs41", fs=50000.0, block_len=50000), 3,
+                       {"fused_frontend:decim2_t41": 1,
+                        "corr:sign_l64": 1, "rs_clean:c384": 1}),
+    "ims100-48100": (dict(sonde="ims100", fs=48100.0, block_len=48100), 3,
+                     {"fused_dualtone_frontend:chanfilt": 1}),
+    "imet4-plain": (dict(sonde="imet4", use_pallas=False), 3, {}),
+    "c50-plain": (dict(sonde="c50", use_pallas=False), 3, {}),
+    "imet4-l-not-dividing": (dict(sonde="imet4", block_len=48040), 3, {}),
+    "m10-bf16-kernel": (dict(sonde="m10", compute_dtype="bf16"), 3,
+                        {"fused_dualtone_frontend:skip_nb5_bf16": 1}),
+    "ims100-bf16-kernel": (dict(sonde="ims100", compute_dtype="bf16"), 3,
+                           {"fused_dualtone_frontend:chanfilt_bf16": 1}),
+    "m10-fm-fallback-bf16": (dict(sonde="m10", block_len=48005,
+                                  compute_dtype="bf16"), 3,
+                             {"fused_frontend:decim1_t41_bf16": 1,
+                              "corr:long_l": 1, "corr:sign_l64": 1}),
+}
+
+
+@pytest.mark.parametrize("case", list(_ROUTED))
+def test_cuda_routed_configs_match_cpu(cuda_device, case):
+    """Each config on the card equals the CPU (twins) on validity, valid
+    frame bytes and RS verdicts block by block, and launches exactly the
+    bodies of its route: none where a kernel gate fails (12 channels, a
+    200-sample block, a block the AFSK tones' period does not divide) or
+    use_pallas is off (the jnp AFSK front end); K1 and K7 with
+    linear_interp at 50 and 48.1 kHz; the bfloat16 bodies of K7, and of K1
+    with K2 on the widened bfloat16 ring on m10's FM fallback (m10's
+    80-chip template and M20's 64-chip alternate)."""
+    import warnings
+
+    kw, n_blocks, bodies = _ROUTED[case]
+    kw = {**dict(channels=8, block_len=BLOCK, use_pallas=True,
+                 input_dtype="i16"), **kw}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # m10's FM fallback warns
+        cfg = tpipe.PipelineConfig(**kw)
+        gp, cp = tpipe.Pipeline(cfg, cuda_device), tpipe.Pipeline(cfg, CPU)
+    block = cfg.block_len
+    qi, qq = _family_rows(cfg.sonde, n_blocks * block, cfg.fs,
+                          cfg.channels)
+    gs, cs = gp.init_state(), cp.init_state()
+    cuda.reset_launches()
+    frames = 0
+    for b in range(n_blocks):
+        blk = (qi[:, b * block:(b + 1) * block],
+               qq[:, b * block:(b + 1) * block])
+        gs, go = gp.step(gs, blk)
+        cs, co = cp.step(cs, blk)
+        v = co.frame_valid
+        assert torch.equal(go.frame_valid.cpu(), v), f"block {b}"
+        assert torch.equal(go.frames.cpu()[v], co.frames[v])
+        assert torch.equal(go.rs_clean.cpu(), co.rs_clean)
+        frames += int(v.sum())
+    assert frames >= cfg.channels
+    assert cuda.body_launches == {k: n_blocks * v for k, v in bodies.items()}
+    if not bodies:
+        assert not any(cuda.launches.values()), cuda.launches
+
+
+def test_cuda_bf16_fleet_with_afsk_bins_matches_cpu(cuda_device):
+    """A 16-bin fleet in bfloat16 with the default use_pallas (every group
+    on its kernel route) and rs41, m10, dfm, imet4 and c50 carriers: the
+    card gives the CPU's telemetry, every carrier decodes, and the PFB runs
+    its bf16 bodies."""
+    n_bins, n_blocks = 16, 2
+    fs_wide = n_bins * FS
+    plan = ((2, "rs41"), (4, "m10"), (7, "dfm"), (10, "imet4"), (13, "c50"))
+    n = n_blocks * n_bins * BLOCK
+    sig = {"rs41": RS41Modulator().modulate(
+        [RS41Truth(frame_no=40 + i) for i in range(5)], fs=fs_wide),
+        "m10": M10Modulator().modulate(
+            [M10Truth(frame_no=8 + i) for i in range(14)], fs=fs_wide),
+        "dfm": DFMModulator().modulate(
+            [DFMTruth(frame_no=2 + k) for k in range(11)], fs=fs_wide),
+        "imet4": IMET4Modulator().modulate(
+            [IMET4Truth(frame_no=1 + k) for k in range(3)], fs=fs_wide),
+        "c50": C50Modulator().modulate(
+            [C50Truth(frame_no=1 + k) for k in range(10)], fs=fs_wide)}
+    wide = np.zeros(n, np.complex64)
+    for k, family in plan:
+        center = (k if k < n_bins / 2 else k - n_bins) * FS
+        x = freq_shift(sig[family][:n], center / fs_wide)
+        wide[:x.size] += x
+    rng = np.random.default_rng(16)
+    wide += (0.02 * (rng.normal(size=n) + 1j * rng.normal(size=n))
+             ).astype(np.complex64)
+    chans = [FleetChannel(b, s) for b, s in plan]
+    gpu = FleetSession(chans, n_bins, cuda_device, compute_dtype="bf16")
+    cpu = FleetSession(chans, n_bins, "cpu", compute_dtype="bf16")
+    cuda.reset_launches()
+    w = n_bins * BLOCK
+    for i in range(0, n, w):
+        gpu.process_wideband(wide[i:i + w])
+        cpu.process_wideband(wide[i:i + w])
+    assert cuda.body_launches.get("pfb_fir_stream:bf16") == n_blocks
+    assert cuda.body_launches.get("pfb_dft:radix2_bf16") == n_blocks
+    assert cuda.launches["fused_afsk_frontend"] == 2 * n_blocks
+    assert sorted(gpu.telemetry) == list(range(len(plan)))
     assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)

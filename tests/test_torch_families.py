@@ -47,6 +47,7 @@ from sondetpu_torch.sondes import mrzn1 as tmrzn1
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync import coding as tcoding
 from sondetpu_torch.sync import correlator as tcorrelator
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 T = torch.from_numpy
 CPU = torch.device("cpu")

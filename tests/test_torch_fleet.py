@@ -15,6 +15,7 @@ import torch
 
 from sondetpu.runtime.fleet import FleetChannel as JaxChannel
 from sondetpu.runtime.fleet import FleetSession as JaxFleet
+from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
 from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
@@ -22,6 +23,7 @@ from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift, gfsk_modulate
 from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 N_BINS = 8
 FS_WIDE = N_BINS * 48000.0
@@ -131,19 +133,28 @@ def test_fleet_step_is_one_packed_buffer(wideband):
 
 
 def test_fleet_refuses_what_is_not_ported():
-    """The mesh fleet and the configs the port lacks (m10's 100-sample
-    block below the kernels' carried tail; an ims100 group at 48.1 kHz,
-    whose sps 20.04 needs _linear_interp) raise; afc and
+    """The mesh fleet raises. Configs the port once refused take the route
+    the original's gates pick: m10's 100-sample block (below the kernels'
+    carried tail) the plain-op front end, with no pad rows; an ims100
+    group at 48.1 kHz (sps 20.04) K7 and linear_interp, or with
+    use_pallas=False the plain-op front end and linear_interp. afc and
     offset_hz below the grid (the groups' DDC and AFC loop) are taken and
     reach each group's config, pad rows on the grid."""
     chans = [FleetChannel(1, "rs41")]
     with pytest.raises(NotImplementedError, match="mesh"):
         FleetSession(chans, N_BINS, "cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="block_len=100"):
-        FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu", block_len=100)
-    with pytest.raises(NotImplementedError, match="_linear_interp"):
-        FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu",
-                     fs_chan=48100.0, block_len=48100)
+    fleet = FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu",
+                         block_len=100)
+    pipe = fleet.groups["m10"][1].pipeline
+    assert pipe._plain and pipe.config.channels == 1
+    for use_pallas, route in ((True, "dualtone"), (False, None)):
+        fleet = FleetSession([FleetChannel(2, "ims100")], N_BINS, "cpu",
+                             fs_chan=48100.0, block_len=48100,
+                             use_pallas=use_pallas)
+        pipe = fleet.groups["ims100"][1].pipeline
+        assert pipe._route == route
+        assert tpipe._rational_sps(pipe.config) is None
+        assert not float(pipe.config.sps).is_integer()
     fleet = FleetSession(chans, N_BINS, "cpu", afc=True)
     cfg = fleet.groups["rs41"][1].config
     assert cfg.afc and cfg.fine_offsets is None

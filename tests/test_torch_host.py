@@ -52,6 +52,7 @@ from sondetpu_torch.sondes import rs41 as trs41
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync import coding as tcoding
 from sondetpu_torch.sync import correlator as tcorrelator
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 SPECS = [(jrs41.SPEC, trs41.SPEC), (jrs41.SPEC_EXT, trs41.SPEC_EXT)]
 

@@ -13,6 +13,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(

@@ -23,6 +23,7 @@ from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
                                         pfb_fir_stream, pfb_fir_timemajor,
                                         twiddle_table)
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 T = torch.from_numpy
 
@@ -166,29 +167,85 @@ def test_pfb_fir_plain_is_the_tap_loop():
     np.testing.assert_allclose(u_i.numpy(), want, atol=1e-5)
 
 
-# --- on the card: each kernel against its twin -------------------------------
+# --- bfloat16 -------------------------------------------------------------------
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no "
-                    "CPU mode); chip_smoke.py runs these on the card")
-    return torch.device("cuda", 0)
+def _bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-def test_cuda_pfb_kernels_match_twins(cuda_device):
-    n, m = 512, 300
-    x_i, x_q = (T(a).to(cuda_device) for a in _planes(10, m, n))
-    t_i, t_q = (T(a).to(cuda_device) for a in _planes(11, 8, n))
-    hcol = T(JaxPFB(n)._hcol).to(cuda_device)
-    got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol)
-    want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    got_tm = pfb_fir_timemajor(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]),
-                               hcol)
-    assert torch.equal(got_tm[0], got[0]) and torch.equal(got_tm[1], got[1])
-    y = pfb_dft(*got)
-    w = pfb_dft_plain(*got)
-    for a, b in zip(y, w):
-        torch.testing.assert_close(a, b, rtol=0,
-                                   atol=1e-4 * float(b.abs().max()))
+@pytest.mark.parametrize("n", [16, 512])
+def test_bf16_fir_twin_equals_xla(n):
+    """The bf16 branch FIR twin (input and taps rounded to bfloat16, every
+    product and running sum rounded to bfloat16, from the product of tap 0)
+    against the JAX channelizer's bf16 slice-sum under jit on the CPU, the
+    path its bf16 PFBChannelizer takes there: bit for bit (XLA on the CPU
+    rounds each bfloat16 product and sum as PyTorch does). The stream and
+    time-major wrappers' CPU routes are the twin."""
+    import jax
+    m, tpp = 200, 8
+    rows = m + tpp - 1
+    jp = JaxPFB(n, dtype="bf16")
+    hcol = jnp.asarray(jp._hcol, jnp.bfloat16)
+    vv_i, vv_q = _planes(n + 1, tpp + m, n)
+
+    @jax.jit
+    def fir(vv):
+        vv = vv.astype(jnp.bfloat16)
+        vvs = jnp.concatenate([vv[1:rows + 1, :1], vv[:rows, 1:]], axis=1)
+        acc = None
+        for t in range(tpp):
+            s = vvs[tpp - 1 - t:tpp - 1 - t + m, :] * hcol[t][None, :]
+            acc = s if acc is None else acc + s
+        return acc
+
+    want = [np.asarray(fir(jnp.asarray(v))).astype(np.float32)
+            for v in (vv_i, vv_q)]
+    bf = torch.bfloat16
+    got = pfb_fir_plain(T(vv_i), T(vv_q), T(jp._hcol), bf)
+    for g, w in zip(got, want):
+        assert g.dtype == bf
+        np.testing.assert_array_equal(g.float().numpy(), w)
+    stream = pfb_fir_stream(T(vv_i[tpp:]), T(vv_q[tpp:]), T(vv_i[:tpp]),
+                            T(vv_q[:tpp]), T(jp._hcol), bf)
+    tm = pfb_fir_timemajor(T(vv_i), T(vv_q), T(jp._hcol), bf)
+    for a, b, c in zip(got, stream, tm):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n", [16, 512])
+def test_bf16_channelizer_matches_jax(n):
+    """PFBChannelizer(n, dtype="bf16") against the JAX one: three streamed
+    blocks and one shorter than the filter history; y in bfloat16 within 4
+    bfloat16 steps at max|y| of JAX's, the carried tails float32 and equal.
+    Not bit for bit: the FIR is (test_bf16_fir_twin_equals_xla), but JAX's
+    DFT rounds its stages to bfloat16 (each matrix product, twiddle
+    product and sum: 3 roundings at N = 16, 7 at N = 512 = 16 x 32) where
+    the port's transforms in float32 and rounds once (measured: 1 step)."""
+    jp, tp = JaxPFB(n, dtype="bf16"), PFBChannelizer(n, "cpu", "bf16")
+    js, ts = jp.init_state(), tp.init_state()
+    rng = np.random.default_rng(n + 2)
+    for w in (n * 40, n * 40, n * 40, n * 3):
+        x_i, x_q = (rng.normal(size=w).astype(np.float32) for _ in range(2))
+        js, jy_i, jy_q = jp(js, jnp.asarray(x_i), jnp.asarray(x_q))
+        ts, ty_i, ty_q = tp(ts, T(x_i), T(x_q))
+        for g, want in ((ty_i, jy_i), (ty_q, jy_q)):
+            want = np.asarray(want).astype(np.float32)
+            assert g.dtype == torch.bfloat16 and g.shape == (n, w // n)
+            top = np.abs(want).max()
+            np.testing.assert_allclose(g.float().numpy(), want, rtol=0,
+                                       atol=4 * _bf16_ulp(top))
+        assert ts.tail_i.dtype == torch.float32
+        np.testing.assert_array_equal(ts.tail_i.numpy(), np.asarray(js.tail_i))
+        np.testing.assert_array_equal(ts.tail_q.numpy(), np.asarray(js.tail_q))
+
+
+def test_bf16_dft_twin_rounds_the_f32_transform_once():
+    """pfb_dft's CPU route on bfloat16 u: torch.fft of the widened planes,
+    rounded to bfloat16 once."""
+    u_i, u_q = (T(a).to(torch.bfloat16) for a in _planes(21, 64, 16))
+    got = pfb_dft(u_i, u_q)
+    want = pfb_dft_plain(u_i.float(), u_q.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))

@@ -49,6 +49,7 @@ from sondetpu_torch.sondes import ims100 as tims100
 from sondetpu_torch.sondes import m10 as tm10
 from sondetpu_torch.sondes import mrzn1 as tmrzn1
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth, RS41XModulator
+import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 CPU = torch.device("cpu")
 BLOCK, N_BLOCKS = 48000, 3
