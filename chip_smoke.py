@@ -119,6 +119,38 @@ before the result line:
     its jnp path (rs41 at 12 channels, m10 at 200-sample blocks: no hand
     kernel) or to K7 with linear_interp (ims100 at 48.1 kHz), card against
     CPU block by block and in telemetry.
+22. cli_full_width: the port's command line (sondetpu_torch.cli.main, in
+    this process) decodes a cs16 file of one rs41 channel tiled to 2048
+    rows (bench.py's shape, device dequant, 3 blocks of 4 s) at its
+    default (the plain-op step in f32, no kernel) and with use_pallas (K1,
+    K2, K3 once a block): S1234567 on every channel; each run's session
+    rate and the shares of its wall time in the host's file read and tile
+    and in the JSONL sink, beside DecoderSession.process_block's session
+    rate on the same host planes.
+23. cli_wideband: decode --wideband --bins 2048 of a cs16 capture (2 blocks
+    of 1 s, fleet_blocks' carriers in bins 1, 6 and 9 and an rs41 carrier
+    3150 Hz off bin 12) with bench.py's channel map and use_pallas, from
+    the file and with --stream (the native reader): every carrier decoded,
+    the JSONL of both equal, K4, K6, K7, K1, K2, K3 launched; then
+    cli_checkpoint_fleet: block 1 with --checkpoint, block 2 with --resume,
+    the JSONL of the uninterrupted run.
+24. cli_narrowband: each of the eight families on one channel, card against
+    CPU (JSONL, GPX and PTU byte-equal), and on the card --stream against
+    the file, --rate 50000 against the same frames at 48 kHz (JSONL
+    equal), a cs8 file
+    with device dequant (card against CPU), --sonde auto, --afc with the
+    carrier off by 3 kHz (1 kHz for ims100, mrzn1; card against CPU), and
+    --channels 8 with use_pallas (card against CPU, kernels launched).
+25. cli_checkpoint: an rs41 session of 64 channels in f32 and in bf16 (no
+    ml_dtypes loaded) saved after block 1 by --checkpoint and resumed by
+    --resume equals the uninterrupted run; the JAX package's checkpoint in
+    tests/data, restored on the card and run on, equals the JAX run.
+26. fer: the port's fer_sweep on the card against the CPU at the seed and
+    frame counts of tests/test_torch_fer.py, every family on the plain path
+    (one channel) and the kernel path (8 channels): decoded-unit sets and
+    points equal, but imet4's packet 124 in the kernel path's clean run,
+    a last-ulp tie that the card and the JAX package's kernels break one
+    way and the CPU twins the other (FER_TIE; phase_fer says why).
 
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
@@ -131,7 +163,8 @@ are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
 K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
 paths' shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
-path's run and per step on each path), the card as nvidia-smi names it,
+path's run, per step on each path and in each command-line run), the card
+as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
 compiler; no network.
 """
@@ -999,29 +1032,34 @@ def narrowband(family: str, serial: str, n: int, fs: float) -> np.ndarray:
 
 
 def fleet_blocks(torch, dev, n_blocks: int, seed: int, n_bins: int = N_BINS,
-                 block_len: int = BLOCK_LEN):
+                 block_len: int = BLOCK_LEN, carriers=FLEET_CARRIERS):
     """Wideband (i, q) planes [n_bins * block_len] float32 on ``dev``, one
     block at a time: complex noise of std 0.05 per component plus the
-    FLEET_CARRIERS, each modulated at 48 kHz by the port's modulator and
-    placed as bench.py places its RS41 carrier (zero-order hold x n_bins,
-    then a phase ramp to its bin: row r, column j of the block gets
-    a[r] * exp(2*pi*i*k*j/n_bins))."""
+    ``carriers`` ((bin, family, serial) or (bin, family, serial, offset
+    Hz)), each modulated at 48 kHz by the port's modulator, shifted by its
+    offset, and placed as bench.py places its RS41 carrier (zero-order hold
+    x n_bins, then a phase ramp to its bin: row r, column j of the block
+    gets a[r] * exp(2*pi*i*k*j/n_bins))."""
+    from sondetpu_torch.sondes.modulate import freq_shift
+
     n = n_blocks * block_len
-    carriers = []
-    for k, family, serial in FLEET_CARRIERS:
+    placed = []
+    for k, family, serial, *offset in carriers:
         iq = narrowband(family, serial, n, FS)
+        if offset:
+            iq = freq_shift(iq, offset[0] / FS)
         a = torch.from_numpy(np.stack([iq.real, iq.imag]).astype(
             np.float32)).to(dev)
         ang = 2.0 * np.pi * k * np.arange(n_bins) / n_bins
         ph = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(
             np.float32)).to(dev)
-        carriers.append((a, ph))
+        placed.append((a, ph))
     gen = torch.Generator(device=dev).manual_seed(seed)
     for b in range(n_blocks):
         sl = slice(b * block_len, (b + 1) * block_len)
         wi = 0.05 * torch.randn((block_len, n_bins), generator=gen, device=dev)
         wq = 0.05 * torch.randn((block_len, n_bins), generator=gen, device=dev)
-        for a, ph in carriers:
+        for a, ph in placed:
             ar, ai = a[0, sl, None], a[1, sl, None]
             wi += ar * ph[0] - ai * ph[1]
             wq += ar * ph[1] + ai * ph[0]
@@ -3212,6 +3250,540 @@ def phase_tune(torch, dev, variants=(
         cuda._lib = None
 
 
+# --- the command line (sondetpu_torch.cli.main) ---------------------------------
+
+CLI_FAMILIES = ("rs41", "rs41x", "m10", "dfm", "ims100", "imet4", "c50",
+                "mrzn1")
+CLI_REF_EPOCH = "1700000000"
+# synth frames of about 3.5 s per family: --sonde auto probes 3 blocks
+CLI_FRAMES = {"rs41": 7, "rs41x": 5, "m10": 21, "dfm": 16, "ims100": 15,
+              "imet4": 9, "c50": 17, "mrzn1": 33}
+# the carrier offset of the --afc case: 3 kHz, but 1 kHz for ims100 and
+# mrzn1, which the JAX package's AFC does not pull in from 3 kHz either
+CLI_AFC_HZ = {"ims100": 1000.0, "mrzn1": 1000.0}
+# the off-grid carrier of cli_wideband: (bin, family, serial, offset Hz)
+CLI_OFFGRID = (12, "rs41", "T7654321", 3150.0)
+# the seeds and frame counts of tests/test_torch_fer.py
+# the one decode unit in which the kernel path's card and CPU sets may
+# part: imet4's packet 124 in the clean run, a sync-peak pick that turns on
+# a last-ulp tie; the card keeps it, as the JAX package's kernels do, and
+# the CPU twins do not (tests/test_torch_fer.py, KERNEL_TIE; see phase_fer)
+FER_TIE = ("imet4", 124)
+FER_FRAMES = {"rs41": 24, "rs41x": 24, "m10": 24, "dfm": 24, "ims100": 24,
+              "mrzn1": 24, "imet4": 200, "c50": 200}
+
+
+def cli_dir():
+    """A temporary directory under the ignored build/ for a phase's files,
+    removed when the phase ends."""
+    import tempfile
+
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(base, exist_ok=True)
+    return tempfile.TemporaryDirectory(prefix="cli_", dir=base)
+
+
+def run_cli(torch, argv, label: str) -> dict:
+    """The port's command line in this process, with the kernels' and the
+    IQ readers' counts set to 0 just before and read just after. Returns
+    its stderr, those counts and the host seconds it reports."""
+    import contextlib
+    import io
+
+    from sondetpu_torch.cli import main as cli
+    from sondetpu_torch.io import iq as tiq
+    from sondetpu_torch.kernels import cuda
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    tiq.reset_readers()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(list(argv))
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    text = err.getvalue()
+    check(rc == 0, f"{label}: exit code {rc}: {text[-3000:]}")
+    host = next((json.loads(line)["cli_seconds"] for line in
+                 text.splitlines() if line.startswith('{"cli_seconds"')),
+                None)
+    return {"stderr": text, "launches": dict(cuda.launches),
+            "bodies": dict(cuda.body_launches), "readers": dict(tiq.readers),
+            "cli_seconds": host, "seconds": seconds}
+
+
+def jsonl_lines(path: str) -> list:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def write_cs16(path: str, qi, qq, mode: str = "wb") -> None:
+    """Interleave int16 (i, q) planes into a cs16 file."""
+    inter = np.empty(2 * qi.size, np.int16)
+    inter[0::2], inter[1::2] = qi, qq
+    with open(path, mode) as f:
+        inter.tofile(f)
+
+
+def phase_cli_full_width(torch, dev, smi, channels: int = CHANNELS,
+                         block_len: int = BLOCK_LEN, n_blocks: int = 3):
+    """``decode`` of one rs41 channel tiled to ``channels`` rows (bench.py's
+    shape: cs16, device dequant, 4 s blocks) at the CLI's default (the
+    plain-op step in f32) and with use_pallas (K1, K2, K3): S1234567 on
+    every channel; the session rate of each run beside that of
+    DecoderSession.process_block on the same host planes, and the share of
+    the wall time in the host's file read and tile."""
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.runtime.pipeline import PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    check(block_len == BLOCK_LEN, "cli_full_width: rs41_planes' block")
+    qi, qq = rs41_planes("S1234567", n_blocks, seed=0)
+    block_s = block_len / FS
+    runs = {}
+    with cli_dir() as d:
+        iq = os.path.join(d, "rs41.cs16")
+        write_cs16(iq, qi, qq)
+        for use_pallas in (False, True):
+            key = "use_pallas" if use_pallas else "default"
+            cfg = os.path.join(d, f"{key}.json")
+            FrameworkConfig(block_len=block_len, device_dequant=True,
+                            use_pallas=use_pallas).save(cfg)
+            out = os.path.join(d, f"{key}.jsonl")
+            r = run_cli(torch, ["decode", "--iq", iq, "--sonde", "rs41",
+                                "--channels", str(channels), "--config", cfg,
+                                "--jsonl", out, "--ref-epoch", CLI_REF_EPOCH,
+                                "--device", str(dev)], f"cli_full_width {key}")
+            recs = [json.loads(x) for x in jsonl_lines(out)]
+            got = {x["channel"] for x in recs if x["serial"] == "S1234567"}
+            check(got == set(range(channels)),
+                  f"cli_full_width {key}: {channels - len(got)} channels "
+                  "without S1234567")
+            if use_pallas:
+                want = {"fused_frontend:decim2_t41": n_blocks,
+                        "corr:sign_l64": n_blocks, "rs_clean:c384": n_blocks}
+                check(r["bodies"] == want,
+                      f"cli_full_width {key}: bodies {r['bodies']}")
+            else:
+                check(not any(r["launches"].values()),
+                      f"cli_full_width {key}: kernels {r['launches']}")
+            h = r["cli_seconds"]
+            # the same blocks through DecoderSession, host planes tiled
+            # beforehand: what the CLI adds is its read and tile
+            pcfg = PipelineConfig(sonde="rs41", channels=channels,
+                                  block_len=block_len, use_pallas=use_pallas,
+                                  input_dtype="i16")
+            sess = DecoderSession(pcfg, dev)
+            blocks = [(np.tile(qi[None, b * block_len:(b + 1) * block_len],
+                               (channels, 1)),
+                       np.tile(qq[None, b * block_len:(b + 1) * block_len],
+                               (channels, 1))) for b in range(n_blocks)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for planes in blocks:
+                sess.process_block(planes)
+            torch.cuda.synchronize()
+            sess_s = (time.perf_counter() - t0) / n_blocks
+            del blocks
+            runs[key] = {
+                "compute_dtype": "f32", "lines": len(recs),
+                "launches": r["launches"], "bodies": r["bodies"],
+                "cli_seconds": h,
+                "cli_wall_per_block_s": h["wall"] / n_blocks,
+                "session_rate": channels * block_s
+                / (h["wall"] / n_blocks),
+                "read_tile_share": (h["read"] + h["tile"]) / h["wall"],
+                "sinks_share": h["sinks"] / h["wall"],
+                "decoder_session_rate": channels * block_s / sess_s,
+                "decoder_session_per_block_s": sess_s}
+    emit({"phase": "cli_full_width", "channels": channels,
+          "block_len": block_len, "blocks": n_blocks, "device": smi,
+          "runs": runs})
+    return {k: {"launches": v["launches"], "bodies": v["bodies"],
+                "steps": n_blocks} for k, v in runs.items()}
+
+
+def cli_wideband_file(torch, dev, path: str, n_bins: int, block_len: int,
+                      n_blocks: int) -> None:
+    """The cs16 capture of cli_wideband: fleet_blocks with FLEET_CARRIERS
+    and CLI_OFFGRID, scaled by 0.2 so the sum stays inside the int16
+    range, quantized and interleaved on the card."""
+    with open(path, "wb") as f:
+        for wi, wq in fleet_blocks(torch, dev, n_blocks, seed=3,
+                                   n_bins=n_bins, block_len=block_len,
+                                   carriers=FLEET_CARRIERS + (CLI_OFFGRID,)):
+            q = torch.stack([wi, wq], -1).mul_(0.2 * 32767).round_() \
+                .clamp_(-32768, 32767).to(torch.int16)
+            q.reshape(-1).cpu().numpy().tofile(f)
+
+
+def phase_cli_wideband(torch, dev, smi, n_bins: int = N_BINS,
+                       block_len: int = 48000, n_blocks: int = 2):
+    """``decode --wideband --bins n_bins`` of a cs16 capture (n_blocks of
+    1 s) with the channel map of bench.py (rs41, m10, dfm by bin) and one
+    carrier off the grid, use_pallas: from the file and with --stream, each
+    carrier's truth decoded and the JSONL of both runs equal; every kernel
+    of the fleet path launched. Then the fleet's checkpoint: the first
+    block with --checkpoint, the second with --resume, whose JSONL is the
+    uninterrupted run's."""
+    from sondetpu_torch.cli.config import ChannelConfig, FrameworkConfig
+
+    k_off, _, serial_off, off = CLI_OFFGRID
+    carriers = FLEET_CARRIERS + (CLI_OFFGRID[:3],)
+    out = {}
+    with cli_dir() as d:
+        iq = os.path.join(d, "wide.cs16")
+        t0 = time.perf_counter()
+        cli_wideband_file(torch, dev, iq, n_bins, block_len, n_blocks)
+        make_s = time.perf_counter() - t0
+        cfg = FrameworkConfig(block_len=block_len, use_pallas=True)
+        cfg.channel_map = [
+            ChannelConfig(center_freq=(k if k < n_bins // 2 else k - n_bins)
+                          * FS + (off if k == k_off else 0.0),
+                          sonde=fleet_family(k)) for k in range(n_bins)]
+        cfg_path = os.path.join(d, "fleet.json")
+        cfg.save(cfg_path)
+        base = ["decode", "--wideband", "--bins", str(n_bins),
+                "--config", cfg_path, "--ref-epoch", CLI_REF_EPOCH,
+                "--device", str(dev)]
+        lines = {}
+        for how in ("file", "stream"):
+            j = os.path.join(d, f"{how}.jsonl")
+            r = run_cli(torch, base + ["--iq", iq, "--jsonl", j]
+                        + (["--stream"] if how == "stream" else []),
+                        f"cli_wideband {how}")
+            lines[how] = jsonl_lines(j)
+            recs = [json.loads(x) for x in lines[how]]
+            for k, family, serial in carriers:
+                check(any(x["channel"] == k and x["type"] == family
+                          and x["serial"] == serial for x in recs),
+                      f"cli_wideband {how}: carrier {family} {serial} in "
+                      f"bin {k} not decoded")
+            la = r["launches"]
+            check(la["pfb_fir_stream"] == la["pfb_dft"] == n_blocks
+                  and la["fused_dualtone_frontend"] == n_blocks
+                  and la["fused_frontend"] == la["corr"] == 2 * n_blocks
+                  and la["rs_clean"] == n_blocks,
+                  f"cli_wideband {how}: launches {la}")
+            if how == "stream":
+                check(r["readers"].get("native:iqs_read") == n_blocks,
+                      f"cli_wideband stream: readers {r['readers']}")
+            out[how] = {"launches": la, "bodies": r["bodies"],
+                        "readers": r["readers"], "seconds": r["seconds"],
+                        "lines": len(recs), "stderr_tail":
+                        r["stderr"].splitlines()[-1]}
+        check(lines["file"] == lines["stream"],
+              "cli_wideband: --stream JSONL differs from the file's")
+        emit({"phase": "cli_wideband", "bins": n_bins,
+              "block_len": block_len, "blocks": n_blocks,
+              "capture_bytes": os.path.getsize(iq),
+              "capture_seconds": make_s, "device": smi, "runs": out,
+              "carriers": [list(c) for c in carriers]})
+        # the fleet checkpoint: block 1, then the rest from its checkpoint
+        raw = np.fromfile(iq, np.int16)
+        w = 2 * n_bins * block_len
+        first, rest = os.path.join(d, "a.cs16"), os.path.join(d, "b.cs16")
+        raw[:w].tofile(first)
+        raw[w:].tofile(rest)
+        del raw
+        os.remove(iq)
+        ck = os.path.join(d, "fleet.ckpt")
+        ja, jb = os.path.join(d, "a.jsonl"), os.path.join(d, "b.jsonl")
+        run_cli(torch, base + ["--iq", first, "--jsonl", ja,
+                               "--checkpoint", ck], "cli_checkpoint fleet a")
+        rb = run_cli(torch, base + ["--iq", rest, "--jsonl", jb,
+                                    "--resume", ck], "cli_checkpoint fleet b")
+        split = jsonl_lines(ja) + jsonl_lines(jb)
+        check(split == lines["file"], "cli_checkpoint fleet: the resumed "
+              "run's JSONL differs from the uninterrupted run's")
+        emit({"phase": "cli_checkpoint_fleet", "bins": n_bins,
+              "checkpoint_bytes": os.path.getsize(ck), "lines": len(split),
+              "resume_launches": rb["launches"], "device": smi})
+    return {"launches": out["file"]["launches"],
+            "bodies": out["file"]["bodies"], "steps": n_blocks}
+
+
+def phase_cli_narrowband(torch, dev, smi):
+    """Each family on one channel through ``decode`` on the card and on the
+    CPU (the kernels' plain twins) from the same synth file with the same
+    --ref-epoch: JSONL, GPX and PTU byte-equal; then on the card --stream
+    against the file read, --rate 50000 against the same signal at 48 kHz,
+    a cs8 file with device dequant, --sonde auto and --afc with the carrier
+    3 kHz off (1 kHz for ims100 and mrzn1, CLI_AFC_HZ); and --channels 8
+    with use_pallas for each family whose kernel gates hold, card against
+    CPU."""
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.io.iq import iq_from_file, write_iq
+    from sondetpu_torch.runtime.pipeline import PipelineConfig, _route
+    from sondetpu_torch.sondes.modulate import freq_shift
+
+    sinks = ("jsonl", "gpx", "ptu")
+    result, kernel_runs = {}, {}
+    with cli_dir() as d:
+        def decode(label, argv, device):
+            o = os.path.join(d, label)
+            os.makedirs(o)
+            r = run_cli(torch, ["decode", *argv, "--ref-epoch",
+                                CLI_REF_EPOCH, "--device", str(device)]
+                        + [x for s in sinks
+                           for x in (f"--{s}", os.path.join(o, s))],
+                        f"cli_narrowband {label}")
+            files = []
+            for s in sinks:
+                with open(os.path.join(o, s), "rb") as f:
+                    files.append(f.read())
+            return files, r
+
+        cfg_pallas = os.path.join(d, "pallas.json")
+        FrameworkConfig(use_pallas=True).save(cfg_pallas)
+        cfg_dq = os.path.join(d, "dequant.json")
+        FrameworkConfig(device_dequant=True).save(cfg_dq)
+        for family in CLI_FAMILIES:
+            iq = os.path.join(d, f"{family}.cf32")
+            frames = str(CLI_FRAMES[family])
+            run_cli(torch, ["synth", "--sonde", family, "--frames", frames,
+                            "--out", iq], f"synth {family}")
+            sig = iq_from_file(iq)
+            res = {}
+            card, _ = decode(f"{family}_card", ["--iq", iq, "--sonde",
+                                                family], dev)
+            lines = card[0].count(b"\n")
+            check(lines >= 2, f"cli_narrowband {family}: {lines} lines")
+            cpu, _ = decode(f"{family}_cpu", ["--iq", iq, "--sonde",
+                                              family], "cpu")
+            check(card == cpu, f"cli_narrowband {family}: card and CPU "
+                  "outputs differ")
+            res["lines"] = lines
+            stream, r = decode(f"{family}_stream", ["--iq", iq, "--sonde",
+                                                    family, "--stream"], dev)
+            check(stream[0] == card[0] and r["readers"].get(
+                "native:iqs_read", 0) > 0,
+                f"cli_narrowband {family}: --stream differs or no native "
+                f"reader ({r['readers']})")
+            # the same frames at 50 kHz through the device resampler
+            iq50 = os.path.join(d, f"{family}_50k.cf32")
+            run_cli(torch, ["synth", "--sonde", family, "--frames", frames,
+                            "--fs", "50000", "--out", iq50],
+                    f"synth {family} 50k")
+            rate, _ = decode(f"{family}_rate", ["--iq", iq50, "--sonde",
+                                                family, "--rate", "50000"],
+                             dev)
+            res["rate_50k_lines"] = rate[0].count(b"\n")
+            check(rate[0] == card[0],
+                  f"cli_narrowband {family}: --rate 50000 JSONL differs from "
+                  "the same frames at 48 kHz")
+            cs8 = os.path.join(d, f"{family}.cs8")
+            write_iq(cs8, sig, "cs8")
+            dq_card, r = decode(f"{family}_cs8_card",
+                                ["--iq", cs8, "--sonde", family, "--config",
+                                 cfg_dq], dev)
+            dq_cpu, _ = decode(f"{family}_cs8_cpu",
+                               ["--iq", cs8, "--sonde", family, "--config",
+                                cfg_dq], "cpu")
+            check(dq_card == dq_cpu and dq_card[0].count(b"\n") >= 2,
+                  f"cli_narrowband {family}: cs8 device dequant, card and "
+                  "CPU differ or nothing decoded")
+            auto, r = decode(f"{family}_auto", ["--iq", iq, "--sonde",
+                                                "auto"], dev)
+            detected = next((x.split()[-1] for x in r["stderr"].splitlines()
+                             if x.startswith("[auto] detected")), None)
+            res["auto_detected"] = detected
+            check(detected == family and auto[0] == card[0],
+                  f"cli_narrowband {family}: --sonde auto found {detected}")
+            off = os.path.join(d, f"{family}_off.cf32")
+            res["afc_offset_hz"] = CLI_AFC_HZ.get(family, 3000.0)
+            write_iq(off, freq_shift(sig, res["afc_offset_hz"] / FS))
+            afc = {}
+            for where, tag in ((dev, "card"), ("cpu", "cpu")):
+                afc[tag], _ = decode(f"{family}_afc_{tag}",
+                                     ["--iq", off, "--sonde", family,
+                                      "--afc"], where)
+            res["afc_lines"] = afc["card"][0].count(b"\n")
+            check(afc["card"] == afc["cpu"] and res["afc_lines"] >= 2,
+                  f"cli_narrowband {family}: --afc off the carrier, card and "
+                  "CPU differ or nothing decoded")
+            gates = _route(PipelineConfig(sonde=family, channels=8,
+                                          use_pallas=True)) is not None
+            res["kernel_gates_hold"] = gates
+            if gates:
+                k8, r = decode(f"{family}_c8_card",
+                               ["--iq", iq, "--sonde", family, "--channels",
+                                "8", "--config", cfg_pallas], dev)
+                c8, _ = decode(f"{family}_c8_cpu",
+                               ["--iq", iq, "--sonde", family, "--channels",
+                                "8", "--config", cfg_pallas], "cpu")
+                check(k8 == c8, f"cli_narrowband {family}: 8 channels with "
+                      "use_pallas, card and CPU differ")
+                check(any(r["launches"].values()),
+                      f"cli_narrowband {family}: no kernel launched")
+                res["c8_lines"] = k8[0].count(b"\n")
+                res["c8_launches"] = {k: v for k, v in r["launches"].items()
+                                      if v}
+                kernel_runs[family] = {"launches": r["launches"],
+                                       "bodies": r["bodies"],
+                                       "steps": -(-sig.size // 48000)}
+            result[family] = res
+    emit({"phase": "cli_narrowband", "device": smi, "families": result})
+    return kernel_runs
+
+
+def phase_cli_checkpoint(torch, dev, smi, channels: int = 64,
+                         n_blocks: int = 4):
+    """``decode --checkpoint`` after block 1 and ``--resume`` in a fresh
+    process state for the rest, against the uninterrupted run, for an rs41
+    session of ``channels`` in f32 and in bf16 (no ml_dtypes loaded); then
+    the JAX package's committed checkpoint (tests/data) restored into the
+    port's session on the card, run on to the JAX run's telemetry."""
+    import importlib.util
+
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.runtime import checkpoint
+    from sondetpu_torch.runtime.pipeline import PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    # 1 s blocks: rs41_planes gives BLOCK_LEN samples a block
+    qi, qq = rs41_planes("S1234567", -(-n_blocks * 48000 // BLOCK_LEN),
+                         seed=4)
+    qi, qq = qi[:n_blocks * 48000], qq[:n_blocks * 48000]
+    res = {}
+    with cli_dir() as d:
+        whole = os.path.join(d, "whole.cs16")
+        write_cs16(whole, qi, qq)
+        first, rest = os.path.join(d, "a.cs16"), os.path.join(d, "b.cs16")
+        write_cs16(first, qi[:48000], qq[:48000])
+        write_cs16(rest, qi[48000:], qq[48000:])
+        for dtype in ("f32", "bf16"):
+            cfg = os.path.join(d, f"{dtype}.json")
+            FrameworkConfig(compute_dtype=dtype, afc=True).save(cfg)
+            base = ["decode", "--sonde", "rs41", "--channels", str(channels),
+                    "--config", cfg, "--ref-epoch", CLI_REF_EPOCH,
+                    "--device", str(dev)]
+            j = {k: os.path.join(d, f"{dtype}_{k}.jsonl")
+                 for k in ("whole", "a", "b")}
+            ck = os.path.join(d, f"{dtype}.ckpt")
+            run_cli(torch, base + ["--iq", whole, "--jsonl", j["whole"]],
+                    f"cli_checkpoint {dtype} whole")
+            run_cli(torch, base + ["--iq", first, "--jsonl", j["a"],
+                                   "--checkpoint", ck],
+                    f"cli_checkpoint {dtype} a")
+            run_cli(torch, base + ["--iq", rest, "--jsonl", j["b"],
+                                   "--resume", ck],
+                    f"cli_checkpoint {dtype} b")
+            want = jsonl_lines(j["whole"])
+            check(len(want) >= channels
+                  and jsonl_lines(j["a"]) + jsonl_lines(j["b"]) == want,
+                  f"cli_checkpoint {dtype}: the resumed JSONL differs from "
+                  "the uninterrupted run's")
+            res[dtype] = {"lines": len(want),
+                          "checkpoint_bytes": os.path.getsize(ck)}
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] == "ml_dtypes")
+    check(not loaded, f"cli_checkpoint: ml_dtypes was loaded: {loaded}")
+    # the JAX package's checkpoint, committed with the script that wrote it
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "jax_checkpoint", os.path.join(here, "tests", "data",
+                                       "jax_checkpoint.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    r = fixture.RECIPE
+    with open(fixture.EXPECTED) as f:
+        expected = json.load(f)
+    sess = DecoderSession(PipelineConfig(
+        sonde=r["sonde"], channels=r["channels"], block_len=r["block_len"],
+        compute_dtype=r["compute_dtype"], afc=r["afc"]), dev)
+    checkpoint.load_session(sess, fixture.CKPT)
+    check(sess.state.chipbuf.device.type == torch.device(dev).type
+          and sess.state.chipbuf.dtype == torch.bfloat16,
+          "cli_checkpoint: the JAX checkpoint's state is not on the card in "
+          "bfloat16")
+    pi, pq = fixture.planes()
+    b = r["block_len"]
+    for k in range(r["blocks_saved"], r["blocks"]):
+        sess.process_block((pi[:, k * b:(k + 1) * b],
+                            pq[:, k * b:(k + 1) * b]))
+    check(fixture.telemetry_json(sess.telemetry) == expected["telemetry"],
+          "cli_checkpoint: the JAX checkpoint, run on in the port on the "
+          "card, differs from the JAX run's telemetry")
+    res["jax_fixture"] = {"channels": r["channels"],
+                          "blocks_after_resume": r["blocks"]
+                          - r["blocks_saved"],
+                          "checkpoint_bytes": os.path.getsize(fixture.CKPT),
+                          "frames_seen": sess.frames_seen}
+    emit({"phase": "cli_checkpoint", "channels": channels, "device": smi,
+          "ml_dtypes_loaded": bool(loaded), **res})
+
+
+def phase_fer(torch, dev, smi, families=CLI_FAMILIES):
+    """The port's fer_sweep on the card against the same sweep on the CPU
+    at the seed and frame counts of tests/test_torch_fer.py, on the plain
+    path with one channel (the original's config) and on the kernel path
+    with 8 channels: the decoded-unit key sets of every run (the clean one,
+    then each SNR) equal, and the points. One exception, FER_TIE: in
+    imet4's kernel-path clean run one block holds 11 sync peaks for its 10
+    frame slots, the two weakest within about 1e-7, and the card keeps
+    packet 124 where the CPU twins drop it. There the card's clean set may
+    hold that packet's units beyond the CPU's, and nothing else, and each
+    point's decoded count differs by just those units of its run."""
+    from sondetpu_torch.bench import fer
+    from sondetpu_torch.kernels import cuda
+
+    out = {}
+    launches = {}
+    for family in families:
+        snrs = [12.0, 16.0] if family in ("imet4", "c50") else [10.0, 14.0]
+        for path, kw in (("plain", {}),
+                         ("kernel", {"channels": 8, "use_pallas": True})):
+            got = {}
+            for where, tag in ((dev, "card"), ("cpu", "cpu")):
+                runs = []
+                cuda.reset_launches()
+                t0 = time.perf_counter()
+                res = fer.fer_sweep(family, snrs,
+                                    n_frames=FER_FRAMES[family], seed=1,
+                                    device=where, unit_sets=runs, **kw)
+                got[tag] = (res, runs, time.perf_counter() - t0,
+                            dict(cuda.launches))
+            card, cpu = got["card"], got["cpu"]
+            check(len(card[1]) == len(cpu[1]) == 1 + len(snrs),
+                  f"fer {family} {path}: {len(card[1])} and {len(cpu[1])} "
+                  "runs")
+            # per run (clean, then each SNR): the units only one device has
+            only = [sorted(map(str, a ^ b))[:4]
+                    for a, b in zip(card[1], cpu[1])]
+            tie = (FER_TIE[1] if path == "kernel" and family == FER_TIE[0]
+                   else None)
+            extra = card[1][0] - cpu[1][0]
+            check(card[1][1:] == cpu[1][1:]
+                  and not (cpu[1][0] - card[1][0])
+                  and all(k[2] == tie for k in extra),
+                  f"fer {family} {path}: the card's decoded units differ "
+                  f"from the CPU's: {only}")
+            channels = kw.get("channels", 1)
+            check(all(a["decoded"] - b["decoded"]
+                      == len(noisy & extra) / channels
+                      for a, b, noisy in zip(card[0]["points"],
+                                             cpu[0]["points"], card[1][1:]))
+                  and (bool(extra) or card[0] == cpu[0]),
+                  f"fer {family} {path}: the card's points differ from the "
+                  f"CPU's: {card[0]['points']} {cpu[0]['points']}")
+            if path == "kernel":
+                check(any(card[3].values()),
+                      f"fer {family} kernel: no kernel launched")
+                launches[family] = card[3]
+            out[f"{family}_{path}"] = {
+                "points": card[0]["points"],
+                "cpu_points": cpu[0]["points"],
+                "units": card[0]["fer_denominator_clean_units"],
+                "units_on_one_device": [len(a ^ b)
+                                        for a, b in zip(card[1], cpu[1])],
+                "differing_units": only,
+                "card_seconds": card[2], "cpu_seconds": cpu[2]}
+    emit({"phase": "fer", "device": smi, "seed": 1, "frames": FER_FRAMES,
+          "sweeps": out})
+    return launches
+
+
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")):
     return {k: entry[k] for k in keys if k in entry}
@@ -3325,6 +3897,22 @@ def main() -> int:
         runs[key] = phase_bf16_path(torch, dev, family, smi)
         torch.cuda.empty_cache()
     phase_gates(torch, dev)
+    torch.cuda.empty_cache()
+    # the command line, as a user runs it: each run's launches are read
+    # from that run alone (run_cli sets the counts to 0 just before it)
+    cli_runs = phase_cli_full_width(torch, dev, smi)
+    torch.cuda.empty_cache()
+    cli_runs["wideband"] = phase_cli_wideband(torch, dev, smi)
+    torch.cuda.empty_cache()
+    for family, run in phase_cli_narrowband(torch, dev, smi).items():
+        cli_runs[f"{family}_c8"] = run
+    phase_cli_checkpoint(torch, dev, smi)
+    for family, launches in phase_fer(torch, dev, smi).items():
+        cli_runs[f"fer_{family}_c8"] = {"launches": launches}
+    for name in ("fused_frontend", "corr", "rs_clean", "pfb_fir_stream",
+                 "pfb_dft", "fused_dualtone_frontend", "fused_afsk_frontend"):
+        check(any(r["launches"][name] for r in cli_runs.values()),
+              f"kernel {name}: no launches from the command line's runs")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -3352,7 +3940,10 @@ def main() -> int:
                "launches_from": frm, **subset(kres[name]),
                "launches_per_step": {
                    p: runs[p]["launches"][name] / runs[p]["steps"]
-                   for p in paths}}
+                   for p in paths},
+               "cli_launches": {p: r["launches"][name]
+                                for p, r in cli_runs.items()
+                                if r["launches"][name]}}
         check(all(k in row for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")),
               f"kernel {name}: row lacks a number {row}")

@@ -13,49 +13,21 @@ runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import subprocess
-import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
 
-from sondetpu_torch.kernels.cuda import BUILD_DIR, CSRC
-
-SOURCE = os.path.join(CSRC, "sondefec.cpp")
-CXX_FLAGS = ["-O3", "-march=x86-64-v2", "-fPIC", "-shared", "-std=c++17"]
+from sondetpu_torch import cxx
 
 _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
 
 
-def library_path() -> str:
-    h = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(CXX_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libsondefec_{h.hexdigest()[:16]}.so")
-
-
 def build() -> str:
     """Compile the C++ FEC unless the library already exists; returns its
-    path. Written under a temporary name and renamed, so a concurrent build
-    never leaves a partial file behind."""
-    path = library_path()
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
-                       capture_output=True, timeout=120)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    path."""
+    return cxx.build("sondefec.cpp")
 
 
 def _load() -> Optional[ctypes.CDLL]:

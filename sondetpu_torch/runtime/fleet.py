@@ -37,8 +37,8 @@ import numpy as np
 import torch
 
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
-from sondetpu_torch.runtime.pipeline import (BlockOutput, PipelineConfig,
-                                             _route, c64_to_planes)
+from sondetpu_torch.io.iq import c64_to_planes
+from sondetpu_torch.runtime.pipeline import BlockOutput, PipelineConfig, _route
 from sondetpu_torch.runtime.session import DecoderSession
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.telemetry import SondeTelemetry

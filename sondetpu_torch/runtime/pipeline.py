@@ -68,6 +68,7 @@ import torch
 
 from sondetpu_torch.dsp.fir import FIRState, apply_windows, design_lowpass
 from sondetpu_torch.fec.syndrome import rs_clean_flags
+from sondetpu_torch.io.iq import c64_to_planes
 from sondetpu_torch.kernels.afsk import afsk_tables, fused_afsk_frontend
 from sondetpu_torch.kernels.corr import corr_kernel
 from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
@@ -328,14 +329,6 @@ def unpack_block_output(packed: np.ndarray, k_slots: int, frame_bytes: int,
     return frames, valid, rs_clean, soft_rms, weak
 
 
-def c64_to_planes(iq: np.ndarray):
-    """Split complex64 [..., n] into contiguous float32 (i, q) planes (the
-    NumPy form of ``sondetpu/io/iq.py:c64_to_planes``)."""
-    iq = np.ascontiguousarray(iq, dtype=np.complex64)
-    return (np.ascontiguousarray(iq.real.astype(np.float32)),
-            np.ascontiguousarray(iq.imag.astype(np.float32)))
-
-
 def _map_state(state, fn):
     return PipelineState(
         chan_tail_i=fn(state.chan_tail_i), chan_tail_q=fn(state.chan_tail_q),
@@ -346,7 +339,18 @@ def _map_state(state, fn):
         aux=tuple(fn(a) for a in state.aux))
 
 
+class BFloat16Words(NamedTuple):
+    """A bfloat16 array held as its 16-bit words (an int16 NumPy array): a
+    host copy of a bfloat16 leaf that needs no NumPy bfloat16 type, which
+    only ml_dtypes provides (runtime/checkpoint.py stores bf16 leaves so)."""
+
+    words: np.ndarray
+
+
 def _leaf_from_numpy(x, dev) -> torch.Tensor:
+    if isinstance(x, BFloat16Words):
+        return torch.from_numpy(np.array(x.words, np.int16)).view(
+            torch.bfloat16).to(dev)
     a = np.array(np.asarray(x))
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16 (the JAX package's) holds the same 16 bits as
@@ -371,7 +375,8 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 def state_from_numpy(jax_state, device) -> PipelineState:
     """The JAX package's PipelineState (or any tuple with its field layout)
     -> the port's state on ``device``; every leaf goes through
-    ``np.asarray``, a bfloat16 leaf bit for bit to torch.bfloat16."""
+    ``np.asarray``, a bfloat16 leaf (an ml_dtypes array, or
+    ``BFloat16Words``) bit for bit to torch.bfloat16."""
     dev = torch.device(device)
     return _map_state(jax_state, lambda x: _leaf_from_numpy(x, dev))
 

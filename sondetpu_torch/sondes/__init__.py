@@ -1,6 +1,7 @@
 """Sonde families of the port (counterpart: ``sondetpu/sondes``): all eight
 of the original's (rs41 with rs41x, m10, dfm, ims100, imet4, c50, mrzn1),
-registered in its order. Importing this package registers them."""
+registered in its order; ``SUPPORTED_TYPES`` names them sorted, as the
+original's does. Importing this package registers them."""
 
 from sondetpu_torch.sondes.base import (ProtocolSpec, SondeDecoderBase,
                                         get_sonde, register_sonde)
@@ -12,4 +13,9 @@ from sondetpu_torch.sondes import imet4 as _imet4  # noqa: F401
 from sondetpu_torch.sondes import c50 as _c50  # noqa: F401
 from sondetpu_torch.sondes import mrzn1 as _mrzn1  # noqa: F401
 
-__all__ = ["ProtocolSpec", "SondeDecoderBase", "get_sonde", "register_sonde"]
+from sondetpu_torch.sondes.base import _REGISTRY
+
+SUPPORTED_TYPES = tuple(sorted(_REGISTRY))
+
+__all__ = ["ProtocolSpec", "SondeDecoderBase", "get_sonde", "register_sonde",
+           "SUPPORTED_TYPES"]

@@ -30,7 +30,6 @@ from sondetpu.sondes import imet4 as jimet4
 from sondetpu.sondes import m10 as jm10
 from sondetpu.sync import correlator as jcorrelator
 from sondetpu_torch.dsp.fir import conv1d
-from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.afsk import (HALO, afsk_tables,
                                          fused_afsk_frontend,
                                          fused_afsk_frontend_plain)
@@ -444,40 +443,3 @@ def test_fleet_with_afsk_bins_matches_jax_fleet():
     assert set(telem) == {0, 1}
     assert telem[0].lat == pytest.approx(40.0, abs=1e-5)
     assert telem[1].serial == "C50-12346"
-
-
-# --- on the card ---------------------------------------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no CPU "
-                    "mode); chip_smoke.py runs these on the card")
-    return torch.device("cuda", 0)
-
-
-@pytest.mark.parametrize("family", ["imet4", "c50"])
-def test_cuda_afsk_matches_twin(cuda_device, family):
-    win, fm, fsp = AFSK[family]
-    audio, atail = (T(x).to(cuda_device) for x in _afsk_inputs(5, 16))
-    tabs = [T(t).to(cuda_device) for t in afsk_tables(BLOCK, fm, fsp)]
-    before = cuda.launches["fused_afsk_frontend"]
-    got = fused_afsk_frontend(audio, atail, tabs, win)
-    want = fused_afsk_frontend_plain(audio, atail, tabs, win)
-    assert cuda.launches["fused_afsk_frontend"] == before + 1
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-@pytest.mark.parametrize("name,tmpl", _templates(),
-                         ids=[n for n, _ in _templates()])
-def test_cuda_correlate_syncword_divides_by_l(cuda_device, name, tmpl):
-    """On the card the plain correlation also divides by L: on +/-1 chips
-    each output is the window sum s over L correctly rounded (float64
-    division rounded to float32), and equals the CPU's, not
-    s * float32(1/L)."""
-    rng = np.random.default_rng(len(tmpl))
-    chips = (rng.integers(0, 2, size=(64, 9600)) * 2 - 1).astype(np.float32)
-    got = tcorrelator.correlate_syncword(T(chips).to(cuda_device), tmpl).cpu()
-    want = (conv1d(T(chips), tmpl).double() / len(tmpl)).float()
-    assert torch.equal(got, want)
-    assert torch.equal(got, tcorrelator.correlate_syncword(T(chips), tmpl))

@@ -5,7 +5,9 @@ mrzn1), the plain-op path (rs41, and the dual-tone families m10, ims100
 and mrzn1), the configs the kernel gates send to the plain-op path, the
 jnp AFSK front end, the bfloat16 kernel routes, the DDC and AFC loop and
 the fleet (float32, and bfloat16 with AFSK bins) on the card against the
-CPU.
+CPU; the correlator in every body, the RS syndrome flag, the AFSK tone
+kernel and the plain correlation's division; and the command line's device
+pieces (the resampler, ``decode``) on the card against the CPU.
 
 This file imports neither jax nor the JAX package (sondetpu), so it runs
 on a machine that has only torch and the CUDA toolkit; tests/conftest.py
@@ -24,8 +26,13 @@ import pytest
 import torch
 
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
-from sondetpu_torch.dsp.fir import design_lowpass
+from sondetpu_torch.dsp.fir import conv1d, design_lowpass
+from sondetpu_torch.dsp.resample import DeviceStreamingResampler
+from sondetpu_torch.fec.rs import ReedSolomon
 from sondetpu_torch.kernels import cuda
+from sondetpu_torch.kernels.afsk import (afsk_tables, fused_afsk_frontend,
+                                         fused_afsk_frontend_plain)
+from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
 from sondetpu_torch.kernels.dualtone import (dualtone_body,
                                              fused_dualtone_frontend,
                                              fused_dualtone_plain,
@@ -36,6 +43,8 @@ from sondetpu_torch.kernels.frontend import (HALO, frontend_body,
                                              fused_frontend,
                                              fused_frontend_plain)
 from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
+                                             rs_clean_plain)
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
                                         pfb_fir_stream, pfb_fir_timemajor)
 from sondetpu_torch.runtime import pipeline as tpipe
@@ -47,7 +56,11 @@ from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
 from sondetpu_torch.sondes.m10 import M10Modulator, M10Truth
 from sondetpu_torch.sondes.modulate import freq_shift
 from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
-from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
+from sondetpu_torch.sondes.rs41 import (SPEC, RS41Modulator, RS41Truth,
+                                        RS41XModulator)
+from sondetpu_torch.sondes import imet4 as timet4
+from sondetpu_torch.sondes import m10 as tm10
+from sondetpu_torch.sync import correlator as tcorrelator
 
 T = torch.from_numpy
 CPU = torch.device("cpu")
@@ -703,3 +716,213 @@ def test_cuda_bf16_fleet_with_afsk_bins_matches_cpu(cuda_device):
     assert cuda.launches["fused_afsk_frontend"] == 2 * n_blocks
     assert sorted(gpu.telemetry) == list(range(len(plan)))
     assert _telemetry_text(gpu.telemetry) == _telemetry_text(cpu.telemetry)
+
+
+# --- K2, K3 and K8 against their twins, the plain correlation's division ----
+# (moved here from tests/test_torch_kernels.py and tests/test_torch_afsk.py,
+# whose imports of jax kept them off the card; the inputs come from numpy
+# and the port's own modules)
+
+def _signs(L, seed=0, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, L) * 2 - 1).astype(dtype)
+
+
+def _corrupt(rng, frames, covered):
+    """XOR 1-3 random bytes of ``covered`` into about half the rows (fewer
+    errors than the code's distance, so each such row is dirty)."""
+    bad = rng.random(len(frames)) < 0.5
+    for r in np.nonzero(bad)[0]:
+        pos = rng.choice(covered, size=rng.integers(1, 4), replace=False)
+        frames[r, pos] ^= rng.integers(1, 256, size=pos.size).astype(np.uint8)
+    return frames, ~bad
+
+
+def _frames_clean_and_corrupt(seed, rows, fb=320):
+    rng = np.random.default_rng(seed)
+    mod = RS41Modulator() if fb == 320 else RS41XModulator()
+    base = np.stack([mod.build_frame(RS41Truth(frame_no=k), fb != 320)
+                     for k in range(8)])
+    return _corrupt(rng, base[rng.integers(0, 8, size=rows)],
+                    np.arange(8, fb))
+
+
+# a frame of 61 bytes (not a multiple of 4) with one 8-root codeword, and
+# one of 267 bytes with two interleaved 32-root codewords (the c512 body)
+_EDGE_LAYOUTS = {
+    "odd61": (61, {"data_start": 9, "parity_start": 1, "nroots": 8,
+                   "interleave": 1, "fcr": 0, "prim": 0x11D}),
+    "c512": (267, {"data_start": 66, "parity_start": 2, "nroots": 32,
+                   "interleave": 2, "fcr": 0, "prim": 0x11D}),
+}
+
+
+def _layout_case(name, seed, rows):
+    """(frames, truth, layout) of rs41 (320 B), rs41x (518 B) or an edge
+    layout, its parity filled in by the RS encoder."""
+    if name not in _EDGE_LAYOUTS:
+        fb = 320 if name == "rs41" else 518
+        return (*_frames_clean_and_corrupt(seed, rows, fb), SPEC.extra["rs"])
+    fb, layout = _EDGE_LAYOUTS[name]
+    rng = np.random.default_rng(seed)
+    ds, ps, nroots = (layout[k] for k in ("data_start", "parity_start",
+                                          "nroots"))
+    ilv = layout["interleave"]
+    nrs = (fb - ds) // ilv
+    frames = rng.integers(0, 256, size=(rows, fb)).astype(np.uint8)
+    rs = ReedSolomon(nroots, layout["fcr"], layout["prim"])
+    covered = []
+    for i in range(ilv):
+        data = ds + ilv * np.arange(nrs) + i
+        parity = ps + nroots * i + np.arange(nroots)
+        frames[:, parity] = rs.encode(frames[:, data])[:, nrs:]
+        covered += [data, parity]
+    return (*_corrupt(rng, frames, np.concatenate(covered)), layout)
+
+
+def test_cuda_corr_and_rs_clean_match_twins(cuda_device):
+    rng = np.random.default_rng(12)
+    buf = T(rng.normal(size=(16, 7360)).astype(np.float32)).to(cuda_device)
+    tmpl = T(SPEC.sync_chip_template()).to(cuda_device)
+    assert torch.equal(corr_kernel(buf, tmpl), corr_plain(buf, tmpl))
+    for name in ("rs41", "rs41x", "odd61", "c512"):
+        frames, truth, layout = _layout_case(name, 13, 67)
+        fr = T(frames).to(cuda_device)
+        got = rs_clean_flags_kernel(fr, layout)
+        assert torch.equal(got, rs_clean_plain(fr, layout))
+        np.testing.assert_array_equal(got.cpu().numpy(), truth)
+    with pytest.raises(ValueError, match="contiguous"):
+        corr_kernel(buf.t().contiguous().t(), tmpl)
+
+
+@pytest.mark.parametrize("label,c,n,kind,L,body", [
+    ("rs41", 16, 7360, "rs41", 64, "sign_l64"),
+    ("rounded-l64", 16, 7360, "normal", 64, "rounded_l64"),
+    ("dfm", 8, 10560, "dfm", 32, "sign_l32"),
+    ("rounded-l32", 8, 4000, "normal", 32, "rounded_l32"),
+    ("sign-runtime", 8, 4001, "signs", 48, "sign_runtime_l"),
+    ("rounded-runtime", 8, 4001, "normal", 20, "rounded_runtime_l"),
+    ("long", 4, 9001, "normal", 300, "long_l"),
+    ("edge-c1", 1, 4099, "rs41", 64, "sign_l64"),
+    ("edge-c3-l32", 3, 3871, "signs", 32, "sign_l32"),
+])
+def test_cuda_corr_bodies_exact(cuda_device, label, c, n, kind, L, body):
+    """Every body of the correlator equals its twin bit for bit, on
+    buffers that are not a multiple of the tile (nor, for some, of four)."""
+    from sondetpu_torch.sondes.dfm import SPEC as DFM_SPEC
+
+    rng = np.random.default_rng(17)
+    t = {"rs41": SPEC.sync_chip_template, "dfm": DFM_SPEC.sync_chip_template,
+         "signs": lambda: _signs(L, 18),
+         "normal": lambda: rng.normal(size=L).astype(np.float32)}[kind]()
+    assert len(t) == L
+    buf = T(rng.normal(size=(c, n)).astype(np.float32)).to(cuda_device)
+    cuda.reset_launches()
+    got = corr_kernel(buf, t)
+    assert torch.equal(got, corr_plain(buf, T(t).to(cuda_device)))
+    assert cuda.body_launches == {f"corr:{body}": 1}
+
+
+# family -> (win, mark/fs, space/fs): one symbol of boxcar, Bell-202 and
+# C50 tones at 48 kHz
+_AFSK = {"imet4": (40, 1200.0 / FS, 2200.0 / FS),
+         "c50": (20, 2400.0 / FS, 4800.0 / FS)}
+
+
+@pytest.mark.parametrize("family", ["imet4", "c50"])
+def test_cuda_afsk_matches_twin(cuda_device, family):
+    win, fm, fsp = _AFSK[family]
+    rng = np.random.default_rng(5)
+    audio = T(rng.normal(size=(16, BLOCK)).astype(np.float32)).to(cuda_device)
+    atail = T(rng.normal(size=(16, HALO)).astype(np.float32)).to(cuda_device)
+    tabs = [T(t).to(cuda_device) for t in afsk_tables(BLOCK, fm, fsp)]
+    before = cuda.launches["fused_afsk_frontend"]
+    got = fused_afsk_frontend(audio, atail, tabs, win)
+    want = fused_afsk_frontend_plain(audio, atail, tabs, win)
+    assert cuda.launches["fused_afsk_frontend"] == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _templates():
+    spec = timet4.SPEC
+    imet = [spec.sync_chip_template()] + [
+        spec.sync_chip_template(bits=np.asarray(b))
+        for b in spec.extra["alt_sync_bits"]]
+    return [("m10", tm10.SPEC.sync_chip_template())] + [
+        (f"imet4-{k}", t) for k, t in enumerate(imet)]
+
+
+@pytest.mark.parametrize("name,tmpl", _templates(),
+                         ids=[n for n, _ in _templates()])
+def test_cuda_correlate_syncword_divides_by_l(cuda_device, name, tmpl):
+    """On the card the plain correlation also divides by L: on +/-1 chips
+    each output is the window sum s over L correctly rounded (float64
+    division rounded to float32), and equals the CPU's, not
+    s * float32(1/L)."""
+    rng = np.random.default_rng(len(tmpl))
+    chips = (rng.integers(0, 2, size=(64, 9600)) * 2 - 1).astype(np.float32)
+    got = tcorrelator.correlate_syncword(T(chips).to(cuda_device), tmpl).cpu()
+    want = (conv1d(T(chips), tmpl).double() / len(tmpl)).float()
+    assert torch.equal(got, want)
+    assert torch.equal(got, tcorrelator.correlate_syncword(T(chips), tmpl))
+
+
+# --- the command line's device pieces ----------------------------------------
+
+@pytest.mark.parametrize("dtype", ["f32", "i16"])
+def test_cuda_resampler_matches_cpu(cuda_device, dtype):
+    """The device resampler on the card against the same op on the CPU
+    over three blocks: the same products and sums in the same order, each
+    rounded once (CUDA's elementwise multiply and add do not fuse)."""
+    gpu = DeviceStreamingResampler(50000.0, 48000.0, 48000, cuda_device,
+                                   input_dtype=dtype)
+    cpu = DeviceStreamingResampler(50000.0, 48000.0, 48000, "cpu",
+                                   input_dtype=dtype)
+    rng = np.random.default_rng(6)
+    sg, sc = gpu.init_state(), cpu.init_state()
+    for _ in range(3):
+        x = rng.normal(scale=0.3, size=(2, gpu.in_len))
+        if dtype == "i16":
+            x = np.round(x * 32767).astype(np.int16)
+        else:
+            x = x.astype(np.float32)
+        sg, gi, gq = gpu(sg, x[0], x[1])
+        sc, ci, cq = cpu(sc, x[0], x[1])
+        assert gi.device.type == "cuda"
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gq.cpu(), cq)
+
+
+def test_cuda_cli_decode_equals_cpu(cuda_device, tmp_path):
+    """``decode`` of rs41 cs16 files on the card (from the file, with
+    --stream, with --rate 50000, and at 8 channels with device dequant and
+    use_pallas) writes the JSONL, GPX and PTU bytes of the same runs on the
+    CPU."""
+    from sondetpu_torch.cli import main as cli
+    from sondetpu_torch.cli.config import FrameworkConfig
+
+    iq = {}
+    for fs in ("48000", "50000"):
+        iq[fs] = str(tmp_path / f"x{fs}.cs16")
+        assert cli.main(["synth", "--sonde", "rs41", "--frames", "8",
+                         "--fs", fs, "--format", "cs16",
+                         "--out", iq[fs]]) == 0
+    cfg = str(tmp_path / "cfg.json")
+    FrameworkConfig(device_dequant=True, use_pallas=True).save(cfg)
+    cases = (["--iq", iq["48000"]], ["--iq", iq["48000"], "--stream"],
+             ["--iq", iq["50000"], "--rate", "50000"],
+             ["--iq", iq["48000"], "--config", cfg, "--channels", "8"])
+    for k, case in enumerate(cases):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            d = tmp_path / f"{dev}{k}"
+            d.mkdir()
+            rc = cli.main(["decode", "--sonde", "rs41", "--ref-epoch",
+                           "1.7e9", "--device", dev,
+                           "--jsonl", str(d / "o.jsonl"),
+                           "--gpx", str(d / "o.gpx"),
+                           "--ptu", str(d / "o.csv"), *case])
+            assert rc == 0
+            outs[dev] = [(d / f).read_bytes()
+                         for f in ("o.jsonl", "o.gpx", "o.csv")]
+        assert outs["cuda"] == outs["cpu"], case
+        assert outs["cuda"][0].count(b"\n") >= 4, case

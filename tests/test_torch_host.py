@@ -4,8 +4,10 @@ sondetpu_torch imports nothing of sondetpu, so it carries copies of the
 host modules it needs (sync/coding, dsp/fir design, sondes/base, geo,
 modulate, rs41, fec/syndrome matrices, fec gf256/crc/rs/hamming/bch and
 the native C++ FEC, telemetry, physics, c64_to_planes, PipelineConfig,
-unpack_block_output, Metrics). Each is held here to its original on the
-same NumPy inputs.
+unpack_block_output, Metrics, the sinks io/{jsonl,gpx,ptu,table},
+cli/config, io/iq's conversions and its native C++ helpers, and the NumPy
+StreamingResampler). Each is held here to its original on the same NumPy
+inputs.
 """
 
 import dataclasses
@@ -18,6 +20,12 @@ import pytest
 import torch
 
 from sondetpu import physics as jphysics
+from sondetpu.cli import config as jconfig
+from sondetpu.dsp import resample as jresample
+from sondetpu.io import gpx as jgpx
+from sondetpu.io import jsonl as jjsonl
+from sondetpu.io import ptu as jptu
+from sondetpu.io import table as jtable
 from sondetpu import telemetry as jtelemetry
 from sondetpu.dsp import fir as jfir
 from sondetpu.fec import bch as jbch
@@ -35,6 +43,13 @@ from sondetpu.sync import coding as jcoding
 from sondetpu.io import iq as jiq
 from sondetpu.sync import correlator as jcorrelator
 from sondetpu_torch import physics as tphysics
+from sondetpu_torch.cli import config as tconfig
+from sondetpu_torch.dsp import resample as tresample
+from sondetpu_torch.io import gpx as tgpx
+from sondetpu_torch.io import iq as tiq
+from sondetpu_torch.io import jsonl as tjsonl
+from sondetpu_torch.io import ptu as tptu
+from sondetpu_torch.io import table as ttable
 from sondetpu_torch import telemetry as ttelemetry
 from sondetpu_torch.dsp import fir as tfir
 from sondetpu_torch.fec import bch as tbch
@@ -342,17 +357,28 @@ def test_gf256_tables_equal():
     np.testing.assert_array_equal(tg.div(a, b), jg.div(a, b))
 
 
+def _code(path):
+    """A C++ source's lines below its header comment."""
+    with open(os.path.join(REPO, path)) as f:
+        lines = f.read().splitlines()
+    while lines[0].startswith("//") or not lines[0]:
+        lines.pop(0)
+    return lines
+
+
 def test_native_fec_source_is_the_original():
     """The port's C++ FEC is the original's code; only the header comment
     differs."""
-    def code(path):
-        with open(os.path.join(REPO, path)) as f:
-            lines = f.read().splitlines()
-        while lines[0].startswith("//") or not lines[0]:
-            lines.pop(0)
-        return lines
-    assert (code("sondetpu_torch/csrc/sondefec.cpp")
-            == code("sondetpu/native/sondefec.cpp"))
+    assert (_code("sondetpu_torch/csrc/sondefec.cpp")
+            == _code("sondetpu/native/sondefec.cpp"))
+
+
+@pytest.mark.parametrize("name", ["iqconv", "iqstream"])
+def test_native_iq_source_is_the_original(name):
+    """The port's C++ IQ helpers are the original's code; only the header
+    comment differs."""
+    assert (_code(f"sondetpu_torch/csrc/{name}.cpp")
+            == _code(f"sondetpu/native/{name}.cpp"))
 
 
 def test_hamming84_equal_over_all_bytes():
@@ -431,4 +457,129 @@ def test_c64_to_planes_equal(shape):
     got, want = tpipe.c64_to_planes(iq), jiq.c64_to_planes(iq)
     for a, b in zip(got, want):
         assert a.dtype == np.float32 and a.flags.c_contiguous
+        np.testing.assert_array_equal(a, b)
+
+
+def _telemetries(mod, seed):
+    """Snapshots of a SondeTelemetry after each merge of the seeded
+    fragments (serials vary; NaN-bearing and repeated points included)."""
+    t = mod.SondeTelemetry()
+    out = []
+    for k, f in enumerate(_fragments(mod, seed)):
+        t.merge(f)
+        snap = t.snapshot()
+        snap.serial = f"S{k % 3:07d}"
+        out.append(snap)
+    return out + out[-2:]
+
+
+def test_sinks_write_the_original_bytes(tmp_path):
+    """GPX (one track per serial), multi-sonde GPX, PTU CSV and JSONL of
+    the same telemetry, written by both packages, byte for byte."""
+    files = {}
+    for name, gpx, ptu, jsonl, mod in (
+            ("jax", jgpx, jptu, jjsonl, jtelemetry),
+            ("port", tgpx, tptu, tjsonl, ttelemetry)):
+        d = tmp_path / name
+        d.mkdir()
+        g = gpx.GPXWriter(str(d / "t.gpx"))
+        mg = gpx.MultiGPXWriter(str(d / "m.gpx"))
+        p = ptu.PTUWriter(str(d / "p.csv"))
+        j = jsonl.JSONLWriter(str(d / "j.jsonl"))
+        for k, t in enumerate(_telemetries(mod, 3)):
+            g.start_track(t.serial)
+            g.add_track_point(t.time, t.lat, t.lon, t.alt, t.spd, t.hdg)
+            mg.add_track_point(t.serial, t.time, t.lat, t.lon, t.alt, t.spd,
+                               t.hdg)
+            p.add_point(t)
+            j.add_point(t, channel=k % 4, sonde_type="rs41")
+        for w in (g, mg, p, j):
+            w.deinit()
+        files[name] = {f: (d / f).read_bytes()
+                       for f in ("t.gpx", "m.gpx", "p.csv", "j.jsonl")}
+    assert files["port"] == files["jax"]
+    assert files["jax"]["j.jsonl"].count(b"\n") == 42
+
+
+@pytest.mark.parametrize("color", [True, False])
+def test_table_renders_the_original(color):
+    rows = {}
+    for name, mod in (("jax", jtelemetry), ("port", ttelemetry)):
+        tel = _telemetries(mod, 4)
+        rows[name] = {ch: ("m10", tel[5 * ch]) for ch in range(6)}
+    kw = dict(color=color, title="status", quality={0: 0.5, 3: 0.25},
+              afc_hz={1: -120.0, 2: 35.5})
+    assert (ttable.render_table(rows["port"], **kw)
+            == jtable.render_table(rows["jax"], **kw))
+    assert ttable.render_table({}) == jtable.render_table({})
+    assert ttable.CLEAR == jtable.CLEAR
+
+
+def test_config_copy_equal(tmp_path):
+    raw = {"sonde": "m10", "channels": 16, "use_pallas": True,
+           "unknown_key": 3, "sinks": {"gpx_enabled": True, "extra": 1},
+           "channel_map": [{"center_freq": 402.5e6, "sonde": "rs41",
+                            "nope": 0}], "afc": True, "wide_bins": 64}
+    for cls in ("FrameworkConfig", "ChannelConfig", "SinkConfig"):
+        assert ([(f.name, f.type) for f in dataclasses.fields(
+            getattr(tconfig, cls))]
+            == [(f.name, f.type) for f in dataclasses.fields(
+                getattr(jconfig, cls))])
+    t, j = (m.FrameworkConfig.from_dict(raw) for m in (tconfig, jconfig))
+    assert t.to_dict() == j.to_dict()
+    assert tconfig.FrameworkConfig().to_dict() == \
+        jconfig.FrameworkConfig().to_dict()
+    t.save(str(tmp_path / "t.json"))
+    j.save(str(tmp_path / "j.json"))
+    assert (tmp_path / "t.json").read_text() == (tmp_path / "j.json").read_text()
+    back = tconfig.FrameworkConfig.load(str(tmp_path / "j.json"))
+    assert back.to_dict() == j.to_dict()
+
+
+@pytest.mark.parametrize("fmt", ["cs16", "cs8", "cu8"])
+def test_iq_conversions_equal(fmt, tmp_path):
+    rng = np.random.default_rng(5)
+    dtype = {"cs16": np.int16, "cs8": np.int8, "cu8": np.uint8}[fmt]
+    info = np.iinfo(dtype)
+    raw = rng.integers(info.min, info.max, size=2001, endpoint=True
+                       ).astype(dtype)               # odd: cut mid-sample
+    for native in (tiq._load_native(), False):
+        tiq._native, jiq._native = native, None if native else False
+        try:
+            got = tiq.convert_to_c64(raw, fmt)
+            want = jiq.convert_to_c64(raw, fmt)
+        finally:
+            tiq._native = jiq._native = None
+        assert got.dtype == want.dtype and got.size == 1000
+        np.testing.assert_array_equal(got, want)
+    if fmt != "cu8":
+        for a, b in zip(tiq.interleaved_to_int_planes(raw, fmt),
+                        jiq.interleaved_to_int_planes(raw, fmt)):
+            np.testing.assert_array_equal(a, b)
+        iq = (rng.normal(size=999) + 1j * rng.normal(size=999)) * 0.7
+        tiq.write_iq(str(tmp_path / "t"), iq, fmt)
+        jiq.write_iq(str(tmp_path / "j"), iq, fmt)
+        assert (tmp_path / "t").read_bytes() == (tmp_path / "j").read_bytes()
+    with pytest.raises(ValueError):
+        tiq.interleaved_to_int_planes(raw, "cf32")
+    for path, fmt_ in (("a.CS16", None), ("b.raw", None), ("c.wav", None),
+                       ("d.cf32", "cs8"), ("e", None)):
+        assert tiq.infer_format(path, fmt_) == jiq.infer_format(path, fmt_)
+
+
+@pytest.mark.parametrize("fs_in,fs_out", [(50000.0, 48000.0),
+                                          (2048000.0, 384000.0),
+                                          (44100.0, 48000.0)])
+def test_streaming_resampler_equals_original(fs_in, fs_out):
+    rng = np.random.default_rng(1)
+    t = tresample.StreamingResampler(fs_in, fs_out, channels=2)
+    j = jresample.StreamingResampler(fs_in, fs_out, channels=2)
+    assert (t.up, t.down, t.nph) == (j.up, j.down, j.nph)
+    for n in (1000, 7, 4096, 333):
+        x = rng.normal(size=(2, n)).astype(np.float32)
+        got, want = t.process(x), j.process(x)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+    for a, b in zip(tresample.make_rational_resampler(fs_in, fs_out, 6),
+                    jresample.make_rational_resampler(fs_in, fs_out, 6)):
         np.testing.assert_array_equal(a, b)

@@ -54,10 +54,27 @@ def test_source_imports_nothing_of_sondetpu(path):
     assert jax_package_imports(path) == []
 
 
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_no_jax_or_ml_dtypes(path):
+    """Neither jax nor ml_dtypes: the card's machine has neither."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    tops = {a.name.split(".")[0] for n in ast.walk(tree)
+            if isinstance(n, ast.Import) for a in n.names}
+    tops |= {n.module.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module and n.level == 0}
+    assert not tops & {"jax", "jaxlib", "ml_dtypes"}, tops
+
+
 _PROBE = r"""
 import sys
 import sondetpu_torch.runtime.session
 import sondetpu_torch.runtime.fleet
+import sondetpu_torch.runtime.checkpoint
+import sondetpu_torch.cli.main
+import sondetpu_torch.bench.fer
+import sondetpu_torch.dsp.resample
+import sondetpu_torch.io
 from sondetpu_torch.sondes import c50, dfm, imet4, m10, rs41
 from sondetpu_torch.sondes.base import get_sonde
 for name in ("rs41", "rs41x", "m10", "dfm", "imet4", "c50"):
@@ -67,8 +84,9 @@ from sondetpu_torch.fec.rs import ReedSolomon
 import numpy as np
 ReedSolomon(24).decode(np.zeros((2, 255), np.uint8))
 crc16_ccitt_batch(np.zeros((2, 8), np.uint8))
+sondetpu_torch.cli.main.main(["types"])
 print(sorted(m for m in sys.modules
-             if m == "sondetpu" or m.startswith("sondetpu.")))
+             if m.split(".")[0] in ("sondetpu", "jax", "ml_dtypes")))
 """
 
 

@@ -3,8 +3,8 @@
 On the CPU every wrapper runs its plain torch twin, and the JAX kernels run
 in interpret mode, as tests/test_pallas.py runs them. The same
 numpy-seeded inputs go to both. The CUDA kernels themselves are compared
-with their twins on the card (the tests at the end, skipped without a
-CUDA device, and chip_smoke.py).
+with their twins on the card (tests/test_torch_cuda.py, which imports no
+jax, and chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -409,61 +409,3 @@ def test_kernel_library_is_named_by_its_sources():
         "frontend.cu", "corr.cu", "syndrome.cu", "common.cuh"}
     assert path == cuda.library_path()
     assert cuda._lib is None or torch.cuda.is_available()
-
-
-# --- on the card: each kernel against its twin -------------------------------
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no "
-                    "CPU mode); chip_smoke.py runs these on the card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda", 0)
-
-
-def test_cuda_corr_and_rs_clean_match_twins(cuda_device):
-    rng = np.random.default_rng(12)
-    buf = torch.from_numpy(rng.normal(size=(16, 7360)).astype(np.float32)
-                           ).to(cuda_device)
-    tmpl = torch.from_numpy(SPEC.sync_chip_template()).to(cuda_device)
-    assert torch.equal(corr_kernel(buf, tmpl), corr_plain(buf, tmpl))
-    for name in ("rs41", "rs41x", "odd61", "c512"):
-        frames, truth, _, layout = _layout_case(name, 13, 67)
-        fr = torch.from_numpy(frames).to(cuda_device)
-        got = rs_clean_flags_kernel(fr, layout)
-        assert torch.equal(got, rs_clean_plain(fr, layout))
-        np.testing.assert_array_equal(got.cpu().numpy(), truth)
-    with pytest.raises(ValueError, match="contiguous"):
-        corr_kernel(buf.t().contiguous().t(), tmpl)
-
-
-@pytest.mark.parametrize("label,c,n,kind,L,body", [
-    ("rs41", 16, 7360, "rs41", 64, "sign_l64"),
-    ("rounded-l64", 16, 7360, "normal", 64, "rounded_l64"),
-    ("dfm", 8, 10560, "dfm", 32, "sign_l32"),
-    ("rounded-l32", 8, 4000, "normal", 32, "rounded_l32"),
-    ("sign-runtime", 8, 4001, "signs", 48, "sign_runtime_l"),
-    ("rounded-runtime", 8, 4001, "normal", 20, "rounded_runtime_l"),
-    ("long", 4, 9001, "normal", 300, "long_l"),
-    ("edge-c1", 1, 4099, "rs41", 64, "sign_l64"),
-    ("edge-c3-l32", 3, 3871, "signs", 32, "sign_l32"),
-])
-def test_cuda_corr_bodies_exact(cuda_device, label, c, n, kind, L, body):
-    """Every body of the correlator equals its twin bit for bit, on
-    buffers that are not a multiple of the tile (nor, for some, of four)."""
-    from sondetpu_torch.sondes.dfm import SPEC as DFM_SPEC
-
-    rng = np.random.default_rng(17)
-    t = {"rs41": SPEC.sync_chip_template, "dfm": DFM_SPEC.sync_chip_template,
-         "signs": lambda: _signs(L, 18),
-         "normal": lambda: rng.normal(size=L).astype(np.float32)}[kind]()
-    assert len(t) == L
-    buf = torch.from_numpy(rng.normal(size=(c, n)).astype(np.float32)
-                           ).to(cuda_device)
-    cuda.reset_launches()
-    got = corr_kernel(buf, t)
-    assert torch.equal(got, corr_plain(buf, torch.from_numpy(t).to(
-        cuda_device)))
-    assert cuda.body_launches == {f"corr:{body}": 1}
