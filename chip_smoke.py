@@ -152,6 +152,26 @@ before the result line:
     a last-ulp tie that the card and the JAX package's kernels break one
     way and the CPU twins the other (FER_TIE; phase_fer says why).
 
+27. scan (inside cli_wideband, on its capture, which is bandlimited:
+    wide_blocks' polyphase interpolator in noise of std 1, where
+    fleet_blocks' zero-order hold leaves an image of each carrier in the
+    bins beside it): ``scan --fs-wide`` at its defaults finds the four
+    carriers once each and classifies each as its family in its bin (K4
+    and K6 once a probe block, no other kernel).
+28. autofleet: AutoFleet at 2048 bins x 1-s blocks (the original's
+    defaults, rescan_blocks 3, probe_blocks 2, drop_idle_blocks 2), 8
+    blocks made one at a time on the card: carriers present from block 0,
+    one 3150 Hz off bin 12, one launched at 3 s and one stopped at 2.5 s;
+    the tracked list and each serial, the stopped carrier dropped, K4 and
+    K6 once a fleet step and once a probe block; each block's wall and each
+    rescan's PSD ms, classification s and rebuild s.
+29. autofleet_cpu: ``decode --wideband --bins 16 --auto``, card against
+    CPU (JSONL equal) at the default and with use_pallas and --afc (K1-K3,
+    K7, K8 in the groups); the JAX package's AutoFleet checkpoint
+    (tests/data) run on on the card to the JAX continuation.
+30. fleet_unfused: a 16-bin fleet, fused=False against the fused step on
+    the card, block by block (updates, telemetry, launches equal).
+
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
 bodies and torch.profiler reads the device kernels of three steady steps
@@ -163,7 +183,9 @@ are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
 K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
 paths' shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
-path's run, per step on each path and in each command-line run), the card
+path's run, per step on each path, in each command-line run and on the
+scan, AutoFleet and unfused-fleet paths; K4's and K5's library column is
+a depthwise F.conv1d), the card
 as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
 compiler; no network.
@@ -1072,6 +1094,37 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / scale if scale else 0.0
 
 
+def pfb_fir_library(torch, t_i, t_q, x_i, x_q, hcol) -> dict:
+    """K4's and K5's library call: one depthwise ``F.conv1d`` (groups=N,
+    TF32 off) of the time-major planes with their carried tail, both planes
+    as a batch of two, each column filtered by its branch's taps. It
+    computes the branch FIR without K4's one-row shift of column 0, so it
+    is held to the twin on the other columns only (``library_err``, its sum
+    order differs). The planes are stacked beforehand; the call takes their
+    transposed view."""
+    import torch.nn.functional as F
+
+    from sondetpu_torch.kernels.pfb import pfb_fir_plain
+
+    n = hcol.shape[1]
+    planes = torch.stack([torch.cat([t_i, x_i]), torch.cat([t_q, x_q])])
+    w = hcol.flip(0).t().contiguous().unsqueeze(1)      # [N, 1, tpp]
+
+    def call():
+        return F.conv1d(planes.transpose(1, 2), w, groups=n)
+
+    got = call()
+    want = pfb_fir_plain(planes[0], planes[1], hcol)[0]
+    err = float((got[0, 1:, :want.shape[0]].t() - want[:, 1:]).abs().max())
+    del got, want
+    out = {"library_ms": cuda_ms(torch, call, 5), "library_err": err,
+           "library_call": "F.conv1d(groups=N) on the transposed "
+                           "time-major planes, column shift excluded"}
+    del planes
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_fleet_kernels(torch, dev):
     """The PFB and dual-tone kernels against their twins at the fleet's
     shapes."""
@@ -1107,16 +1160,16 @@ def phase_fleet_kernels(torch, dev):
               float((got[1] - want[1]).abs().max()))
     check(err <= fir_tol, f"pfb_fir_stream: err {err}")
     del got, want
-    # per output a product and a sum per tap but the first; no single
-    # library call filters the time-major layout per column
+    # per output a product and a sum per tap but the first
     fir_ops = 2 * TPP - 1
+    library = pfb_fir_library(torch, t_i, t_q, x_i, x_q, hcol)
     entry = {"phase": "kernel", "name": "pfb_fir_stream", "shape": [m, N_BINS],
              "max_abs_err": err, "tol": fir_tol,
              "ms": cuda_ms(torch, lambda: pfb_fir_stream(
                  x_i, x_q, t_i, t_q, hcol), 20),
              "plain_ms": cuda_ms(torch, lambda: pfb_fir_plain(
                  torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol), 3),
-             "library_ms": None,
+             **library,
              **bound(2 * nbytes(x_i, x_q) + nbytes(t_i, t_q, hcol),
                      2 * m * N_BINS * fir_ops)}
     emit(entry)
@@ -1144,7 +1197,7 @@ def phase_fleet_kernels(torch, dev):
                     vv_i, vv_q, hcol), 20),
                 plain_ms=cuda_ms(torch, lambda: pfb_fir_plain(
                     vv_i, vv_q, hcol), 3),
-                library_ms=None,
+                **library,
                 **bound(nbytes(vv_i, vv_q, hcol) + 2 * 4 * rows * N_BINS,
                         2 * rows * N_BINS * fir_ops))
             k5 = entry
@@ -3286,7 +3339,8 @@ def cli_dir():
 def run_cli(torch, argv, label: str) -> dict:
     """The port's command line in this process, with the kernels' and the
     IQ readers' counts set to 0 just before and read just after. Returns
-    its stderr, those counts and the host seconds it reports."""
+    its stderr and stdout, those counts and the host seconds it
+    reports."""
     import contextlib
     import io
 
@@ -3297,9 +3351,9 @@ def run_cli(torch, argv, label: str) -> dict:
     torch.cuda.synchronize()
     cuda.reset_launches()
     tiq.reset_readers()
-    err = io.StringIO()
+    err, out = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
         rc = cli.main(list(argv))
     seconds = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -3308,7 +3362,8 @@ def run_cli(torch, argv, label: str) -> dict:
     host = next((json.loads(line)["cli_seconds"] for line in
                  text.splitlines() if line.startswith('{"cli_seconds"')),
                 None)
-    return {"stderr": text, "launches": dict(cuda.launches),
+    return {"stderr": text, "stdout": out.getvalue(),
+            "launches": dict(cuda.launches),
             "bodies": dict(cuda.body_launches), "readers": dict(tiq.readers),
             "cli_seconds": host, "seconds": seconds}
 
@@ -3404,16 +3459,25 @@ def phase_cli_full_width(torch, dev, smi, channels: int = CHANNELS,
                 "steps": n_blocks} for k, v in runs.items()}
 
 
+def cli_wideband_carriers():
+    """The carriers of cli_wideband's capture in wide_blocks' form:
+    FLEET_CARRIERS on the grid and CLI_OFFGRID, all from block 0."""
+    return tuple((k, f, serial, 0.0, 0.0, None)
+                 for k, f, serial in FLEET_CARRIERS) \
+        + ((*CLI_OFFGRID, 0.0, None),)
+
+
 def cli_wideband_file(torch, dev, path: str, n_bins: int, block_len: int,
                       n_blocks: int) -> None:
-    """The cs16 capture of cli_wideband: fleet_blocks with FLEET_CARRIERS
-    and CLI_OFFGRID, scaled by 0.2 so the sum stays inside the int16
-    range, quantized and interleaved on the card."""
+    """The cs16 capture of cli_wideband: wide_blocks with
+    cli_wideband_carriers() in noise of std AUTO_NOISE (bandlimited, so
+    the spectrum scan sees each carrier once), scaled by 0.05 so the sum
+    stays inside the int16 range, quantized and interleaved on the card."""
     with open(path, "wb") as f:
-        for wi, wq in fleet_blocks(torch, dev, n_blocks, seed=3,
-                                   n_bins=n_bins, block_len=block_len,
-                                   carriers=FLEET_CARRIERS + (CLI_OFFGRID,)):
-            q = torch.stack([wi, wq], -1).mul_(0.2 * 32767).round_() \
+        for wi, wq in wide_blocks(torch, dev, n_blocks, seed=3,
+                                  carriers=cli_wideband_carriers(),
+                                  n_bins=n_bins, block_len=block_len):
+            q = torch.stack([wi, wq], -1).mul_(0.05 * 32767).round_() \
                 .clamp_(-32768, 32767).to(torch.int16)
             q.reshape(-1).cpu().numpy().tofile(f)
 
@@ -3480,6 +3544,7 @@ def phase_cli_wideband(torch, dev, smi, n_bins: int = N_BINS,
               "capture_bytes": os.path.getsize(iq),
               "capture_seconds": make_s, "device": smi, "runs": out,
               "carriers": [list(c) for c in carriers]})
+        out["scan"] = phase_scan(torch, dev, smi, iq, n_bins, carriers, d)
         # the fleet checkpoint: block 1, then the rest from its checkpoint
         raw = np.fromfile(iq, np.int16)
         w = 2 * n_bins * block_len
@@ -3501,7 +3566,44 @@ def phase_cli_wideband(torch, dev, smi, n_bins: int = N_BINS,
               "checkpoint_bytes": os.path.getsize(ck), "lines": len(split),
               "resume_launches": rb["launches"], "device": smi})
     return {"launches": out["file"]["launches"],
-            "bodies": out["file"]["bodies"], "steps": n_blocks}
+            "bodies": out["file"]["bodies"], "steps": n_blocks}, out["scan"]
+
+
+def phase_scan(torch, dev, smi, iq: str, n_bins: int, carriers, d: str):
+    """``scan --fs-wide`` of cli_wideband's capture at its defaults (nfft
+    4096, every family probed over the first 3 s) with --out: every
+    carrier found once and classified as its family in its bin, the
+    off-grid one within 1.5 kHz of its centre, nothing else; K4 and K6
+    launch once a probe block."""
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.dsp.channelizer import bin_and_offset
+
+    cfg_path = os.path.join(d, "scan.json")
+    r = run_cli(torch, ["scan", "--iq", iq, "--fs-wide", str(n_bins * FS),
+                        "--out", cfg_path, "--device", str(dev)], "scan")
+    found = json.loads(r["stdout"].splitlines()[-1])
+    cfg = FrameworkConfig.load(cfg_path)
+    got = sorted((bin_and_offset(e.center_freq, FS, n_bins)[0], e.sonde)
+                 for e in cfg.channel_map)
+    want = sorted((k, f) for k, f, *_ in carriers)
+    check(got == want and len(found) == len(carriers)
+          and cfg.wide_bins == n_bins,
+          f"scan: found {found}, channel map {got} != {want}")
+    k_off, _, _, off = CLI_OFFGRID
+    center = next(e.center_freq for e in cfg.channel_map
+                  if bin_and_offset(e.center_freq, FS, n_bins)[0] == k_off)
+    check(abs(center - (k_off * FS + off)) < 1500.0,
+          f"scan: off-grid centre {center}")
+    la = r["launches"]
+    blocks = int(os.path.getsize(iq) // (4 * n_bins * 48000))
+    check(la["pfb_fir_stream"] == la["pfb_dft"] == min(blocks, 3)
+          and not any(v for name, v in la.items()
+                      if name not in ("pfb_fir_stream", "pfb_dft")),
+          f"scan: launches {la}")
+    emit({"phase": "scan", "bins": n_bins, "device": smi,
+          "capture_bytes": os.path.getsize(iq), "carriers": found,
+          "channel_map": got, "seconds": r["seconds"], "launches": la})
+    return {"launches": la, "bodies": r["bodies"], "steps": min(blocks, 3)}
 
 
 def phase_cli_narrowband(torch, dev, smi):
@@ -3784,6 +3886,355 @@ def phase_fer(torch, dev, smi, families=CLI_FAMILIES):
     return launches
 
 
+# the bandlimited wideband generator (wide_blocks): narrowband taps per
+# output phase of its polyphase interpolator, its Kaiser window's beta and
+# its cutoff in Hz (m10 fills +/-17 kHz; the first image lies at 31 kHz)
+INTERP_TAPS = 24
+INTERP_BETA = 8.0
+INTERP_CUTOFF = 24000.0
+# the AutoFleet phase's carriers at 2048 bins, (bin, family, serial, offset
+# Hz, start s, stop s or None): present from block 0, one off the grid, one
+# that launches mid-run and one that stops; far enough apart for the scan's
+# 24 kHz PSD bins (nfft 4096 at 98.3 MHz) to keep their runs apart
+AUTO_CARRIERS = ((1, "rs41", "S1234567", 0.0, 0.0, None),
+                 (6, "m10", "910-2-12345", 0.0, 0.0, None),
+                 (12, "rs41", "T7654321", 3150.0, 0.0, None),
+                 (20, "m10", "A05-3-54321", 0.0, 3.0, None),
+                 (30, "dfm", "1234567", 0.0, 0.0, 2.5))
+AUTO_DROP_IDLE = 2
+# noise std per component against unit carriers: ~30 dB over the noise in
+# a 24 kHz PSD bin, below the Hann window's -31 dB sidelobes
+AUTO_NOISE = 1.0
+# the 16-bin AutoFleet and unfused fleet: a carrier of every kernel family
+# (K1-K3 rs41 and dfm, K7 m10, K8 imet4), one off the grid
+AUTO16_CARRIERS = ((2, "rs41", "S1234567", 0.0, 0.0, None),
+                   (5, "m10", "910-2-12345", 0.0, 0.0, None),
+                   (9, "imet4", "", 1500.0, 0.0, None),
+                   (13, "dfm", "1234567", 0.0, 0.0, None))
+
+
+def interpolator_taps(n_bins: int) -> np.ndarray:
+    """[INTERP_TAPS, n_bins] float32 H with H[j, p] = h[p + (T - 1 - j) N]
+    of a Kaiser-windowed sinc lowpass h at INTERP_CUTOFF of the wideband
+    rate N * FS, gain N (each phase sums to about 1), so that
+    y[m N + p] = sum_j x[m - T + 1 + j] H[j, p] upsamples x by N. Its
+    images lie some 80 dB down, where fleet_blocks' zero-order hold leaves
+    a copy of each carrier 20-30 dB down in the bins beside it, which the
+    spectrum scan finds."""
+    t, n = INTERP_TAPS, n_bins
+    x = np.arange(t * n) - (t * n - 1) / 2.0
+    fc = INTERP_CUTOFF / (n * FS)
+    h = 2.0 * fc * np.sinc(2.0 * fc * x) * np.kaiser(t * n, INTERP_BETA) * n
+    return np.ascontiguousarray(h.reshape(t, n)[::-1]).astype(np.float32)
+
+
+def wide_blocks(torch, dev, n_blocks: int, seed: int, carriers,
+                n_bins: int = N_BINS, block_len: int = 48000,
+                noise: float = AUTO_NOISE):
+    """Wideband (i, q) planes [n_bins * block_len] float32 on ``dev``, one
+    block at a time: complex noise of std ``noise`` per component plus each
+    carrier (bin, family, serial, offset Hz, start s, stop s or None),
+    modulated at 48 kHz by the port's modulator, shifted by its offset,
+    silent outside [start, stop), upsampled to n_bins x 48 kHz by
+    interpolator_taps on the card and moved to its bin by fleet_blocks'
+    phase ramp (column j of a block's [block_len, n_bins] view times
+    exp(2 pi i k j / n_bins))."""
+    from sondetpu_torch.sondes.modulate import freq_shift
+
+    t = INTERP_TAPS
+    n = n_blocks * block_len
+    taps = torch.from_numpy(interpolator_taps(n_bins)).to(dev)
+    placed = []
+    for k, family, serial, offset, start, stop in carriers:
+        iq = narrowband(family, serial, n, FS)
+        if offset:
+            iq = freq_shift(iq, offset / FS)
+        s = np.arange(n) / FS
+        iq = np.where((s >= start) & (s < (np.inf if stop is None else stop)),
+                      iq, 0).astype(np.complex64)
+        iq = np.concatenate([np.zeros(t - 1, np.complex64), iq])
+        a = torch.from_numpy(np.stack([iq.real, iq.imag]).astype(
+            np.float32)).to(dev)
+        ang = 2.0 * np.pi * k * np.arange(n_bins) / n_bins
+        ph = torch.from_numpy(np.stack([np.cos(ang), np.sin(ang)]).astype(
+            np.float32)).to(dev)
+        placed.append((a, ph))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b in range(n_blocks):
+        wi = noise * torch.randn((block_len, n_bins), generator=gen,
+                                 device=dev)
+        wq = noise * torch.randn((block_len, n_bins), generator=gen,
+                                 device=dev)
+        for a, ph in placed:
+            y = a[:, b * block_len:(b + 1) * block_len + t - 1] \
+                .unfold(1, t, 1) @ taps                 # [2, block_len, N]
+            wi += y[0] * ph[0] - y[1] * ph[1]
+            wq += y[0] * ph[1] + y[1] * ph[0]
+            del y
+        yield wi.reshape(-1), wq.reshape(-1)
+
+
+def autofleet_truths(carriers) -> dict:
+    """(bin, family) -> the serial its decoder reports (imet4: "")."""
+    return {(k, f): serial for k, f, serial, *_ in carriers}
+
+
+def phase_autofleet(torch, dev, smi, n_bins: int = N_BINS,
+                    n_blocks: int = 8):
+    """AutoFleet.process_wideband at n_bins x 48 kHz, 1-s blocks made one at
+    a time on the card (AUTO_CARRIERS), the original's defaults (use_pallas
+    False, f32) with rescan_blocks=3, probe_blocks=2 and drop_idle_blocks:
+    the tracked list ends with every live carrier at its bin and family and
+    its serial decoded, the stopped one tracked and then dropped; K4 and K6
+    launch once a fleet step and once a probe block of each
+    classification, and no other kernel. Each block's wall (synchronized)
+    and each rescan's PSD ms, classification s and rebuild s are timed by
+    wrapping the functions the AutoFleet calls."""
+    import sondetpu_torch.dsp.scan as tscan
+    import sondetpu_torch.runtime.autofleet as taf
+    from sondetpu_torch.kernels import cuda
+
+    spent = {}
+
+    def timed(key, fn):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+                spent[key + "_calls"] = spent.get(key + "_calls", 0) + 1
+        return inner
+
+    changes, rescans, walls, fleet_steps = [], [], [], []
+    auto = taf.AutoFleet(n_bins, dev, block_len=48000, rescan_blocks=3,
+                         probe_blocks=2, drop_idle_blocks=AUTO_DROP_IDLE,
+                         on_change=lambda tr: changes.append(
+                             [(t.sonde, t.pfb_bin) for t in tr]))
+    rescan = auto._rescan
+
+    def timed_rescan():
+        spent.clear()
+        t0 = time.perf_counter()
+        rescan()
+        torch.cuda.synchronize()
+        rescans.append({
+            "after_block": auto.blocks_seen - 1,
+            "rescan_s": time.perf_counter() - t0,
+            "psd_ms": 1e3 * spent.get("psd", 0.0),
+            "classify_s": spent.get("classify", 0.0),
+            "classify_calls": spent.get("classify_calls", 0),
+            "rebuild_s": spent.get("rebuild", 0.0),
+            "tracked": [(t.sonde, t.pfb_bin) for t in auto.tracked]})
+
+    auto._rescan = timed_rescan
+    auto._rebuild = timed("rebuild", auto._rebuild)
+    psd, classify = tscan.welch_psd, taf.classify_carriers
+    tscan.welch_psd = timed("psd", psd)
+    taf.classify_carriers = timed("classify", classify)
+    try:
+        blocks = wide_blocks(torch, dev, n_blocks, seed=21,
+                             carriers=AUTO_CARRIERS, n_bins=n_bins)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        for wi, wq in blocks:
+            fleet_steps.append(auto.fleet is not None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            auto.process_wideband((wi, wq))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        del wi, wq, blocks
+        launches = dict(cuda.launches)
+    finally:
+        tscan.welch_psd, taf.classify_carriers = psd, classify
+    truths = autofleet_truths(AUTO_CARRIERS)
+    live = {(k, f) for k, f, _, _, _, stop in AUTO_CARRIERS if stop is None}
+    got = {(t.pfb_bin, t.sonde): t for t in auto.tracked}
+    check(set(got) == live, f"autofleet: tracked {sorted(got)} != {live}")
+    for key, t in got.items():
+        check(t.telem is not None and t.telem.serial == truths[key],
+              f"autofleet: {key} telemetry {t.telem}")
+    stopped = [(f, k) for k, f, _, _, _, stop in AUTO_CARRIERS if stop]
+    check(all(any(s in c for c in changes) for s in stopped)
+          and not any(s in changes[-1] for s in stopped),
+          f"autofleet: the stopped carrier was not tracked and dropped "
+          f"{changes}")
+    k_off, _, _, off, _, _ = AUTO_CARRIERS[2]
+    t_off = got[(k_off, "rs41")]
+    check(abs(t_off.center_hz - (k_off * FS + off)) < 1500.0,
+          f"autofleet: off-grid centre {t_off.center_hz}")
+    probes = 2 * sum(r["classify_calls"] for r in rescans)
+    steps = sum(fleet_steps)
+    check(launches["pfb_fir_stream"] == launches["pfb_dft"] == steps + probes
+          and not any(v for name, v in launches.items()
+                      if name not in ("pfb_fir_stream", "pfb_dft")),
+          f"autofleet: launches {launches} (fleet steps {steps}, probe "
+          f"blocks {probes})")
+    rescan_blocks = {r["after_block"] for r in rescans}
+    steady = [w for b, (w, f) in enumerate(zip(walls, fleet_steps))
+              if f and b not in rescan_blocks]
+    emit({"phase": "autofleet", "bins": n_bins, "block_len": 48000,
+          "blocks": n_blocks, "device": smi, "noise": AUTO_NOISE,
+          "carriers": [list(c) for c in AUTO_CARRIERS],
+          "tracked": [{"bin": t.pfb_bin, "sonde": t.sonde,
+                       "center_hz": t.center_hz,
+                       "seed_offset_hz": t.seed_offset_hz,
+                       "found_block": t.found_block,
+                       "serial": t.telem.serial} for t in auto.tracked],
+          "changes": changes, "block_walls_s": walls,
+          "steady_block_wall_s": statistics.median(steady),
+          "steady_blocks": len(steady), "rescans": rescans,
+          "fleet_steps": steps, "probe_blocks": probes,
+          "launches": launches})
+    del auto
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps + probes}
+
+
+def phase_autofleet_cpu(torch, dev, smi, n_bins: int = 16,
+                        n_blocks: int = 5):
+    """``decode --wideband --bins 16 --auto`` of a cf32 capture with
+    AUTO16_CARRIERS on the card and on the CPU (the kernels' twins) with
+    the same --ref-epoch: the JSONL equal and every carrier decoded, at the
+    CLI's default (plain-op groups: K4 and K6 only) and with use_pallas
+    and --afc (K1-K3, K7 and K8 in the groups). Then the JAX package's
+    AutoFleet checkpoint (tests/data) loaded on the card and run on: the
+    JAX package's own continuation."""
+    import importlib.util
+
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.runtime import checkpoint
+    from sondetpu_torch.runtime.autofleet import AutoFleet
+
+    truths = autofleet_truths(AUTO16_CARRIERS)
+    runs, out = {}, {}
+    with cli_dir() as d:
+        iq = os.path.join(d, "wide16.cf32")
+        with open(iq, "wb") as f:
+            for wi, wq in wide_blocks(torch, dev, n_blocks, seed=22,
+                                      carriers=AUTO16_CARRIERS,
+                                      n_bins=n_bins, noise=0.05):
+                torch.stack([wi, wq], -1).cpu().numpy().tofile(f)
+        for key, use_pallas, afc in (("default", False, False),
+                                     ("use_pallas_afc", True, True)):
+            cfg = os.path.join(d, f"{key}.json")
+            FrameworkConfig(use_pallas=use_pallas).save(cfg)
+            lines, card = {}, None
+            for where, device in (("card", str(dev)), ("cpu", "cpu")):
+                j = os.path.join(d, f"{key}_{where}.jsonl")
+                r = run_cli(torch, ["decode", "--iq", iq, "--wideband",
+                                    "--bins", str(n_bins), "--auto",
+                                    "--rescan", "3", "--config", cfg,
+                                    "--jsonl", j, "--ref-epoch",
+                                    CLI_REF_EPOCH, "--device", device]
+                            + (["--afc"] if afc else []),
+                            f"autofleet_cpu {key} {where}")
+                lines[where] = jsonl_lines(j)
+                card = card or r
+            check(lines["card"] == lines["cpu"],
+                  f"autofleet_cpu {key}: the card's JSONL differs from the "
+                  "CPU's")
+            recs = [json.loads(x) for x in lines["cpu"]]
+            for (k, family), serial in truths.items():
+                check(any(x["type"] == family and (x["serial"] == serial
+                          if serial else x["lat"] == 40.0) for x in recs),
+                      f"autofleet_cpu {key}: {family} in bin {k} not decoded")
+            la = card["launches"]
+            kernels = ("fused_frontend", "corr", "rs_clean",
+                       "fused_dualtone_frontend", "fused_afsk_frontend")
+            check(la["pfb_fir_stream"] > 0 and la["pfb_dft"] > 0
+                  and all((la[k] > 0) == use_pallas for k in kernels),
+                  f"autofleet_cpu {key}: launches {la}")
+            runs[key] = {"launches": la, "bodies": card["bodies"],
+                         "steps": n_blocks}
+            out[key] = {"lines": len(recs), "launches": la,
+                        "card_seconds": card["seconds"],
+                        "last_stderr": card["stderr"].splitlines()[-1]}
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        "jax_autofleet_checkpoint", os.path.join(
+            here, "tests", "data", "jax_autofleet_checkpoint.py"))
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    with open(fixture.EXPECTED) as f:
+        expected = json.load(f)
+    r = expected["recipe"]
+    updates, block = [], [0]
+    auto = AutoFleet(device=dev, **fixture.autofleet_kwargs(r),
+                     on_update=lambda ch, s, t: updates.append(
+                         fixture.update_record(block[0], ch, s, t)))
+    checkpoint.load_autofleet(auto, fixture.CKPT)
+    wide = fixture.wideband(r)
+    w = r["n_bins"] * r["block_len"]
+    for block[0] in range(r["blocks_saved"], r["blocks"]):
+        auto.process_wideband(wide[block[0] * w:(block[0] + 1) * w])
+    check(updates == expected["updates"],
+          "autofleet_cpu: the JAX AutoFleet checkpoint, run on in the port "
+          "on the card, differs from the JAX package's continuation")
+    out["jax_fixture"] = {"updates": len(updates),
+                          "checkpoint_bytes": os.path.getsize(fixture.CKPT)}
+    emit({"phase": "autofleet_cpu", "bins": n_bins, "blocks": n_blocks,
+          "device": smi, "carriers": [list(c) for c in AUTO16_CARRIERS],
+          "matches_cpu": True, **out})
+    return runs
+
+
+def phase_fleet_unfused(torch, dev, smi, n_bins: int = 16,
+                        n_blocks: int = 3):
+    """A 16-bin FleetSession (AUTO16_CARRIERS by bin and offset, the
+    default use_pallas: every group on its kernel route, pipelined) fused
+    and unfused on the card, block by block: the same updates and
+    telemetry, and the same launches; each mode's synchronized wall per
+    block."""
+    from sondetpu_torch.dsp.channelizer import bin_and_offset
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+
+    blocks = list(wide_blocks(torch, dev, n_blocks, seed=23,
+                              carriers=AUTO16_CARRIERS, n_bins=n_bins,
+                              noise=0.05))
+    chans = []
+    for k, family, _, off, _, _ in AUTO16_CARRIERS:
+        b, resid = bin_and_offset(k * FS + off, FS, n_bins)
+        chans.append(FleetChannel(pfb_bin=b, sonde=family, offset_hz=resid))
+    res = {}
+    for fused in (True, False):
+        fleet = FleetSession(chans, n_bins, dev, fs_chan=FS,
+                             block_len=48000, pipelined=True, fused=fused)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        ups, telem, walls = [], [], []
+        for wi, wq in blocks:
+            t0 = time.perf_counter()
+            ups.append(fleet.process_wideband((wi, wq)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            telem.append({c: json.dumps(t.to_dict(), sort_keys=True)
+                          for c, t in fleet.telemetry.items()})
+        ups.append(fleet.flush())
+        telem.append({c: json.dumps(t.to_dict(), sort_keys=True)
+                      for c, t in fleet.telemetry.items()})
+        torch.cuda.synchronize()
+        res[fused] = (ups, telem, walls, dict(cuda.launches),
+                      dict(cuda.body_launches), fleet.telemetry)
+    (fu, ft, fw, fl, fb, ftel), (uu, ut, uw, ul, ub, _) = res[True], res[False]
+    check(uu == fu and ut == ft, f"fleet_unfused: updates {uu} and telemetry "
+          f"differ from the fused step's {fu}")
+    check(ul == fl and ub == fb, f"fleet_unfused: launches {ul} != {fl}")
+    for i, (_, family, serial, *_r) in enumerate(AUTO16_CARRIERS):
+        t = ftel.get(i)
+        check(t is not None and (t.serial == serial if serial
+                                 else t.lat == 40.0),
+              f"fleet_unfused: channel {i} ({family}) telemetry {t}")
+    emit({"phase": "fleet_unfused", "bins": n_bins, "blocks": n_blocks,
+          "device": smi, "updates": fu, "fused_block_walls_s": fw,
+          "unfused_block_walls_s": uw, "launches": ul, "body_launches": ub})
+    return {"launches": ul, "bodies": ub, "steps": n_blocks}
+
+
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")):
     return {k: entry[k] for k in keys if k in entry}
@@ -3900,9 +4351,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the command line, as a user runs it: each run's launches are read
     # from that run alone (run_cli sets the counts to 0 just before it)
+    new_runs = {}
     cli_runs = phase_cli_full_width(torch, dev, smi)
     torch.cuda.empty_cache()
-    cli_runs["wideband"] = phase_cli_wideband(torch, dev, smi)
+    cli_runs["wideband"], new_runs["scan"] = phase_cli_wideband(
+        torch, dev, smi)
     torch.cuda.empty_cache()
     for family, run in phase_cli_narrowband(torch, dev, smi).items():
         cli_runs[f"{family}_c8"] = run
@@ -3913,6 +4366,16 @@ def main() -> int:
                  "pfb_dft", "fused_dualtone_frontend", "fused_afsk_frontend"):
         check(any(r["launches"][name] for r in cli_runs.values()),
               f"kernel {name}: no launches from the command line's runs")
+    torch.cuda.empty_cache()
+    # the receiver's automation: the AutoFleet at full width, the 16-bin
+    # decode --wideband --auto card against CPU, the unfused fleet step
+    new_runs["autofleet"] = phase_autofleet(torch, dev, smi)
+    for key, run in phase_autofleet_cpu(torch, dev, smi).items():
+        new_runs[f"autofleet_cpu_{key}"] = run
+    new_runs["fleet_unfused"] = phase_fleet_unfused(torch, dev, smi)
+    for name in ("pfb_fir_stream", "pfb_dft"):
+        check(new_runs["autofleet"]["launches"][name] > 0,
+              f"kernel {name}: no launches on the AutoFleet path")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -3943,7 +4406,9 @@ def main() -> int:
                    for p in paths},
                "cli_launches": {p: r["launches"][name]
                                 for p, r in cli_runs.items()
-                                if r["launches"][name]}}
+                                if r["launches"][name]},
+               "automation_launches": {p: r["launches"][name]
+                                       for p, r in new_runs.items()}}
         check(all(k in row for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")),
               f"kernel {name}: row lacks a number {row}")

@@ -1,17 +1,19 @@
-"""sondetpu-torch command line: decode, synth, fer, types (counterpart:
-``sondetpu/cli/main.py``).
+"""sondetpu-torch command line: decode, synth, scan, fer, types
+(counterpart: ``sondetpu/cli/main.py``).
 
 The original's command line on the port: ``decode`` runs the streaming
 pipeline over an IQ file or stream with GPX/PTU/JSONL sinks (one channel,
 ``--channels N`` copies of it, ``--sonde auto``, ``--rate`` through the
 resampler, ``--stream`` through the native reader, cs16/cs8 device
 dequant, AFC, host workers, watchdog, status and table, checkpoint and
-resume, and ``--wideband`` fleets from a config's ``channel_map``);
-``synth`` generates golden IQ from any registered modulator; ``fer`` runs
-the FER-vs-SNR sweep. ``decode`` and ``fer`` run on the card unless
-``--device cpu`` asks for the CPU; without a card they stop and say so.
-``--trace`` writes a ``torch.profiler`` Chrome trace. Not here: ``scan``,
-``decode --auto`` and ``bench``.
+resume, ``--wideband`` fleets from a config's ``channel_map``, and
+``--wideband --auto``, which discovers and classifies sondes live through
+the AutoFleet); ``synth`` generates golden IQ from any registered
+modulator; ``scan`` detects and classifies the carriers of a wideband
+capture and writes a decode-ready channel map; ``fer`` runs the FER-vs-SNR
+sweep. ``decode``, ``scan`` and ``fer`` run on the card unless ``--device
+cpu`` asks for the CPU; without a card they stop and say so. ``--trace``
+writes a ``torch.profiler`` Chrome trace. Not here: ``bench``.
 
 ``decode`` prints, on stderr before the metrics line, the host seconds it
 spent reading the input (``read``, the source's set-up included), tiling
@@ -24,6 +26,10 @@ Usage examples:
   python -m sondetpu_torch.cli.main synth --sonde rs41 --frames 6 --out /tmp/x.cf32
   python -m sondetpu_torch.cli.main decode --iq /tmp/x.cf32 --sonde rs41 \\
       --gpx /tmp/track.gpx --ptu /tmp/ptu.csv --jsonl -
+  python -m sondetpu_torch.cli.main scan --iq /tmp/wide.cf32 --fs-wide 384000 \\
+      --out /tmp/fleet.json
+  python -m sondetpu_torch.cli.main decode --iq /tmp/wide.cf32 --wideband \\
+      --bins 8 --auto --jsonl -
   python -m sondetpu_torch.cli.main fer --sonde rs41 --snrs 5,8,10,15
 """
 
@@ -433,9 +439,11 @@ def _decode_wideband(args, cfg, device) -> int:
     n_bins = args.bins or cfg.wide_bins or 8
     fs_chan = cfg.fs
     fs_wide = n_bins * fs_chan
+    if args.auto:
+        return _decode_wideband_auto(args, cfg, n_bins, device)
     if not cfg.channel_map:
-        print("wideband decode needs --config with channel_map entries",
-              file=sys.stderr)
+        print("wideband decode needs --config with channel_map entries "
+              "(or --auto to discover sondes live)", file=sys.stderr)
         return 2
     from sondetpu_torch.dsp.channelizer import bin_and_offset
     chans = []
@@ -490,6 +498,68 @@ def _decode_wideband(args, cfg, device) -> int:
     return 0
 
 
+def _decode_wideband_auto(args, cfg, n_bins, device) -> int:
+    """Self-managing wideband decode: no channel_map — the AutoFleet
+    discovers carriers live, classifies them by decoding, and grows/shrinks
+    the fleet (runtime/autofleet.py)."""
+    from sondetpu_torch.runtime.autofleet import AutoFleet
+
+    on_update, sinks = _make_sinks(args, multi=True)
+
+    def auto_update(ch, sonde, t):
+        on_update(ch, t, sonde)
+
+    def on_change(tracked):
+        desc = ", ".join(f"{t.sonde}@{t.center_hz / 1e3:+.1f}kHz"
+                         for t in tracked) or "(none)"
+        print(f"[auto] fleet now: {desc}", file=sys.stderr)
+
+    auto = AutoFleet(n_bins, device, fs_chan=cfg.fs, block_len=cfg.block_len,
+                     rescan_blocks=args.rescan, sync_threshold=cfg.sync_threshold,
+                     compute_dtype=cfg.compute_dtype, afc=args.afc or cfg.afc,
+                     drop_idle_blocks=args.drop_idle,
+                     use_pallas=cfg.use_pallas,
+                     families=(args.families.split(",") if args.families
+                               else None),
+                     min_snr_db=args.min_snr,
+                     probe_blocks=args.probe_blocks,
+                     on_update=auto_update, on_change=on_change)
+    if args.resume:
+        from sondetpu_torch.runtime import checkpoint as ckpt
+        ckpt.load_autofleet(auto, args.resume)
+        print(f"autofleet resumed from {args.resume} "
+              f"({len(auto.tracked)} tracked)", file=sys.stderr)
+    w = n_bins * cfg.block_len
+    blk_iter = _wideband_blocks(args, w, n_bins * cfg.fs, device)
+    blocks = updates = 0
+    try:
+        for block in blk_iter:
+            updates += auto.process_wideband(block)
+            blocks += 1
+            if args.status and blocks % args.status == 0:
+                print(f"[auto] blocks={blocks} updates={updates} "
+                      f"tracked={len(auto.tracked)}", file=sys.stderr)
+            if args.table and blocks % args.table == 0:
+                from sondetpu_torch.io.table import CLEAR, render_table
+                print(CLEAR + render_table(
+                    auto.telemetry,
+                    title=f"[auto] blocks={blocks} tracked={len(auto.tracked)}"),
+                    file=sys.stderr)
+    except KeyboardInterrupt:
+        # Ctrl-C ends a --stream FIFO run: still checkpoint + close sinks
+        print("interrupted — finalizing", file=sys.stderr)
+    if args.checkpoint:
+        from sondetpu_torch.runtime import checkpoint as ckpt
+        ckpt.save_autofleet(auto, args.checkpoint)
+        print(f"autofleet checkpoint -> {args.checkpoint}", file=sys.stderr)
+    for s in sinks:
+        if s:
+            s.deinit()
+    print(f'{{"wideband_blocks": {blocks}, "updates": {updates}, '
+          f'"tracked": {len(auto.tracked)}}}', file=sys.stderr)
+    return 0
+
+
 def cmd_fer(args) -> int:
     from sondetpu_torch.bench.fer import fer_sweep
 
@@ -509,6 +579,70 @@ def cmd_fer(args) -> int:
     result = fer_sweep(args.sonde, snrs, n_frames=args.frames, seed=args.seed,
                        device=dev)
     print(json.dumps(result))
+    return 0
+
+
+def cmd_scan(args) -> int:
+    """Detect + classify sondes in a wideband capture (the reference's
+    waterfall-and-combobox workflow, main.cpp:55-56,136-151, automated).
+    Writes a decode-ready config with the discovered channel_map. The
+    capture goes to the device once, as planes."""
+    from sondetpu_torch.cli.config import FrameworkConfig
+    from sondetpu_torch.dsp.scan import (classify_carriers, detect_carriers,
+                                         device_planes, scan_to_config)
+    from sondetpu_torch.io.iq import iq_from_file
+
+    dev = _device(args)
+    if dev is None:
+        return 2
+    wi, wq = device_planes(iq_from_file(args.iq, args.format), dev)
+    try:
+        carriers = detect_carriers((wi, wq), args.fs_wide, nfft=args.nfft,
+                                   min_snr_db=args.min_snr,
+                                   max_carriers=args.max_carriers,
+                                   device=dev)
+    except ValueError as e:        # e.g. capture shorter than nfft
+        print(f"scan failed: {e}", file=sys.stderr)
+        return 2
+    if not carriers:
+        print("no carriers above threshold", file=sys.stderr)
+        return 1
+    fams = None
+    if args.families:
+        from sondetpu_torch.sondes import SUPPORTED_TYPES
+        fams = [f.strip() for f in args.families.split(",") if f.strip()]
+        bad = sorted(set(fams) - set(SUPPORTED_TYPES))
+        if bad:
+            print(f"unknown families {bad}; have {sorted(SUPPORTED_TYPES)}",
+                  file=sys.stderr)
+            return 2
+    if args.classify:
+        n = int(args.probe_secs * args.fs_wide)
+        try:
+            carriers = classify_carriers((wi[:n], wq[:n]), args.fs_wide,
+                                         carriers, families=fams,
+                                         sync_threshold=args.sync_threshold,
+                                         device=dev)
+        except ValueError as e:
+            # e.g. capture shorter than one probe block, or fs_wide not a
+            # 48 kHz multiple: still report the detected carriers
+            print(f"classification skipped: {e}", file=sys.stderr)
+    for c in carriers:
+        typ = c.sonde or "?"
+        extra = f" frames={c.frames}" if c.sonde else ""
+        print(f"{c.center_hz / 1e3:+10.1f} kHz  bw={c.bw_hz / 1e3:5.1f} kHz  "
+              f"snr={c.snr_db:5.1f} dB  type={typ}{extra}", file=sys.stderr)
+    print(json.dumps([{"center_hz": round(c.center_hz, 1),
+                       "bw_hz": round(c.bw_hz, 1),
+                       "snr_db": round(c.snr_db, 1),
+                       "sonde": c.sonde, "frames": c.frames}
+                      for c in carriers]))
+    if args.out:
+        base = FrameworkConfig.load(args.config) if args.config else None
+        cfg = scan_to_config(carriers, base, fs_wide=args.fs_wide)
+        cfg.save(args.out)
+        print(f"channel_map ({len(cfg.channel_map)} entries) -> {args.out}",
+              file=sys.stderr)
     return 0
 
 
@@ -580,6 +714,22 @@ def build_parser() -> argparse.ArgumentParser:
     pd.add_argument("--bins", type=int, default=None,
                     help="PFB channel count for --wideband (default: the "
                          "config's wide_bins, else 8)")
+    pd.add_argument("--auto", action="store_true",
+                    help="with --wideband: no channel_map needed — discover "
+                         "and classify sondes live, grow the fleet as they "
+                         "launch (runtime/autofleet.py)")
+    pd.add_argument("--rescan", type=int, default=10,
+                    help="--auto: re-scan the spectrum every N blocks")
+    pd.add_argument("--drop-idle", type=int, default=0,
+                    help="--auto: drop a tracked sonde after N blocks "
+                         "without telemetry (0 = never)")
+    pd.add_argument("--families", default=None,
+                    help="comma list restricting --auto decode probes "
+                         "(default: every registered family)")
+    pd.add_argument("--min-snr", type=float, default=8.0,
+                    help="carrier detection threshold for --auto rescans, dB")
+    pd.add_argument("--probe-blocks", type=int, default=2,
+                    help="wideband blocks buffered for --auto decode probes")
     pd.set_defaults(fn=cmd_decode)
 
     pf = sub.add_parser("fer", help="frame-error-rate vs SNR sweep")
@@ -592,6 +742,31 @@ def build_parser() -> argparse.ArgumentParser:
     pf.add_argument("--device", default="cuda",
                     help='torch device to decode on (default "cuda")')
     pf.set_defaults(fn=cmd_fer)
+
+    pc = sub.add_parser("scan", help="detect + classify sondes in wideband IQ")
+    pc.add_argument("--iq", required=True)
+    pc.add_argument("--format", default=None)
+    pc.add_argument("--fs-wide", type=float, required=True,
+                    help="wideband sample rate, Hz (multiple of 48 kHz "
+                         "to enable classification)")
+    pc.add_argument("--nfft", type=int, default=4096)
+    pc.add_argument("--min-snr", type=float, default=8.0,
+                    help="carrier detection threshold over the noise floor")
+    pc.add_argument("--max-carriers", type=int, default=64)
+    pc.add_argument("--probe-secs", type=float, default=3.0,
+                    help="seconds of capture fed to the decode probes")
+    pc.add_argument("--families", default=None,
+                    help="comma list of families to probe (default: all)")
+    pc.add_argument("--sync-threshold", type=float, default=0.55)
+    pc.add_argument("--no-classify", dest="classify", action="store_false",
+                    help="only detect carriers; skip the decode probes")
+    pc.add_argument("--out", default=None,
+                    help="write a decode-ready config JSON (channel_map)")
+    pc.add_argument("--config", default=None,
+                    help="base config to extend when writing --out")
+    pc.add_argument("--device", default="cuda",
+                    help='torch device to scan on (default "cuda")')
+    pc.set_defaults(fn=cmd_scan)
     return p
 
 

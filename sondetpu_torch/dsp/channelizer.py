@@ -12,7 +12,8 @@ Column j of vv holds branch (N - j) % N, and the DFT's sign -1 absorbs that
 reversal, so channel k is centred at +k * fs_chan (k taken mod N, negative
 above N/2). The branch FIR runs kernel ``pfb_fir_stream``, or
 ``pfb_fir_timemajor`` when the block is shorter than the filter history;
-the DFT runs ``pfb_dft``, which writes channel k at row k.
+the DFT runs ``pfb_dft``, which writes channel k at row k (for N a
+power of two from 8 to 4096; any other N takes its plain twin).
 
 Streaming: the last ``N * tpp`` wideband samples carry across blocks, so
 chunked channelization equals unchunked.
@@ -31,8 +32,9 @@ import numpy as np
 import torch
 
 from sondetpu_torch.dsp.fir import design_lowpass
-from sondetpu_torch.kernels.pfb import (TPP, pfb_dft, pfb_fir_stream,
-                                        pfb_fir_timemajor, twiddle_table)
+from sondetpu_torch.kernels.pfb import (TPP, pfb_dft, pfb_dft_plain,
+                                        pfb_fir_stream, pfb_fir_timemajor,
+                                        twiddle_table)
 
 CUTOFF_FRAC = 0.45   # prototype cutoff, in units of the channel spacing
 
@@ -75,9 +77,15 @@ class PFBChannelizer:
         perm[1:] = self.n - np.arange(1, self.n)
         self._hcol = np.ascontiguousarray(self._hbank[perm].T)  # [tpp, N]
         self._hcol_t = torch.from_numpy(self._hcol).to(self.device)
-        self._twiddles = (None if self.device.type == "cpu" else tuple(
-            torch.from_numpy(t).to(self.device)
-            for t in twiddle_table(self.n)))
+        # the DFT kernel covers powers of two from 8 to 4096; any other N
+        # runs its plain twin (torch.fft) on the card, as the original runs
+        # its XLA DFT where its kernel's tile does not fit
+        # (sondetpu/dsp/channelizer.py:214-222)
+        self._dft_kernel = 8 <= self.n <= 4096 and not self.n & (self.n - 1)
+        self._twiddles = (tuple(torch.from_numpy(t).to(self.device)
+                                for t in twiddle_table(self.n))
+                          if self.device.type == "cuda" and self._dft_kernel
+                          else None)
 
     @property
     def history(self) -> int:
@@ -124,5 +132,7 @@ class PFBChannelizer:
                                          self._hcol_t, self._cdt)
             new_state = ChannelizerState(tail_i=xp_i[-L:].clone(),
                                          tail_q=xp_q[-L:].clone())
+        if not self._dft_kernel:
+            return (new_state, *pfb_dft_plain(u_i, u_q))
         y_i, y_q = pfb_dft(u_i, u_q, self._twiddles)
         return new_state, y_i, y_q

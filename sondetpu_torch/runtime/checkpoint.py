@@ -20,7 +20,8 @@ group to a multiple of 8), so a fleet group restores its logical rows,
 the first ``len(idxs)`` of each leaf's channel axis, into the port's own
 ``init_state``; its pad rows start afresh. Every mismatch (sonde, channel
 count, block length, AFC setting, layout, dtype) raises before any state
-is touched. The AutoFleet checkpoints are not ported.
+is touched. An AutoFleet checkpoint holds the tracked list (the port's
+``TrackedSonde``) and its fleet's payload.
 
 Checkpoint files are trusted input (this framework writes them), as in the
 original; the restricted unpickler keeps a foreign class out all the same.
@@ -51,6 +52,7 @@ _CLASSES = {
     "dsp.channelizer": ("ChannelizerState",),
     "telemetry": ("SondeTelemetry", "TelemetryFragment", "Fields"),
     "sondes.rs41": ("_ChannelCal",),
+    "runtime.autofleet": ("TrackedSonde",),
 }
 _NUMPY = {("numpy", "ndarray"), ("numpy._core.multiarray", "_reconstruct"),
           ("numpy.core.multiarray", "_reconstruct"),
@@ -325,3 +327,38 @@ def _restore_fleet(fleet, payload: dict) -> None:
         sess.telemetry = telemetry
         sess.frames_seen = g["frames_seen"]
         sess.blocks_seen = g["blocks_seen"]
+
+
+def save_autofleet(auto, path: str) -> None:
+    """Snapshot an AutoFleet: the tracked-carrier list (with last-known
+    telemetry) plus the underlying fleet's full payload."""
+    payload = {
+        "version": FORMAT_VERSION,
+        "autofleet": True,
+        "n_bins": auto.n_bins,
+        "block_len": auto.block_len,
+        "blocks_seen": auto.blocks_seen,
+        "tracked": list(auto.tracked),
+        "fleet_payload": _fleet_payload(auto.fleet)
+        if auto.fleet is not None else None,
+    }
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+
+
+def load_autofleet(auto, path: str) -> None:
+    """Restore an AutoFleet snapshot (the port's or the JAX package's) into
+    a freshly constructed AutoFleet with matching n_bins/block_len: rebuilds
+    the fleet from the tracked list, then restores every group's state."""
+    payload = _load(path)
+    if payload.get("version") != FORMAT_VERSION or not payload.get("autofleet"):
+        raise ValueError("not an autofleet checkpoint of a supported version")
+    for key in ("n_bins", "block_len"):
+        if payload[key] != getattr(auto, key):
+            raise ValueError(f"checkpoint {key}={payload[key]!r} != autofleet "
+                             f"{key}={getattr(auto, key)!r}")
+    auto.tracked = list(payload["tracked"])
+    auto.blocks_seen = payload["blocks_seen"]
+    auto._rebuild()
+    if payload["fleet_payload"] is not None:
+        _restore_fleet(auto.fleet, payload["fleet_payload"])

@@ -3,10 +3,14 @@
 
 One PFB channelizer splits the wideband stream; channels are grouped by
 sonde type, and each group advances through its type's pipeline as a batch.
-This is the original's single-process fused ``FleetSession`` step: PFB, a
-row gather per group, each group's step, the groups' packed buffers
-concatenated into one, and one device->host readback per block (one block
-later when ``pipelined``). The step runs eagerly on ``device``. A channel's
+The default (``fused=None`` or ``True``) is the original's single-process
+fused ``FleetSession`` step: PFB, a row gather per group, each group's
+step, the groups' packed buffers concatenated into one, and one
+device->host readback per block (one block later when ``pipelined``).
+``fused=False`` is the original's per-group path: PFB, then for each group
+a row gather and that group's ``process_block``, one readback per group,
+with ``pipelined`` passed on to the groups' sessions. Both run eagerly on
+``device``. A channel's
 ``offset_hz`` below the PFB grid goes to its group's DDC
 (``fine_offsets``), and ``afc`` runs each group's AFC loop from it.
 
@@ -21,8 +25,8 @@ per-family policy measured on a TPU v5e (dual-tone groups on the kernel,
 the rest on the jnp path), which on any other backend than a TPU means no
 kernels at all; the policy for this card is for the benchmark to measure.
 
-Not ported: the mesh fleet, which raises ``NotImplementedError``, and the
-unfused per-group dispatch (``fused=False``). The original's 64-row group
+Not ported: the mesh fleet, which raises ``NotImplementedError``. The
+original's 64-row group
 padding was tuned for the TPU and is dropped: a group is padded only to
 the kernels' multiple of 8 rows, and only when it takes a kernel route.
 """
@@ -64,7 +68,8 @@ class FleetSession:
                  fs_chan: float = 48000.0, block_len: int = 48000,
                  sync_threshold: float = 0.55, use_pallas: bool = None,
                  on_update=None, mesh=None, compute_dtype: str = "f32",
-                 afc: bool = False, pipelined: bool = False):
+                 afc: bool = False, pipelined: bool = False,
+                 fused: bool = None):
         if mesh is not None:
             raise NotImplementedError("sondetpu_torch FleetSession: mesh= "
                                       "(the mesh fleet) is not ported")
@@ -80,6 +85,7 @@ class FleetSession:
         self.n_bins = n_bins
         self.fs_chan = fs_chan
         self.pipelined = bool(pipelined)
+        self._fused = True if fused is None else bool(fused)
         self._pending = None
 
         groups: Dict[str, List[int]] = {}
@@ -116,7 +122,7 @@ class FleetSession:
                 cfg = config(0)
             sess = DecoderSession(cfg, self.device,
                                   on_update=self._wrap(sonde, idxs, on_update),
-                                  pipelined=False)
+                                  pipelined=self.pipelined)
             self.groups[sonde] = (idxs, sess)
             bins = [self.channels[i].pfb_bin for i in idxs]
             bins += [bins[0]] * pad
@@ -192,6 +198,13 @@ class FleetSession:
             wi, wq = c64_to_planes(np.asarray(iq))
         wi = torch.as_tensor(wi).to(self.device, torch.float32)
         wq = torch.as_tensor(wq).to(self.device, torch.float32)
+        if not self._fused:
+            # the per-group path: each group's session steps, reads back
+            # and decodes its own rows (pipelined in the session)
+            self.pfb_state, yi, yq = self.pfb(self.pfb_state, wi, wq)
+            return sum(len(sess.process_block((yi.index_select(0, bins),
+                                               yq.index_select(0, bins))))
+                       for _, bins, sess in self._order)
         block = self.step(wi, wq)
         if not self.pipelined:
             return self._consume(block)
@@ -204,6 +217,9 @@ class FleetSession:
 
     def flush(self) -> int:
         """Drain the pending block in pipelined mode (call at end of
-        stream: without it the final block's frames are dropped)."""
+        stream: without it the final block's frames are dropped); unfused,
+        every group's session drains its own."""
+        if not self._fused:
+            return sum(len(sess.flush()) for _, _, sess in self._order)
         pending, self._pending = self._pending, None
         return self._consume(pending) if pending is not None else 0

@@ -89,8 +89,15 @@ def test_fer_command_equals_the_original(capsys):
 
 
 def test_the_parser_has_no_scan_auto_or_bench():
-    parser = tcli.build_parser()
-    for argv in (["scan", "--iq", "x", "--fs-wide", "1"], ["bench"],
-                 ["decode", "--iq", "x", "--auto"]):
-        with pytest.raises(SystemExit):
-            parser.parse_args(argv)
+    """``bench`` is not ported; ``scan`` and ``decode --auto`` parse to the
+    original's arguments and defaults, plus ``--device``."""
+    parser, jparser = tcli.build_parser(), jcli.build_parser()
+    with pytest.raises(SystemExit):
+        parser.parse_args(["bench"])
+    for argv in (["scan", "--iq", "x", "--fs-wide", "1"],
+                 ["decode", "--iq", "x", "--wideband", "--auto"]):
+        got = vars(parser.parse_args(argv))
+        want = vars(jparser.parse_args(argv))
+        assert got.pop("device") == "cuda"
+        assert {k: v for k, v in got.items() if k != "fn"} \
+            == {k: v for k, v in want.items() if k != "fn"}

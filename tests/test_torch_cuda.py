@@ -540,6 +540,25 @@ def test_cuda_pfb_kernels_match_twins(cuda_device):
                                    atol=1e-4 * float(b.abs().max()))
 
 
+@pytest.mark.parametrize("n", [4, 6])
+def test_cuda_channelizer_outside_the_dft_kernel(cuda_device, n):
+    """N outside the DFT kernel's powers of two from 8 to 4096 (the 4-bin
+    AutoFleet of tests/data/jax_autofleet_checkpoint.py): the channelizer
+    runs the branch FIR kernel and the DFT's plain twin on the card, equal
+    to the CPU within 1e-4 of max|y|."""
+    rng = np.random.default_rng(n)
+    x = [rng.normal(size=n * 4000).astype(np.float32) for _ in range(2)]
+    card, cpu = PFBChannelizer(n, cuda_device), PFBChannelizer(n, "cpu")
+    cuda.reset_launches()
+    _, *got = card(card.init_state(), *(T(a).to(cuda_device) for a in x))
+    _, *want = cpu(cpu.init_state(), *(T(a) for a in x))
+    assert cuda.launches["pfb_dft"] == 0
+    assert cuda.launches["pfb_fir_stream"] == 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
 @pytest.mark.parametrize("n", [2048, 16])
 def test_cuda_bf16_pfb_kernels_match_twins(cuda_device, n):
     """K4 and K5 in bfloat16 are torch.equal to their twin run in bfloat16

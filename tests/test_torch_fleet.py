@@ -117,6 +117,38 @@ def test_fleet_matches_jax_fleet(wideband, jax_reference, pipelined):
     assert {s for _, s in got_updates} == {"rs41", "m10", "dfm"}
 
 
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_unfused_fleet_matches_fused_and_jax(wideband, jax_reference,
+                                             pipelined):
+    """fused=False (the original's per-group path, tests/test_fleet.py:339):
+    PFB, then each group's row gather and process_block, with ``pipelined``
+    passed on to the group sessions. Block by block the same updates and
+    telemetry as the port's fused step and the JAX fleet; flush drains
+    every group's session."""
+    wide, w = wideband
+    want_updates, want_telem = jax_reference
+    chans = [FleetChannel(b, s) for b, s in PLAN]
+    unfused = FleetSession(chans, N_BINS, "cpu", pipelined=pipelined,
+                           fused=False)
+    fused = FleetSession(chans, N_BINS, "cpu", pipelined=pipelined)
+    assert fused._fused and not unfused._fused
+    assert all(sess.pipelined is pipelined
+               for _, sess in unfused.groups.values())
+    lag = int(pipelined)
+    for b, i in enumerate(range(0, wide.size, w)):
+        got = unfused.process_wideband(wide[i:i + w])
+        assert got == fused.process_wideband(wide[i:i + w])
+        text = _telemetry_text(unfused.telemetry)
+        assert text == _telemetry_text(fused.telemetry)
+        if b >= lag:
+            assert got == want_updates[b - lag]
+            assert text == want_telem[b - lag]
+    last = want_updates[-1] if pipelined else 0
+    assert unfused.flush() == fused.flush() == last
+    assert unfused.flush() == 0
+    assert _telemetry_text(unfused.telemetry) == want_telem[-1]
+
+
 def test_fleet_step_is_one_packed_buffer(wideband):
     """The device step returns every group's packed buffer concatenated,
     in group order, and the frames of each group."""

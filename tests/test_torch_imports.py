@@ -46,6 +46,8 @@ def jax_package_imports(path: str):
 def test_the_walk_sees_the_port():
     assert "chip_smoke.py" in SOURCES
     assert os.path.join("sondetpu_torch", "runtime", "session.py") in SOURCES
+    assert os.path.join("sondetpu_torch", "runtime", "autofleet.py") in SOURCES
+    assert os.path.join("sondetpu_torch", "dsp", "scan.py") in SOURCES
     assert jax_package_imports(os.path.join("tests", "test_torch_host.py"))
 
 
@@ -71,6 +73,8 @@ import sys
 import sondetpu_torch.runtime.session
 import sondetpu_torch.runtime.fleet
 import sondetpu_torch.runtime.checkpoint
+import sondetpu_torch.runtime.autofleet
+import sondetpu_torch.dsp.scan
 import sondetpu_torch.cli.main
 import sondetpu_torch.bench.fer
 import sondetpu_torch.dsp.resample

@@ -96,12 +96,15 @@ def test_pfb_dft_twin_is_the_dft():
         np.float32))
 
 
-@pytest.mark.parametrize("n", [16, 512])
+@pytest.mark.parametrize("n", [4, 6, 16, 512])
 def test_channelizer_matches_jax(n):
     """Three streamed blocks (tail carried) then one block shorter than
     the filter history (the pfb_fir_timemajor path): outputs within
-    atol 1e-5 x max|y| of the JAX channelizer, carried tails equal."""
+    atol 1e-5 x max|y| of the JAX channelizer, carried tails equal. N = 4
+    and 6 lie outside the DFT kernel's powers of two from 8 to 4096: the
+    channelizer takes its plain twin there on any device."""
     jp, tp = JaxPFB(n), PFBChannelizer(n, "cpu")
+    assert tp._dft_kernel == (n >= 8)
     np.testing.assert_array_equal(tp._hcol, jp._hcol)
     np.testing.assert_array_equal(tp.center_freqs(8 * 48000.0),
                                   jp.center_freqs(8 * 48000.0))
