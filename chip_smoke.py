@@ -171,6 +171,27 @@ before the result line:
     (tests/data) run on on the card to the JAX continuation.
 30. fleet_unfused: a 16-bin fleet, fused=False against the fused step on
     the card, block by block (updates, telemetry, launches equal).
+31. mesh_session: RS41 at 2048 channels x 4 s (cs16, the kernel route in
+    f32) on a 4-way mesh on the one card (sondetpu_torch.parallel): the
+    sharded step's packed buffer torch.equal to the unsharded step's, the
+    mesh session's telemetry to the unsharded session's, K1-K3 four times
+    a step; step and block times sharded and unsharded in turns; the
+    plain-op bf16 step at 64 channels on an 8-way mesh against the CPU.
+32. mesh_fleet: the fused mesh fleet at 2048 bins x 1 s with bench.py's
+    map on a 2-way mesh, 56 channels on their kernel routes on a 4-way
+    mesh (K1-K3, K7), each against the unsharded fused fleet, and 16 rs41
+    + 1 m10 (an _mp_local group) on an 8-way mesh against the CPU.
+33. mesh_processes: two processes in a gloo group on the one card
+    (tests/torch_mp_worker.py): each decodes only its own channels, sees
+    every channel through the fan-in, equal summed metrics, no per-block
+    host upload in the fleet; RS41 at 2048 channels x 4 s, 1024 a
+    process; the fan-in's time per call.
+34. time_parallel: time_parallel_fir and time_parallel_frontend at
+    [2048, 192000] on a 4-way mesh against the serial chain on the card
+    and the CPU.
+35. dryrun_multichip(4, cuda:0).
+Shards on one card run in turn: the mesh phases' times show the cost of
+sharding, never scaling. An NCCL group needs a card per rank.
 
 At the end no module of jax or of the JAX package (sondetpu) may be loaded.
 With --profile, ptxas reports the registers of the redesigned kernels'
@@ -183,8 +204,8 @@ are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
 K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
 paths' shapes (no result line).
 The last lines are the kernel table (each kernel's launches from its
-path's run, per step on each path, in each command-line run and on the
-scan, AutoFleet and unfused-fleet paths; K4's and K5's library column is
+path's run, per step on each path, in each command-line run, on the
+scan, AutoFleet and unfused-fleet paths and on the mesh paths; K4's and K5's library column is
 a depthwise F.conv1d), the card
 as nvidia-smi names it,
 and {"ok": true, "device": {...}}. Needs one CUDA device, nvcc and a C++
@@ -4235,6 +4256,522 @@ def phase_fleet_unfused(torch, dev, smi, n_bins: int = 16,
     return {"launches": ul, "bodies": ub, "steps": n_blocks}
 
 
+# -- the multi-device layer (sondetpu_torch.parallel) --------------------
+# Shards on one card run in turn: the mesh phases' times show the cost of
+# sharding, never scaling.
+
+MESH_SERIALS = ("S1234567", "T7654321", "R0420042", "N2718281")
+MESH_KERNEL_PLAN = (("rs41", 32), ("m10", 16), ("dfm", 8))
+MESH_KERNEL_CARRIERS = ((1, "rs41", "S1234567"), (33, "m10", "910-2-12345"),
+                        (50, "dfm", "1234567"))
+
+
+def mesh_rs41_blocks(torch, dev, n_blocks: int, channels=None):
+    """int16 (i, q) planes [channels, BLOCK_LEN] on ``dev``, one block at a
+    time: channel ch carries MESH_SERIALS[ch % 4] (rs41_planes, each with
+    its own seed) plus its own seeded noise of std 0.02 per component, so
+    that no two channels are alike."""
+    channels = channels or CHANNELS
+    rows = [rs41_planes(s, n_blocks, seed=40 + k)
+            for k, s in enumerate(MESH_SERIALS)]
+    ri = torch.from_numpy(np.stack([r[0] for r in rows])).to(dev)
+    rq = torch.from_numpy(np.stack([r[1] for r in rows])).to(dev)
+    idx = torch.arange(channels, device=dev) % len(MESH_SERIALS)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    out = []
+    for b in range(n_blocks):
+        sl = slice(b * BLOCK_LEN, (b + 1) * BLOCK_LEN)
+        planes = []
+        for r in (ri, rq):
+            x = r[idx, sl].float() + 0.02 * 32767 * torch.randn(
+                (channels, BLOCK_LEN), generator=gen, device=dev)
+            planes.append(x.round_().clamp_(-32768, 32767).to(torch.int16))
+        out.append(tuple(planes))
+    return out
+
+
+def in_turns(torch, fns, rounds: int = 6, per: int = 2):
+    """Synchronized wall times (ms) of each zero-argument callable, taken
+    in turns (a, b, b, a, ...) so that all meet the same card."""
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            for _ in range(per):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k]()
+                torch.cuda.synchronize()
+                times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def telemetry_text(telem) -> dict:
+    # as JSON text: NaN fields (uncalibrated PTU) compare equal
+    return {c: json.dumps(t.to_dict(), sort_keys=True)
+            for c, t in telem.items()}
+
+
+def phase_mesh_session(torch, dev, smi, n_blocks: int = 3):
+    """RS41 at 2048 channels x 4 s (cs16, the kernel route in f32) on a
+    4-way mesh on the one card: per block the sharded step's packed buffer
+    and validity torch.equal to the unsharded step's; the mesh session's
+    telemetry equal to the unsharded session's, each channel its serial;
+    K1-K3 four times a step (once a shard), read from the mesh session's
+    run alone; the step and the session's block, sharded and unsharded, in
+    turns. Then the plain-op bf16 step (the JAX bench's default) at 64
+    channels on an 8-way mesh, held to the CPU."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.parallel import make_mesh, sharded_pipeline_step
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    mesh = make_mesh(devices=[dev] * 4)
+    cfg = PipelineConfig(sonde="rs41", channels=CHANNELS, block_len=BLOCK_LEN,
+                         use_pallas=True, input_dtype="i16")
+    blocks = mesh_rs41_blocks(torch, dev, n_blocks)
+    pipe = Pipeline(cfg, dev)
+    step_fn, shard_fn = sharded_pipeline_step(pipe, mesh)
+    s0, s1 = pipe.init_state(), shard_fn(pipe.init_state())
+    valid = 0
+    for b, (qi, qq) in enumerate(blocks):
+        s0, o0 = pipe._step_impl(s0, qi, qq)
+        s1, o1 = step_fn(s1, shard_fn(qi), shard_fn(qq))
+        check(torch.equal(torch.cat([o.packed for o in o1.parts]), o0.packed)
+              and torch.equal(torch.cat([o.frame_valid for o in o1.parts]),
+                              o0.frame_valid),
+              f"mesh_session block {b}: the sharded step's packed buffer "
+              "differs from the unsharded step's")
+        valid += int(o0.frame_valid.sum())
+    del s0, s1, o0, o1
+    msess = DecoderSession(cfg, dev, mesh=mesh)
+    usess = DecoderSession(cfg, dev, pipeline=pipe)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for planes in blocks:
+        msess.process_block(planes)
+    torch.cuda.synchronize()
+    launches, bodies = dict(cuda.launches), dict(cuda.body_launches)
+    for planes in blocks:
+        usess.process_block(planes)
+    mt = telemetry_text(msess.telemetry)
+    check(mt == telemetry_text(usess.telemetry),
+          "mesh_session: telemetry differs from the unsharded session's")
+    for ch in range(CHANNELS):
+        t = msess.telemetry.get(ch)
+        check(t is not None and t.serial == MESH_SERIALS[ch % 4]
+              and abs(t.lat - 45.0) < 1e-4,
+              f"mesh_session: channel {ch} telemetry {t}")
+    want = {"fused_frontend": 4 * n_blocks, "corr": 4 * n_blocks,
+            "rs_clean": 4 * n_blocks}
+    check({k: launches[k] for k in want} == want
+          and not any(v for k, v in launches.items() if k not in want),
+          f"mesh_session: launches {launches}, expected {want}")
+    check(bodies == {"fused_frontend:decim2_t41": 4 * n_blocks,
+                     "corr:sign_l64": 4 * n_blocks,
+                     "rs_clean:c384": 4 * n_blocks},
+          f"mesh_session: bodies {bodies}")
+    # the device step and the session's block, sharded and unsharded, in
+    # turns; the sessions go on over the blocks (telemetry keeps merging)
+    st = {"u": pipe.init_state(), "m": shard_fn(pipe.init_state())}
+    k = {"u": 0, "m": 0}
+
+    def unsharded_step():
+        st["u"], _ = pipe._step_impl(st["u"], *blocks[k["u"] % n_blocks])
+        k["u"] += 1
+
+    def sharded_step():
+        qi, qq = blocks[k["m"] % n_blocks]
+        st["m"], _ = step_fn(st["m"], shard_fn(qi), shard_fn(qq))
+        k["m"] += 1
+
+    step_u, step_m = in_turns(torch, [unsharded_step, sharded_step])
+    del st
+    nb = {"u": 0, "m": 0}
+
+    def block(key, sess):
+        def run():
+            sess.process_block(blocks[nb[key] % n_blocks])
+            nb[key] += 1
+        return run
+
+    block_u, block_m = in_turns(torch, [block("u", usess),
+                                        block("m", msess)], rounds=2, per=1)
+    del msess, usess, blocks
+    torch.cuda.empty_cache()
+    plain = phase_mesh_plain_bf16(torch, dev)
+    emit({"phase": "mesh_session", "device": smi, "mesh": mesh.shape,
+          "channels": CHANNELS, "block_len": BLOCK_LEN, "blocks": n_blocks,
+          "valid_frames": valid, "launches": {k: v for k, v in
+                                              launches.items() if v},
+          "body_launches": bodies,
+          "note": "the 4 shards share one card and run in turn: the times "
+                  "show the cost of sharding, not scaling",
+          "step_ms": {"unsharded": statistics.median(step_u),
+                      "sharded_4way": statistics.median(step_m),
+                      "unsharded_all": step_u, "sharded_4way_all": step_m},
+          "block_ms": {"unsharded": block_u, "sharded_4way": block_m},
+          "plain_bf16_8way": plain})
+    return {"launches": launches, "bodies": bodies, "steps": n_blocks}
+
+
+def phase_mesh_plain_bf16(torch, dev, channels: int = 64, n_blocks: int = 2):
+    """The plain-op RS41 step in bf16 (use_pallas=False, i16) at 64
+    channels on an 8-way mesh on the card against the unsharded step on
+    the CPU: validity and valid frame bytes block by block, the sessions'
+    telemetry; no hand kernel launched."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.parallel import make_mesh, sharded_pipeline_step
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+    from sondetpu_torch.runtime.session import DecoderSession
+
+    cpu = torch.device("cpu")
+    mesh = make_mesh(devices=[dev] * 8)
+    cfg = PipelineConfig(sonde="rs41", channels=channels, block_len=BLOCK_LEN,
+                         compute_dtype="bf16", input_dtype="i16")
+    blocks = [(qi.cpu(), qq.cpu()) for qi, qq in
+              mesh_rs41_blocks(torch, dev, n_blocks, channels)]
+    gpu, host = Pipeline(cfg, dev), Pipeline(cfg, cpu)
+    step_fn, shard_fn = sharded_pipeline_step(gpu, mesh)
+    sg, sc = shard_fn(gpu.init_state()), host.init_state()
+    msess = DecoderSession(cfg, dev, mesh=mesh)
+    csess = DecoderSession(cfg, cpu, pipeline=host)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    frames = 0
+    for b, (qi, qq) in enumerate(blocks):
+        sg, og = step_fn(sg, shard_fn(qi.numpy()), shard_fn(qq.numpy()))
+        sc, oc = host.step(sc, (qi, qq))
+        vg = torch.cat([o.frame_valid for o in og.parts]).cpu()
+        fg = torch.cat([o.frames for o in og.parts]).cpu()
+        check(torch.equal(vg, oc.frame_valid)
+              and torch.equal(fg[vg], oc.frames[oc.frame_valid]),
+              f"mesh plain bf16 block {b}: validity or frame bytes differ "
+              "from the CPU")
+        frames += int(vg.sum())
+        msess.process_block((qi.numpy(), qq.numpy()))
+        csess.process_block((qi, qq))
+    torch.cuda.synchronize()
+    check(not any(cuda.launches.values()),
+          f"mesh plain bf16: hand kernels launched {dict(cuda.launches)}")
+    check(telemetry_text(msess.telemetry) == telemetry_text(csess.telemetry)
+          and len(msess.telemetry) == channels,
+          "mesh plain bf16: telemetry differs from the CPU session's")
+    return {"channels": channels, "mesh": mesh.shape, "blocks": n_blocks,
+            "valid_frames": frames}
+
+
+def mesh_fleet_run(torch, fleet, blocks):
+    """Per block the updates, the telemetry after it and the synchronized
+    wall time; launches and bodies over the run (counts set to 0 just
+    before it)."""
+    from sondetpu_torch.kernels import cuda
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    ups, telem, walls = [], [], []
+    for wi, wq in blocks:
+        t0 = time.perf_counter()
+        ups.append(fleet.process_wideband((wi, wq)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        telem.append(telemetry_text(fleet.telemetry))
+    return ups, telem, walls, dict(cuda.launches), dict(cuda.body_launches)
+
+
+def phase_mesh_fleet(torch, dev, smi, n_blocks: int = 3):
+    """The fused mesh fleet. (a) 2048 bins x 1 s with bench.py's channel
+    map (1230 rs41, 614 m10, 204 dfm; no group divides by 8, so each takes
+    the plain-op route, as in the original) on a 2-way mesh on the card,
+    every group sharded (_mp_order): updates and telemetry equal to the
+    unsharded fused fleet's block by block, K4 and K6 once a block. (b) the
+    kernel routes: 56 channels in 64 bins (32 rs41, 16 m10, 8 dfm) on a
+    4-way mesh, against the unsharded fused fleet: K1-K3, K7, K4 and K6
+    launched. (c) 16 rs41 channels in 16 bins and one m10 (which stays on
+    the device: _mp_local) on an 8-way mesh, card against CPU. Each with
+    its per-block walls, sharded and unsharded in turns for (a)."""
+    from sondetpu_torch.parallel import make_mesh
+    from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
+
+    nb_a = 48000
+    chans = [FleetChannel(pfb_bin=k, sonde=fleet_family(k))
+             for k in range(N_BINS)]
+    mesh2 = make_mesh(devices=[dev] * 2)
+    blocks = list(fleet_blocks(torch, dev, n_blocks, seed=51, n_bins=N_BINS,
+                               block_len=nb_a))
+    fm = FleetSession(chans, N_BINS, dev, block_len=nb_a, mesh=mesh2,
+                      use_pallas=False)
+    fu = FleetSession(chans, N_BINS, dev, block_len=nb_a, use_pallas=False)
+    check(fm._fused_mesh and not fm._mp_local
+          and [g[0] for g in fm._mp_order] == ["rs41", "m10", "dfm"],
+          "mesh_fleet: every group of the 2048-bin map should shard")
+    mu, mtel, mwall, launches, bodies = mesh_fleet_run(torch, fm, blocks)
+    uu, utel, uwall, _, _ = mesh_fleet_run(torch, fu, blocks)
+    check(mu == uu and mtel == utel, f"mesh_fleet: updates {mu} and "
+          f"telemetry differ from the unsharded fused fleet's {uu}")
+    telem = fm.telemetry
+    for k, family, serial in FLEET_CARRIERS:
+        check(telem.get(k) is not None and telem[k].serial == serial,
+              f"mesh_fleet: channel {k} ({family}) telemetry {telem.get(k)}")
+    check(launches["pfb_fir_stream"] == n_blocks == launches["pfb_dft"]
+          and sum(launches.values()) == 2 * n_blocks,
+          f"mesh_fleet: launches {launches}")
+    run_a = {"launches": launches, "bodies": bodies, "steps": n_blocks}
+    nk = {"m": 0, "u": 0}
+
+    def block(key, fleet):
+        def run():
+            fleet.process_wideband(blocks[nk[key] % n_blocks])
+            nk[key] += 1
+        return run
+
+    wall_u, wall_m = in_turns(torch, [block("u", fu), block("m", fm)],
+                              rounds=2, per=1)
+    del fm, fu, blocks
+    torch.cuda.empty_cache()
+
+    # (b) the kernel routes on a 4-way mesh
+    n_bins = 64
+    families = [s for s, n in MESH_KERNEL_PLAN for _ in range(n)]
+    chans = [FleetChannel(pfb_bin=b, sonde=s) for b, s in enumerate(families)]
+    blocks = list(fleet_blocks(torch, dev, n_blocks, seed=52, n_bins=n_bins,
+                               block_len=nb_a, carriers=MESH_KERNEL_CARRIERS))
+    fm = FleetSession(chans, n_bins, dev, block_len=nb_a,
+                      mesh=make_mesh(devices=[dev] * 4), use_pallas=True)
+    fu = FleetSession(chans, n_bins, dev, block_len=nb_a, use_pallas=True)
+    check([sess.pipeline._route for _, _, sess in fm._order]
+          == ["fused", "dualtone", "fused"],
+          "mesh_fleet kernel routes: group routes")
+    mu, mtel, _, klaunches, kbodies = mesh_fleet_run(torch, fm, blocks)
+    uu, utel, _, _, _ = mesh_fleet_run(torch, fu, blocks)
+    check(mu == uu and mtel == utel, f"mesh_fleet kernel routes: updates "
+          f"{mu} and telemetry differ from the unsharded fleet's {uu}")
+    telem = fm.telemetry
+    for k, family, serial in MESH_KERNEL_CARRIERS:
+        check(telem.get(k) is not None and telem[k].serial == serial,
+              f"mesh_fleet kernel routes: channel {k} ({family}) telemetry "
+              f"{telem.get(k)}")
+    want = {"pfb_fir_stream": n_blocks, "pfb_dft": n_blocks,
+            "fused_frontend": 8 * n_blocks, "corr": 8 * n_blocks,
+            "rs_clean": 4 * n_blocks, "fused_dualtone_frontend": 4 * n_blocks}
+    check({k: klaunches[k] for k in want} == want,
+          f"mesh_fleet kernel routes: launches {klaunches}, expected {want}")
+    run_b = {"launches": klaunches, "bodies": kbodies, "steps": n_blocks}
+    del fm, fu, blocks
+    torch.cuda.empty_cache()
+
+    # (c) 16 rs41 (sharded 8-way) + 1 m10 (_mp_local), card against CPU
+    chans = [FleetChannel(pfb_bin=k, sonde="rs41") for k in range(16)]
+    chans.append(FleetChannel(pfb_bin=6, sonde="m10"))
+    carriers = ((1, "rs41", "S1234567"), (6, "m10", "910-2-12345"))
+    blocks = list(fleet_blocks(torch, dev, n_blocks, seed=53, n_bins=16,
+                               block_len=nb_a, carriers=carriers))
+    runs = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        fleet = FleetSession(chans, 16, d, block_len=nb_a,
+                             mesh=make_mesh(devices=[d] * 8))
+        check([g[0] for g in fleet._mp_order] == ["rs41"]
+              and fleet._mp_local == ["m10"],
+              "mesh_fleet 16 bins: rs41 sharded, m10 on the device")
+        runs[label] = mesh_fleet_run(
+            torch, fleet, [(wi.to(d), wq.to(d)) for wi, wq in blocks])[:2]
+        if label == "card":
+            telem = fleet.telemetry
+    check(runs["card"] == runs["cpu"], "mesh_fleet 16 bins: card and CPU "
+          f"differ: updates {runs['card'][0]} against {runs['cpu'][0]}")
+    check(telem[1].serial == "S1234567" and telem[16].serial == "910-2-12345",
+          f"mesh_fleet 16 bins: telemetry {telem}")
+    emit({"phase": "mesh_fleet", "device": smi, "bins": N_BINS,
+          "block_len": nb_a, "blocks": n_blocks, "mesh": mesh2.shape,
+          "groups": {"rs41": 1230, "m10": 614, "dfm": 204},
+          "updates": mu, "launches": {k: v for k, v in launches.items() if v},
+          "kernel_routes": {"bins": n_bins, "mesh": {"chip": 4},
+                            "launches": {k: v for k, v in klaunches.items()
+                                         if v}, "body_launches": kbodies},
+          "bins16_8way_updates": runs["card"][0],
+          "note": "shards share one card and run in turn: the times show "
+                  "the cost of sharding, not scaling",
+          "block_ms": {"unsharded": wall_u, "sharded_2way": wall_m}})
+    return run_a, run_b
+
+
+def phase_mesh_processes(torch, smi, timeout: int = 600):
+    """Two processes on the one card in a gloo group on 127.0.0.1, each
+    with four positions of cuda:0 (tests/torch_mp_worker.py --full): the
+    8-channel session and the 8-bin fleet decode exactly each process's
+    channels and see every channel through the fan-in, with equal summed
+    metrics and no per-block host upload of the fleet; the time-sharded
+    front end across the processes equals the serial chain; and RS41 at
+    2048 channels x 4 s, 1024 channels a process, likewise, with the
+    fan-in's time per call."""
+    import contextlib
+    import socket
+    import tempfile
+
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "torch_mp_worker.py")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    res = {}
+    with tempfile.TemporaryDirectory() as d, contextlib.ExitStack() as files:
+        paths = [(os.path.join(d, f"out{r}"), os.path.join(d, f"err{r}"))
+                 for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, worker, str(r), str(port), "cuda", "--full"],
+            stdout=files.enter_context(open(o, "w")),
+            stderr=files.enter_context(open(e, "w")))
+            for r, (o, e) in enumerate(paths)]
+        try:
+            # a rank that fails leaves the other waiting in a collective:
+            # stop both at the first failure or at the time limit
+            deadline = time.monotonic() + timeout
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.poll() for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for p, (o, e) in zip(procs, paths):
+            with open(o) as fo, open(e) as fe:
+                out, err = fo.read(), fe.read()
+            check(p.returncode == 0, f"mesh_processes: worker failed "
+                  f"({p.returncode}):\n{err[-3000:]}")
+            r = json.loads([ln for ln in out.splitlines()
+                            if ln.startswith("{")][-1])
+            res[r["rank"]] = r
+    r0, r1 = res[0], res[1]
+    check(r0["local_telemetry"] == [0, 1, 2, 3]
+          and r1["local_telemetry"] == [4, 5, 6, 7],
+          "mesh_processes: the session's local channels")
+    check(r0["fleet_local"] == [0, 1, 2, 3]
+          and r1["fleet_local"] == [4, 5, 6, 7],
+          "mesh_processes: the fleet's local channels")
+    check(r0["full_local"] == [0, 1023, 1024]
+          and r1["full_local"] == [1024, 2047, 1024],
+          f"mesh_processes: full-width local channels {r0['full_local']} "
+          f"{r1['full_local']}")
+    for r in (r0, r1):
+        check(r["expected_local"] == r["local_telemetry"]
+              and r["fan_channels"] == list(range(8))
+              and abs(r["fan_lat0"] - 45.0) < 1e-3
+              and r["serial0"] == "S1234567"
+              and r["metrics"]["frames_decoded"] >= 8
+              and r["fleet_fan"] == list(range(8))
+              and r["fleet_shard_stats"]["host_uploads"] == 0
+              and r["fleet_fused_mesh"] is True
+              and r["time_parallel_shape"] == [4, 8192]
+              and r["time_parallel_err"] <= 2e-4
+              and r["full_fan"] == CHANNELS
+              and r["full_serials"] == ["S1234567"]
+              and r["full_fan_lats"] == [45.0]
+              and r["full_metrics"]["frames_decoded"] > 0
+              and r["full_metrics"]["frames_decoded"] % CHANNELS == 0,
+              f"mesh_processes: rank {r['rank']}: {r}")
+        want = {"fused_frontend": 12, "corr": 12, "rs_clean": 12}
+        check({k: r["full_launches"].get(k, 0) for k in want} == want,
+              f"mesh_processes: rank {r['rank']} launches "
+              f"{r['full_launches']}")
+    check(r0["metrics"] == r1["metrics"]
+          and r0["full_metrics"] == r1["full_metrics"],
+          "mesh_processes: the summed metrics differ between the ranks")
+    launches = {k: r0["full_launches"].get(k, 0) + r1["full_launches"].get(k, 0)
+                for k in r0["full_launches"]}
+    emit({"phase": "mesh_processes", "device": smi, "processes": 2,
+          "backend": "gloo", "mesh": r0["mesh"],
+          "note": "both processes share one card: the times show the cost "
+                  "of the fan-in and of sharding, not scaling",
+          "full_metrics": r0["full_metrics"],
+          "full_block_ms": {str(r["rank"]): r["full_block_ms"]
+                            for r in (r0, r1)},
+          "fanin_ms_per_call": {str(r["rank"]): r["fanin_ms"]
+                                for r in (r0, r1)},
+          "metrics_fanin_ms": {str(r["rank"]): r["metrics_fanin_ms"]
+                               for r in (r0, r1)},
+          "fleet_shard_stats": r0["fleet_shard_stats"],
+          "launches": launches})
+    return {"launches": launches, "bodies": {}, "steps": 3}
+
+
+def phase_time_parallel(torch, dev, smi, rows_cpu: int = 16):
+    """time_parallel_fir and time_parallel_frontend at [2048, 192000] f32
+    on a 4-way mesh on the card: against the serial chain on the card
+    (the FIR exactly; the front end within tests/test_parallel.py's 2e-4)
+    and, on their first rows, against the CPU; each timed beside its
+    serial chain."""
+    from sondetpu_torch.dsp.fir import apply_windows, design_lowpass
+    from sondetpu_torch.parallel import (frontend_serial, make_mesh,
+                                         time_parallel_fir,
+                                         time_parallel_frontend)
+
+    mesh = make_mesh(devices=[dev] * 4)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    xi = torch.randn((CHANNELS, BLOCK_LEN), generator=gen, device=dev)
+    xq = torch.randn((CHANNELS, BLOCK_LEN), generator=gen, device=dev)
+    taps = design_lowpass(5000.0, FS, 41)
+    ct = taps
+    mt = design_lowpass(2640.0, FS / 2, 41)
+    kw = dict(decim=2, scale=3.18)
+
+    def fir_serial(x):
+        z = torch.zeros((x.shape[0], 40), device=x.device)
+        return apply_windows(torch.cat([z, x], -1), taps)
+
+    out = {}
+    y = time_parallel_fir(xi, taps, mesh)
+    check(torch.equal(y, fir_serial(xi)), "time_parallel_fir differs from "
+          "the serial FIR on the card")
+    cpu_err = float((y[:rows_cpu].cpu() - fir_serial(xi[:rows_cpu].cpu()))
+                    .abs().max())
+    check(cpu_err <= 2e-4, f"time_parallel_fir: card against CPU {cpu_err}")
+    out["fir"] = {"cpu_max_abs_err": cpu_err}
+    del y
+    for dc in (False, True):
+        got = time_parallel_frontend(xi, xq, ct, mt, mesh, dc_block=dc, **kw)
+        want = frontend_serial(xi, xq, ct, mt, dc_block=dc, **kw)
+        err = float((got - want).abs().max())
+        check(got.shape == (CHANNELS, BLOCK_LEN // 2) and err <= 2e-4,
+              f"time_parallel_frontend dc_block={dc}: {err} from the serial "
+              "chain on the card")
+        cpu = frontend_serial(xi[:rows_cpu].cpu(), xq[:rows_cpu].cpu(), ct,
+                              mt, dc_block=dc, **kw)
+        cerr = float((got[:rows_cpu].cpu() - cpu).abs().max())
+        check(cerr <= 2e-4, f"time_parallel_frontend dc_block={dc}: card "
+              f"against CPU {cerr}")
+        out[f"frontend_dc{int(dc)}"] = {"serial_max_abs_err": err,
+                                        "cpu_max_abs_err": cerr}
+        del got, want
+    fir_u, fir_m = in_turns(torch, [lambda: fir_serial(xi),
+                                    lambda: time_parallel_fir(xi, taps, mesh)],
+                            rounds=2, per=2)
+    fe_u, fe_m = in_turns(torch, [
+        lambda: frontend_serial(xi, xq, ct, mt, **kw),
+        lambda: time_parallel_frontend(xi, xq, ct, mt, mesh, **kw)],
+        rounds=2, per=2)
+    emit({"phase": "time_parallel", "device": smi, "shape": [CHANNELS,
+                                                             BLOCK_LEN],
+          "mesh": mesh.shape, **out,
+          "note": "4 blocks on one card in turn: the cost of the halos, "
+                  "not scaling",
+          "fir_ms": {"serial": statistics.median(fir_u),
+                     "time_parallel_4way": statistics.median(fir_m)},
+          "frontend_ms": {"serial": statistics.median(fe_u),
+                          "time_parallel_4way": statistics.median(fe_m)}})
+
+
+def phase_dryrun(torch, dev, smi):
+    """sondetpu_torch.parallel.dryrun.dryrun_multichip(4, cuda:0)."""
+    from sondetpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dryrun_multichip(4, dev)
+    emit({"phase": "dryrun_multichip", "device": smi, "n_devices": 4,
+          "seconds": time.perf_counter() - t0})
+
+
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")):
     return {k: entry[k] for k in keys if k in entry}
@@ -4376,6 +4913,21 @@ def main() -> int:
     for name in ("pfb_fir_stream", "pfb_dft"):
         check(new_runs["autofleet"]["launches"][name] > 0,
               f"kernel {name}: no launches on the AutoFleet path")
+    torch.cuda.empty_cache()
+    # the multi-device layer: each mesh path's launches from its own run
+    mesh_runs = {"mesh_session": phase_mesh_session(torch, dev, smi)}
+    torch.cuda.empty_cache()
+    mesh_runs["mesh_fleet"], mesh_runs["mesh_fleet_kernel_routes"] = \
+        phase_mesh_fleet(torch, dev, smi)
+    torch.cuda.empty_cache()
+    mesh_runs["mesh_processes"] = phase_mesh_processes(torch, smi)
+    phase_time_parallel(torch, dev, smi)
+    torch.cuda.empty_cache()
+    phase_dryrun(torch, dev, smi)
+    for name in ("fused_frontend", "corr", "rs_clean", "pfb_fir_stream",
+                 "pfb_dft", "fused_dualtone_frontend"):
+        check(any(r["launches"][name] for r in mesh_runs.values()),
+              f"kernel {name}: no launches on the mesh paths")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")
@@ -4408,7 +4960,9 @@ def main() -> int:
                                 for p, r in cli_runs.items()
                                 if r["launches"][name]},
                "automation_launches": {p: r["launches"][name]
-                                       for p, r in new_runs.items()}}
+                                       for p, r in new_runs.items()},
+               "mesh_launches": {p: r["launches"].get(name, 0)
+                                 for p, r in mesh_runs.items()}}
         check(all(k in row for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")),
               f"kernel {name}: row lacks a number {row}")

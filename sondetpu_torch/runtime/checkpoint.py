@@ -23,6 +23,11 @@ count, block length, AFC setting, layout, dtype) raises before any state
 is touched. An AutoFleet checkpoint holds the tracked list (the port's
 ``TrackedSonde``) and its fleet's payload.
 
+A mesh session or fleet group saves its merged, global state (what the
+original's ``_to_host`` reads from a sharded array), and a load shards the
+restored state again, so a checkpoint saved on a mesh loads into a
+session without one and the reverse.
+
 Checkpoint files are trusted input (this framework writes them), as in the
 original; the restricted unpickler keeps a foreign class out all the same.
 """
@@ -37,9 +42,10 @@ import numpy as np
 import torch
 
 from sondetpu_torch.dsp.channelizer import ChannelizerState
-from sondetpu_torch.runtime.pipeline import (BFloat16Words,
+from sondetpu_torch.runtime.pipeline import (BFloat16Words, _from_leaves,
                                              _leaf_from_numpy, _map_state,
                                              state_from_numpy)
+from sondetpu_torch.runtime.pipeline import _state_leaves as _leaves
 
 FORMAT_VERSION = 2    # v2: fleet group payloads record layout
 
@@ -131,18 +137,6 @@ def _to_host(state):
     return _map_state(state, _leaf_to_host)
 
 
-def _leaves(state) -> list:
-    return [state.chan_tail_i, state.chan_tail_q, state.fm_prev,
-            state.fir.tail, state.timing.pos, state.timing.locked,
-            state.chipbuf, state.buf_fill, *state.aux]
-
-
-def _from_leaves(template, leaves: list):
-    """A state of ``template``'s layout with ``leaves`` (in _leaves order)."""
-    it = iter(leaves)
-    return _map_state(template, lambda _: next(it))
-
-
 def _check_state_layout(saved, current, what: str, n=None) -> list:
     """The pipeline state layout is config-dependent (AFSK aux tails, DDC
     phase, AFC frequency): a checkpoint saved under one config must not
@@ -202,7 +196,7 @@ def save_session(session, path: str) -> None:
         "sonde": session.config.sonde,
         "channels": session.config.channels,
         "block_len": session.config.block_len,
-        "pipeline_state": _to_host(session.state),
+        "pipeline_state": _to_host(session.global_state()),
         "decoder": session.decoder.__dict__,
         "telemetry": session.telemetry,
         "frames_seen": session.frames_seen,
@@ -227,8 +221,9 @@ def load_session(session, path: str) -> None:
         if have != want:
             raise ValueError(f"checkpoint {key}={want!r} != session {key}={have!r}")
     saved = state_from_numpy(payload["pipeline_state"], "cpu")
-    _check_state_layout(saved, session.state, "session")
-    session.state = _map_state(saved, lambda t: t.to(session.device))
+    _check_state_layout(saved, session.global_state(), "session")
+    session.set_global_state(_map_state(saved,
+                                        lambda t: t.to(session.device)))
     session.decoder.__dict__.update(payload["decoder"])
     session.telemetry = payload["telemetry"]
     session.frames_seen = payload["frames_seen"]
@@ -242,7 +237,7 @@ def _fleet_payload(fleet) -> dict:
             "idxs": list(idxs),
             "layout": [(fleet.channels[i].pfb_bin, fleet.channels[i].offset_hz)
                        for i in idxs],
-            "pipeline_state": _to_host(sess.state),
+            "pipeline_state": _to_host(sess.global_state()),
             "decoder": sess.decoder.__dict__,
             "telemetry": sess.telemetry,
             "frames_seen": sess.frames_seen,
@@ -305,7 +300,7 @@ def _restore_fleet(fleet, payload: dict) -> None:
         if list(idxs) != g["idxs"] or layout != g.get("layout", layout):
             raise ValueError(f"channel layout changed for group {sonde!r}")
         saved = state_from_numpy(g["pipeline_state"], "cpu")
-        maps = _check_state_layout(saved, sess.state,
+        maps = _check_state_layout(saved, sess.global_state(),
                                    f"fleet group {sonde!r}", n=len(idxs))
         restored[sonde] = (saved, maps)
     dev = fleet.device
@@ -315,9 +310,9 @@ def _restore_fleet(fleet, payload: dict) -> None:
         n = len(idxs)
         saved, maps = restored[sonde]
         padded = any(m != "all" for m in maps)
-        sess.state = _restore_rows(saved, sess.pipeline.init_state()
-                                   if padded else sess.state, maps, n,
-                                   sess.device)
+        sess.set_global_state(_restore_rows(
+            saved, sess.pipeline.init_state() if padded
+            else sess.global_state(), maps, n, sess.device))
         decoder, telemetry = g["decoder"], g["telemetry"]
         if padded:
             decoder = {k: _logical(v, n) if isinstance(v, dict) else v

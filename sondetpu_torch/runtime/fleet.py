@@ -25,10 +25,21 @@ per-family policy measured on a TPU v5e (dual-tone groups on the kernel,
 the rest on the jnp path), which on any other backend than a TPU means no
 kernels at all; the policy for this card is for the benchmark to measure.
 
-Not ported: the mesh fleet, which raises ``NotImplementedError``. The
-original's 64-row group
-padding was tuned for the TPU and is dropped: a group is padded only to
-the kernels' multiple of 8 rows, and only when it takes a kernel route.
+With ``mesh=`` (``sondetpu_torch.parallel.make_mesh``), the original's
+mesh fleet: groups take no pad rows, and a group whose channel count
+divides into the mesh's size is sharded over it (its session's
+``mesh``); the other groups stay on ``device``. With ``fused`` (the
+default) a block is the original's ``_fused_mesh`` step: each process
+channelizes the whole wideband block once on ``device``; every sharded
+group (``_mp_order``) gathers each of its shards' rows from the PFB output
+and feeds them device to device (no host round trip), every shard steps,
+and each shard's packed buffer is read back and decoded; then every other
+group (``_mp_local``) runs ``process_block`` on its gathered rows.
+``fused=False`` keeps the per-group path.
+
+The original's 64-row group padding was tuned for the TPU and is dropped:
+a group is padded only to the kernels' multiple of 8 rows, and only when
+it takes a kernel route and the fleet has no mesh.
 """
 
 from __future__ import annotations
@@ -70,9 +81,6 @@ class FleetSession:
                  on_update=None, mesh=None, compute_dtype: str = "f32",
                  afc: bool = False, pipelined: bool = False,
                  fused: bool = None):
-        if mesh is not None:
-            raise NotImplementedError("sondetpu_torch FleetSession: mesh= "
-                                      "(the mesh fleet) is not ported")
         self.channels = list(channels)
         self.device = torch.device(device)
         self.pfb = PFBChannelizer(
@@ -85,7 +93,10 @@ class FleetSession:
         self.n_bins = n_bins
         self.fs_chan = fs_chan
         self.pipelined = bool(pipelined)
-        self._fused = True if fused is None else bool(fused)
+        fused = True if fused is None else bool(fused)
+        self._fused = fused and mesh is None
+        self._fused_mesh = fused and mesh is not None
+        self.mesh = mesh
         self._pending = None
 
         groups: Dict[str, List[int]] = {}
@@ -114,20 +125,30 @@ class FleetSession:
                     use_pallas=self.use_pallas, compute_dtype=cdt, afc=afc,
                     fine_offsets=offs if any(offs) else None)
 
-            pad = (-len(idxs)) % ROW_MULTIPLE if self.use_pallas else 0
+            pad = ((-len(idxs)) % ROW_MULTIPLE
+                   if self.use_pallas and mesh is None else 0)
             cfg = config(pad)
             if pad and _route(cfg) is None:
                 # a kernel gate other than the channels' fails: no pad rows
                 pad = 0
                 cfg = config(0)
+            # a group shards over the mesh when its channel count divides
+            # into the mesh's size; smaller groups stay on the device
+            group_mesh = mesh if (mesh is not None and len(idxs)
+                                  % mesh.devices.size == 0) else None
             sess = DecoderSession(cfg, self.device,
                                   on_update=self._wrap(sonde, idxs, on_update),
-                                  pipelined=self.pipelined)
+                                  pipelined=self.pipelined, mesh=group_mesh)
             self.groups[sonde] = (idxs, sess)
             bins = [self.channels[i].pfb_bin for i in idxs]
             bins += [bins[0]] * pad
             self._order.append((sonde, torch.tensor(
                 bins, dtype=torch.int64, device=self.device), sess))
+        if self._fused_mesh:
+            # the sharded groups, stepped as one, and the groups that stay
+            # on the device
+            self._mp_order = [g for g in self._order if g[2].mesh is not None]
+            self._mp_local = [g[0] for g in self._order if g[2].mesh is None]
 
     def _wrap(self, sonde: str, idxs: List[int], on_update):
         if on_update is None:
@@ -150,8 +171,8 @@ class FleetSession:
         return out
 
     def step(self, wi: torch.Tensor, wq: torch.Tensor):
-        """The device step of one wideband block (planes [W] float32 on the
-        fleet's device): PFB, every group's row gather (in the PFB's dtype)
+        """The device step of one wideband block of a fleet without a mesh
+        (planes [W] float32 on the fleet's device): PFB, every group's row gather (in the PFB's dtype)
         and pipeline step.
         Advances the states and returns (the groups' packed buffers
         concatenated, [each group's frames])."""
@@ -198,6 +219,8 @@ class FleetSession:
             wi, wq = c64_to_planes(np.asarray(iq))
         wi = torch.as_tensor(wi).to(self.device, torch.float32)
         wq = torch.as_tensor(wq).to(self.device, torch.float32)
+        if self._fused_mesh:
+            return self._process_wideband_mesh(wi, wq)
         if not self._fused:
             # the per-group path: each group's session steps, reads back
             # and decodes its own rows (pipelined in the session)
@@ -214,6 +237,34 @@ class FleetSession:
         # step and the host decode does not overlap the device.
         pending, self._pending = self._pending, block
         return self._consume(pending) if pending is not None else 0
+
+    def _process_wideband_mesh(self, wi: torch.Tensor,
+                               wq: torch.Tensor) -> int:
+        """The fused mesh step of one block: the PFB once on the device;
+        every sharded group's shards gather their rows and step, then each
+        group's shards are read back and decoded; then each group that
+        stays on the device runs process_block on its rows."""
+        self.pfb_state, yi, yq = self.pfb(self.pfb_state, wi, wq)
+        outs = []
+        for sonde, bins, sess in self._mp_order:
+            sess.state, out = sess._sharded_step(
+                sess.state, sess._shard_fn(yi, rows=bins),
+                sess._shard_fn(yq, rows=bins))
+            outs.append(out)
+        updates = 0
+        for (sonde, bins, sess), out in zip(self._mp_order, outs):
+            t0 = time.perf_counter()
+            sess.blocks_seen += 1
+            ups, frames_raw, decoded, soft_rms = sess._handle_output(out)
+            sess.metrics.on_block(sess.config.block_len,
+                                  time.perf_counter() - t0, frames_raw,
+                                  decoded, len(ups), soft_rms)
+            updates += len(ups)
+        for sonde, bins, sess in self._order:
+            if sonde in self._mp_local:
+                updates += len(sess.process_block(
+                    (yi.index_select(0, bins), yq.index_select(0, bins))))
+        return updates
 
     def flush(self) -> int:
         """Drain the pending block in pipelined mode (call at end of

@@ -387,6 +387,73 @@ def state_to_numpy(state: PipelineState) -> PipelineState:
     return _map_state(state, _leaf_to_numpy)
 
 
+def _channel_rows(t: torch.Tensor, channels: int, lo: int, hi: int):
+    """Rows of channels [lo, hi) of a per-channel leaf of ``channels``
+    channels: [k * C, ...] holds k planes of C rows, plane-major (the
+    dual-tone FIR tail's four mixed planes: row p * C + c), so a channel's
+    rows are p * C + c for every plane p."""
+    k = t.shape[0] // channels
+    return t.reshape(k, channels, *t.shape[1:])[:, lo:hi].reshape(
+        k * (hi - lo), *t.shape[1:])
+
+
+def _state_leaves(state: PipelineState) -> list:
+    """The leaves in _map_state's order."""
+    return [state.chan_tail_i, state.chan_tail_q, state.fm_prev,
+            state.fir.tail, state.timing.pos, state.timing.locked,
+            state.chipbuf, state.buf_fill, *state.aux]
+
+
+def _from_leaves(template: PipelineState, leaves: list) -> PipelineState:
+    """A state of ``template``'s layout with ``leaves`` (in _state_leaves'
+    order)."""
+    it = iter(leaves)
+    return _map_state(template, lambda _: next(it))
+
+
+def _shared(j: int, leaf: torch.Tensor) -> bool:
+    """Whether leaf j is the same for every channel: an aux leaf of an
+    integer type (the jnp AFSK front end's [1] LO phase counter). Every
+    other leaf is per channel."""
+    return j >= 8 and not leaf.is_floating_point()
+
+
+def shard_state(state: PipelineState, lo: int, hi: int,
+                device=None) -> PipelineState:
+    """The state of channels [lo, hi) of ``state``, as copies on ``device``
+    (default: the state's); a shared leaf (:func:`_shared`) goes to every
+    shard whole."""
+    c = state.timing.pos.shape[0]
+    dev = device if device is not None else state.timing.pos.device
+    return _from_leaves(state, [
+        (t if _shared(j, t) else _channel_rows(t, c, lo, hi)).to(
+            dev, copy=True)
+        for j, t in enumerate(_state_leaves(state))])
+
+
+def merge_state(parts, device=None) -> PipelineState:
+    """The state of the channels of ``parts`` (states of consecutive
+    channel slabs, in order) as one state on ``device`` (default: the first
+    part's): :func:`shard_state` undone. A shared leaf comes from the first
+    part."""
+    parts = list(parts)
+    dev = torch.device(device) if device is not None else \
+        parts[0].timing.pos.device
+    counts = [p.timing.pos.shape[0] for p in parts]
+    per_part = [_state_leaves(p) for p in parts]
+    merged = []
+    for j, first in enumerate(per_part[0]):
+        if _shared(j, first):
+            merged.append(first.to(dev))
+            continue
+        k = first.shape[0] // counts[0]
+        merged.append(torch.cat(
+            [ls[j].to(dev).reshape(k, n, *first.shape[1:])
+             for ls, n in zip(per_part, counts)], dim=1).reshape(
+                 k * sum(counts), *first.shape[1:]))
+    return _from_leaves(parts[0], merged)
+
+
 def _dualtone_gates(c):
     """(dualtone, skip_chanfilt): the original's gates for the noncoherent
     dual-tone front end and for skipping its channel filter
@@ -522,7 +589,13 @@ def _int32_sum(x: torch.Tensor) -> torch.Tensor:
 class Pipeline:
     """Per-block decoder front end for one sonde type, on ``device``."""
 
-    def __init__(self, config: PipelineConfig, device):
+    def __init__(self, config: PipelineConfig, device,
+                 shard_of: Optional[PipelineConfig] = None):
+        """``shard_of``: the global config of which ``config`` is a slab of
+        channels (a mesh shard); the shard takes the global config's route,
+        so that it computes what the global step computes on its rows
+        (the kernels take any row count, the gates' channels % 8 is the
+        global step's)."""
         self.config = config
         self.device = torch.device(device)
         c = config
@@ -558,7 +631,7 @@ class Pipeline:
                 f"discriminator (worse low-SNR FER)", stacklevel=3)
         self._afsk = spec.modulation == "afsk"
         self._midpoint = spec.extra.get("dc_mode") == "midpoint"
-        self._route = _route(c)
+        self._route = _route(shard_of if shard_of is not None else c)
         self._plain = self._route is None
         # the sample-rate arrays are stored in this dtype from the
         # original's cast after the dequant and the DDC on

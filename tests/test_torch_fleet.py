@@ -15,6 +15,7 @@ import torch
 
 from sondetpu.runtime.fleet import FleetChannel as JaxChannel
 from sondetpu.runtime.fleet import FleetSession as JaxFleet
+from sondetpu_torch.parallel import make_mesh
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.dfm import DFMModulator, DFMTruth
@@ -165,16 +166,22 @@ def test_fleet_step_is_one_packed_buffer(wideband):
 
 
 def test_fleet_refuses_what_is_not_ported():
-    """The mesh fleet raises. Configs the port once refused take the route
-    the original's gates pick: m10's 100-sample block (below the kernels'
-    carried tail) the plain-op front end, with no pad rows; an ims100
+    """Nothing is refused: a mesh fleet is built (a group of one channel,
+    which does not divide into the 8-way mesh, stays on the device with no
+    pad rows, as in the original's mesh fleet). Configs the port once
+    refused take the route the original's gates pick: m10's 100-sample
+    block (below the kernels' carried tail) the plain-op front end, with
+    no pad rows; an ims100
     group at 48.1 kHz (sps 20.04) K7 and linear_interp, or with
     use_pallas=False the plain-op front end and linear_interp. afc and
     offset_hz below the grid (the groups' DDC and AFC loop) are taken and
     reach each group's config, pad rows on the grid."""
     chans = [FleetChannel(1, "rs41")]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FleetSession(chans, N_BINS, "cpu", mesh=object())
+    fleet = FleetSession(chans, N_BINS, "cpu",
+                         mesh=make_mesh(devices=[torch.device("cpu")] * 8))
+    assert fleet._fused_mesh and fleet._mp_local == ["rs41"]
+    assert fleet.groups["rs41"][1].mesh is None
+    assert fleet.groups["rs41"][1].config.channels == 1
     fleet = FleetSession([FleetChannel(3, "m10")], N_BINS, "cpu",
                          block_len=100)
     pipe = fleet.groups["m10"][1].pipeline

@@ -19,7 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "sondetpu_torch", "**", "*.py"),
-                       recursive=True)) + ["chip_smoke.py"]
+                       recursive=True)) + ["chip_smoke.py",
+                                           os.path.join("tests",
+                                                        "torch_mp_worker.py")]
 
 
 def _is_jax_package(name) -> bool:
@@ -48,6 +50,10 @@ def test_the_walk_sees_the_port():
     assert os.path.join("sondetpu_torch", "runtime", "session.py") in SOURCES
     assert os.path.join("sondetpu_torch", "runtime", "autofleet.py") in SOURCES
     assert os.path.join("sondetpu_torch", "dsp", "scan.py") in SOURCES
+    for name in ("mesh", "sharding", "fanin", "dryrun"):
+        assert os.path.join("sondetpu_torch", "parallel",
+                            f"{name}.py") in SOURCES
+    assert os.path.join("tests", "torch_mp_worker.py") in SOURCES
     assert jax_package_imports(os.path.join("tests", "test_torch_host.py"))
 
 
@@ -75,6 +81,9 @@ import sondetpu_torch.runtime.fleet
 import sondetpu_torch.runtime.checkpoint
 import sondetpu_torch.runtime.autofleet
 import sondetpu_torch.dsp.scan
+import sondetpu_torch.parallel
+import sondetpu_torch.parallel.fanin
+import sondetpu_torch.parallel.dryrun
 import sondetpu_torch.cli.main
 import sondetpu_torch.bench.fer
 import sondetpu_torch.dsp.resample
