@@ -190,6 +190,21 @@ before the result line:
     [2048, 192000] on a 4-way mesh against the serial chain on the card
     and the CPU.
 35. dryrun_multichip(4, cuda:0).
+36. library: the public DSP, timing, coding and physics API
+    (sondetpu_torch.dsp, .sync, .physics) on the card at the sizes users
+    run: fir_filter, fir_apply, polyphase_decimate, agc_apply,
+    afsk_discriminate at [2048, 192000], fm_demod and fm_apply on
+    complex64 at that shape, rational_resample 48 -> 50 kHz on 1024 rows
+    (a 7.37 GB gather), symbol_sample at [2048, 96000] sps 5, gardner_scan
+    at [2048, 24000] with 4800 symbols, the coding functions on [2048,
+    2560] bits and the physics on 1e6 values: each against the port's CPU
+    result on its first rows within tests/test_torch_library.py's limits
+    (exact for the coding functions and symbol_sample's valid), fir_apply
+    and fm_apply over 4 chunks torch.equal to the unchunked call, each
+    timed by CUDA events; no hand kernel launched.
+37. oracle: python -m sondetpu_torch.bench.oracle --selftest on the card
+    and on the CPU (in this process): every family ok, every expected
+    frame bit-exact, the card's report equal to the CPU's.
 Shards on one card run in turn: the mesh phases' times show the cost of
 sharding, never scaling. An NCCL group needs a card per rank.
 
@@ -4772,6 +4787,312 @@ def phase_dryrun(torch, dev, smi):
           "seconds": time.perf_counter() - t0})
 
 
+LIB_CPU_ROWS = 8           # rows of each library result held to the CPU
+RESAMPLE_ROWS = 1024       # rational_resample 48 -> 50 kHz: its float32
+                           # [rows, n_out, nph] gather is 1024 x 200000 x 9
+                           # x 4 B = 7.37 GB
+
+
+def lib_close(name: str, got, want, rel: float) -> float:
+    """max|got - want| <= rel * max|want| with got taken to the CPU (rel <
+    1, so a zero output fails): tests/test_torch_library.py's limits."""
+    import torch
+
+    got = got.cpu()
+    if want.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    scale = float(want.abs().max())
+    err = float((got.to(want.dtype) - want).abs().max())
+    check(tuple(got.shape) == tuple(want.shape) and 0 < rel < 1
+          and scale > 0 and err <= rel * scale,
+          f"library {name}: card against CPU {err} (limit {rel} x {scale})")
+    return err
+
+
+def nrz_rows(torch, dev, gen, c: int, n: int, sps: int):
+    """[c, n] float32 boxcar-matched NRZ of random bits plus noise of std
+    0.1 (tests/test_sync.py's signal), made on ``dev``."""
+    from sondetpu_torch.dsp.fir import boxcar_taps, fir_filter
+
+    bits = torch.randint(0, 2, (c, n // sps), generator=gen, device=dev)
+    nrz = (bits.to(torch.float32) * 2 - 1).repeat_interleave(sps, dim=1)
+    return fir_filter(nrz, boxcar_taps(sps)) + 0.1 * torch.randn(
+        (c, n), generator=gen, device=dev)
+
+
+def phase_library(torch, dev, smi, c: int = CHANNELS, n: int = BLOCK_LEN,
+                  resample_rows: int = RESAMPLE_ROWS,
+                  sub: int = LIB_CPU_ROWS):
+    """The public DSP, timing, coding and physics API on the card at the
+    sizes users run (the FIR, demodulators, AGC and decimator at [2048,
+    192000], rational_resample 48 -> 50 kHz on 1024 rows, symbol_sample
+    at [2048, 96000] sps 5, gardner_scan at [2048, 24000] with 4800
+    symbols, the coding functions on [2048, 2560] bits, the physics on 1e6
+    values): each result against the port's CPU result on its first rows
+    (the coding and physics on all), within tests/test_torch_library.py's
+    limits and exact where those are; fir_apply and fm_apply over 4
+    chunks torch.equal to fir_filter and fm_demod on the card; each timed
+    by CUDA events. No hand kernel runs here."""
+    import sondetpu_torch.dsp as tdsp
+    import sondetpu_torch.sync as tsync
+    from sondetpu_torch import physics
+    from sondetpu_torch.dsp.agc import agc_apply, agc_init
+    from sondetpu_torch.dsp.resample import make_rational_resampler
+    from sondetpu_torch.kernels import cuda
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    res = {}
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+
+    def on_card(*ts):
+        check(all(t.device.type == "cuda" for t in ts),
+              "library: a result left the card")
+
+    def timed(name, fn, reps, shape, **extra):
+        res[name] = {"ms": cuda_ms(torch, fn, reps), "shape": list(shape),
+                     **extra}
+
+    # the FIR: fir_filter, fir_apply over 4 chunks, polyphase_decimate
+    taps = tdsp.design_lowpass(5000.0, FS, 41)
+    x = torch.randn((c, n), generator=gen, device=dev)
+    y = tdsp.fir_filter(x, taps)
+    on_card(y)
+    err = lib_close("fir_filter", y[:sub], tdsp.fir_filter(x[:sub].cpu(),
+                                                           taps), 1e-5)
+    st = tdsp.fir_init(c, 41, device=dev)
+    q = n // 4
+    for k in range(4):
+        st, yk = tdsp.fir_apply(st, x[:, k * q:(k + 1) * q], taps)
+        check(torch.equal(yk, y[:, k * q:(k + 1) * q]),
+              f"library fir_apply chunk {k} differs from fir_filter")
+    del y, yk
+    timed("fir_filter", lambda: tdsp.fir_filter(x, taps), 3, x.shape,
+          ntaps=41, max_abs_err=err)
+    st0 = tdsp.fir_init(c, 41, device=dev)
+    timed("fir_apply", lambda: tdsp.fir_apply(st0, x, taps), 3, x.shape,
+          ntaps=41, chunks_equal_fir_filter=4)
+    y = tdsp.polyphase_decimate(x, 2, fs=FS)
+    on_card(y)
+    err = lib_close("polyphase_decimate", y[:sub],
+                    tdsp.polyphase_decimate(x[:sub].cpu(), 2, fs=FS), 1e-5)
+    del y
+    timed("polyphase_decimate", lambda: tdsp.polyphase_decimate(x, 2, fs=FS),
+          3, x.shape, factor=2, ntaps=17, max_abs_err=err)
+    # the AGC: three blocks (attack, then decay) against the CPU
+    xq = torch.randn((c, n), generator=gen, device=dev)
+    sg, sc = agc_init(c, device=dev), agc_init(sub, device=cpu)
+    for level in (5.0, 5.0, 0.2):
+        sg, yi, yq, g = agc_apply(sg, x * level, xq * level)
+        sc, ci, cq, gc = agc_apply(sc, x[:sub].cpu() * level,
+                                   xq[:sub].cpu() * level)
+        on_card(yi, yq, g)
+        err = max(lib_close("agc_apply gain", g[:sub], gc, 1e-5),
+                  lib_close("agc_apply y_i", yi[:sub], ci, 1e-5),
+                  lib_close("agc_apply y_q", yq[:sub], cq, 1e-5))
+    del yi, yq
+    timed("agc_apply", lambda: agc_apply(sg, x, xq), 5, x.shape,
+          max_abs_err=err)
+    # rational_resample 48 -> 50 kHz
+    up, down, rtaps = make_rational_resampler(FS, 50000.0)
+    xr = x[:resample_rows]
+    nph = -(-len(rtaps) // up)
+    y = tdsp.rational_resample(xr, up, down, rtaps)
+    on_card(y)
+    err = lib_close("rational_resample", y[:sub], tdsp.rational_resample(
+        xr[:sub].cpu(), up, down, rtaps), 1e-5)
+    del y
+    timed("rational_resample", lambda: tdsp.rational_resample(
+        xr, up, down, rtaps), 3, xr.shape, up=up, down=down, nph=nph,
+        gather_bytes=resample_rows * (n * up // down) * nph * 4,
+        max_abs_err=err)
+    del x, xq, xr
+    torch.cuda.empty_cache()
+    # the FM discriminator on complex64 [c, n], and fm_apply over 4 chunks
+    phase = torch.cumsum(0.3 * torch.randn((c, n), generator=gen,
+                                           device=dev), dim=1)
+    amp = 1.0 + 0.1 * torch.randn((c, n), generator=gen, device=dev)
+    iq = torch.polar(amp, phase)
+    del phase, amp
+    audio = tdsp.fm_demod(iq, FS, 2400.0)
+    on_card(audio)
+    err = lib_close("fm_demod", audio[:sub],
+                    tdsp.fm_demod(iq[:sub].cpu(), FS, 2400.0), 1e-5)
+    fst = tdsp.fm_init(c, device=dev)
+    for k in range(4):
+        fst, ak = tdsp.fm_apply(fst, iq[:, k * q:(k + 1) * q], FS, 2400.0)
+        check(torch.equal(ak, audio[:, k * q:(k + 1) * q]),
+              f"library fm_apply chunk {k} differs from fm_demod")
+    del audio, ak
+    timed("fm_demod", lambda: tdsp.fm_demod(iq, FS, 2400.0), 3, iq.shape,
+          dtype="complex64", input_bytes=iq.numel() * 8, max_abs_err=err)
+    fst0 = tdsp.fm_init(c, device=dev)
+    timed("fm_apply", lambda: tdsp.fm_apply(fst0, iq, FS, 2400.0), 3,
+          iq.shape, dtype="complex64", chunks_equal_fm_demod=4)
+    del iq
+    torch.cuda.empty_cache()
+    # the AFSK discriminator on imet4's tones (1200/2200 Hz, 1200 Bd)
+    sym = torch.randint(0, 2, (c, n // 40), generator=gen, device=dev)
+    f = torch.where(sym > 0, 1200.0, 2200.0).repeat_interleave(40, dim=1)
+    aud = torch.sin(torch.cumsum(f * (2 * np.pi / FS), dim=1)) + 0.05 * \
+        torch.randn((c, n), generator=gen, device=dev)
+    del f
+    y = tdsp.afsk_discriminate(aud, FS, 1200.0, 2200.0, 1200.0)
+    on_card(y)
+    err = lib_close("afsk_discriminate", y[:sub], tdsp.afsk_discriminate(
+        aud[:sub].cpu(), FS, 1200.0, 2200.0, 1200.0), 2e-5)
+    ends = torch.arange(1, n // 40, device=dev) * 40 - 1
+    check(torch.equal(y[:, ends] > 0, sym[:, :-1] > 0),
+          "library afsk_discriminate: a symbol's sign is not its tone")
+    del y, sym
+    timed("afsk_discriminate", lambda: tdsp.afsk_discriminate(
+        aud, FS, 1200.0, 2200.0, 1200.0), 3, aud.shape, max_abs_err=err)
+    del aud
+    torch.cuda.empty_cache()
+    # symbol_sample at [c, 96000] sps 5, two blocks (unlocked, locked)
+    nb, sps = n // 2, 5
+    xs = nrz_rows(torch, dev, gen, c, 2 * nb, sps)
+    n_sym = nb // sps + 1
+    sg, sc = tsync.timing_init(c, device=dev), tsync.timing_init(sub,
+                                                                  device=cpu)
+    lim = 2 * float(np.spacing(np.float32(nb)))
+    err = perr = 0.0
+    for b in range(2):
+        blk = xs[:, b * nb:(b + 1) * nb]
+        sg, soft, valid = tsync.symbol_sample(sg, blk, sps, n_sym)
+        sc, csoft, cvalid = tsync.symbol_sample(sc, blk[:sub].cpu(), sps,
+                                                n_sym)
+        on_card(soft, valid, sg.pos)
+        check(torch.equal(valid[:sub].cpu(), cvalid) and bool(cvalid.any()),
+              f"library symbol_sample block {b}: valid differs from the CPU")
+        err = max(err, lib_close("symbol_sample soft", soft[:sub], csoft,
+                                 2e-4))
+        perr = max(perr, float((sg.pos[:sub].cpu() - sc.pos).abs().max()))
+        check(perr <= lim, f"library symbol_sample: phase {perr} > {lim}")
+    del soft, valid
+    timed("symbol_sample", lambda: tsync.symbol_sample(sg, blk, sps, n_sym),
+          5, blk.shape, sps=sps, n_sym=n_sym, max_abs_err=err,
+          phase_max_abs_err=perr)
+    # gardner_scan at [c, 24000] with 4800 symbols
+    xg = xs[:, :24000].contiguous()
+    del xs, blk
+    soft, valid = tsync.gardner_scan(xg, float(sps), 4800)
+    csoft, cvalid = tsync.gardner_scan(xg[:sub].cpu(), float(sps), 4800)
+    on_card(soft, valid)
+    check(torch.equal(valid[:sub].cpu(), cvalid),
+          "library gardner_scan: valid differs from the CPU")
+    err = lib_close("gardner_scan", soft[:sub], csoft, 1e-5)
+    del soft, valid
+    timed("gardner_scan", lambda: tsync.gardner_scan(xg, float(sps), 4800),
+          1, xg.shape, n_sym=4800, max_abs_err=err)
+    del xg
+    # the coding functions on [c, 2560] bits, all rows against the CPU
+    bits = torch.randint(0, 2, (c, 2560), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    prev = torch.randint(0, 2, (c,), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    mask = np.random.default_rng(71).integers(0, 256, 64, dtype=np.uint8)
+    cb, cprev = bits.cpu(), prev.cpu()
+    by = tsync.bits_to_bytes(bits)
+    coding = {
+        "nrzs_decode": (lambda: tsync.nrzs_decode(bits, prev),
+                        tsync.nrzs_decode(cb, cprev), bits.shape),
+        "bits_to_bytes": (lambda: tsync.bits_to_bytes(bits),
+                          tsync.bits_to_bytes(cb), bits.shape),
+        "bytes_to_bits": (lambda: tsync.bytes_to_bits(by),
+                          tsync.bytes_to_bits(tsync.bits_to_bytes(cb)),
+                          by.shape),
+        "descramble_xor": (lambda: tsync.descramble_xor(by, mask),
+                           tsync.descramble_xor(tsync.bits_to_bytes(cb),
+                                                mask), by.shape)}
+    for name, (fn, want, shape) in coding.items():
+        got = fn()
+        on_card(got)
+        check(got.dtype == torch.uint8 and torch.equal(got.cpu(), want),
+              f"library {name}: card differs from the CPU")
+        timed(name, fn, 20, shape, exact=True)
+    check(torch.equal(tsync.bytes_to_bits(by), bits),
+          "library: bytes_to_bits(bits_to_bytes(bits)) is not bits")
+    # the physics on 1e6 values, all against the CPU
+    m = 1_000_000
+    alt = torch.empty(m, device=dev).uniform_(-500.0, 90000.0, generator=gen)
+    temp = torch.empty(m, device=dev).uniform_(-60.0, 40.0, generator=gen)
+    rh = torch.empty(m, device=dev).uniform_(1.0, 100.0, generator=gen)
+    p = physics.altitude_to_pressure_torch(alt)
+    on_card(p)
+    err = lib_close("altitude_to_pressure_torch", p,
+                    physics.altitude_to_pressure_torch(alt.cpu()), 2e-5)
+    timed("altitude_to_pressure_torch",
+          lambda: physics.altitude_to_pressure_torch(alt), 20, alt.shape,
+          max_abs_err=err)
+    d = physics.dewpt_torch(temp, rh)
+    on_card(d)
+    err = lib_close("dewpt_torch", d, physics.dewpt_torch(temp.cpu(),
+                                                          rh.cpu()), 2e-5)
+    timed("dewpt_torch", lambda: physics.dewpt_torch(temp, rh), 20,
+          temp.shape, max_abs_err=err)
+    torch.cuda.synchronize()
+    launched = sum(cuda.launches.values())
+    check(launched == 0, f"library: {launched} hand-kernel launches")
+    torch.cuda.empty_cache()
+    emit({"phase": "library", "device": smi, "cpu_rows": sub,
+          "seconds": time.perf_counter() - t0, "hand_kernel_launches": 0,
+          "functions": res})
+    return res
+
+
+def phase_oracle(torch, dev, smi, card: str = "cuda"):
+    """python -m sondetpu_torch.bench.oracle --selftest on the card
+    (--device cuda, in this process) and on the CPU: every family ok and
+    every expected frame bit-exact on the card, and the card's JSON report
+    equal to the CPU's. (``card="cpu"`` rehearses the phase on the CPU.)"""
+    import contextlib
+    import io
+
+    from sondetpu_torch.bench import oracle
+    from sondetpu_torch.kernels import cuda
+
+    reports, seconds, launched = {}, {}, {}
+    with cli_dir() as d:
+        for label, device in (("cuda", card), ("cpu", "cpu")):
+            path = os.path.join(d, f"oracle_{label}.json")
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = oracle.main(["--selftest", "--device", device,
+                                  "--out", path])
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+            launched[label] = dict(cuda.launches)
+            check(rc == 0, f"oracle --selftest --device {device}: exit code "
+                  f"{rc}: {out.getvalue()[-2000:]}")
+            with open(path) as f:
+                reports[label] = f.read()
+    rep = json.loads(reports["cuda"])
+    check(sorted(rep) == sorted(oracle.FAMILIES),
+          f"oracle: families {sorted(rep)}")
+    for fam, e in rep.items():
+        check(e["ok"] is True and e["frames_decoded"] > 0,
+              f"oracle {fam}: not ok on the card: {e}")
+        check(e.get("frames_bit_exact", 1) == e.get("frames_expected", 1),
+              f"oracle {fam}: {e.get('frames_bit_exact')} of "
+              f"{e.get('frames_expected')} frames bit-exact")
+    check(reports["cuda"] == reports["cpu"],
+          "oracle: the card's report differs from the CPU's")
+    emit({"phase": "oracle", "device": smi, "seconds": seconds,
+          "equal_to_cpu": True,
+          "hand_kernel_launches": {k: sum(v.values())
+                                   for k, v in launched.items()},
+          "families": {fam: {k: e[k] for k in (
+              "frames_decoded", "frames_bit_exact", "frames_expected", "ok")
+              if k in e} for fam, e in rep.items()}})
+    return rep
+
+
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by")):
     return {k: entry[k] for k in keys if k in entry}
@@ -4928,6 +5249,10 @@ def main() -> int:
                  "pfb_dft", "fused_dualtone_frontend"):
         check(any(r["launches"][name] for r in mesh_runs.values()),
               f"kernel {name}: no launches on the mesh paths")
+    torch.cuda.empty_cache()
+    # the public library API and the oracle harness (no hand kernel)
+    phase_library(torch, dev, smi)
+    phase_oracle(torch, dev, smi)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "sondetpu"))
     check(not loaded, f"the run imported jax or the JAX package: {loaded}")

@@ -14,3 +14,7 @@ here as copies, each held equal to its original by a test.
 """
 
 __version__ = "0.1.0"
+
+from sondetpu_torch.telemetry import SondeTelemetry, TelemetryFragment, Fields
+
+__all__ = ["SondeTelemetry", "TelemetryFragment", "Fields", "__version__"]

@@ -11,6 +11,13 @@ original's conv takes them; the products of two bfloat16 values are exact
 in float32. The sums are taken in place (the same rounding as a new
 accumulator each tap), so a call holds one accumulator and one product
 beside its input.
+
+``boxcar_taps``, ``fir_init``, ``fir_filter`` and ``fir_apply`` are the
+original's public streaming FIR on ``apply_windows``: a complex input is
+filtered plane by plane (real, then imaginary, as the original's
+``_apply_windows`` does), and ``fir_apply`` over chunks is ``torch.equal``
+to ``fir_filter`` over the whole stream, since every output sums its own
+window in the same order.
 """
 
 from __future__ import annotations
@@ -51,16 +58,59 @@ def gaussian_taps(bt: float, sps: float, span: int = 4) -> np.ndarray:
     return h.astype(np.float32)
 
 
+def boxcar_taps(sps: int) -> np.ndarray:
+    """Integrate-and-dump matched filter for rectangular NRZ pulses."""
+    return (np.ones(sps) / sps).astype(np.float32)
+
+
 class FIRState(NamedTuple):
     """Per-channel FIR carry: the last ``ntaps-1`` input samples."""
 
     tail: torch.Tensor  # [channels, ntaps-1]
 
 
+def fir_init(channels: int, ntaps: int, dtype=torch.float32,
+             device="cuda") -> FIRState:
+    return FIRState(tail=torch.zeros((channels, ntaps - 1), dtype=dtype,
+                                     device=device))
+
+
+def _filter_padded(xp: torch.Tensor, taps) -> torch.Tensor:
+    """apply_windows on a real input; a complex one plane by plane, as the
+    original's ``_apply_windows`` (``sondetpu/dsp/fir.py:119-121``)."""
+    if xp.is_complex():
+        return torch.complex(apply_windows(xp.real, taps),
+                             apply_windows(xp.imag, taps))
+    return apply_windows(xp, taps)
+
+
+def fir_filter(x: torch.Tensor, taps) -> torch.Tensor:
+    """Causal batched FIR: y[n] = sum_k h[k] * x[n - k], zero initial
+    state. x [channels, n] -> [channels, n] (float32, or complex64 for a
+    complex x)."""
+    pad = torch.zeros((x.shape[0], len(taps) - 1), dtype=x.dtype,
+                      device=x.device)
+    return _filter_padded(torch.cat([pad, x], dim=-1), taps)
+
+
+def fir_apply(state: FIRState, x: torch.Tensor, taps):
+    """Streaming FIR step: filter block ``x`` [channels, n] with carry;
+    chunked ``fir_apply`` equals ``fir_filter`` of the whole stream.
+    Returns (new_state, y); the new tail is in x's dtype."""
+    ntaps = len(taps)
+    xp = torch.cat([state.tail.to(x.dtype), x], dim=-1)
+    y = _filter_padded(xp, taps)
+    new_tail = xp[:, -(ntaps - 1):] if ntaps > 1 else state.tail
+    return FIRState(tail=new_tail), y
+
+
 def _taps(taps, x: torch.Tensor) -> torch.Tensor:
-    """The taps as float32 on x's device, rounded to bfloat16 first when x
-    is bfloat16."""
-    h = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
+    """The taps (host values or a tensor) as float32 on x's device, rounded
+    to bfloat16 first when x is bfloat16."""
+    if isinstance(taps, torch.Tensor):
+        h = taps.to(device=x.device, dtype=torch.float32)
+    else:
+        h = torch.as_tensor(np.asarray(taps, np.float32), device=x.device)
     if x.dtype == torch.bfloat16:
         h = h.to(torch.bfloat16).to(torch.float32)
     return h

@@ -1,7 +1,9 @@
 """Rational resampling (counterpart: ``sondetpu/dsp/resample.py``).
 
 ``make_rational_resampler`` and the NumPy ``StreamingResampler`` are
-copies of the originals (the original module imports jax).
+copies of the originals (the original module imports jax);
+``polyphase_decimate`` and ``rational_resample`` are the original's
+stateless resamplers in torch.
 ``DeviceStreamingResampler`` is the original's static-shape streaming
 resampler as torch ops on an explicit device, with the original's block
 geometry, errors and history carry. Its step (``_dsr_step``) is plain
@@ -20,7 +22,17 @@ from math import gcd
 import numpy as np
 import torch
 
-from sondetpu_torch.dsp.fir import design_lowpass
+from sondetpu_torch.dsp.fir import design_lowpass, fir_filter
+
+
+def polyphase_decimate(x: torch.Tensor, factor: int, taps=None,
+                       fs: float = 1.0) -> torch.Tensor:
+    """Decimate [channels, n] by an integer factor with anti-alias
+    filtering (zero initial state): ``fir_filter``, then every
+    ``factor``-th output."""
+    if taps is None:
+        taps = design_lowpass(0.45 * fs / factor, fs, 8 * factor + 1)
+    return fir_filter(x, taps)[:, ::factor]
 
 
 def make_rational_resampler(fs_in: float, fs_out: float, ntaps_per_phase: int = 8):
@@ -38,6 +50,41 @@ def make_rational_resampler(fs_in: float, fs_out: float, ntaps_per_phase: int = 
         ntaps += 1
     taps = design_lowpass(cutoff, fs_in * up, ntaps) * up
     return up, down, taps
+
+
+def rational_resample(x: torch.Tensor, up: int, down: int, taps
+                      ) -> torch.Tensor:
+    """Resample [channels, n] by up/down with the prototype filter ``taps``
+    (stateless, zero initial state); output length floor(n * up / down).
+
+    The polyphase bank and each output's reversed coefficients are built on
+    the host, as the original builds them; on the device only the n_out
+    windows the outputs read are gathered ([channels, n_out, nph]: a full
+    [channels, n, nph] sliding-window tensor first would cost O(n * nph)
+    more memory), then summed over the window in order. A complex x is
+    resampled plane by plane."""
+    if x.is_complex():
+        return torch.complex(rational_resample(x.real, up, down, taps),
+                             rational_resample(x.imag, up, down, taps))
+    taps = np.asarray(taps, dtype=np.float32)
+    nph = -(-taps.size // up)  # taps per phase
+    tp = np.zeros(up * nph, dtype=np.float32)
+    tp[: taps.size] = taps
+    bank = tp.reshape(nph, up).T  # bank[p, k] = taps[k*up + p]
+    c, n = x.shape
+    n_out = (n * up) // down
+    m = np.arange(n_out, dtype=np.int64)
+    coeffs = torch.from_numpy(np.ascontiguousarray(
+        bank[(m * down) % up][:, ::-1])).to(x.device)       # [n_out, nph]
+    i = torch.arange(n_out, dtype=torch.int64, device=x.device) * down // up
+    pos = i[:, None] + torch.arange(nph, device=x.device)[None, :]
+    xp = torch.cat([torch.zeros((c, nph - 1), dtype=x.dtype, device=x.device),
+                    x], dim=-1)
+    sel = xp[:, pos]                                          # [c, n_out, nph]
+    acc = torch.zeros((c, n_out), dtype=torch.float32, device=x.device)
+    for j in range(nph):
+        acc += sel[:, :, j] * coeffs[:, j]
+    return acc
 
 
 class StreamingResampler:
