@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # env, build and step profiles only
     python3 chip_smoke.py --tune       # env, build, K2/K7/K10/K9 per R, K3 per F
+    python3 chip_smoke.py --profile-pfb  # env, build, the PFB's bodies split
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -97,10 +98,16 @@ before the result line:
     (plain_dualtone_step) and its peak memory.
 17. bf16 kernels (in the kernel phase): every K1 and K7 body on bfloat16
     planes and tails, bit-equal to the float32 body on the widened input;
-    K4 and K5 in bf16 torch.equal to their twin run in bfloat16, K6 on
+    K4 and K5 in bf16 equal to their twin run in bfloat16 as int16 bit
+    patterns, at the fleet's shape and on the edge-value planes of
+    sondetpu_torch/kernels/pfb_cases.py (ties, subnormals, overflow near bfloat16's
+    largest value, signed zeros) and an odd N at a ragged m; K6 on
     bfloat16 u within one bfloat16 step at max|y| plus 1e-4 of max|y| of
-    the float32 FFT; K1 (decim 1 lowpass, decim 2), K7 (skip_nb5, chanfilt)
-    and K4-K6 timed in bf16 beside their bound at the bytes they move.
+    the float32 FFT, at the full block, at m that no 16-row cluster tile
+    divides (1003, 5, 9) and on misaligned planes; K1 (decim 1 lowpass,
+    decim 2), K7 (skip_nb5, chanfilt) and K4-K6 timed in bf16 beside their
+    bound at the bytes they move (K4/K5's library call: a bf16 depthwise
+    F.conv1d).
 18. pfb_stream (bf16) and fleet_path_bf16: the 2048-bin fleet in bf16
     (bench.py's fleet default, use_pallas left at None: every group on its
     kernel route), 3 blocks: the carriers decode, the PFB's and K7's bf16
@@ -217,7 +224,10 @@ K7, K10 and K9
 are rebuilt with other outputs per thread (-DSONDETPU_CORR_R,
 -DSONDETPU_DUALTONE_R, -DSONDETPU_LANE_FIR_R, -DSONDETPU_DEMOD_FIR_R) and
 K3 with other frames per warp (-DSONDETPU_RS_CLEAN_F), and timed at the
-paths' shapes (no result line).
+paths' shapes (no result line). With --profile-pfb, the PFB's bodies (K4
+in bf16 and f32, K6's n2048 body in bf16 and f32) are rebuilt with
+-DSONDETPU_PFB_PROFILE bits that leave out their arithmetic, loads or
+stores, and timed at [192000, 2048] beside torch.fft.fft (no result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run, per step on each path, in each command-line run, on the
 scan, AutoFleet and unfused-fleet paths and on the mesh paths; K4's and K5's library column is
@@ -1130,28 +1140,34 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max()) / scale if scale else 0.0
 
 
-def pfb_fir_library(torch, t_i, t_q, x_i, x_q, hcol) -> dict:
+def pfb_fir_library(torch, t_i, t_q, x_i, x_q, hcol,
+                    dtype=None) -> dict:
     """K4's and K5's library call: one depthwise ``F.conv1d`` (groups=N,
     TF32 off) of the time-major planes with their carried tail, both planes
-    as a batch of two, each column filtered by its branch's taps. It
-    computes the branch FIR without K4's one-row shift of column 0, so it
-    is held to the twin on the other columns only (``library_err``, its sum
-    order differs). The planes are stacked beforehand; the call takes their
+    as a batch of two, each column filtered by its branch's taps; with
+    ``dtype`` bfloat16, on the planes and taps rounded to bfloat16 (cuDNN's
+    bfloat16 convolution, beside the bf16 body). It computes the branch FIR
+    without K4's one-row shift of column 0, so it is held to the twin on
+    the other columns only (``library_err``, its sum order and roundings
+    differ). The planes are stacked beforehand; the call takes their
     transposed view."""
     import torch.nn.functional as F
 
     from sondetpu_torch.kernels.pfb import pfb_fir_plain
 
+    dtype = dtype or torch.float32
     n = hcol.shape[1]
     planes = torch.stack([torch.cat([t_i, x_i]), torch.cat([t_q, x_q])])
-    w = hcol.flip(0).t().contiguous().unsqueeze(1)      # [N, 1, tpp]
+    w = hcol.flip(0).t().contiguous().unsqueeze(1).to(dtype)   # [N, 1, tpp]
+    want = pfb_fir_plain(planes[0], planes[1], hcol, dtype)[0].float()
+    planes = planes.to(dtype)
 
     def call():
         return F.conv1d(planes.transpose(1, 2), w, groups=n)
 
     got = call()
-    want = pfb_fir_plain(planes[0], planes[1], hcol)[0]
-    err = float((got[0, 1:, :want.shape[0]].t() - want[:, 1:]).abs().max())
+    err = float((got[0, 1:, :want.shape[0]].t().float()
+                 - want[:, 1:]).abs().max())
     del got, want
     out = {"library_ms": cuda_ms(torch, call, 5), "library_err": err,
            "library_call": "F.conv1d(groups=N) on the transposed "
@@ -1409,9 +1425,12 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
                                             pfb_fir_plain, pfb_fir_stream,
                                             pfb_fir_timemajor)
 
+    from sondetpu_torch.kernels.pfb_cases import misaligned
+
     bf = torch.bfloat16
     m = BLOCK_LEN
     results = {}
+    check_pfb_bf16_edges(torch, dev, randn, hcol)
     x_i, x_q, t_i, t_q = randn(m, N_BINS), randn(m, N_BINS), \
         randn(8, N_BINS), randn(8, N_BINS)
     cuda.reset_launches()
@@ -1422,10 +1441,10 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
     torch.cuda.synchronize()
     check(bodies == {"pfb_fir_stream:bf16": 1},
           f"pfb_fir_stream bf16: bodies {bodies}")
-    check(got[0].dtype == bf and torch.equal(got[0], want[0])
-          and torch.equal(got[1], want[1]),
+    check(got[0].dtype == bf and bits_equal(torch, got, want),
           "pfb_fir_stream bf16: not equal to its twin in bfloat16")
     fir_ops = 2 * TPP - 1
+    library = pfb_fir_library(torch, t_i, t_q, x_i, x_q, hcol, bf)
     results["pfb_fir_stream_bf16"] = entry = {
         "phase": "kernel", "name": "pfb_fir_stream", "dtype": "bf16",
         "shape": [m, N_BINS], "body": "bf16", "max_abs_err": 0.0, "tol": 0,
@@ -1433,7 +1452,7 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
                                                     bf), 20),
         "plain_ms": cuda_ms(torch, lambda: pfb_fir_plain(
             torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol, bf), 3),
-        "library_ms": None,
+        **library,
         **bound(nbytes(x_i, x_q, t_i, t_q, hcol) + nbytes(*got),
                 2 * m * N_BINS * fir_ops)}
     emit(entry)
@@ -1445,7 +1464,7 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
         got = pfb_fir_timemajor(vv_i, vv_q, hcol, bf)
         want = pfb_fir_plain(vv_i, vv_q, hcol, bf)
         torch.cuda.synchronize()
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+        check(bits_equal(torch, got, want),
               f"pfb_fir_timemajor bf16 m={rows}: not equal to its twin")
         entry = {"phase": "kernel", "name": "pfb_fir_timemajor",
                  "dtype": "bf16", "shape": [TPP + rows, N_BINS],
@@ -1456,7 +1475,7 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
                     vv_i, vv_q, hcol, bf), 20),
                 plain_ms=cuda_ms(torch, lambda: pfb_fir_plain(
                     vv_i, vv_q, hcol, bf), 3),
-                library_ms=None,
+                **library,
                 **bound(nbytes(vv_i, vv_q, hcol) + nbytes(*got),
                         2 * rows * N_BINS * fir_ops))
             results["pfb_fir_timemajor_bf16"] = entry
@@ -1465,9 +1484,16 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
     del x_i, x_q
     torch.cuda.empty_cache()
     errs = []
-    for rows, nb in ((m, N_BINS), (1003, N_BINS), (4096, 16)):
+    # K6: the full block, m that no 16-row cluster tile divides (1003; 5:
+    # one tile whose second block has no rows; 9: one row), planes whose
+    # bulk copies cannot start (misaligned by 2 bytes), and N = 16
+    for rows, nb, skew in ((m, N_BINS, False), (1003, N_BINS, False),
+                           (5, N_BINS, False), (9, N_BINS, False),
+                           (1003, N_BINS, True), (4096, 16, False)):
         ui, uq = ((u_i, u_q) if rows == m else
                   (randn(rows, nb).to(bf), randn(rows, nb).to(bf)))
+        if skew:
+            ui, uq = (misaligned(v) for v in (ui, uq))
         cuda.reset_launches()
         y = pfb_dft(ui, uq)
         bodies = dict(cuda.body_launches)
@@ -1483,8 +1509,9 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
               f"pfb_dft bf16 N={nb}: err {err} beyond {tol}")
         errs.append(err / top)
         entry = {"phase": "kernel", "name": "pfb_dft", "dtype": "bf16",
-                 "shape": [rows, nb], "body": body, "max_abs_err": err,
-                 "tol": tol, "max_err_over_max_abs_y": err / top}
+                 "shape": [rows, nb], "body": body, "misaligned": skew,
+                 "max_abs_err": err, "tol": tol,
+                 "max_err_over_max_abs_y": err / top}
         if rows == m:
             # the library's one call: cuFFT of the same values, widened
             # (it takes no bfloat16)
@@ -1504,6 +1531,51 @@ def phase_pfb_bf16(torch, dev, randn, hcol):
     del u_i, u_q
     torch.cuda.empty_cache()
     return results
+
+
+def bits_equal(torch, got, want) -> bool:
+    """Each plane of ``got`` equal to ``want``'s as int16 bit patterns (a
+    flushed subnormal or a lost signed zero shows; so does a NaN)."""
+    return all(a.dtype == b.dtype == torch.bfloat16
+               and torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(got, want))
+
+
+def check_pfb_bf16_edges(torch, dev, randn, hcol, m: int = 1003):
+    """K4 and K5's bf16 body bit-equal (int16 patterns) to the twin in
+    bfloat16 on the edge-value planes of sondetpu_torch/kernels/pfb_cases.py (exact
+    ties, subnormals, sums that overflow near bfloat16's largest value,
+    signed zeros) at 2048 columns and a ragged m, and on normal planes at
+    an odd N (2047: the paired columns' scalar loads and stores)."""
+    from sondetpu_torch.kernels.pfb import (pfb_fir_plain, pfb_fir_stream,
+                                            pfb_fir_timemajor)
+
+    from sondetpu_torch.kernels.pfb_cases import (BF16_EDGE_CASES,
+                                                  bf16_edge_planes)
+
+    from sondetpu_torch.dsp.channelizer import PFBChannelizer
+
+    bf = torch.bfloat16
+    cases = [(c, N_BINS) for c in BF16_EDGE_CASES] + [(None, N_BINS - 1)]
+    for case, n in cases:
+        if case is None:
+            vv_i, vv_q = randn(8 + m, n), randn(8 + m, n)
+            h = PFBChannelizer(n, dev)._hcol_t
+        else:
+            vi, vq, taps = bf16_edge_planes(case, 8 + m, n, 16)
+            vv_i, vv_q = (torch.from_numpy(v).to(dev) for v in (vi, vq))
+            h = hcol if taps is None else torch.from_numpy(taps).to(dev)
+        want = pfb_fir_plain(vv_i, vv_q, h, bf)
+        got = pfb_fir_stream(vv_i[8:], vv_q[8:], vv_i[:8], vv_q[:8], h, bf)
+        check(bits_equal(torch, got, want),
+              f"pfb_fir_stream bf16 {case or 'odd N'}: not equal to its twin")
+        got = pfb_fir_timemajor(vv_i, vv_q, h, bf)
+        check(bits_equal(torch, got, want),
+              f"pfb_fir_timemajor bf16 {case or 'odd N'}: not equal to its "
+              "twin")
+    emit({"phase": "kernel", "name": "pfb_fir_stream", "dtype": "bf16",
+          "edge_cases": [c or f"odd N {n}" for c, n in cases], "rows": m,
+          "bit_equal": True})
 
 
 def phase_pfb_stream(torch, dev, dtype: str = "f32"):
@@ -3232,11 +3304,15 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                           r"frontend_kernel|afsk_kernel|dft2048_kernel|"
                           r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
                           r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel|"
-                          r"demod_audio_kernel|demod_fir_kernel)"
-                          r"((?:I|L[ib]-?\d+E)*)", line)
+                          r"demod_audio_kernel|demod_fir_kernel|"
+                          r"pfb_fir_kernel|pfb_fir_bf16_kernel|"
+                          r"dft2048_bf16_kernel)"
+                          r"((?:I|L[ib]-?\d+E|f|13__nv_bfloat16)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling
-                args = re.findall(r"L[ib](-?\d+)E", m.group(2))
+                args = ["".join(a) for a in re.findall(
+                    r"L[ib](-?\d+)E|13__nv_(bfloat16)|(?<=I)(f)",
+                    m.group(2))]
                 name = m.group(1) + (f"<{','.join(args)}>" if args else "")
                 spill = 0
             m = re.search(r"(\d+) bytes spill stores", line)
@@ -3334,6 +3410,88 @@ def phase_tune(torch, dev, variants=(
                   "resources": phase_resources(
                       ("corr.cu", "dualtone.cu", "syndrome.cu",
                        "lane_fir.cu", "demod_fir.cu"), quiet=True)})
+    finally:
+        cuda.NVCC_FLAGS = base
+        cuda._lib = None
+
+
+PFB_PROFILE_VARIANTS = (
+    ("full", ()), ("no_arithmetic", ("SONDETPU_PFB_PROFILE=1",)),
+    ("no_loads", ("SONDETPU_PFB_PROFILE=2",)),
+    ("no_stores", ("SONDETPU_PFB_PROFILE=4",)),
+    ("loads_only", ("SONDETPU_PFB_PROFILE=5",)),
+    ("stores_only", ("SONDETPU_PFB_PROFILE=3",)),
+    ("arithmetic_only", ("SONDETPU_PFB_PROFILE=6",)))
+
+
+def phase_profile_pfb(torch, dev, smi, variants=PFB_PROFILE_VARIANTS):
+    """The PFB's bodies at the fleet's shape, [192000, 2048], rebuilt with
+    -DSONDETPU_PFB_PROFILE=bits (bit 1 skips the arithmetic: K4 writes its
+    newest rounded sample, K6 sends its loaded points straight to the
+    transposed tile; bit 2 skips K6's device-memory loads, bit 4 its
+    stores) and timed by CUDA events: K4 in bf16 and f32, K6's n2048 body
+    in bf16 and f32, beside torch.fft.fft of the widened input; ptxas's
+    registers, spills and shared memory of every body. The full build is
+    held to the twins; the others compute nothing a path may use."""
+    from sondetpu_torch.dsp.channelizer import PFBChannelizer
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain,
+                                            pfb_fir_plain, pfb_fir_stream)
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+    m = BLOCK_LEN
+    x_i, x_q = (torch.randn((m, N_BINS), generator=gen, device=dev)
+                for _ in range(2))
+    t_i, t_q = (torch.randn((8, N_BINS), generator=gen, device=dev)
+                for _ in range(2))
+    hcol = PFBChannelizer(N_BINS, dev)._hcol_t
+    twiddles = PFBChannelizer(N_BINS, dev)._twiddles
+    u32 = [torch.randn((m, N_BINS), generator=gen, device=dev)
+           for _ in range(2)]
+    u16 = [u.to(bf) for u in u32]
+    z = torch.complex(u16[0].float(), u16[1].float())
+    emit({"phase": "profile_pfb", "variant": "library",
+          "fft_widened_bf16_ms": cuda_ms(
+              torch, lambda: torch.fft.fft(z, dim=-1), 20),
+          "nvidia_smi": smi})
+    del z
+    base = list(cuda.NVCC_FLAGS)
+    try:
+        for label, flags in variants:
+            cuda.NVCC_FLAGS = base + [f"-D{f}" for f in flags]
+            cuda._lib = None
+            cuda.library()
+            if not flags:
+                got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol, bf)
+                want = pfb_fir_plain(torch.cat([t_i, x_i]),
+                                     torch.cat([t_q, x_q]), hcol, bf)
+                check(all(torch.equal(a.view(torch.int16),
+                                      b.view(torch.int16))
+                          for a, b in zip(got, want)),
+                      "profile_pfb: K4 bf16 differs from its twin")
+                del got, want
+                for u in (u16, u32):
+                    y = pfb_dft(*u, twiddles)
+                    ref = pfb_dft_plain(*(v.float() for v in u))
+                    top = max(float(r.abs().max()) for r in ref)
+                    err = max(float((a.float() - b).abs().max())
+                              for a, b in zip(y, ref))
+                    check(err <= 2.0 ** (np.floor(np.log2(top)) - 7)
+                          + 1e-4 * top, f"profile_pfb: K6 err {err}")
+                    del y, ref
+            emit({"phase": "profile_pfb", "variant": label,
+                  "flags": list(flags),
+                  "k4_bf16_ms": cuda_ms(torch, lambda: pfb_fir_stream(
+                      x_i, x_q, t_i, t_q, hcol, bf), 20),
+                  "k4_f32_ms": cuda_ms(torch, lambda: pfb_fir_stream(
+                      x_i, x_q, t_i, t_q, hcol), 20),
+                  "k6_bf16_ms": cuda_ms(
+                      torch, lambda: pfb_dft(*u16, twiddles), 20),
+                  "k6_f32_ms": cuda_ms(
+                      torch, lambda: pfb_dft(*u32, twiddles), 20),
+                  "resources": phase_resources(("pfb.cu", "pfb_dft.cu"),
+                                               quiet=True)})
     finally:
         cuda.NVCC_FLAGS = base
         cuda._lib = None
@@ -5115,6 +5273,12 @@ def main() -> int:
         phase_profile(torch, dev, "m10", dtype="bf16")
         torch.cuda.empty_cache()
         phase_profile_fleet(torch, dev)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--profile-pfb"]:
+        # the PFB's bodies and their load-, store- and arithmetic-only
+        # builds: python3 chip_smoke.py --profile-pfb
+        phase_profile_pfb(torch, dev, smi)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tune"]:

@@ -70,9 +70,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     const float x) {
     return __float2bfloat16_rn(x);
 }
-// x rounded to the nearest bfloat16 (ties to even), as a float
-static __device__ __forceinline__ float round_bf16(const float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
+// lo and hi each rounded to the nearest bfloat16 (ties to even) by one
+// paired conversion, as a word (lo in the low half)
+static __device__ __forceinline__ unsigned pack_bf16x2(const float lo,
+                                                       const float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // A word of V = 1 or 4 bfloat16 values, loaded raw (2 or 8 bytes) and

@@ -6,7 +6,8 @@
 - ``corr.corr_kernel``: syncword correlation (``csrc/corr.cu``);
 - ``syndrome.rs_clean_flags_kernel``: RS syndrome flag (``csrc/syndrome.cu``);
 - ``pfb.pfb_fir_stream``/``pfb_fir_timemajor``/``pfb_dft``: the PFB
-  channelizer (``csrc/pfb.cu``, ``csrc/pfb_dft.cu``);
+  channelizer (``csrc/pfb.cu``, ``csrc/pfb_dft.cu``); ``pfb_cases``: the
+  edge-value planes its bf16 FIR is held to the twin on;
 - ``dualtone.fused_dualtone_frontend``: the m10 front end
   (``csrc/dualtone.cu``);
 - ``afsk.fused_afsk_frontend``: the AFSK tone discriminator

@@ -15,8 +15,11 @@ is not reproduced: it existed so that the fleet's row gather absorbed it.
 A bf16 channelizer runs both stages in bfloat16, as the original's Pallas
 kernels with ``cdt = bfloat16`` do: the FIR rounds its float32 input and
 taps to bfloat16 and each product and running sum to bfloat16 and writes
-bfloat16 (kernel and twin agree bit for bit); the DFT reads bfloat16,
-transforms in float32 and rounds its output to bfloat16 once.
+bfloat16 (kernel and twin agree bit for bit: the kernel's packed bfloat16
+products and sums are each correctly rounded, subnormals kept); the DFT
+reads bfloat16, transforms in float32 and rounds its output to bfloat16
+once (at N = 2048 in a persistent body of 2-block clusters that moves its
+input by bulk copies and stores 32 bytes a channel).
 """
 
 from __future__ import annotations
@@ -161,7 +164,8 @@ def pfb_dft(u_i: torch.Tensor, u_q: torch.Tensor, twiddles=None):
     :func:`twiddle_table` for N as tensors on the card (made here when
     None). N must be a power of two from 8 to 4096. CPU tensors run the
     twin; CUDA tensors launch the kernel (a register-pass body at N = 2048,
-    the radix-2 body otherwise; ``_bf16`` for bfloat16)."""
+    for bfloat16 the persistent clustered one, the radix-2 body otherwise;
+    ``_bf16`` for bfloat16)."""
     dev = u_i.device
     if dev.type == "cpu":
         return pfb_dft_plain(u_i, u_q)

@@ -47,6 +47,8 @@ from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                              rs_clean_plain)
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
                                         pfb_fir_stream, pfb_fir_timemajor)
+from sondetpu_torch.kernels.pfb_cases import (BF16_EDGE_CASES,
+                                              bf16_edge_planes, misaligned)
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.sondes.c50 import C50Modulator, C50Truth
@@ -559,38 +561,66 @@ def test_cuda_channelizer_outside_the_dft_kernel(cuda_device, n):
                                    atol=1e-4 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("n", [2048, 16])
-def test_cuda_bf16_pfb_kernels_match_twins(cuda_device, n):
-    """K4 and K5 in bfloat16 are torch.equal to their twin run in bfloat16
-    (every product and sum rounded to bfloat16, body bf16); K6 on bfloat16
-    u (its n2048_bf16 or radix2_bf16 body) within one bfloat16 step at
+def _bf16_bits(t):
+    return t.view(torch.int16)
+
+
+# (n, m, edge case or None, K6 on a misaligned copy): the fleet's 2048
+# bins and 16 on a ragged m, K4/K5 on each edge-value plane, an odd N
+# (K4's paired columns on scalar loads and stores; no K6 there), and K6 on
+# m that no 16-row cluster tile divides (one tile with an empty block, one
+# whose second block has one row) and on planes its bulk copies cannot take
+@pytest.mark.parametrize("n, m, case, skew", [
+    pytest.param(2048, 1003, None, False, id="2048"),
+    pytest.param(16, 1003, None, False, id="16"),
+    *(pytest.param(2048, 1003, c, False, id=f"2048-{c}")
+      for c in BF16_EDGE_CASES),
+    pytest.param(2047, 1003, None, False, id="2047-odd"),
+    pytest.param(2048, 5, None, False, id="2048-m5"),
+    pytest.param(2048, 9, None, False, id="2048-m9"),
+    pytest.param(2048, 1003, None, True, id="2048-misaligned")])
+def test_cuda_bf16_pfb_kernels_match_twins(cuda_device, n, m, case, skew):
+    """K4 and K5 in bfloat16 equal their twin run in bfloat16 as int16 bit
+    patterns (every product and sum rounded to bfloat16, body bf16; a
+    flushed subnormal or a lost signed zero would show); K6 on bfloat16 u
+    (its n2048_bf16 or radix2_bf16 body) within one bfloat16 step at
     max|y| plus 1e-4 of max|y| (K6's float32 tolerance) of the float32
     transform of the widened u."""
     bf = torch.bfloat16
-    m = 1003
-    x_i, x_q, t_i, t_q = _pfb_planes(cuda_device, m, n, 12)
-    hcol = PFBChannelizer(n, cuda_device)._hcol_t
+    if case is None:
+        x_i, x_q, t_i, t_q = _pfb_planes(cuda_device, m, n, 12)
+        hcol = PFBChannelizer(n, cuda_device)._hcol_t
+    else:
+        vi, vq, taps = bf16_edge_planes(case, 8 + m, n, 12)
+        t_i, x_i, t_q, x_q = (T(a).to(cuda_device) for a in (
+            vi[:8], vi[8:], vq[:8], vq[8:]))
+        hcol = (PFBChannelizer(n, cuda_device)._hcol_t if taps is None
+                else T(taps).to(cuda_device))
     cuda.reset_launches()
     got = pfb_fir_stream(x_i, x_q, t_i, t_q, hcol, bf)
     want = pfb_fir_plain(torch.cat([t_i, x_i]), torch.cat([t_q, x_q]), hcol,
                          bf)
     assert got[0].dtype == bf
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, b in zip(got, want):
+        assert torch.equal(_bf16_bits(a), _bf16_bits(b))
     vv = [torch.cat([t, x[:5]]) for t, x in ((t_i, x_i), (t_q, x_q))]
     tm = pfb_fir_timemajor(*vv, hcol, bf)
     tw = pfb_fir_plain(*vv, hcol, bf)
-    assert torch.equal(tm[0], tw[0]) and torch.equal(tm[1], tw[1])
-    y = pfb_dft(*got)
-    w = pfb_dft_plain(*(u.float() for u in got))
-    for a, b in zip(y, w):
-        top = float(b.abs().max())
-        ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
-        assert a.dtype == bf
-        assert float((a.float() - b).abs().max()) <= ulp + 1e-4 * top
-    body = "n2048_bf16" if n == 2048 else "radix2_bf16"
-    assert cuda.body_launches == {"pfb_fir_stream:bf16": 1,
-                                  "pfb_fir_timemajor:bf16": 1,
-                                  f"pfb_dft:{body}": 1}, cuda.body_launches
+    for a, b in zip(tm, tw):
+        assert torch.equal(_bf16_bits(a), _bf16_bits(b))
+    bodies = {"pfb_fir_stream:bf16": 1, "pfb_fir_timemajor:bf16": 1}
+    if n & (n - 1) == 0 and case is None:
+        u = [misaligned(v) for v in got] if skew else got
+        y = pfb_dft(*u)
+        w = pfb_dft_plain(*(v.float() for v in got))
+        for a, b in zip(y, w):
+            top = float(b.abs().max())
+            ulp = 2.0 ** (np.floor(np.log2(top)) - 7)
+            assert a.dtype == bf
+            assert float((a.float() - b).abs().max()) <= ulp + 1e-4 * top
+        body = "n2048_bf16" if n == 2048 else "radix2_bf16"
+        bodies[f"pfb_dft:{body}"] = 1
+    assert cuda.body_launches == bodies, cuda.body_launches
 
 
 # --- the configs of the kernel gates, the jnp AFSK front end, bf16 routes ------

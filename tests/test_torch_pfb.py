@@ -23,6 +23,8 @@ from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
                                         pfb_fir_stream, pfb_fir_timemajor,
                                         twiddle_table)
+from sondetpu_torch.kernels.pfb_cases import (BF16_EDGE_CASES,
+                                              bf16_edge_planes)
 import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
 T = torch.from_numpy
@@ -177,20 +179,57 @@ def _bf16_ulp(x):
     return 2.0 ** (np.floor(np.log2(x)) - 7)
 
 
-@pytest.mark.parametrize("n", [16, 512])
-def test_bf16_fir_twin_equals_xla(n):
+def _flush(x):
+    """float32 x with every subnormal replaced by a zero of its sign."""
+    return torch.where(x.abs() < 2.0 ** -126, x * 0, x)
+
+
+def _fir_flushed(vv, hcol, tpp=8):
+    """The bf16 twin's operations as XLA runs them on the CPU: each product
+    and sum in float32 with subnormal operands and results flushed to zeros
+    of their sign, then rounded to bfloat16."""
+    bf, f = torch.bfloat16, torch.float32
+    m = vv.shape[0] - tpp
+    rows = m + tpp - 1
+    vv, hcol = vv.to(bf).to(f), hcol.to(bf).to(f)
+    vvs = torch.cat([vv[1:rows + 1, :1], vv[:rows, 1:]], dim=1)
+    acc = None
+    for t in range(tpp):
+        o = tpp - 1 - t
+        s = _flush(_flush(vvs[o:o + m]) * _flush(hcol[t][None, :]))
+        s = s.to(bf).to(f)
+        acc = s if acc is None else _flush(_flush(acc) + s).to(bf).to(f)
+    return acc.to(bf)
+
+
+@pytest.mark.parametrize("n, case", [
+    pytest.param(n, case, id=f"{n}" + (f"-{case}" if case else ""))
+    for case in (None, *BF16_EDGE_CASES) for n in (16, 512)])
+def test_bf16_fir_twin_equals_xla(n, case):
     """The bf16 branch FIR twin (input and taps rounded to bfloat16, every
     product and running sum rounded to bfloat16, from the product of tap 0)
     against the JAX channelizer's bf16 slice-sum under jit on the CPU, the
-    path its bf16 PFBChannelizer takes there: bit for bit (XLA on the CPU
-    rounds each bfloat16 product and sum as PyTorch does). The stream and
-    time-major wrappers' CPU routes are the twin."""
+    path its bf16 PFBChannelizer takes there, as int16 bit patterns: on
+    normal planes and on the edge planes of kernels/pfb_cases.py (exact
+    ties, bfloat16 subnormals, sums that overflow near bfloat16's largest
+    value, signed zeros), the inputs where a packed bfloat16 product or sum
+    that rounded otherwise would part from the twin. XLA on the CPU rounds
+    each bfloat16 product and sum as PyTorch does, but flushes subnormal
+    float32 operands and results to zeros of their sign, where the twin
+    (and the card's bfloat16 arithmetic) keeps them: on the subnormal and
+    signed-zero planes JAX equals the twin's operations with that flush,
+    and the twin's own subnormal outputs are checked to be there. The
+    stream and time-major wrappers' CPU routes are the twin."""
     import jax
     m, tpp = 200, 8
     rows = m + tpp - 1
     jp = JaxPFB(n, dtype="bf16")
-    hcol = jnp.asarray(jp._hcol, jnp.bfloat16)
-    vv_i, vv_q = _planes(n + 1, tpp + m, n)
+    if case is None:
+        (vv_i, vv_q), taps = _planes(n + 1, tpp + m, n), None
+    else:
+        vv_i, vv_q, taps = bf16_edge_planes(case, tpp + m, n, n + 1)
+    taps = jp._hcol if taps is None else taps
+    hcol = jnp.asarray(taps, jnp.bfloat16)
 
     @jax.jit
     def fir(vv):
@@ -202,18 +241,30 @@ def test_bf16_fir_twin_equals_xla(n):
             acc = s if acc is None else acc + s
         return acc
 
-    want = [np.asarray(fir(jnp.asarray(v))).astype(np.float32)
+    want = [np.asarray(fir(jnp.asarray(v))).view(np.int16)
             for v in (vv_i, vv_q)]
     bf = torch.bfloat16
-    got = pfb_fir_plain(T(vv_i), T(vv_q), T(jp._hcol), bf)
-    for g, w in zip(got, want):
+    got = pfb_fir_plain(T(vv_i), T(vv_q), T(taps), bf)
+    flushes = case in ("subnormal", "signed_zero")
+    for g, w, v in zip(got, want, (vv_i, vv_q)):
         assert g.dtype == bf
-        np.testing.assert_array_equal(g.float().numpy(), w)
+        if flushes:
+            np.testing.assert_array_equal(
+                _fir_flushed(T(v), T(taps)).view(torch.int16).numpy(), w)
+            tiny = (g.float().abs() < 2.0 ** -126) & (g != 0)
+            assert bool(tiny.any())
+        else:
+            np.testing.assert_array_equal(g.view(torch.int16).numpy(), w)
+    if case == "near_max":
+        assert bool(torch.isinf(got[0].float()).any())
+    if case == "signed_zero":
+        assert bool(((got[0] == 0) & torch.signbit(got[0].float())).any())
     stream = pfb_fir_stream(T(vv_i[tpp:]), T(vv_q[tpp:]), T(vv_i[:tpp]),
-                            T(vv_q[:tpp]), T(jp._hcol), bf)
-    tm = pfb_fir_timemajor(T(vv_i), T(vv_q), T(jp._hcol), bf)
+                            T(vv_q[:tpp]), T(taps), bf)
+    tm = pfb_fir_timemajor(T(vv_i), T(vv_q), T(taps), bf)
     for a, b, c in zip(got, stream, tm):
-        assert torch.equal(a, b) and torch.equal(a, c)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        assert torch.equal(a.view(torch.int16), c.view(torch.int16))
 
 
 @pytest.mark.parametrize("n", [16, 512])
