@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile    # env, build and step profiles only
     python3 chip_smoke.py --tune       # env, build, K2/K7/K10/K9 per R, K3 per F
     python3 chip_smoke.py --profile-pfb  # env, build, the PFB's bodies split
+    python3 chip_smoke.py --profile-k7   # env, build, K7's chanfilt split
+    python3 chip_smoke.py --dualtone-steps DIR ...  # ims100/mrzn1 steps
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -25,8 +27,10 @@ before the result line:
    before the block DC. The correlator runs every body (sign and
    separately rounded templates at L 64, 32 and a run-time length, the
    long-template body, edge shapes) and the dual-tone front end every body
-   (compiled nb 5 and run-time nb, channel filter, AFC, channel counts
-   that are not a multiple of its eight rows), each equal to its twin. The
+   (compiled nb 5 and run-time nb without the channel filter; with it, 41
+   taps and nb 20 compiled in and both at run time; AFC, channel counts
+   that are not a multiple of its eight rows, misaligned planes), each
+   equal to its twin. The
    RS syndrome flag runs both bodies (384 and 512 columns) on RS41's 320-
    and rs41x's 518-byte frames (both timed), one row, row counts that are
    not a multiple of a block's frames, frames off 4-byte alignment and a
@@ -86,7 +90,8 @@ before the result line:
 14. ims100_path (3 blocks) and mrzn1_path (2 blocks): the kernel path at
     2048 channels x 4 s, one signal from the family's modulator on every
     channel (noise std 0.04): the truth's serial and telemetry on every
-    channel, K7's chanfilt body once a step and no other kernel; then the
+    channel, K7's chanfilt_t41_nb20 body once a step and no other kernel;
+    then the
     steady step (ims100_step, mrzn1_step), the midpoint DC alone on one
     block's metric and peak device memory.
 15. dualtone_distinct: ims100 and mrzn1, 8 channels with four truths, with
@@ -105,7 +110,8 @@ before the result line:
     bfloat16 u within one bfloat16 step at max|y| plus 1e-4 of max|y| of
     the float32 FFT, at the full block, at m that no 16-row cluster tile
     divides (1003, 5, 9) and on misaligned planes; K1 (decim 1 lowpass,
-    decim 2), K7 (skip_nb5, chanfilt) and K4-K6 timed in bf16 beside their
+    decim 2), K7 (skip_nb5, chanfilt_t41_nb20, and the run-time chanfilt
+    body at ims100's shape) and K4-K6 timed in bf16 beside their
     bound at the bytes they move (K4/K5's library call: a bf16 depthwise
     F.conv1d).
 18. pfb_stream (bf16) and fleet_path_bf16: the 2048-bin fleet in bf16
@@ -117,7 +123,8 @@ before the result line:
     (use_pallas=False, the JAX CLI's default, f32) at 2048 channels x 4 s,
     2 blocks: the truth on every channel, no hand kernel; plain_afsk_step;
     plain_afsk_distinct, 8 channels with four truths, card against CPU.
-20. ims100_bf16 and m10_fallback_bf16: ims100 on K7's chanfilt_bf16 body,
+20. ims100_bf16 and m10_fallback_bf16: ims100 on K7's
+    chanfilt_t41_nb20_bf16 body,
     and m10's FM fallback (a block of 4 s + 5 samples) on K1's
     decim1_t41_bf16 body with K2 on the widened bfloat16 ring, at 2048
     channels, i16, use_pallas=True, bf16: the truth on every channel and
@@ -228,6 +235,12 @@ paths' shapes (no result line). With --profile-pfb, the PFB's bodies (K4
 in bf16 and f32, K6's n2048 body in bf16 and f32) are rebuilt with
 -DSONDETPU_PFB_PROFILE bits that leave out their arithmetic, loads or
 stores, and timed at [192000, 2048] beside torch.fft.fft (no result line).
+With --profile-k7, K7 is rebuilt with -DSONDETPU_DUALTONE_PROFILE bits that
+leave out its channel filter, its mix and boxcars or its stores, and its
+channel-filter bodies are timed at ims100's shape (no result line). With
+--dualtone-steps DIR ..., the ims100 and mrzn1 kernel-path steps are timed
+for each checkout named, in that order, each in a process of its own (no
+result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run, per step on each path, in each command-line run, on the
 scan, AutoFleet and unfused-fleet paths and on the mesh paths; K4's and K5's library column is
@@ -1191,6 +1204,7 @@ def phase_fleet_kernels(torch, dev):
     from sondetpu_torch.kernels.pfb import (TPP, pfb_dft, pfb_dft_plain,
                                             pfb_fir_plain, pfb_fir_stream,
                                             pfb_fir_timemajor)
+    from sondetpu_torch.kernels.pfb_cases import misaligned
 
     gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -1307,24 +1321,41 @@ def phase_fleet_kernels(torch, dev):
     # the twin, so torch.equal; the dc and rotation sums differ only in the
     # order of summation, so they are held relative to their largest value
     sum_tol = 1e-5
-    taps = design_lowpass(0.45 * FS, FS, 41)
-    cases = (  # label, channels, samples, skip chanfilt, AFC, nb, timed
-        ("m10", 616, m, True, False, 5, True),
-        ("ims100", CHANNELS, m, False, False, 20, True),
-        ("chanfilt-afc", 256, 48000, False, True, 5, False),
-        ("chanfilt", 64, 48000, False, False, 7, False),
-        ("skip-afc", 256, 48000, True, True, 5, False),
-        ("runtime-nb7", 64, 48000, True, False, 7, False),
-        ("runtime-nb7-afc", 64, 48000, True, True, 7, False),
-        ("edge-c13", 13, 30001, True, False, 5, False),
-        ("edge-c5-chanfilt-afc", 5, 30001, False, True, 3, False),
-        ("edge-c1-nb7", 1, 1003, True, False, 7, False))
+    k7_taps = {41: design_lowpass(0.45 * FS, FS, 41),
+               33: design_lowpass(0.45 * FS, FS, 33)}
+    # label, channels, samples, skip chanfilt, AFC, nb, timed, taps; ims100
+    # (and mrzn1: the same K7 arguments) runs chanfilt_t41_nb20, which the
+    # cases after it hold on edge shapes, and the run-time chanfilt body
+    # (other taps or nb) at ims100's shape too
+    cases = (
+        ("m10", 616, m, True, False, 5, True, 41),
+        ("ims100", CHANNELS, m, False, False, 20, True, 41),
+        ("ims100-nb19", CHANNELS, m, False, False, 19, True, 41),
+        ("chanfilt-afc", 256, 48000, False, True, 5, False, 41),
+        ("chanfilt", 64, 48000, False, False, 7, False, 41),
+        ("skip-afc", 256, 48000, True, True, 5, False, 41),
+        ("runtime-nb7", 64, 48000, True, False, 7, False, 41),
+        ("runtime-nb7-afc", 64, 48000, True, True, 7, False, 41),
+        ("edge-c13", 13, 30001, True, False, 5, False, 41),
+        ("edge-c5-chanfilt-afc", 5, 30001, False, True, 3, False, 41),
+        ("edge-c1-nb7", 1, 1003, True, False, 7, False, 41),
+        ("nb20-afc", 256, 48000, False, True, 20, False, 41),
+        ("nb20-edge-c13", 13, 30001, False, False, 20, False, 41),
+        ("nb20-edge-c5-afc", 5, 30001, False, True, 20, False, 41),
+        ("nb20-edge-c1", 1, 1003, False, False, 20, False, 41),
+        ("nb20-misaligned-afc", 9, 30001, False, True, 20, False, 41),
+        ("t33-nb20", 64, 48000, False, False, 20, False, 33),
+        ("nb21-afc-edge-c13", 13, 30001, False, True, 21, False, 41))
     bodies = set()
-    for label, c, n, skip, afc, nb, timed in cases:
+    for label, c, n, skip, afc, nb, timed, ntaps in cases:
+        taps = k7_taps[ntaps]
         args = (randn(c, n), randn(c, n), randn(c, HALO), randn(c, HALO))
+        if "misaligned" in label:
+            args = tuple(misaligned(a) for a in args)
         tabs = tuple(torch.from_numpy(t).to(dev)
                      for t in mixer_tables(n, 12000.0 / FS))
-        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc)
+        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc,
+                                                          ntaps=ntaps)
         cuda.reset_launches()
         got = fused_dualtone_frontend(*args, taps, *tabs, nb, afc, skip)
         want = fused_dualtone_plain(*args, taps, *tabs, nb, afc, skip)
@@ -1362,22 +1393,27 @@ def phase_fleet_kernels(torch, dev):
                 library_ms=None, ops_per_position=ops,
                 **bound(nbytes(*args, *tabs) + nbytes(*args[2:]) + 4 * c * n,
                         c * n * ops))
-            results["fused_dualtone_frontend" if label == "m10"
-                    else "fused_dualtone_frontend_chanfilt"] = entry
+            results[{"m10": "fused_dualtone_frontend",
+                     "ims100": "fused_dualtone_frontend_chanfilt"}.get(
+                label, f"fused_dualtone_frontend_{label}")] = entry
         emit(entry)
         del args, tabs
-    check(len(bodies) == 6, f"dualtone: bodies launched {bodies}")
+    check(len(bodies) == 8, f"dualtone: bodies launched {bodies}")
     torch.cuda.empty_cache()
     # K7 on bfloat16 planes and tails in every body: bit-equal to the
     # float32 body on the widened input, the m10 and ims100 shapes timed at
     # 2 bytes a sample
     bodies = set()
-    for label, c, n, skip, afc, nb, timed in cases:
+    for label, c, n, skip, afc, nb, timed, ntaps in cases:
+        taps = k7_taps[ntaps]
         planes = [randn(*s).to(torch.bfloat16)
                   for s in ((c, n), (c, n), (c, HALO), (c, HALO))]
+        if "misaligned" in label:
+            planes = [misaligned(p) for p in planes]
         tabs = tuple(torch.from_numpy(t).to(dev)
                      for t in mixer_tables(n, 12000.0 / FS))
-        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc, True)
+        body = "fused_dualtone_frontend:" + dualtone_body(nb, skip, afc, True,
+                                                          ntaps)
 
         def k7(*p):
             return fused_dualtone_frontend(*p, taps, *tabs, nb, afc, skip)
@@ -1403,11 +1439,12 @@ def phase_fleet_kernels(torch, dev):
                 library_ms=None, ops_per_position=ops,
                 **bound(nbytes(*planes, *tabs) + nbytes(*planes[2:])
                         + 4 * c * n, c * n * ops))
-            results["fused_dualtone_frontend_bf16" if label == "m10"
-                    else "fused_dualtone_frontend_chanfilt_bf16"] = entry
+            results[{"m10": "fused_dualtone_frontend_bf16",
+                     "ims100": "fused_dualtone_frontend_chanfilt_bf16"}.get(
+                label, f"fused_dualtone_frontend_{label}_bf16")] = entry
         emit(entry)
         del planes, tabs
-    check(len(bodies) == 6, f"dualtone bf16: bodies launched {bodies}")
+    check(len(bodies) == 8, f"dualtone bf16: bodies launched {bodies}")
     torch.cuda.empty_cache()
     return results
 
@@ -2026,24 +2063,32 @@ def time_demod_fir(torch, dev, i, q, prev, atail, taps, scale, reps=20):
 
     ms = cuda_ms(torch, call, reps)
     # the first profiler session of a process can miss a launch while the
-    # tracer starts (a run saw 19 of 20): one session on one call first
+    # tracer starts (a run saw 19 of 20): one session on one call first;
+    # a later session has also lost one record, so a session whose counts
+    # are short is taken again, up to 3 times
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         call()
         torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        torch.cuda.synchronize()
-    launch_ms = {}
-    for e in prof.key_averages():
-        for name in ("demod_audio_kernel", "demod_fir_kernel"):
-            if e.device_type == DeviceType.CUDA and name in e.key:
-                check(e.count == reps and name not in launch_ms,
-                      f"demod_fir: profiler saw {name} as {e.key}, "
-                      f"{e.count} launches for {reps} calls")
-                launch_ms[name] = e.self_device_time_total / 1e3 / reps
-    check(len(launch_ms) == 2, f"demod_fir: profiler saw {launch_ms}")
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        launch_ms, seen = {}, []
+        for e in prof.key_averages():
+            for name in ("demod_audio_kernel", "demod_fir_kernel"):
+                if e.device_type == DeviceType.CUDA and name in e.key:
+                    check(name not in launch_ms,
+                          f"demod_fir: profiler saw {name} twice: {e.key}")
+                    seen.append(f"{e.key}: {e.count}")
+                    launch_ms[name] = (e.self_device_time_total / 1e3 / reps
+                                       if e.count == reps else None)
+        if len(launch_ms) == 2 and None not in launch_ms.values():
+            break
+    check(len(launch_ms) == 2 and None not in launch_ms.values(),
+          f"demod_fir: profiler saw {seen} for {reps} calls in each of "
+          f"{attempt + 1} sessions")
 
     c, n = i.shape
     T = len(taps)
@@ -2463,7 +2508,7 @@ def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
     check(launches["fused_dualtone_frontend"] == n_blocks
           and sum(launches.values()) == n_blocks,
           f"{label}: launches {launches}")
-    check(bodies == {"fused_dualtone_frontend:chanfilt": n_blocks},
+    check(bodies == {"fused_dualtone_frontend:chanfilt_t41_nb20": n_blocks},
           f"{label}: bodies {bodies}")
     emit({"phase": f"{family}_path", "sonde": family, "channels": CHANNELS,
           "block_len": BLOCK_LEN, "blocks": n_blocks,
@@ -2540,7 +2585,7 @@ def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
     """ims100 and mrzn1 on the kernel path, 8 channels carrying four
     truths, with and without afc: the card equals the CPU (twins) on
     validity, valid frame bytes and telemetry, each channel its truth,
-    K7's chanfilt body (chanfilt_afc with afc) once a step."""
+    K7's chanfilt_t41_nb20 body (its _afc body with afc) once a step."""
     from sondetpu_torch.runtime.pipeline import PipelineConfig
 
     c, out = 8, {}
@@ -2554,8 +2599,8 @@ def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
             label = f"{family}{' afc' if afc else ''}"
             frames, decoded, bodies = card_equals_cpu(
                 torch, dev, cfg, qi, qq, n_blocks, 4, label)
-            body = "fused_dualtone_frontend:chanfilt" + ("_afc" if afc
-                                                         else "")
+            body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
+                    + ("_afc" if afc else ""))
             check(bodies == {body: 2 * n_blocks}, f"{label}: bodies {bodies}")
             out[label] = {"valid_frames": frames, "frames_decoded": decoded}
     emit({"phase": "dualtone_distinct", "channels": c, "blocks": n_blocks,
@@ -2978,7 +3023,7 @@ M10_FALLBACK_BLOCK = BLOCK_LEN + 5
 
 def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
     """A bf16 kernel route through DecoderSession at 2048 channels, i16, one
-    signal on every channel: ims100 on K7's chanfilt_bf16 body (4 s
+    signal on every channel: ims100 on K7's chanfilt_t41_nb20_bf16 body (4 s
     blocks), or m10's FM fallback (M10_FALLBACK_BLOCK) on K1's
     decim1_t41_bf16 body with K2's long_l and sign_l64 bodies (m10's and
     M20's templates) on the widened bfloat16 ring. The truth's telemetry on every channel and exactly those bodies
@@ -2998,7 +3043,7 @@ def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
     want = ({"fused_frontend:decim1_t41_bf16": n_blocks,
              "corr:long_l": n_blocks, "corr:sign_l64": n_blocks}
             if fallback else
-            {"fused_dualtone_frontend:chanfilt_bf16": n_blocks})
+            {"fused_dualtone_frontend:chanfilt_t41_nb20_bf16": n_blocks})
     label = "m10_fallback_bf16" if fallback else f"{family}_bf16"
     cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=block,
                          use_pallas=True, compute_dtype="bf16",
@@ -3095,8 +3140,8 @@ def phase_gates(torch, dev):
     """The original's kernel gates on the card, use_pallas=True: rs41 at 12
     channels (not a multiple of 8) and m10 at 200-sample blocks (below
     HALO) take the plain-op front end and launch no kernel; ims100 at 48.1
-    kHz (sps 20.04) takes K7's chanfilt body and linear_interp. Each on
-    the card equals the CPU block by block (validity, valid frame bytes, RS
+    kHz (sps 20.04) takes K7's chanfilt_t41_nb20 body and linear_interp.
+    Each on the card equals the CPU block by block (validity, valid frame bytes, RS
     verdicts), and the sessions' telemetry is equal, each channel its
     truth."""
     from sondetpu_torch.kernels import cuda
@@ -3108,7 +3153,7 @@ def phase_gates(torch, dev):
         ("rs41-channels-12", dict(sonde="rs41", channels=12), 3, {}),
         ("m10-block-200", dict(sonde="m10", block_len=200), 288, {}),
         ("ims100-48100", dict(sonde="ims100", fs=48100.0, block_len=48100),
-         3, {"fused_dualtone_frontend:chanfilt": 1}))
+         3, {"fused_dualtone_frontend:chanfilt_t41_nb20": 1}))
     out = {}
     for label, kw, n_blocks, per in cases:
         cfg = PipelineConfig(**{**dict(channels=8, block_len=int(FS),
@@ -3495,6 +3540,142 @@ def phase_profile_pfb(torch, dev, smi, variants=PFB_PROFILE_VARIANTS):
     finally:
         cuda.NVCC_FLAGS = base
         cuda._lib = None
+
+
+K7_PROFILE_VARIANTS = (
+    ("full", ()), ("no_chanfilt", ("SONDETPU_DUALTONE_PROFILE=1",)),
+    ("no_boxcar", ("SONDETPU_DUALTONE_PROFILE=2",)),
+    ("no_stores", ("SONDETPU_DUALTONE_PROFILE=4",)),
+    ("boxcar_only", ("SONDETPU_DUALTONE_PROFILE=5",)),
+    ("chanfilt_only", ("SONDETPU_DUALTONE_PROFILE=6",)),
+    ("staging_only", ("SONDETPU_DUALTONE_PROFILE=7",)))
+
+
+def phase_profile_k7(torch, dev, smi, variants=K7_PROFILE_VARIANTS):
+    """K7's channel-filter bodies at ims100's shape, [2048, 192000], its
+    10 kHz 41-tap channel filter, 2400 Hz tables and nb 20 (f32, bf16, f32
+    with AFC) and nb 19 (f32, bf16: the run-time body), and m10's skip_nb5
+    body at [616, 192000],
+    rebuilt with -DSONDETPU_DUALTONE_PROFILE=bits (1 leaves out the
+    channel filter, 2 the mix and boxcars, 4 the metric's stores; the
+    "only" builds keep the staging, the metric and its sums besides) and
+    timed by CUDA events, with the body each case launched and ptxas's
+    registers and spills of every body. A build without profile bits is
+    held to the twin; the others compute nothing a path may use."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
+                                                 fused_dualtone_plain,
+                                                 mixer_tables)
+    from sondetpu_torch.kernels.frontend import HALO
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def planes(c, dtype=torch.float32):
+        return [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in ((c, BLOCK_LEN), (c, BLOCK_LEN), (c, HALO),
+                          (c, HALO))]
+
+    f32 = planes(CHANNELS)
+    bf16 = [p.to(torch.bfloat16) for p in f32]
+    m10 = planes(616)
+    ims_taps = design_lowpass(10000.0, FS, 41)
+    ims_tabs = [torch.from_numpy(t).to(dev)
+                for t in mixer_tables(BLOCK_LEN, 2400.0 / FS)]
+    m10_tabs = [torch.from_numpy(t).to(dev)
+                for t in mixer_tables(BLOCK_LEN, 12000.0 / FS)]
+    cases = {  # label: (planes, taps, tables, nb, afc, skip)
+        "nb20_f32": (f32, ims_taps, ims_tabs, 20, False, False),
+        "nb20_bf16": (bf16, ims_taps, ims_tabs, 20, False, False),
+        "nb20_afc_f32": (f32, ims_taps, ims_tabs, 20, True, False),
+        "nb19_f32": (f32, ims_taps, ims_tabs, 19, False, False),
+        "nb19_bf16": (bf16, ims_taps, ims_tabs, 19, False, False),
+        "m10_skip_nb5_f32": (m10, ims_taps, m10_tabs, 5, False, True)}
+
+    def call(case):
+        p, taps, tabs, nb, afc, skip = cases[case]
+        return fused_dualtone_frontend(*p, taps, *tabs, nb, afc, skip)
+
+    base = list(cuda.NVCC_FLAGS)
+    try:
+        for label, flags in variants:
+            cuda.NVCC_FLAGS = base + [f"-D{f}" for f in flags]
+            cuda._lib = None
+            cuda.library()
+            out = {}
+            for case, (p, taps, tabs, nb, afc, skip) in cases.items():
+                cuda.reset_launches()
+                got = call(case)
+                torch.cuda.synchronize()
+                body = next(iter(cuda.body_launches))
+                if not any("PROFILE" in f for f in flags):
+                    want = fused_dualtone_plain(*p, taps, *tabs, nb, afc,
+                                                skip)
+                    check(torch.equal(got[0], want[0]),
+                          f"profile_k7 {case}: metric differs from its twin")
+                    del want
+                del got
+                out[case] = {"body": body, "ms": cuda_ms(
+                    torch, lambda: call(case), 20)}
+            emit({"phase": "profile_k7", "variant": label,
+                  "flags": list(flags), "cases": out, "nvidia_smi": smi,
+                  "resources": phase_resources(("dualtone.cu",),
+                                               quiet=True)})
+            torch.cuda.empty_cache()
+    finally:
+        cuda.NVCC_FLAGS = base
+        cuda._lib = None
+
+
+def phase_dualtone_steps_here(torch, dev, smi, label: str):
+    """The ims100 and mrzn1 kernel-path steps at 2048 channels x 4 s (f32,
+    and ims100 in bf16), each the median of 12 steady steps (phase_step),
+    with the K7 bodies they launched, for the sondetpu_torch this process
+    imports: one JSON line."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    out = {"phase": "dualtone_steps", "tree": label, "nvidia_smi": smi}
+    for family, dtype in (("ims100", "f32"), ("mrzn1", "f32"),
+                          ("ims100", "bf16")):
+        cfg = PipelineConfig(sonde=family, channels=CHANNELS,
+                             block_len=BLOCK_LEN, use_pallas=True,
+                             compute_dtype=dtype, input_dtype="i16")
+        qi, qq = dualtone_planes(family, 3 * BLOCK_LEN, seed=9)
+        ri, rq = torch.from_numpy(qi).to(dev), torch.from_numpy(qq).to(dev)
+        blocks = [(ri[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+                   .expand(CHANNELS, -1).contiguous(),
+                   rq[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+                   .expand(CHANNELS, -1).contiguous()) for b in range(3)]
+        pipe = Pipeline(cfg, dev)
+        cuda.reset_launches()
+        out[f"{family}_{dtype}_step_ms"] = phase_step(
+            torch, pipe, blocks, phase=f"{family}_{dtype}_step")
+        out[f"{family}_{dtype}_bodies"] = dict(cuda.body_launches)
+        del pipe, blocks
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def phase_dualtone_steps(trees):
+    """phase_dualtone_steps_here for each checkout in ``trees``, in that
+    order, each in a process of its own that imports the checkout's
+    sondetpu_torch (and builds its kernels) with this file's phases: give
+    two checkouts in turns, e.g. the parent's unpacked by git archive into
+    build/parent and this one, as ``build/parent . . build/parent``, to
+    compare them on one card."""
+    here = os.path.abspath(__file__)
+    for tree in trees:
+        code = ("import runpy, sys; sys.argv = [%r, '--dualtone-steps-here',"
+                " %r]; runpy.run_path(%r, run_name='__main__')"
+                % (here, tree, here))
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        lines = [ln for ln in res.stdout.splitlines()
+                 if ln.startswith('{"phase": "dualtone_steps"')]
+        check(res.returncode == 0 and lines,
+              f"dualtone_steps {tree}: {res.returncode} {res.stderr[-2000:]}")
+        print(lines[-1], flush=True)
 
 
 # --- the command line (sondetpu_torch.cli.main) ---------------------------------
@@ -5259,9 +5440,18 @@ def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dualtone-steps"]:
+        # the ims100 and mrzn1 steps of checkouts in turns:
+        # python3 chip_smoke.py --dualtone-steps build/parent . . build/parent
+        phase_env(torch)
+        phase_dualtone_steps(sys.argv[2:] or ["."])
+        return 0
     smi = phase_env(torch)
     dev = torch.device("cuda", 0)
     phase_build()
+    if sys.argv[1:2] == ["--dualtone-steps-here"]:
+        phase_dualtone_steps_here(torch, dev, smi, sys.argv[2])
+        return 0
     if sys.argv[1:] == ["--profile"]:
         # the step breakdowns only: python3 chip_smoke.py --profile
         phase_resources()
@@ -5279,6 +5469,12 @@ def main() -> int:
         # the PFB's bodies and their load-, store- and arithmetic-only
         # builds: python3 chip_smoke.py --profile-pfb
         phase_profile_pfb(torch, dev, smi)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:] == ["--profile-k7"]:
+        # K7's channel-filter bodies and their builds without a stage:
+        # python3 chip_smoke.py --profile-k7
+        phase_profile_k7(torch, dev, smi)
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tune"]:
@@ -5363,8 +5559,8 @@ def main() -> int:
     phase_dualtone_distinct(torch, dev)
     phase_plain_dualtone(torch, dev, smi)
     torch.cuda.empty_cache()
-    # bf16 on the kernel routes: K7's chanfilt body, and K1 (with K2 on the
-    # widened ring) on m10's FM fallback; then the original's kernel gates
+    # bf16 on the kernel routes: K7's chanfilt_t41_nb20 body, and K1 (with
+    # K2 on the widened ring) on m10's FM fallback; then the original's kernel gates
     for family in ("ims100", "m10"):
         key = "m10_fallback_bf16" if family == "m10" else f"{family}_bf16"
         runs[key] = phase_bf16_path(torch, dev, family, smi)
@@ -5475,7 +5671,14 @@ def main() -> int:
     k7_row["bodies_by_path"] = {
         p: {k: v for k, v in runs[p]["bodies"].items()
             if k.startswith("fused_dualtone_frontend")} for p in paths}
-    k7_row["chanfilt_nb20"] = subset(kres["fused_dualtone_frontend_chanfilt"])
+    k7_row["chanfilt_nb20"] = dict(
+        subset(kres["fused_dualtone_frontend_chanfilt"]),
+        body=kres["fused_dualtone_frontend_chanfilt"]["body"],
+        launches_per_step={p: runs[p]["bodies"].get(
+            "fused_dualtone_frontend:chanfilt_t41_nb20", 0) / runs[p]["steps"]
+            for p in ("ims100", "mrzn1")})
+    k7_row["chanfilt_runtime_nb19"] = subset(
+        kres["fused_dualtone_frontend_ims100-nb19"])
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")
@@ -5516,10 +5719,14 @@ def main() -> int:
               f"kernel {name} bf16: row lacks a number {row}")
         table.append(row)
     table[-5].update(decim2_rs41_shape=subset(k1["rs41_bf16"]))
-    table[-4].update(chanfilt_nb20=subset(
-        kres["fused_dualtone_frontend_chanfilt_bf16"]),
-        ims100_bf16_launches=runs["ims100_bf16"]["bodies"].get(
-            "fused_dualtone_frontend:chanfilt_bf16", 0))
+    table[-4].update(chanfilt_nb20=dict(
+        subset(kres["fused_dualtone_frontend_chanfilt_bf16"]),
+        body=kres["fused_dualtone_frontend_chanfilt_bf16"]["body"],
+        launches_per_step={"ims100_bf16": runs["ims100_bf16"]["bodies"].get(
+            "fused_dualtone_frontend:chanfilt_t41_nb20_bf16", 0)
+            / runs["ims100_bf16"]["steps"]}),
+        chanfilt_runtime_nb19=subset(
+            kres["fused_dualtone_frontend_ims100-nb19_bf16"]))
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -32,15 +32,17 @@ def mixer_tables(n: int, dev_over_fs: float):
 
 
 def dualtone_body(nb: int, skip_chanfilt: bool, want_afc: bool,
-                  bf16: bool = False) -> str:
+                  bf16: bool = False, ntaps: int = 41) -> str:
     """The kernel body that runs these arguments: with the channel filter
     skipped, nb = 5 (m10's one-chip boxcar at 48 kHz) compiled in or nb at
-    run time; with the channel filter, nb at run time; each with or without
-    the AFC sums, for float32 or (``_bf16``) bfloat16 input."""
+    run time; with the channel filter, ``ntaps`` = 41 taps (every path's
+    count) and nb = 20 (ims100's and mrzn1's boxcar) compiled in, or both
+    at run time; each with or without the AFC sums, for float32 or
+    (``_bf16``) bfloat16 input."""
     if skip_chanfilt:
         name = "skip_nb5" if nb == 5 else "skip_runtime_nb"
     else:
-        name = "chanfilt"
+        name = "chanfilt_t41_nb20" if (ntaps, nb) == (41, 20) else "chanfilt"
     return name + ("_afc" if want_afc else "") + ("_bf16" if bf16 else "")
 
 
@@ -166,7 +168,7 @@ def fused_dualtone_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
                 int(bf16), c, n, HALO, metric.data_ptr(), parts[0].data_ptr(),
                 parts[1].data_ptr(), parts[2].data_ptr(),
                 cuda.stream_handle(dev),
-                body=dualtone_body(nb, skip_chanfilt, want_afc, bf16))
+                body=dualtone_body(nb, skip_chanfilt, want_afc, bf16, T))
     sums = torch.sum(parts, dim=-1)
     return (metric, iq_i[:, -HALO:].contiguous(), iq_q[:, -HALO:].contiguous(),
             sums[0] / torch.full((), float(n), dtype=torch.float32,

@@ -160,29 +160,52 @@ def test_cuda_dualtone_matches_twin(cuda_device):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("c,n,skip,afc,nb", [
-    (16, 48000, True, False, 5), (13, 30001, True, False, 5),
-    (9, 48000, True, True, 5), (8, 30001, True, False, 7),
-    (1, 1003, True, True, 7), (5, 30001, False, False, 3),
-    (3, 4800, False, True, 5), (8, 48000, False, False, 20),
-    (11, 48000, False, True, 20),
+@pytest.mark.parametrize("c,n,skip,afc,nb,ntaps,skew", [
+    (16, 48000, True, False, 5, 41, False),
+    (13, 30001, True, False, 5, 41, False),
+    (9, 48000, True, True, 5, 41, False),
+    (8, 30001, True, False, 7, 41, False),
+    (1, 1003, True, True, 7, 41, False),
+    (5, 30001, False, False, 3, 41, False),
+    (3, 4800, False, True, 5, 41, False),
+    (8, 48000, False, False, 20, 41, False),
+    (11, 48000, False, True, 20, 41, False),
+    (13, 30001, False, False, 20, 41, False),
+    (5, 30001, False, True, 20, 41, False),
+    (1, 1003, False, True, 20, 41, False),
+    (9, 30001, False, False, 20, 41, True),
+    (9, 48000, False, True, 20, 41, True),
+    (8, 48000, False, False, 20, 33, False),
+    (11, 30001, False, True, 20, 33, False),
+    (8, 48000, False, False, 19, 41, False),
+    (13, 30001, False, True, 21, 41, False),
 ], ids=["m10", "edge-c13", "skip-afc", "runtime-nb7", "edge-c1-afc",
-        "chanfilt", "chanfilt-afc", "chanfilt-nb20", "chanfilt-nb20-afc"])
-def test_cuda_dualtone_bodies_exact(cuda_device, c, n, skip, afc, nb):
+        "chanfilt", "chanfilt-afc", "chanfilt-nb20", "chanfilt-nb20-afc",
+        "nb20-edge-c13", "nb20-edge-c5-afc", "nb20-edge-c1-n1003-afc",
+        "nb20-misaligned", "nb20-misaligned-afc", "t33-nb20",
+        "t33-nb20-afc-edge-c11", "chanfilt-nb19",
+        "chanfilt-nb21-afc-edge-c13"])
+def test_cuda_dualtone_bodies_exact(cuda_device, c, n, skip, afc, nb, ntaps,
+                                    skew):
     """Every body of the dual-tone front end: metric bit-equal to the twin,
     sums within 1e-5 relative, tails equal, on channel counts that are not
-    a multiple of the block's eight rows and blocks that are not a multiple
-    of the tile; nb 20 with the channel filter is ims100's and mrzn1's
-    (their 10 kHz taps)."""
+    a multiple of the block's eight rows, blocks that are not a multiple
+    of the tile and planes off 16-byte alignment (skew, the element-wise
+    staging); nb 20 with the channel filter is ims100's and mrzn1's (their
+    10 kHz taps), compiled in with 41 taps, at run time with 33 or beside
+    nb 19 and 21."""
     planes = [p.to(cuda_device) for p in _dualtone_inputs(19, c, n)]
-    dev_hz = 2400.0 if nb == 20 else DEV
+    if skew:
+        planes = [misaligned(p) for p in planes]
+    dev_hz = 2400.0 if nb >= 19 else DEV
     tabs = [T(t).to(cuda_device) for t in mixer_tables(n, dev_hz / FS)]
-    taps = design_lowpass(10000.0 if nb == 20 else 0.45 * FS, FS, 41)
+    taps = design_lowpass(10000.0 if nb >= 19 else 0.45 * FS, FS, ntaps)
     cuda.reset_launches()
     got = fused_dualtone_frontend(*planes, taps, *tabs, nb, afc, skip)
     want = fused_dualtone_plain(*planes, taps, *tabs, nb, afc, skip)
     assert cuda.body_launches == {
-        f"fused_dualtone_frontend:{dualtone_body(nb, skip, afc)}": 1}
+        "fused_dualtone_frontend:"
+        f"{dualtone_body(nb, skip, afc, ntaps=ntaps)}": 1}
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     for k in (3, 4, 5):
@@ -304,7 +327,8 @@ def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
     gs, cs, frames = _card_equals_cpu(cfg, cuda_device,
                                       _cs16(_dualtone_rows(sonde, 3)), 3)
     assert frames >= 3 * 8
-    body = "fused_dualtone_frontend:chanfilt" + ("_afc" if afc else "")
+    body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
+            + ("_afc" if afc else ""))
     assert cuda.body_launches == {body: 3}, cuda.body_launches
     if afc:
         torch.testing.assert_close(gs.aux[-1].cpu(), cs.aux[-1], rtol=0,
@@ -476,7 +500,9 @@ _BF16_BODIES = (
            (5, True, False, "skip_nb5"), (5, True, True, "skip_nb5_afc"),
            (7, True, False, "skip_runtime_nb"),
            (7, True, True, "skip_runtime_nb_afc"),
-           (20, False, False, "chanfilt"), (20, False, True, "chanfilt_afc"))])
+           (19, False, False, "chanfilt"), (21, False, True, "chanfilt_afc"),
+           (20, False, False, "chanfilt_t41_nb20"),
+           (20, False, True, "chanfilt_t41_nb20_afc"))])
 
 
 @pytest.mark.parametrize("kernel,a,b,c", _BF16_BODIES)
@@ -669,14 +695,15 @@ _ROUTED = {
                        {"fused_frontend:decim2_t41": 1,
                         "corr:sign_l64": 1, "rs_clean:c384": 1}),
     "ims100-48100": (dict(sonde="ims100", fs=48100.0, block_len=48100), 3,
-                     {"fused_dualtone_frontend:chanfilt": 1}),
+                     {"fused_dualtone_frontend:chanfilt_t41_nb20": 1}),
     "imet4-plain": (dict(sonde="imet4", use_pallas=False), 3, {}),
     "c50-plain": (dict(sonde="c50", use_pallas=False), 3, {}),
     "imet4-l-not-dividing": (dict(sonde="imet4", block_len=48040), 3, {}),
     "m10-bf16-kernel": (dict(sonde="m10", compute_dtype="bf16"), 3,
                         {"fused_dualtone_frontend:skip_nb5_bf16": 1}),
     "ims100-bf16-kernel": (dict(sonde="ims100", compute_dtype="bf16"), 3,
-                           {"fused_dualtone_frontend:chanfilt_bf16": 1}),
+                           {"fused_dualtone_frontend:"
+                            "chanfilt_t41_nb20_bf16": 1}),
     "m10-fm-fallback-bf16": (dict(sonde="m10", block_len=48005,
                                   compute_dtype="bf16"), 3,
                              {"fused_frontend:decim1_t41_bf16": 1,

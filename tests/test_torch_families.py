@@ -62,22 +62,37 @@ def _dualtone_inputs(seed, c=8, n=48000):
     return x + t
 
 
-@pytest.mark.parametrize("want_afc", [False, True])
-@pytest.mark.parametrize("skip_chanfilt", [True, False])
-def test_dualtone_twin_matches_pallas(skip_chanfilt, want_afc):
-    """K7's twin against the Pallas kernel at 8 x 48000 with m10's
-    parameters: metric atol 1e-5 (XLA and torch round the chanfilt sums
-    differently), dc and rotation sums 1e-5 of their largest value, tails
-    exact."""
-    planes = _dualtone_inputs(int(skip_chanfilt) + 2 * int(want_afc))
-    taps = design_lowpass(0.45 * FS, FS, 41)
+# (channel filter skipped, AFC, nb, channel-filter cutoff Hz, deviation Hz):
+# m10's one-chip boxcar at 12 kHz deviation (the filter a near-passthrough
+# where it runs), and ims100's and mrzn1's parameters (the same for both:
+# nb 20, the 10 kHz 41-tap channel filter, 2400 Hz deviation), which the
+# card runs on the chanfilt_t41_nb20 bodies
+_DUALTONE_TWIN_CASES = [
+    pytest.param(skip, afc, 5, 0.45 * FS, DEV, id=f"{skip}-{afc}")
+    for skip in (True, False) for afc in (False, True)] + [
+    pytest.param(False, afc, 20, 10000.0, 2400.0,
+                 id="ims100-mrzn1-nb20" + ("-afc" if afc else ""))
+    for afc in (False, True)]
+
+
+@pytest.mark.parametrize("skip_chanfilt,want_afc,nb,cutoff,dev",
+                         _DUALTONE_TWIN_CASES)
+def test_dualtone_twin_matches_pallas(skip_chanfilt, want_afc, nb, cutoff,
+                                      dev):
+    """K7's twin against the Pallas kernel at 8 x 48000 with m10's, and
+    with ims100's and mrzn1's, parameters: metric atol 1e-5 (XLA and torch
+    round the chanfilt sums differently), dc and rotation sums 1e-5 of
+    their largest value, tails exact."""
+    planes = _dualtone_inputs(int(skip_chanfilt) + 2 * int(want_afc)
+                              + (4 if nb == 20 else 0))
+    taps = design_lowpass(cutoff, FS, 41)
     want = jax_dualtone(*(jnp.asarray(p) for p in planes),
-                        jnp.asarray(taps[None]), ntaps=41, nb=5,
-                        chunk=frontend_chunk(BLOCK), dev_over_fs=DEV / FS,
+                        jnp.asarray(taps[None]), ntaps=41, nb=nb,
+                        chunk=frontend_chunk(BLOCK), dev_over_fs=dev / FS,
                         want_afc=want_afc, skip_chanfilt=skip_chanfilt,
                         interpret=True)
-    tabs = [T(t) for t in mixer_tables(BLOCK, DEV / FS)]
-    got = fused_dualtone_frontend(*(T(p) for p in planes), taps, *tabs, 5,
+    tabs = [T(t) for t in mixer_tables(BLOCK, dev / FS)]
+    got = fused_dualtone_frontend(*(T(p) for p in planes), taps, *tabs, nb,
                                   want_afc, skip_chanfilt)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0,
                                atol=1e-5)
@@ -116,11 +131,32 @@ def test_dualtone_stream_continuity():
     (7, True, False, "skip_runtime_nb"), (2, True, True,
                                           "skip_runtime_nb_afc"),
     (5, False, False, "chanfilt"), (7, False, True, "chanfilt_afc"),
+    (20, False, False, "chanfilt_t41_nb20"),
+    (20, False, True, "chanfilt_t41_nb20_afc"),
+    (19, False, False, "chanfilt"), (21, False, True, "chanfilt_afc"),
+    (20, True, False, "skip_runtime_nb"),
 ])
 def test_dualtone_body(nb, skip, afc, want):
     """The dual-tone body for the arguments: m10's nb = 5 compiled in when
-    the channel filter is skipped, nb at run time otherwise."""
+    the channel filter is skipped; with it, 41 taps and ims100's and
+    mrzn1's nb = 20 compiled in, other nb at run time."""
     assert dualtone_body(nb, skip, afc) == want
+    assert dualtone_body(nb, skip, afc, True) == want + "_bf16"
+
+
+@pytest.mark.parametrize("ntaps,nb,afc,bf16,want", [
+    (41, 20, False, True, "chanfilt_t41_nb20_bf16"),
+    (41, 20, True, True, "chanfilt_t41_nb20_afc_bf16"),
+    (33, 20, False, False, "chanfilt"), (33, 20, True, True,
+                                         "chanfilt_afc_bf16"),
+    (19, 5, False, False, "chanfilt"),
+])
+def test_dualtone_body_taps(ntaps, nb, afc, bf16, want):
+    """Only 41 taps with nb = 20 take the compiled channel-filter body:
+    another tap count (ims100 at ntaps 19, or 33) takes the run-time one;
+    a skipped channel filter ignores the count."""
+    assert dualtone_body(nb, False, afc, bf16, ntaps) == want
+    assert dualtone_body(5, True, afc, bf16, ntaps).startswith("skip_nb5")
 
 
 def test_line_decoders_match_jax():
