@@ -6,7 +6,9 @@
     python3 chip_smoke.py --tune       # env, build, K2/K7/K10/K9 per R, K3 per F
     python3 chip_smoke.py --profile-pfb  # env, build, the PFB's bodies split
     python3 chip_smoke.py --profile-k7   # env, build, K7's chanfilt split
+    python3 chip_smoke.py --profile-k1 [VARIANT ...]  # K1's bodies split
     python3 chip_smoke.py --dualtone-steps DIR ...  # ims100/mrzn1 steps
+    python3 chip_smoke.py --m10-steps DIR ...  # m10's bf16 fallback steps
 
 Phases, each printing one JSON line; any failure raises and exits non-zero
 before the result line:
@@ -102,7 +104,10 @@ before the result line:
     against CPU, no hand kernel; then the 2048-channel m10 bf16 plain step
     (plain_dualtone_step) and its peak memory.
 17. bf16 kernels (in the kernel phase): every K1 and K7 body on bfloat16
-    planes and tails, bit-equal to the float32 body on the widened input;
+    planes and tails, bit-equal to the float32 body on the widened input,
+    K1's four walking bodies also on kernels/frontend.py:WALK_EDGE_CASES
+    (every row start offset mod 16, misaligned planes, one channel, blocks
+    shorter than a tile and of a tile and one sample, walks of 3 and 8);
     K4 and K5 in bf16 equal to their twin run in bfloat16 as int16 bit
     patterns, at the fleet's shape and on the edge-value planes of
     sondetpu_torch/kernels/pfb_cases.py (ties, subnormals, overflow near bfloat16's
@@ -110,7 +115,8 @@ before the result line:
     bfloat16 u within one bfloat16 step at max|y| plus 1e-4 of max|y| of
     the float32 FFT, at the full block, at m that no 16-row cluster tile
     divides (1003, 5, 9) and on misaligned planes; K1 (decim 1 lowpass,
-    decim 2), K7 (skip_nb5, chanfilt_t41_nb20, and the run-time chanfilt
+    decim 1 identity, decim 2, each beside its float32 body's time), K7
+    (skip_nb5, chanfilt_t41_nb20, and the run-time chanfilt
     body at ims100's shape) and K4-K6 timed in bf16 beside their
     bound at the bytes they move (K4/K5's library call: a bf16 depthwise
     F.conv1d).
@@ -238,9 +244,15 @@ stores, and timed at [192000, 2048] beside torch.fft.fft (no result line).
 With --profile-k7, K7 is rebuilt with -DSONDETPU_DUALTONE_PROFILE bits that
 leave out its channel filter, its mix and boxcars or its stores, and its
 channel-filter bodies are timed at ims100's shape (no result line). With
---dualtone-steps DIR ..., the ims100 and mrzn1 kernel-path steps are timed
-for each checkout named, in that order, each in a process of its own (no
-result line).
+--profile-k1 [VARIANT ...], K1 is rebuilt with -DSONDETPU_FRONTEND_PROFILE
+bits that leave out its channel filter, discriminator, matched FIR, stores
+of filt or (walking bodies) the wait for or the staging of a tile, and its
+compiled bodies are timed at [2048, 192000], as the path calls them and
+without the DC pass, and the walking body at other walks (no result
+line). With --dualtone-steps DIR ..., the ims100 and mrzn1 kernel-path
+steps are timed for each checkout named, in that order, each in a process
+of its own, and with --m10-steps DIR ... m10's FM fallback steps in bf16
+and f32 (no result line).
 The last lines are the kernel table (each kernel's launches from its
 path's run, per step on each path, in each command-line run, on the
 scan, AutoFleet and unfused-fleet paths and on the mesh paths; K4's and K5's library column is
@@ -563,7 +575,7 @@ def phase_frontend(torch, dev):
         del args
         torch.cuda.empty_cache()
     check(len(bodies) == 8, f"fused_frontend: bodies launched {bodies}")
-    results.update(phase_frontend_bf16(torch, dev, gen, cases))
+    results.update(phase_frontend_bf16(torch, dev, gen, cases, results))
     return results
 
 
@@ -592,12 +604,14 @@ def check_bf16_equals_widened(torch, name, label, body, fn, planes):
     return got
 
 
-def phase_frontend_bf16(torch, dev, gen, cases):
+def phase_frontend_bf16(torch, dev, gen, cases, f32_results):
     """K1 on bfloat16 planes and tails in every body (the _bf16 bodies):
     bit-equal to the float32 kernel on the widened input, DC included (the
-    same sums in the same order); the RS41 shape and the decim-1 lowpass
+    same sums in the same order); the RS41 shape, the decim-1 lowpass
     shape (m10's FM fallback in bf16, the path that reads bfloat16 into K1)
-    timed beside their bound at 2 bytes a sample."""
+    and the decim-1 identity shape timed beside their bound at 2 bytes a
+    sample and their float32 body's time (``f32_results``); then the four
+    walking bodies (41 taps) on WALK_EDGE_CASES (phase_frontend_walk)."""
     from sondetpu_torch.kernels.frontend import (frontend_body,
                                                  fused_frontend,
                                                  fused_frontend_plain,
@@ -622,7 +636,7 @@ def phase_frontend_bf16(torch, dev, gen, cases):
                  "dtype": "bf16", "shape": [c, n], "decim": decim,
                  "taps": ntaps, "body": body,
                  "equal_to_f32_on_widened_input": True}
-        if timed and label in ("rs41", "decim1-lowpass"):
+        if timed:
             got = k1(*planes)
             want = fused_frontend_plain(*planes, ct, mt, scale, decim, True)
             torch.cuda.synchronize()
@@ -634,14 +648,69 @@ def phase_frontend_bf16(torch, dev, gen, cases):
                 ms=cuda_ms(torch, lambda: k1(*planes), 20),
                 plain_ms=cuda_ms(torch, lambda: fused_frontend_plain(
                     *planes, ct, mt, scale, decim, True), 3),
-                library_ms=None,
+                library_ms=None, f32_body_ms=f32_results[label]["ms"],
                 **frontend_bound(planes + [ct, mt, scale, decim]))
             results[f"{label}_bf16"] = entry
         emit(entry)
         del planes
         torch.cuda.empty_cache()
     check(len(bodies) == 8, f"fused_frontend bf16: bodies launched {bodies}")
+    phase_frontend_walk(torch, dev)
     return results
+
+
+def phase_frontend_walk(torch, dev):
+    """K1's four walking bodies (41 taps on bfloat16 planes) on
+    kernels/frontend.py:WALK_EDGE_CASES (every row start offset mod 16,
+    planes 2 bytes past a 16-byte boundary, one channel, a block shorter
+    than a tile and one of a tile and one sample, walks of 3 and of 8
+    tiles): filt and dc bit-equal to the float32 body on the widened
+    input, the tails the input. One JSON line."""
+    from sondetpu_torch.dsp.fir import design_lowpass
+    from sondetpu_torch.kernels import frontend as kfront
+    from sondetpu_torch.kernels.pfb_cases import misaligned
+
+    rng = np.random.default_rng(18)
+    ct = design_lowpass(5000.0, FS, 41)
+    chosen = kfront.frontend_walk
+    done = []
+    try:
+        for edge, (rows, n1, shifted, walk) in kfront.WALK_EDGE_CASES.items():
+            for decim in (1, 2):
+                n = n1 * decim
+                planes = [torch.from_numpy(rng.normal(size=s).astype(
+                    np.float32)).to(dev, torch.bfloat16)
+                    for s in ((rows, n), (rows, n), (rows, kfront.HALO),
+                              (rows, kfront.HALO))]
+                if shifted:
+                    planes = [misaligned(p) for p in planes]
+                    check(planes[0].data_ptr() % 16 == 2,
+                          f"fused_frontend walk {edge}: planes aligned")
+                kfront.frontend_walk = chosen if walk is None else (
+                    lambda c, tiles, sms, w=walk: w)
+                for ident in (False, True):
+                    if ident:
+                        mt = np.zeros(41, np.float32)
+                        mt[-1] = 1.0
+                    else:
+                        mt = design_lowpass(2640.0, FS / decim, 41)
+                    scale = float(np.float32(FS / decim
+                                             / (2 * np.pi * 2400.0)))
+                    label = f"{edge}-decim{decim}" + ("-identity" * ident)
+                    body = "fused_frontend:" + kfront.frontend_body(
+                        decim, 41, ident, True)
+                    check_bf16_equals_widened(
+                        torch, "fused_frontend", label, body,
+                        lambda *p: kfront.fused_frontend(*p, ct, mt, scale,
+                                                         decim, True),
+                        planes)
+                    done.append(label)
+                del planes
+    finally:
+        kfront.frontend_walk = chosen
+    emit({"phase": "kernel", "name": "fused_frontend", "case": "walk_edges",
+          "dtype": "bf16", "cases": done,
+          "equal_to_f32_on_widened_input": True})
 
 
 def corr_cases(rng):
@@ -3346,7 +3415,8 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
         name = None
         for line in res.stderr.splitlines():
             m = re.search(r"Compiling entry function '\S*?\d("
-                          r"frontend_kernel|afsk_kernel|dft2048_kernel|"
+                          r"frontend_kernel|frontend_walk_kernel|"
+                          r"afsk_kernel|dft2048_kernel|"
                           r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
                           r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel|"
                           r"demod_audio_kernel|demod_fir_kernel|"
@@ -3627,27 +3697,146 @@ def phase_profile_k7(torch, dev, smi, variants=K7_PROFILE_VARIANTS):
         cuda._lib = None
 
 
-def phase_dualtone_steps_here(torch, dev, smi, label: str):
-    """The ims100 and mrzn1 kernel-path steps at 2048 channels x 4 s (f32,
-    and ims100 in bf16), each the median of 12 steady steps (phase_step),
-    with the K7 bodies they launched, for the sondetpu_torch this process
-    imports: one JSON line."""
+K1_PROFILE_VARIANTS = (
+    ("full", ()), ("no_chanfilt", ("SONDETPU_FRONTEND_PROFILE=1",)),
+    ("no_disc", ("SONDETPU_FRONTEND_PROFILE=2",)),
+    ("no_fir", ("SONDETPU_FRONTEND_PROFILE=4",)),
+    ("no_stores", ("SONDETPU_FRONTEND_PROFILE=8",)),
+    ("chanfilt_only", ("SONDETPU_FRONTEND_PROFILE=14",)),
+    ("disc_only", ("SONDETPU_FRONTEND_PROFILE=13",)),
+    ("fir_only", ("SONDETPU_FRONTEND_PROFILE=11",)),
+    ("staging_only", ("SONDETPU_FRONTEND_PROFILE=15",)),
+    ("staging_nowait", ("SONDETPU_FRONTEND_PROFILE=31",)),
+    ("nothing", ("SONDETPU_FRONTEND_PROFILE=47",)),
+    ("walk_f32", ("SONDETPU_FRONTEND_WALK_F32=1",)))
+K1_PROFILE_WALKS = (1, 2, 4, 8, 16)
+
+
+def phase_profile_k1(torch, dev, smi, variants=K1_PROFILE_VARIANTS):
+    """K1's compiled bodies (41 taps) at [2048, 192000]: decim 1 with the
+    lowpass matched taps (m10's FM fallback) and with the identity, decim 2
+    (RS41's shape), each on float32 and bfloat16 planes, rebuilt with
+    -DSONDETPU_FRONTEND_PROFILE=bits (1 leaves out the channel filter, 2
+    the discriminator, 4 the matched FIR, 8 the stores of filt; the "only"
+    builds keep the staging and the DC sums besides; walk_f32 sends the
+    float32 cases to the walking bodies, which no path launches on float32)
+    and timed by CUDA events, with the body each case launched and
+    ptxas's registers and spills of every body. A build without profile
+    bits is held to the twin before the DC (and on bfloat16 to the
+    float32 kernel on the widened input, DC included); the others compute
+    nothing a path may use."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels import frontend as kfront
+    from sondetpu_torch.kernels.frontend import (fused_frontend,
+                                                 fused_frontend_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    f32 = {d: frontend_inputs(torch, dev, gen, CHANNELS, BLOCK_LEN, d, 41,
+                              False)[:4] for d in (1, 2)}
+    taps = {(d, ident): frontend_inputs(torch, dev, gen, 1, 256, d, 41,
+                                        ident)[4:7]
+            for d in (1, 2) for ident in (False, True)}
+    bf16 = {d: [p.to(torch.bfloat16) for p in f32[d]] for d in (1, 2)}
+    cases = {  # label: (planes, decim, identity)
+        "d1_lowpass_f32": (f32[1], 1, False),
+        "d1_lowpass_bf16": (bf16[1], 1, False),
+        "d1_identity_f32": (f32[1], 1, True),
+        "d1_identity_bf16": (bf16[1], 1, True),
+        "d2_f32": (f32[2], 2, False),
+        "d2_bf16": (bf16[2], 2, False)}
+
+    def call(case, dc=True):
+        planes, d, ident = cases[case]
+        return fused_frontend(*planes, *taps[(d, ident)], d, dc)
+
+    base = list(cuda.NVCC_FLAGS)
+    try:
+        for label, flags in variants:
+            cuda.NVCC_FLAGS = base + [f"-D{f}" for f in flags]
+            cuda._lib = None
+            cuda.library()
+            out = {}
+            for case, (planes, d, ident) in cases.items():
+                cuda.reset_launches()
+                got = call(case, False)
+                torch.cuda.synchronize()
+                body = next(iter(cuda.body_launches))
+                if not any("PROFILE" in f for f in flags):
+                    want = fused_frontend_plain(*planes, *taps[(d, ident)],
+                                                d, False)
+                    check(torch.equal(got[0], want[0]),
+                          f"profile_k1 {label} {case}: filt differs from "
+                          "its twin")
+                    del want
+                    if planes[0].dtype == torch.bfloat16:
+                        wide = fused_frontend(*(p.float() for p in planes),
+                                              *taps[(d, ident)], d, False)
+                        check(torch.equal(got[3], wide[3]),
+                              f"profile_k1 {label} {case}: dc differs from "
+                              "the float32 body on the widened input")
+                        del wide
+                del got
+                # as the path calls it (the block DC subtracted by one more
+                # pass over filt), and the kernel with the DC's sum alone
+                out[case] = {"body": body, "ms": cuda_ms(
+                    torch, lambda: call(case), 20),
+                    "kernel_ms": cuda_ms(
+                        torch, lambda: call(case, False), 20)}
+            # the walking bodies at other walks (tiles a block takes)
+            chosen = kfront.frontend_walk
+            try:
+                for w in K1_PROFILE_WALKS:
+                    kfront.frontend_walk = lambda c, tiles, sms, w=w: w
+                    out["d1_lowpass_bf16"][f"ms_walk{w}"] = cuda_ms(
+                        torch, lambda: call("d1_lowpass_bf16"), 20)
+            finally:
+                kfront.frontend_walk = chosen
+            emit({"phase": "profile_k1", "variant": label,
+                  "flags": list(flags), "cases": out, "nvidia_smi": smi,
+                  "resources": phase_resources(("frontend.cu",),
+                                               quiet=True)})
+            torch.cuda.empty_cache()
+    finally:
+        cuda.NVCC_FLAGS = base
+        cuda._lib = None
+
+
+# the configs each steps mode times: (family, compute dtype, block length)
+STEP_SETS = {
+    # ims100 and mrzn1 on K7's channel-filter bodies
+    "dualtone": (("ims100", "f32", BLOCK_LEN), ("mrzn1", "f32", BLOCK_LEN),
+                 ("ims100", "bf16", BLOCK_LEN)),
+    # m10's FM fallback on K1's decim1_t41 bodies
+    "m10": (("m10", "bf16", BLOCK_LEN + 5), ("m10", "f32", BLOCK_LEN + 5)),
+}
+
+
+def phase_dualtone_steps_here(torch, dev, smi, label: str,
+                              kind: str = "dualtone"):
+    """The kernel-path steps of STEP_SETS[kind] at 2048 channels (ims100
+    and mrzn1 at 4 s in f32, ims100 in bf16; or m10's FM fallback at
+    M10_FALLBACK_BLOCK in bf16 and f32), each the median of 12 steady steps
+    (phase_step), with the bodies they launched, for the sondetpu_torch
+    this process imports: one JSON line."""
+    import warnings
+
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 
-    out = {"phase": "dualtone_steps", "tree": label, "nvidia_smi": smi}
-    for family, dtype in (("ims100", "f32"), ("mrzn1", "f32"),
-                          ("ims100", "bf16")):
+    out = {"phase": f"{kind}_steps", "tree": label, "nvidia_smi": smi}
+    for family, dtype, block in STEP_SETS[kind]:
         cfg = PipelineConfig(sonde=family, channels=CHANNELS,
-                             block_len=BLOCK_LEN, use_pallas=True,
+                             block_len=block, use_pallas=True,
                              compute_dtype=dtype, input_dtype="i16")
-        qi, qq = dualtone_planes(family, 3 * BLOCK_LEN, seed=9)
+        qi, qq = dualtone_planes(family, 3 * block, seed=9)
         ri, rq = torch.from_numpy(qi).to(dev), torch.from_numpy(qq).to(dev)
-        blocks = [(ri[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+        blocks = [(ri[None, b * block:(b + 1) * block]
                    .expand(CHANNELS, -1).contiguous(),
-                   rq[None, b * BLOCK_LEN:(b + 1) * BLOCK_LEN]
+                   rq[None, b * block:(b + 1) * block]
                    .expand(CHANNELS, -1).contiguous()) for b in range(3)]
-        pipe = Pipeline(cfg, dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")        # m10's fallback warns
+            pipe = Pipeline(cfg, dev)
         cuda.reset_launches()
         out[f"{family}_{dtype}_step_ms"] = phase_step(
             torch, pipe, blocks, phase=f"{family}_{dtype}_step")
@@ -3657,7 +3846,7 @@ def phase_dualtone_steps_here(torch, dev, smi, label: str):
     emit(out)
 
 
-def phase_dualtone_steps(trees):
+def phase_dualtone_steps(trees, kind: str = "dualtone"):
     """phase_dualtone_steps_here for each checkout in ``trees``, in that
     order, each in a process of its own that imports the checkout's
     sondetpu_torch (and builds its kernels) with this file's phases: give
@@ -3667,14 +3856,14 @@ def phase_dualtone_steps(trees):
     here = os.path.abspath(__file__)
     for tree in trees:
         code = ("import runpy, sys; sys.argv = [%r, '--dualtone-steps-here',"
-                " %r]; runpy.run_path(%r, run_name='__main__')"
-                % (here, tree, here))
+                " %r, %r]; runpy.run_path(%r, run_name='__main__')"
+                % (here, tree, kind, here))
         res = subprocess.run([sys.executable, "-c", code], cwd=tree,
                              capture_output=True, text=True, timeout=900)
         lines = [ln for ln in res.stdout.splitlines()
-                 if ln.startswith('{"phase": "dualtone_steps"')]
+                 if ln.startswith(f'{{"phase": "{kind}_steps"')]
         check(res.returncode == 0 and lines,
-              f"dualtone_steps {tree}: {res.returncode} {res.stderr[-2000:]}")
+              f"{kind}_steps {tree}: {res.returncode} {res.stderr[-2000:]}")
         print(lines[-1], flush=True)
 
 
@@ -5433,24 +5622,26 @@ def phase_oracle(torch, dev, smi, card: str = "cuda"):
 
 
 def subset(entry, keys=("max_abs_err", "ms", "plain_ms", "library_ms",
-                         "bound_ms", "bound_by")):
+                         "bound_ms", "bound_by", "f32_body_ms")):
     return {k: entry[k] for k in keys if k in entry}
 
 
 def main() -> int:
     import torch
 
-    if sys.argv[1:2] == ["--dualtone-steps"]:
-        # the ims100 and mrzn1 steps of checkouts in turns:
+    if sys.argv[1:2] in (["--dualtone-steps"], ["--m10-steps"]):
+        # the ims100 and mrzn1 steps (or m10's FM fallback's) of checkouts
+        # in turns:
         # python3 chip_smoke.py --dualtone-steps build/parent . . build/parent
         phase_env(torch)
-        phase_dualtone_steps(sys.argv[2:] or ["."])
+        phase_dualtone_steps(sys.argv[2:] or ["."],
+                             sys.argv[1][2:].split("-")[0])
         return 0
     smi = phase_env(torch)
     dev = torch.device("cuda", 0)
     phase_build()
     if sys.argv[1:2] == ["--dualtone-steps-here"]:
-        phase_dualtone_steps_here(torch, dev, smi, sys.argv[2])
+        phase_dualtone_steps_here(torch, dev, smi, *sys.argv[2:4])
         return 0
     if sys.argv[1:] == ["--profile"]:
         # the step breakdowns only: python3 chip_smoke.py --profile
@@ -5475,6 +5666,14 @@ def main() -> int:
         # K7's channel-filter bodies and their builds without a stage:
         # python3 chip_smoke.py --profile-k7
         phase_profile_k7(torch, dev, smi)
+        print(smi, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--profile-k1"]:
+        # K1's compiled bodies and their builds without a stage:
+        # python3 chip_smoke.py --profile-k1 [VARIANT ...]
+        names = sys.argv[2:]
+        phase_profile_k1(torch, dev, smi, [
+            v for v in K1_PROFILE_VARIANTS if not names or v[0] in names])
         print(smi, flush=True)
         return 0
     if sys.argv[1:] == ["--tune"]:
@@ -5718,7 +5917,8 @@ def main() -> int:
                                      "bound_by", "library_ms")),
               f"kernel {name} bf16: row lacks a number {row}")
         table.append(row)
-    table[-5].update(decim2_rs41_shape=subset(k1["rs41_bf16"]))
+    table[-5].update(decim2_rs41_shape=subset(k1["rs41_bf16"]),
+                     decim1_identity=subset(k1["afsk_bf16"]))
     table[-4].update(chanfilt_nb20=dict(
         subset(kres["fused_dualtone_frontend_chanfilt_bf16"]),
         body=kres["fused_dualtone_frontend_chanfilt_bf16"]["body"],

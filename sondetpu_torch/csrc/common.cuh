@@ -79,10 +79,12 @@ static __device__ __forceinline__ unsigned pack_bf16x2(const float lo,
 }
 
 // A word of V = 1 or 4 bfloat16 values, loaded raw (2 or 8 bytes) and
-// widened to float32 on its store to shared memory. A kernel that stages
-// bfloat16 planes issues a batch of these loads before their stores, where
-// one load and its store at a time would wait out every load's latency
-// (float32 planes stage by cp.async, which does not wait).
+// widened to float32 on its store to shared memory. K7 (dualtone.cu) and
+// K1's run-time-T bodies stage bfloat16 planes so: a batch of these loads
+// before their stores, where one load and its store at a time would wait
+// out every load's latency. K1's compiled bfloat16 bodies stage the raw
+// words by cp.async instead and widen them on each load from shared memory
+// (ld_f32).
 template <int V>
 struct Bf16Word;
 template <>
@@ -123,6 +125,20 @@ static __device__ __forceinline__ void store_widened(float* dst,
     }
 }
 
+// A value of shared memory as float32: a bfloat16 word widens by a 16-bit
+// shift, exactly (one integer instruction beside the 2-byte load).
+static __device__ __forceinline__ float ld_f32(const float* p) { return *p; }
+static __device__ __forceinline__ float ld_f32(const __nv_bfloat16* p) {
+    return __uint_as_float(
+        (unsigned)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+
+// Close this thread's cp.async copies issued so far into a group (the
+// copies are under way; cp_async_wait_all waits for them).
+static __device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 static __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                      : "memory");
@@ -137,19 +153,19 @@ static __device__ __forceinline__ void cp_async_wait_all() {
 // the slide is register renaming, and a tap h[u] of the parameter space is
 // an immediate constant-bank operand. With TT == 0 the count T comes at run
 // time and the slide costs register moves. p[-(T-1)] .. p[D*(NR-1)] must
-// lie in shared memory.
-template <int NR, int D, int TT, typename Step>
+// lie in shared memory, float32 or bfloat16 (widened on each load).
+template <int NR, int D, int TT, typename E, typename Step>
 static __device__ __forceinline__ void slide_window(
-    const float* __restrict__ p, const int T, Step step) {
+    const E* __restrict__ p, const int T, Step step) {
     constexpr int W = D * (NR - 1) + 1;
     float w[W];
 #pragma unroll
-    for (int j = 0; j < W; ++j) w[j] = p[j];
+    for (int j = 0; j < W; ++j) w[j] = ld_f32(p + j);
     auto tap = [&](const int u) {
         if (u > 0) {
 #pragma unroll
             for (int j = W - 1; j > 0; --j) w[j] = w[j - 1];
-            w[0] = p[-u];
+            w[0] = ld_f32(p - u);
         }
 #pragma unroll
         for (int r = 0; r < NR; ++r) step(u, r, w[D * r]);

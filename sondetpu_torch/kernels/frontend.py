@@ -16,6 +16,7 @@ gives on x.float().
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -61,6 +62,42 @@ def is_delay_taps(taps) -> bool:
 
 
 INPUT_DTYPES = (torch.float32, torch.bfloat16)   # K1's and K7's load types
+
+# K1's walking bodies (41 taps, bfloat16): a block takes up to WALK_MAX
+# consecutive tiles of its row, each overlapping the next one's staging,
+# when the grid still fills WALK_WAVES waves of BLOCKS_PER_SM blocks an SM
+WALK_MAX = 8
+WALK_WAVES = 8
+BLOCKS_PER_SM = 4     # csrc/frontend.cu's __launch_bounds__(256, 4)
+
+
+def frontend_walk(channels: int, tiles: int, sms: int) -> int:
+    """Tiles a block of K1's walking bodies takes at most, on ``channels``
+    rows of ``tiles`` tiles on a card of ``sms`` SMs: the longest walk up
+    to WALK_MAX that leaves WALK_WAVES waves of resident blocks, and 1 (a
+    block a tile) on a grid too small for that. The kernel gives a row
+    ceil(tiles / walk) blocks and splits its tiles evenly among them."""
+    return max(1, min(WALK_MAX, channels * tiles
+                      // (WALK_WAVES * BLOCKS_PER_SM * sms)))
+
+
+# The inputs on which the card's tests and chip_smoke.py hold the walking
+# bodies to the float32 body on the widened input: (rows, samples at decim
+# 1, planes 2 bytes past a 16-byte boundary, tiles a block walks or None
+# for frontend_walk's choice). 48005 is 5 mod 8, so 13 rows start at every
+# even byte offset mod 16 (decim 2 doubles the samples: the aligned run
+# gives offsets 0, 4, 8, 12 and the misaligned one the rest); a block
+# shorter than a tile, and one tile and one sample (TILE = 2240 outputs);
+# walks of 3 tiles on rows of 8 and of 8 on rows of 86.
+WALK_EDGE_CASES = {
+    "offsets-13x48005": (13, 48005, False, None),
+    "misaligned": (13, 48005, True, None),
+    "c1": (1, 48005, False, None),
+    "short": (5, 1001, False, None),
+    "tile-plus-one": (3, 2241, False, None),
+    "walk3": (13, 8 * 2240 - 7, False, 3),
+    "walk8-long-row": (4, 192005, True, 8),
+}
 
 
 def input_dtype(*planes) -> torch.dtype:
@@ -131,6 +168,11 @@ def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
             dc)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
                    scale: float, decim: int, dc_block: bool = True):
     """Channel filter (``chan_taps``, stride ``decim``) -> FM discriminator
@@ -175,11 +217,12 @@ def fused_frontend(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     filt = torch.empty((c, nproc), dtype=torch.float32, device=dev)
     partial = torch.empty((c, ntiles), dtype=torch.float32, device=dev)
     body = frontend_body(decim, T, identity, bf16)
+    walk = frontend_walk(c, ntiles, _sm_count(dev))
     cuda.launch("fused_frontend", "sondetpu_fused_frontend",
                 iq_i.data_ptr(), iq_q.data_ptr(), tail_i.data_ptr(),
                 tail_q.data_ptr(), hc.ctypes.data, hm.ctypes.data, T,
                 float(np.float32(scale)), decim, int(identity), int(bf16), c,
-                n, HALO, filt.data_ptr(), partial.data_ptr(),
+                n, HALO, walk, filt.data_ptr(), partial.data_ptr(),
                 cuda.stream_handle(dev), body=body)
     # a divisor on the device: CUDA multiplies by the reciprocal of a
     # Python number, which rounds otherwise than the twin on the CPU

@@ -16,6 +16,7 @@ from sondetpu.dsp.fir import design_lowpass
 from sondetpu.pallas.frontend import frontend_chunk
 from sondetpu.pallas.frontend import fused_dualtone_frontend as jdual
 from sondetpu.pallas.frontend import fused_frontend as jfront
+from sondetpu.sondes.m10 import SPEC as M10
 from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                              mixer_tables)
 from sondetpu_torch.kernels.frontend import HALO, fused_frontend
@@ -54,7 +55,8 @@ def _bf16_np(x):
     return torch.from_numpy(x).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("kernel", ["k1-decim1", "k1-decim2", "k7-skip",
+@pytest.mark.parametrize("kernel", ["k1-decim1", "k1-decim2",
+                                    "k1-m10-fallback", "k7-skip",
                                     "k7-chanfilt-afc"])
 def test_bf16_twins_match_pallas(kernel):
     """The K1 and K7 twins on bfloat16 planes and tails against the Pallas
@@ -63,19 +65,29 @@ def test_bf16_twins_match_pallas(kernel):
     tests/test_torch_kernels.py and tests/test_torch_families.py (the two
     sum the channel filter's taps in different orders), tails exact; and
     each twin on bfloat16 input equals itself on the widened input bit for
-    bit."""
+    bit. k1-m10-fallback takes m10's FM fallback's parameters (decim 1,
+    its channel filter, lowpass matched taps and scale, as
+    sondetpu/runtime/pipeline.py makes them) on a block of 5 mod 8
+    samples, as M10_FALLBACK_BLOCK in chip_smoke.py."""
     rng = np.random.default_rng(len(kernel))
-    c, n = 8, 9600
+    c, n = 8, 9605 if kernel == "k1-m10-fallback" else 9600
     planes = [_bf16_np(rng.normal(size=s).astype(np.float32))
               for s in ((c, n), (c, n), (c, HALO), (c, HALO))]
     jx = [jnp.asarray(p.view(torch.int16).numpy()).view(jnp.bfloat16)
           for p in planes]
     widened = [p.to(torch.float32) for p in planes]
     if kernel.startswith("k1"):
-        decim = int(kernel[-1])
-        ct = design_lowpass(5000.0, 48000.0, 41)
-        mt = design_lowpass(2640.0, 48000.0 / decim, 41)
-        scale = np.float32(48000.0 / decim / (2 * np.pi * 2400.0))
+        if kernel == "k1-m10-fallback":
+            decim = 1
+            ct = design_lowpass(min(M10.bandwidth / 2.0, 0.45 * 48000.0),
+                                48000.0, 41)
+            mt = design_lowpass(0.55 * M10.baud, 48000.0, 41)
+            scale = np.float32(48000.0 / (2.0 * np.pi * M10.dev))
+        else:
+            decim = int(kernel[-1])
+            ct = design_lowpass(5000.0, 48000.0, 41)
+            mt = design_lowpass(2640.0, 48000.0 / decim, 41)
+            scale = np.float32(48000.0 / decim / (2 * np.pi * 2400.0))
         want = jfront(*jx, jnp.asarray(ct[None]), jnp.asarray(mt[None]),
                       jnp.asarray([[scale]]), ntaps=41, decim=decim,
                       chunk=frontend_chunk(n), dc_block=True, interpret=True)

@@ -37,8 +37,8 @@ from sondetpu_torch.kernels.dualtone import (dualtone_body,
                                              fused_dualtone_frontend,
                                              fused_dualtone_plain,
                                              mixer_tables)
-from sondetpu_torch.kernels.frontend import (HALO, frontend_body,
-                                             fused_demod_fir,
+from sondetpu_torch.kernels.frontend import (HALO, WALK_EDGE_CASES,
+                                             frontend_body, fused_demod_fir,
                                              fused_demod_fir_plain,
                                              fused_frontend,
                                              fused_frontend_plain)
@@ -492,10 +492,14 @@ def test_cuda_fused_frontend_bodies_exact(cuda_device, decim, ntaps, taps):
 
 
 _BF16_BODIES = (
-    [pytest.param("k1", d, t, delta, id=f"k1-decim{d}-t{t}"
+    [pytest.param("k1", d, t, delta, None, id=f"k1-decim{d}-t{t}"
                   + ("-identity" if delta else ""))
      for d in (1, 2) for t in (41, 33) for delta in (False, True)]
-    + [pytest.param("k7", nb, skip, afc, id=f"k7-{body}")
+    + [pytest.param("k1", d, 41, delta, edge, id=f"k1-decim{d}-t41"
+                    + ("-identity" if delta else "") + f"-{edge}")
+       for d in (1, 2) for delta in (False, True)
+       for edge in WALK_EDGE_CASES]
+    + [pytest.param("k7", nb, skip, afc, None, id=f"k7-{body}")
        for nb, skip, afc, body in (
            (5, True, False, "skip_nb5"), (5, True, True, "skip_nb5_afc"),
            (7, True, False, "skip_runtime_nb"),
@@ -505,20 +509,34 @@ _BF16_BODIES = (
            (20, False, True, "chanfilt_t41_nb20_afc"))])
 
 
-@pytest.mark.parametrize("kernel,a,b,c", _BF16_BODIES)
-def test_cuda_bf16_input_equals_f32_on_widened(cuda_device, kernel, a, b, c):
+@pytest.mark.parametrize("kernel,a,b,c,edge", _BF16_BODIES)
+def test_cuda_bf16_input_equals_f32_on_widened(cuda_device, monkeypatch,
+                                               kernel, a, b, c, edge):
     """K1 and K7 in every body on bfloat16 planes and tails (the body
     named with _bf16) give bit for bit what the float32 body gives on the
     same values widened to float32, on 13 channels (not a multiple of K7's
     eight rows) and a block no tile divides; the carried tails are the
-    bfloat16 input."""
+    bfloat16 input. K1's walking bodies (41 taps) also on the inputs of
+    kernels/frontend.py:WALK_EDGE_CASES, DC included."""
+    from sondetpu_torch.kernels import frontend as kfront
+
     bf = torch.bfloat16
     rows, n = 13, 30001
     if kernel == "k1":
         decim, ntaps, delta = a, b, c
+        misaligned_planes, walk = False, None
+        if edge is not None:
+            rows, n, misaligned_planes, walk = WALK_EDGE_CASES[edge]
+            n *= decim
         n += n % 2 if decim == 2 else 0
         planes, ct, mt, scale = _frontend_args(15, rows, n, decim, ntaps,
                                                delta, bf, cuda_device)
+        if misaligned_planes:
+            planes = [misaligned(p) for p in planes]
+            assert planes[0].data_ptr() % 16 == 2
+        if walk is not None:
+            monkeypatch.setattr(kfront, "frontend_walk",
+                                lambda c, tiles, sms: walk)
         cuda.reset_launches()
         got = fused_frontend(*planes, ct, mt, scale, decim, True)
         want = fused_frontend(*(p.float() for p in planes), ct, mt, scale,
@@ -543,6 +561,7 @@ def test_cuda_bf16_input_equals_f32_on_widened(cuda_device, kernel, a, b, c):
             continue
         assert torch.equal(g, w)
     assert got[1].dtype == bf and torch.equal(got[1], planes[0][:, -HALO:])
+    assert torch.equal(got[2], planes[1][:, -HALO:])
 
 
 def _pfb_planes(device, m, n, seed):

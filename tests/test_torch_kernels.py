@@ -29,7 +29,8 @@ from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.corr import (corr_body, corr_kernel, corr_plain,
                                          is_sign_template)
 from sondetpu_torch.dsp.fir import apply_windows
-from sondetpu_torch.kernels.frontend import (HALO, fast_atan2, fused_frontend,
+from sondetpu_torch.kernels.frontend import (HALO, WALK_MAX, fast_atan2,
+                                             frontend_walk, fused_frontend,
                                              fused_frontend_plain,
                                              is_delay_taps)
 from sondetpu_torch.kernels.syndrome import (pack_syndrome_columns,
@@ -122,6 +123,30 @@ def test_is_delay_taps(taps, want):
     """The host check that picks the front end's identity body: true only
     for an exact [0, ..., 0, 1]."""
     assert is_delay_taps(taps) is want
+
+
+@pytest.mark.parametrize("channels,tiles,sms,want", [
+    (2048, 86, 132, (8, 11)),     # [2048, 192000] decim 1 on an H100
+    (2048, 43, 132, (8, 6)),      # RS41's decim 2
+    (256, 86, 132, (5, 18)),
+    (2048, 3, 132, (1, 3)),
+    (8, 86, 132, (1, 86)),        # too few blocks to walk: a block a tile
+    (1, 1, 132, (1, 1)),
+    (2048, 86, 66, (8, 11)),
+], ids=["m10-fallback", "rs41", "c256", "short-rows", "c8", "one-tile",
+        "half-card"])
+def test_frontend_walk(channels, tiles, sms, want):
+    """The host's choice of tiles a block walks for K1's walking bodies,
+    and the kernel's even split of each row among its blocks: every block
+    takes between one tile and the walk, and the blocks cover the row."""
+    walk = frontend_walk(channels, tiles, sms)
+    blocks = -(-tiles // walk)          # the kernel's grid: blocks a row
+    assert (walk, blocks) == want
+    assert 1 <= walk <= WALK_MAX
+    bounds = [b * tiles // blocks for b in range(blocks + 1)]
+    sizes = np.diff(bounds)
+    assert bounds[0] == 0 and bounds[-1] == tiles
+    assert sizes.min() >= 1 and sizes.max() <= walk
 
 
 def test_delay_taps_fir_is_the_delayed_input():
