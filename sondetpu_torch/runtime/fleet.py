@@ -37,6 +37,12 @@ and each shard's packed buffer is read back and decoded; then every other
 group (``_mp_local``) runs ``process_block`` on its gathered rows.
 ``fused=False`` keeps the per-group path.
 
+Under a ``torch.profiler`` session the fused step shows as
+``sondetpu.fleet.step`` around ``sondetpu.fleet.pfb``, one
+``sondetpu.group.<sonde>`` per group (the row gathers, and the pipeline's
+stage spans nested inside), and ``sondetpu.fleet.pack``
+(``runtime.metrics.span``).
+
 The original's 64-row group padding was tuned for the TPU and is dropped:
 a group is padded only to the kernels' multiple of 8 rows, and only when
 it takes a kernel route and the fleet has no mesh.
@@ -53,6 +59,7 @@ import torch
 
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
 from sondetpu_torch.io.iq import c64_to_planes
+from sondetpu_torch.runtime.metrics import span
 from sondetpu_torch.runtime.pipeline import BlockOutput, PipelineConfig, _route
 from sondetpu_torch.runtime.session import DecoderSession
 from sondetpu_torch.sondes.base import get_sonde
@@ -144,6 +151,9 @@ class FleetSession:
             bins += [bins[0]] * pad
             self._order.append((sonde, torch.tensor(
                 bins, dtype=torch.int64, device=self.device), sess))
+        # each group's step runs inside its own span, where the pipeline's
+        # stage spans nest
+        self._group_spans = {s: f"sondetpu.group.{s}" for s in groups}
         if self._fused_mesh:
             # the sharded groups, stepped as one, and the groups that stay
             # on the device
@@ -176,22 +186,28 @@ class FleetSession:
         and pipeline step.
         Advances the states and returns (the groups' packed buffers
         concatenated, [each group's frames])."""
-        self.pfb_state, yi, yq = self.pfb(self.pfb_state, wi, wq)
-        packeds, frames = [], []
-        for sonde, bins, sess in self._order:
-            gi = yi.index_select(0, bins)
-            gq = yq.index_select(0, bins)
-            sess.state, out = sess.pipeline._step_impl(sess.state, gi, gq)
-            packeds.append(out.packed)
-            frames.append(out.frames)
-        return torch.cat(packeds), frames
+        with span("sondetpu.fleet.step"):
+            with span("sondetpu.fleet.pfb"):
+                self.pfb_state, yi, yq = self.pfb(self.pfb_state, wi, wq)
+            packeds, frames = [], []
+            for sonde, bins, sess in self._order:
+                with span(self._group_spans[sonde]):
+                    gi = yi.index_select(0, bins)
+                    gq = yq.index_select(0, bins)
+                    sess.state, out = sess.pipeline._step_impl(sess.state,
+                                                               gi, gq)
+                packeds.append(out.packed)
+                frames.append(out.frames)
+            with span("sondetpu.fleet.pack"):
+                return torch.cat(packeds), frames
 
     def _consume(self, pending) -> int:
         """Read one block's concatenated packed buffer back (ONE transfer
         for the whole fleet) and run every group's host FEC/parse/merge on
         its slice."""
         packed_all, frames = pending
-        host = packed_all.cpu().numpy()
+        with span("sondetpu.session.readback"):
+            host = packed_all.cpu().numpy()
         updates = 0
         off = 0
         for (sonde, bins, sess), frames_k in zip(self._order, frames):

@@ -1,23 +1,43 @@
 """Metrics / observability (counterpart: ``sondetpu/runtime/metrics.py``).
 
 A copy of ``Metrics``: the original module is reached only through
-``sondetpu.runtime``, whose package import pulls in jax. The original's
-``trace()`` wraps jax.profiler and has no counterpart here.
+``sondetpu.runtime``, whose package import pulls in jax.
 
 A :class:`Metrics` instance is fed by the decode session every block and
 renders either a human status line or a JSON record of the north-star
 counters: IQ Msamples/s, concurrent real-time channels, frames decoded,
 per-channel lock status.
+
+:func:`span` takes the place of the original's ``trace()``, which wrapped
+jax.profiler: a named range (``sondetpu.<stage>``) around each stage of the
+pipeline's and the fleet's step and of the session's block. While a
+``torch.profiler`` session runs (the CLI's ``--trace``, a benchmark's
+traced run, or an operator's own), each span is a ``record_function``
+range in its trace, on the clock of the kernels, copies and CUDA runtime
+calls it launched; otherwise it is one shared no-op context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler session is active; otherwise the shared no-op context, so that
+    an untraced step enters no RecordFunction and allocates nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @dataclass

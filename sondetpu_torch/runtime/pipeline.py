@@ -49,7 +49,12 @@ peak pick, then either the NRZ byte pack and frame gather, or the frame
 gather with Manchester/biphase-M decoding and the Chase weak bits, then
 de-whitening, RS syndrome flag, and the flat packed buffer. With
 ``profile_stop`` the step returns the original's checksum scalar of the
-named stage instead.
+named stage instead. Each of these stages runs inside a span of the same
+name (``sondetpu.ingest``, ``.ddc``, ``.frontend``, ``.afc``, ``.timing``,
+``.sample``, ``.ring``, ``.corr``, ``.peaks``, ``.gather``, ``.syndrome``,
+``.pack``; ``runtime.metrics.span``), and ``step`` inside
+``sondetpu.step``: ranges of a running ``torch.profiler`` session, no-ops
+otherwise.
 
 Carry-over state is an explicit tuple of tensors with the original's field
 names and dtypes; ``state_from_numpy``/``state_to_numpy`` move it between
@@ -75,6 +80,7 @@ from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                              mixer_tables)
 from sondetpu_torch.kernels.frontend import HALO, fused_frontend
 from sondetpu_torch.kernels.syndrome import rs_clean_flags_kernel
+from sondetpu_torch.runtime.metrics import span
 from sondetpu_torch.sondes.base import get_sonde
 from sondetpu_torch.sync.coding import biphase_m_decode, manchester_decode
 from sondetpu_torch.sync.correlator import (correlate_syncword,
@@ -752,13 +758,15 @@ class Pipeline:
                                 "planes, not complex" % self.config.input_dtype)
             i, q = c64_to_planes(np.asarray(iq))
         shape = (self.config.channels, self.config.block_len)
-        planes = []
-        for x in (i, q):
-            x = torch.as_tensor(x).to(self.device).contiguous()
-            if tuple(x.shape) != shape:
-                raise ValueError(f"iq planes {tuple(x.shape)}, expected {shape}")
-            planes.append(x)
-        return self._step_impl(state, *planes)
+        with span("sondetpu.step"):
+            planes = []
+            for x in (i, q):
+                x = torch.as_tensor(x).to(self.device).contiguous()
+                if tuple(x.shape) != shape:
+                    raise ValueError(f"iq planes {tuple(x.shape)}, "
+                                     f"expected {shape}")
+                planes.append(x)
+            return self._step_impl(state, *planes)
 
     def fetch_frames(self, frames_dev: torch.Tensor, ch_idx, slot_idx
                      ) -> np.ndarray:
@@ -1024,17 +1032,19 @@ class Pipeline:
         spec = c.spec
         cdt, f32 = self._cdt, torch.float32
         stop = c.profile_stop
-        if c.input_dtype != "f32":
-            # device-side dequant of raw SDR integer planes
-            qs = float(np.float32(1.0 / 32768.0 if c.input_dtype == "i16"
-                                  else 1.0 / 128.0))
-            iq_i = iq_i.to(f32) * qs
-            iq_q = iq_q.to(f32) * qs
-        elif self._ddc or iq_i.dtype not in (f32, torch.bfloat16):
-            # the DDC's arithmetic is float32 (a bfloat16 plane, as a bf16
-            # fleet hands it over, widens exactly); any other type becomes
-            # float32 first, as the original's float32 upload does
-            iq_i, iq_q = iq_i.to(f32), iq_q.to(f32)
+        with span("sondetpu.ingest"):
+            if c.input_dtype != "f32":
+                # device-side dequant of raw SDR integer planes
+                qs = float(np.float32(1.0 / 32768.0 if c.input_dtype == "i16"
+                                      else 1.0 / 128.0))
+                iq_i = iq_i.to(f32) * qs
+                iq_q = iq_q.to(f32) * qs
+            elif self._ddc or iq_i.dtype not in (f32, torch.bfloat16):
+                # the DDC's arithmetic is float32 (a bfloat16 plane, as a
+                # bf16 fleet hands it over, widens exactly); any other type
+                # becomes float32 first, as the original's float32 upload
+                # does
+                iq_i, iq_q = iq_i.to(f32), iq_q.to(f32)
         sps = c.sps
         ddc_aux = ()
         if self._ddc:
@@ -1045,126 +1055,192 @@ class Pipeline:
                 freq_hz, phase0 = state.aux[-1], state.aux[-2]
             else:
                 freq_hz, phase0 = self._f_seed, state.aux[-1]
-            iq_i, iq_q, phase = self._downconvert(iq_i, iq_q, freq_hz, phase0)
+            with span("sondetpu.ddc"):
+                iq_i, iq_q, phase = self._downconvert(iq_i, iq_q, freq_hz,
+                                                      phase0)
             ddc_aux = (phase,)
         # the sample-rate planes are stored in the compute dtype from here
         # on (sondetpu/runtime/pipeline.py:668-671); every front end reads
         # them so
-        iq_i = iq_i.to(cdt).contiguous()
-        iq_q = iq_q.to(cdt).contiguous()
+        with span("sondetpu.ingest"):
+            iq_i = iq_i.to(cdt).contiguous()
+            iq_q = iq_q.to(cdt).contiguous()
         # the kernel paths carry fm_prev and fir as they are; the plain
         # path replaces them. afc_dc: the loop's residual offset in
         # audio/dev units, per branch as in the original
         fm_prev, fir, aux = state.fm_prev, state.fir, ()
 
-        if self._plain:
-            planes = [iq_i, iq_q]
-            del iq_i, iq_q
-            out = self._plain_frontend(state, planes)
-            if stop == "chanfilt":
-                return out
-            filt, new_ctail_i, new_ctail_q, fm_prev, fir, afc_dc, aux = out
-            del out
-        elif self._route == "dualtone":
-            # fused dual-tone noncoherent front end: (chanfilt) + +/-dev mix
-            # + one-chip boxcar + envelope metric; mean DC from the kernel's
-            # sums or the midpoint of its metric, AFC from its
-            # envelope-rotation sums. The boxcar is the matched filter.
-            filt, new_ctail_i, new_ctail_q, dc, rot_re, rot_im = \
-                fused_dualtone_frontend(
+        with span("sondetpu.frontend"):
+            if self._plain:
+                planes = [iq_i, iq_q]
+                del iq_i, iq_q
+                out = self._plain_frontend(state, planes)
+                if stop == "chanfilt":
+                    return out
+                filt, new_ctail_i, new_ctail_q, fm_prev, fir, afc_dc, aux = \
+                    out
+                del out
+            elif self._route == "dualtone":
+                # fused dual-tone noncoherent front end: (chanfilt) + +/-dev
+                # mix + one-chip boxcar + envelope metric; mean DC from the
+                # kernel's sums or the midpoint of its metric, AFC from its
+                # envelope-rotation sums. The boxcar is the matched filter.
+                filt, new_ctail_i, new_ctail_q, dc, rot_re, rot_im = \
+                    fused_dualtone_frontend(
+                        iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
+                        self._chan_taps, self._mix_cos, self._mix_sin,
+                        self._nb, want_afc=c.afc,
+                        skip_chanfilt=self._skip_chanfilt)
+                if c.dc_block:
+                    if self._midpoint:
+                        dc = midpoint_dc(filt)
+                    filt = filt - dc[:, None]
+                afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t
+                          if c.afc else None)
+                if stop == "chanfilt":
+                    return torch.sum(filt)
+            elif self._route == "afsk":
+                # K1 at decim 1 with an identity matched filter gives the
+                # DC-removed discriminator audio and its DC; K8 mixes it by
+                # the mark and space tones, boxcars one symbol and forms the
+                # soft chips
+                audio, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
                     iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
-                    self._chan_taps, self._mix_cos, self._mix_sin, self._nb,
-                    want_afc=c.afc, skip_chanfilt=self._skip_chanfilt)
-            if c.dc_block:
-                if self._midpoint:
-                    dc = midpoint_dc(filt)
-                filt = filt - dc[:, None]
-            afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t if c.afc
-                      else None)
-            if stop == "chanfilt":
-                return torch.sum(filt)
-        elif self._route == "afsk":
-            # K1 at decim 1 with an identity matched filter gives the
-            # DC-removed discriminator audio and its DC; K8 mixes it by the
-            # mark and space tones, boxcars one symbol and forms the soft
-            # chips
-            audio, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
-                iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
-                self._chan_taps, self._delta, self._scale, 1, c.dc_block)
-            if stop == "chanfilt":
-                return torch.sum(audio)
-            filt, new_atail = fused_afsk_frontend(
-                audio, state.aux[0], self._afsk_tabs, self._afsk_win)
-            aux = (new_atail,)
-        else:
-            # K1: channel filter + decimate + FM discriminator + matched
-            # FIR, and the block DC; the carry is the raw HALO-sample input
-            # tail per plane
-            filt, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
-                iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
-                self._chan_taps, self._taps, self._scale, c.decim,
-                c.dc_block)
-            if stop == "chanfilt":       # chanfilt is demod here, as there
-                return torch.sum(filt)
+                    self._chan_taps, self._delta, self._scale, 1, c.dc_block)
+                if stop == "chanfilt":
+                    return torch.sum(audio)
+                filt, new_atail = fused_afsk_frontend(
+                    audio, state.aux[0], self._afsk_tabs, self._afsk_win)
+                aux = (new_atail,)
+            else:
+                # K1: channel filter + decimate + FM discriminator + matched
+                # FIR, and the block DC; the carry is the raw HALO-sample
+                # input tail per plane
+                filt, new_ctail_i, new_ctail_q, afc_dc = fused_frontend(
+                    iq_i, iq_q, state.chan_tail_i, state.chan_tail_q,
+                    self._chan_taps, self._taps, self._scale, c.decim,
+                    c.dc_block)
+                if stop == "chanfilt":   # chanfilt is demod here, as there
+                    return torch.sum(filt)
         if c.afc:
-            ddc_aux += (self._afc_update(freq_hz, afc_dc),)
+            with span("sondetpu.afc"):
+                ddc_aux += (self._afc_update(freq_hz, afc_dc),)
         if stop == "demod":
             return torch.sum(filt)
-        # the compute dtype for the strided sample reads (:912-913)
-        filt = filt.to(cdt)
-        n = filt.shape[-1]
 
         # symbol timing: feed-forward estimate + slew-limited NCO carry.
         # torch.remainder is the floored mod of jnp.mod; next_pos keeps the
         # original's order of operations (it rounds to 1/64 sample at
         # n = 96000, and the carried state must follow the reference)
-        tau = oerder_meyr_tau(filt, sps, self._cos_w, self._sin_w)
-        pos = state.timing.pos
-        err = torch.remainder(tau - pos + sps / 2.0, sps) - sps / 2.0
-        corrected = pos + torch.clamp(err, -0.5, 0.5)
-        start = torch.where(state.timing.locked > 0, corrected, tau)
-        start = torch.clamp(start, 0.0, sps - 1e-3)
-        cpb = c.chips_per_block
-        next_pos = start + cpb * sps - n
-        timing_state = TimingState(pos=next_pos,
-                                   locked=torch.ones_like(state.timing.locked))
-        if stop == "timing":
-            return torch.sum(start) + torch.sum(next_pos)
-        soft = self._sample_symbols(filt, start, sps, cpb)
-        if stop == "sample":
-            return torch.sum(soft)
+        with span("sondetpu.timing"):
+            # the compute dtype for the strided sample reads (:912-913)
+            filt = filt.to(cdt)
+            n = filt.shape[-1]
+            tau = oerder_meyr_tau(filt, sps, self._cos_w, self._sin_w)
+            pos = state.timing.pos
+            err = torch.remainder(tau - pos + sps / 2.0, sps) - sps / 2.0
+            corrected = pos + torch.clamp(err, -0.5, 0.5)
+            start = torch.where(state.timing.locked > 0, corrected, tau)
+            start = torch.clamp(start, 0.0, sps - 1e-3)
+            cpb = c.chips_per_block
+            next_pos = start + cpb * sps - n
+            timing_state = TimingState(
+                pos=next_pos, locked=torch.ones_like(state.timing.locked))
+            if stop == "timing":
+                return torch.sum(start) + torch.sum(next_pos)
+        with span("sondetpu.sample"):
+            soft = self._sample_symbols(filt, start, sps, cpb)
+            if stop == "sample":
+                return torch.sum(soft)
 
         # chip ring buffer: a constant cpb new chips -> static slice, stored
         # in the compute dtype
-        chipbuf = torch.cat([state.chipbuf, soft.to(self._cdt)],
-                            dim=-1)[:, cpb:].contiguous()
-        buf_fill = torch.clamp_max(state.buf_fill + cpb, c.buf_len)
+        with span("sondetpu.ring"):
+            chipbuf = torch.cat([state.chipbuf, soft.to(self._cdt)],
+                                dim=-1)[:, cpb:].contiguous()
+            buf_fill = torch.clamp_max(state.buf_fill + cpb, c.buf_len)
 
         # syncword correlation (K2 on the fused front end's path only, see
         # _correlate); alternates go through the same correlator
-        corr = self._correlate(chipbuf, 0)
-        if spec.extra.get("abs_corr"):
-            corr = corr.abs()
-        for k in range(1, len(self._np_templates)):
-            corr2 = self._correlate(chipbuf, k)
+        with span("sondetpu.corr"):
+            corr = self._correlate(chipbuf, 0)
             if spec.extra.get("abs_corr"):
-                corr2 = corr2.abs()
-            m = min(corr.shape[-1], corr2.shape[-1])
-            corr = torch.maximum(corr[:, :m], corr2[:, :m])
-        if stop == "corr":
-            return torch.sum(corr)
-        min_dist = max(c.min_frame_chips // 4, self._template.shape[0])
-        starts, ok = find_frame_starts(corr, c.sync_threshold, c.k_slots,
-                                       min_dist)
-        if stop == "peaks":
-            return _int32_sum(starts) + _int32_sum(ok)
-        # dedup across blocks: only frames whose END lies in the new chips,
-        # and whose start lies within real (filled) history
-        is_new = (starts + c.frame_chips) > (c.buf_len - cpb)
-        in_hist = starts >= (c.buf_len - buf_fill)[:, None]
-        fit = (starts + c.frame_chips) <= c.buf_len
-        frame_valid = ok & fit & is_new & in_hist
+                corr = corr.abs()
+            for k in range(1, len(self._np_templates)):
+                corr2 = self._correlate(chipbuf, k)
+                if spec.extra.get("abs_corr"):
+                    corr2 = corr2.abs()
+                m = min(corr.shape[-1], corr2.shape[-1])
+                corr = torch.maximum(corr[:, :m], corr2[:, :m])
+            if stop == "corr":
+                return torch.sum(corr)
+        with span("sondetpu.peaks"):
+            min_dist = max(c.min_frame_chips // 4, self._template.shape[0])
+            starts, ok = find_frame_starts(corr, c.sync_threshold, c.k_slots,
+                                           min_dist)
+            if stop == "peaks":
+                return _int32_sum(starts) + _int32_sum(ok)
+            # dedup across blocks: only frames whose END lies in the new
+            # chips, and whose start lies within real (filled) history
+            is_new = (starts + c.frame_chips) > (c.buf_len - cpb)
+            in_hist = starts >= (c.buf_len - buf_fill)[:, None]
+            fit = (starts + c.frame_chips) <= c.buf_len
+            frame_valid = ok & fit & is_new & in_hist
 
+        with span("sondetpu.gather"):
+            frames, weak = self._gather(chipbuf, starts, ok)
+            if stop == "gather":
+                return _int32_sum(frames)
+            if self._whiten is not None:
+                frames = torch.bitwise_xor(frames, self._whiten)
+            score = torch.gather(
+                torch.nn.functional.pad(corr, (0, c.frame_chips)), 1,
+                starts.to(torch.int64))
+            soft_rms = torch.sqrt(torch.mean(soft * soft, dim=-1))
+
+        # RS syndrome flag (K3; the GF(2) matmul on the plain path, as in
+        # the original); frames flagged clean skip host FEC
+        with span("sondetpu.syndrome"):
+            rs_layout = spec.extra.get("rs")
+            if rs_layout is not None:
+                flags = (rs_clean_flags_kernel if self._route == "fused"
+                         else rs_clean_flags)
+                rs_clean = flags(frames, rs_layout) & frame_valid
+            else:
+                rs_clean = torch.zeros_like(frame_valid)
+            if stop == "syndrome":
+                return _int32_sum(rs_clean) + _int32_sum(frame_valid)
+
+        with span("sondetpu.pack"):
+            cc = chipbuf.shape[0]
+            wire = frames if self._wire_cols is None else \
+                frames.index_select(-1, self._wire_cols)
+            parts = [
+                wire.reshape(cc, -1),
+                frame_valid.to(torch.uint8),
+                rs_clean.to(torch.uint8),
+                soft_rms.contiguous().view(torch.uint8).reshape(cc, 4),
+            ]
+            if c.chase_m:
+                # weakest-bit indices as u16 little-endian pairs
+                parts.append(weak.to(torch.int16).contiguous().view(
+                    torch.uint8).reshape(cc, -1))
+            packed = torch.cat(parts, dim=-1).reshape(-1)
+        out = BlockOutput(frames=frames, frame_valid=frame_valid,
+                          frame_score=score, soft_rms=soft_rms,
+                          rs_clean=rs_clean, packed=packed)
+        new_state = PipelineState(
+            chan_tail_i=new_ctail_i, chan_tail_q=new_ctail_q,
+            fm_prev=fm_prev, fir=fir, timing=timing_state,
+            chipbuf=chipbuf, buf_fill=buf_fill, aux=aux + ddc_aux)
+        return new_state, out
+
+    def _gather(self, chipbuf: torch.Tensor, starts: torch.Tensor,
+                ok: torch.Tensor):
+        """The frames' bytes [C, K, frame_bytes] uint8 at the picked
+        starts, and the Chase weak bits (or None): the NRZ byte pack at
+        every chip offset, or the frame gather with the line decoding."""
+        c, spec = self.config, self.config.spec
         cc, kk, fb = chipbuf.shape[0], starts.shape[1], spec.frame_bytes
         weak = None
         if spec.line_code == "nrz":
@@ -1188,72 +1264,30 @@ class Pipeline:
             idx = first[:, :, None] + 8 * torch.arange(fb, device=self.device)
             frames = torch.gather(byte_at, 1, idx.reshape(cc, kk * fb)
                                   ).reshape(cc, kk, fb).to(torch.uint8)
-        else:
-            if c.chase_m:
-                # soft-decision assist: gather soft chips, slice them, and
-                # rank each decoded bit's reliability as min(|a|, |b|) of
-                # its chip pair; the chase_m weakest per span ride the
-                # packed buffer (an exact ranking in place of approx_max_k,
-                # by (reliability, index) through a stable sort: bfloat16
-                # reliabilities tie often, and torch.topk breaks ties one
-                # way on the CPU and another on a CUDA device)
-                soft_fr, _ = gather_frames(chipbuf, starts, ok, c.frame_chips)
-                chips = (soft_fr > 0).to(torch.uint8)
-                rel = torch.minimum(soft_fr[..., 0::2].abs(),
-                                    soft_fr[..., 1::2].abs())
-                weak = torch.cat([
-                    torch.sort(rel[..., a:b], dim=-1, stable=True
-                               ).indices[..., :c.chase_m] + a
-                    for a, b in c.chase_spans], dim=-1)    # [C, K, S*M]
-            else:
-                chips, _ = gather_frames((chipbuf > 0).to(torch.uint8),
-                                         starts, ok, c.frame_chips)
-            if spec.line_code == "manchester":
-                chips = manchester_decode(chips)
-            elif spec.line_code == "biphase_m":
-                chips = biphase_m_decode(chips)
-            bits8 = chips.reshape(cc, kk, fb, 8).to(torch.int32)
-            frames = torch.sum(bits8 * self._bit_weight, dim=-1).to(
-                torch.uint8)
-        if stop == "gather":
-            return _int32_sum(frames)
-        if self._whiten is not None:
-            frames = torch.bitwise_xor(frames, self._whiten)
-        score = torch.gather(
-            torch.nn.functional.pad(corr, (0, c.frame_chips)), 1,
-            starts.to(torch.int64))
-        soft_rms = torch.sqrt(torch.mean(soft * soft, dim=-1))
-
-        # RS syndrome flag (K3; the GF(2) matmul on the plain path, as in
-        # the original); frames flagged clean skip host FEC
-        rs_layout = spec.extra.get("rs")
-        if rs_layout is not None:
-            flags = (rs_clean_flags_kernel if self._route == "fused"
-                     else rs_clean_flags)
-            rs_clean = flags(frames, rs_layout) & frame_valid
-        else:
-            rs_clean = torch.zeros_like(frame_valid)
-        if stop == "syndrome":
-            return _int32_sum(rs_clean) + _int32_sum(frame_valid)
-
-        wire = frames if self._wire_cols is None else frames.index_select(
-            -1, self._wire_cols)
-        parts = [
-            wire.reshape(cc, -1),
-            frame_valid.to(torch.uint8),
-            rs_clean.to(torch.uint8),
-            soft_rms.contiguous().view(torch.uint8).reshape(cc, 4),
-        ]
+            return frames, weak
         if c.chase_m:
-            # weakest-bit indices as u16 little-endian pairs
-            parts.append(weak.to(torch.int16).contiguous().view(
-                torch.uint8).reshape(cc, -1))
-        packed = torch.cat(parts, dim=-1).reshape(-1)
-        out = BlockOutput(frames=frames, frame_valid=frame_valid,
-                          frame_score=score, soft_rms=soft_rms,
-                          rs_clean=rs_clean, packed=packed)
-        new_state = PipelineState(
-            chan_tail_i=new_ctail_i, chan_tail_q=new_ctail_q,
-            fm_prev=fm_prev, fir=fir, timing=timing_state,
-            chipbuf=chipbuf, buf_fill=buf_fill, aux=aux + ddc_aux)
-        return new_state, out
+            # soft-decision assist: gather soft chips, slice them, and
+            # rank each decoded bit's reliability as min(|a|, |b|) of
+            # its chip pair; the chase_m weakest per span ride the
+            # packed buffer (an exact ranking in place of approx_max_k,
+            # by (reliability, index) through a stable sort: bfloat16
+            # reliabilities tie often, and torch.topk breaks ties one
+            # way on the CPU and another on a CUDA device)
+            soft_fr, _ = gather_frames(chipbuf, starts, ok, c.frame_chips)
+            chips = (soft_fr > 0).to(torch.uint8)
+            rel = torch.minimum(soft_fr[..., 0::2].abs(),
+                                soft_fr[..., 1::2].abs())
+            weak = torch.cat([
+                torch.sort(rel[..., a:b], dim=-1, stable=True
+                           ).indices[..., :c.chase_m] + a
+                for a, b in c.chase_spans], dim=-1)    # [C, K, S*M]
+        else:
+            chips, _ = gather_frames((chipbuf > 0).to(torch.uint8),
+                                     starts, ok, c.frame_chips)
+        if spec.line_code == "manchester":
+            chips = manchester_decode(chips)
+        elif spec.line_code == "biphase_m":
+            chips = biphase_m_decode(chips)
+        bits8 = chips.reshape(cc, kk, fb, 8).to(torch.int32)
+        frames = torch.sum(bits8 * self._bit_weight, dim=-1).to(torch.uint8)
+        return frames, weak

@@ -10,7 +10,11 @@ telemetry. It carries the original's AFC read-out (``afc_freqs``),
 ``watchdog``. In pipelined mode the readback of block k happens after
 block k+1 is stepped, so telemetry lags the input by one block, as in the
 original; the readback itself (``packed.cpu()``) still waits for the
-device.
+device. Under a ``torch.profiler`` session a block shows as
+``sondetpu.session.step`` around the pipeline's ``sondetpu.step``, the
+readback (``sondetpu.session.readback``), and the host decode
+(``sondetpu.session.decode``, with ``sondetpu.session.fetch`` for the
+suspect frames' full gather): ``runtime.metrics.span``.
 
 With ``mesh=`` (``sondetpu_torch.parallel``) the state is split by channel
 over the mesh's shards in the constructor and each block steps every shard
@@ -35,7 +39,7 @@ from sondetpu_torch.io.iq import c64_to_planes
 from sondetpu_torch.parallel import fanin
 from sondetpu_torch.parallel.mesh import process_count, process_rank
 from sondetpu_torch.parallel.sharding import Shards, sharded_pipeline_step
-from sondetpu_torch.runtime.metrics import Metrics
+from sondetpu_torch.runtime.metrics import Metrics, span
 from sondetpu_torch.runtime.pipeline import (Pipeline, PipelineConfig,
                                              merge_state,
                                              unpack_block_output)
@@ -174,30 +178,31 @@ class DecoderSession:
         """iq: [channels, block_len] complex64 or (i, q) planes.
         Returns (channel, telemetry snapshot) updates (for the previous
         block when ``pipelined``)."""
-        t0 = time.perf_counter()
-        if self.mesh is not None:
-            pi, pq = iq if isinstance(iq, tuple) else \
-                c64_to_planes(np.asarray(iq))
-            # a host array uploads its slabs; a tensor (a fleet's PFB rows)
-            # is sliced where it lies and moved device to device
-            self.state, out = self._sharded_step(
-                self.state, self._shard_fn(pi), self._shard_fn(pq))
-        else:
-            self.state, out = self.pipeline.step(self.state, iq)
-        self.blocks_seen += 1
-        if self.pipelined:
-            out, self._pending = self._pending, out
-            if out is None:
-                self.metrics.on_block(self.config.block_len,
-                                      time.perf_counter() - t0, 0, 0, 0)
-                return []
-        updates, frames_raw, decoded, soft_rms = self._handle_output(out)
-        self.metrics.on_block(
-            n_samples_per_chan=self.config.block_len,
-            wall_seconds=time.perf_counter() - t0,
-            frames_raw=frames_raw, frames_decoded=decoded,
-            updates=len(updates), soft_rms=soft_rms)
-        return updates
+        with span("sondetpu.session.step"):
+            t0 = time.perf_counter()
+            if self.mesh is not None:
+                pi, pq = iq if isinstance(iq, tuple) else \
+                    c64_to_planes(np.asarray(iq))
+                # a host array uploads its slabs; a tensor (a fleet's PFB
+                # rows) is sliced where it lies and moved device to device
+                self.state, out = self._sharded_step(
+                    self.state, self._shard_fn(pi), self._shard_fn(pq))
+            else:
+                self.state, out = self.pipeline.step(self.state, iq)
+            self.blocks_seen += 1
+            if self.pipelined:
+                out, self._pending = self._pending, out
+                if out is None:
+                    self.metrics.on_block(self.config.block_len,
+                                          time.perf_counter() - t0, 0, 0, 0)
+                    return []
+            updates, frames_raw, decoded, soft_rms = self._handle_output(out)
+            self.metrics.on_block(
+                n_samples_per_chan=self.config.block_len,
+                wall_seconds=time.perf_counter() - t0,
+                frames_raw=frames_raw, frames_decoded=decoded,
+                updates=len(updates), soft_rms=soft_rms)
+            return updates
 
     def flush(self) -> List[Tuple[int, SondeTelemetry]]:
         """Drain the pending block in pipelined mode (call at end of stream)."""
@@ -218,30 +223,41 @@ class DecoderSession:
         if not isinstance(out, Shards):
             packed = out.packed
             if isinstance(packed, torch.Tensor):
-                packed = packed.cpu().numpy()
+                with span("sondetpu.session.readback"):
+                    packed = packed.cpu().numpy()
             return [(0, packed)]
         row = self.config.packed_row_bytes
         merged = []
-        for base, o in zip(out.starts, out.parts):
-            data = o.packed.cpu().numpy()
-            if merged and merged[-1][0] + merged[-1][1].size // row == base:
-                merged[-1] = (merged[-1][0],
-                              np.concatenate([merged[-1][1], data]))
-            else:
-                merged.append((base, data))
+        with span("sondetpu.session.readback"):
+            for base, o in zip(out.starts, out.parts):
+                data = o.packed.cpu().numpy()
+                if merged and merged[-1][0] + merged[-1][1].size // row \
+                        == base:
+                    merged[-1] = (merged[-1][0],
+                                  np.concatenate([merged[-1][1], data]))
+                else:
+                    merged.append((base, data))
         return merged
 
     def _handle_output(self, out):
         """Decode one block's packed buffer (a BlockOutput, or on a mesh
         the Shards of the shards' BlockOutputs) part by part, each at its
         global channel base."""
+        parts = self._packed_parts(out)
+        with span("sondetpu.session.decode"):
+            return self._decode_parts(out, parts)
+
+    def _decode_parts(self, out, parts):
+        """The unpack, FEC, parse and merge of :meth:`_handle_output` on
+        the host parts of the packed buffer: (updates, frames, fragments,
+        soft RMS)."""
         cfg = self.config
         updates: List[Tuple[int, SondeTelemetry]] = []
         frames_total, frags_total = 0, 0
         # full-length quality vector, indexed by GLOBAL channel id (the
         # channels of other processes read 0)
         soft_rms = np.zeros(cfg.channels, np.float32)
-        for ch_base, packed in self._packed_parts(out):
+        for ch_base, packed in parts:
             res = unpack_block_output(packed, cfg.k_slots, cfg.wire_ncols,
                                       cfg.chase_total)
             weak_all = None
@@ -297,17 +313,19 @@ class DecoderSession:
         """The full frames of (channel, slot) pairs from the device; on a
         mesh from the shard that holds each channel (this process's own,
         by construction of the packed-part readback)."""
-        if not isinstance(out, Shards):
-            return self.pipeline.fetch_frames(out.frames, ch_idx, slot_idx)
-        res = np.zeros((len(ch_idx), self.config.spec.frame_bytes),
-                       np.uint8)
-        for base, o in zip(out.starts, out.parts):
-            sel = np.nonzero((ch_idx >= base)
-                             & (ch_idx < base + o.frames.shape[0]))[0]
-            if sel.size:
-                res[sel] = self.pipeline.fetch_frames(
-                    o.frames, ch_idx[sel] - base, slot_idx[sel])
-        return res
+        with span("sondetpu.session.fetch"):
+            if not isinstance(out, Shards):
+                return self.pipeline.fetch_frames(out.frames, ch_idx,
+                                                  slot_idx)
+            res = np.zeros((len(ch_idx), self.config.spec.frame_bytes),
+                           np.uint8)
+            for base, o in zip(out.starts, out.parts):
+                sel = np.nonzero((ch_idx >= base)
+                                 & (ch_idx < base + o.frames.shape[0]))[0]
+                if sel.size:
+                    res[sel] = self.pipeline.fetch_frames(
+                        o.frames, ch_idx[sel] - base, slot_idx[sel])
+            return res
 
     def telemetry_fanin(self, cap: Optional[int] = None) -> dict:
         """Every process's numeric telemetry rows, gathered over the
