@@ -43,8 +43,10 @@ before the result line:
    with the DC (within 2e-5) and without it (bit-equal), two runs
    bit-equal, timed whole and launch by launch beside its bound and the
    two-pass floor; the lane experiment's FIR in both bodies and on edge
-   shapes. plain_correlation checks that the dual-tone and AFSK paths'
-   syncword correlation divides by L.
+   shapes. plain_correlation holds the plain correlation kernel (K10's
+   second entry, every route's correlation but the fused front end's) to
+   the plain formula bit for bit in each body, float32 and bfloat16, timed
+   at m10's fleet ring, and checks that it divides by L.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's and body's
    launch count read from that run alone; then an 8-channel run with three
@@ -59,8 +61,8 @@ before the result line:
 6b. plain_path: the plain-op RS41 step (use_pallas=False, bench.py's
     default shape; the JAX bench's default in bf16) through DecoderSession
     at 2048 channels x 4 s, 3 blocks in bf16 and in f32: serial S1234567
-    and the same telemetry on every channel, no hand kernel launched, the
-    chip ring in the compute dtype; each with its steady step (plain_step)
+    and the same telemetry on every channel, no hand kernel launched but
+    the plain correlation once a step, the chip ring in the compute dtype; each with its steady step (plain_step)
     beside the card's name and power limit. Then plain_distinct, 8 channels
     of RS41 with three serials in bf16, card against CPU as in 4; one
     rs41x block in bf16 at 2048 channels; and 8 channels of dfm (three
@@ -70,7 +72,7 @@ before the result line:
 8. fleet_path: FleetSession.process_wideband at 2048 bins x 4 s (1230
    rs41, 614 m10, 204 dfm channels), 4 blocks with rs41, m10 and dfm
    carriers in bins 1, 6 and 9: their serials decoded, every kernel of the
-   path launched.
+   path launched (m10's plain correlation twice a step, L 80 and 64).
 9. fleet_distinct: a 16-bin fleet with two channels per family, on the
    card and on the CPU (twins): validity, valid frame bytes and telemetry
    equal.
@@ -79,7 +81,8 @@ before the result line:
     host decode.
 11. afsk_path: imet4 (3 blocks) and c50 (2 blocks) through DecoderSession
     at 2048 channels x 4 s: the truth's telemetry on every channel, the
-    front end's identity body and the AFSK tone kernel launched, the
+    front end's identity body, the AFSK tone kernel and the plain
+    correlation (imet4's three templates, c50's one) launched, the
     correlator not; then each family's steady-state device step
     (afsk_step).
 12. afsk_distinct: 8 channels of each family with four distinct truths, on
@@ -92,8 +95,8 @@ before the result line:
 14. ims100_path (3 blocks) and mrzn1_path (2 blocks): the kernel path at
     2048 channels x 4 s, one signal from the family's modulator on every
     channel (noise std 0.04): the truth's serial and telemetry on every
-    channel, K7's chanfilt_t41_nb20 body once a step and no other kernel;
-    then the
+    channel, K7's chanfilt_t41_nb20 body and the plain correlation once a
+    step and no other kernel; then the
     steady step (ims100_step, mrzn1_step), the midpoint DC alone on one
     block's metric and peak device memory.
 15. dualtone_distinct: ims100 and mrzn1, 8 channels with four truths, with
@@ -101,7 +104,8 @@ before the result line:
     and telemetry equal.
 16. plain_dualtone: m10, ims100 and mrzn1 on the plain-op step
     (use_pallas=False) in f32 and bf16, 8 channels with four truths, card
-    against CPU, no hand kernel; then the 2048-channel m10 bf16 plain step
+    against CPU, no hand kernel but the plain correlation; then the
+    2048-channel m10 bf16 plain step
     (plain_dualtone_step) and its peak memory.
 17. bf16 kernels (in the kernel phase): every K1 and K7 body on bfloat16
     planes and tails, bit-equal to the float32 body on the widened input,
@@ -127,22 +131,25 @@ before the result line:
     rs41, m10, imet4, c50 and dfm carriers, card against CPU.
 19. plain_afsk_path: imet4 and c50 on the jnp AFSK front end
     (use_pallas=False, the JAX CLI's default, f32) at 2048 channels x 4 s,
-    2 blocks: the truth on every channel, no hand kernel; plain_afsk_step;
+    2 blocks: the truth on every channel, no hand kernel but the plain
+    correlation; plain_afsk_step;
     plain_afsk_distinct, 8 channels with four truths, card against CPU.
 20. ims100_bf16 and m10_fallback_bf16: ims100 on K7's
     chanfilt_t41_nb20_bf16 body,
     and m10's FM fallback (a block of 4 s + 5 samples) on K1's
     decim1_t41_bf16 body with K2 on the widened bfloat16 ring, at 2048
     channels, i16, use_pallas=True, bf16: the truth on every channel and
-    only those bodies; each one's bf16 and f32 steps in turns and peaks.
+    only those bodies (and ims100's plain correlation); each one's bf16
+    and f32 steps in turns and peaks.
 21. gates: use_pallas=True where the original's gates send the config to
     its jnp path (rs41 at 12 channels, m10 at 200-sample blocks: no hand
-    kernel) or to K7 with linear_interp (ims100 at 48.1 kHz), card against
+    kernel but the plain correlation) or to K7 with linear_interp (ims100 at 48.1 kHz), card against
     CPU block by block and in telemetry.
 22. cli_full_width: the port's command line (sondetpu_torch.cli.main, in
     this process) decodes a cs16 file of one rs41 channel tiled to 2048
     rows (bench.py's shape, device dequant, 3 blocks of 4 s) at its
-    default (the plain-op step in f32, no kernel) and with use_pallas (K1,
+    default (the plain-op step in f32, no kernel but the plain
+    correlation) and with use_pallas (K1,
     K2, K3 once a block): S1234567 on every channel; each run's session
     rate and the shares of its wall time in the host's file read and tile
     and in the JSONL sink, beside DecoderSession.process_block's session
@@ -151,7 +158,8 @@ before the result line:
     of 1 s, fleet_blocks' carriers in bins 1, 6 and 9 and an rs41 carrier
     3150 Hz off bin 12) with bench.py's channel map and use_pallas, from
     the file and with --stream (the native reader): every carrier decoded,
-    the JSONL of both equal, K4, K6, K7, K1, K2, K3 launched; then
+    the JSONL of both equal, K4, K6, K7, K1, K2, K3 and m10's plain
+    correlation launched; then
     cli_checkpoint_fleet: block 1 with --checkpoint, block 2 with --resume,
     the JSONL of the uninterrupted run.
 24. cli_narrowband: each of the eight families on one channel, card against
@@ -160,7 +168,9 @@ before the result line:
     equal), a cs8 file
     with device dequant (card against CPU), --sonde auto, --afc with the
     carrier off by 3 kHz (1 kHz for ims100, mrzn1; card against CPU), and
-    --channels 8 with use_pallas (card against CPU, kernels launched).
+    --channels 8 with use_pallas (card against CPU, kernels launched, the
+    plain correlation once a template a step on m10's, ims100's, mrzn1's,
+    imet4's and c50's routes).
 25. cli_checkpoint: an rs41 session of 64 channels in f32 and in bf16 (no
     ml_dtypes loaded) saved after block 1 by --checkpoint and resumed by
     --resume equals the uninterrupted run; the JAX package's checkpoint in
@@ -177,13 +187,15 @@ before the result line:
     fleet_blocks' zero-order hold leaves an image of each carrier in the
     bins beside it): ``scan --fs-wide`` at its defaults finds the four
     carriers once each and classifies each as its family in its bin (K4
-    and K6 once a probe block, no other kernel).
+    and K6 once a probe block, no other kernel but the probe sessions'
+    plain correlation).
 28. autofleet: AutoFleet at 2048 bins x 1-s blocks (the original's
     defaults, rescan_blocks 3, probe_blocks 2, drop_idle_blocks 2), 8
     blocks made one at a time on the card: carriers present from block 0,
     one 3150 Hz off bin 12, one launched at 3 s and one stopped at 2.5 s;
     the tracked list and each serial, the stopped carrier dropped, K4 and
-    K6 once a fleet step and once a probe block; each block's wall and each
+    K6 once a fleet step and once a probe block, no other kernel but the
+    plain correlation; each block's wall and each
     rescan's PSD ms, classification s and rebuild s.
 29. autofleet_cpu: ``decode --wideband --bins 16 --auto``, card against
     CPU (JSONL equal) at the default and with use_pallas and --afc (K1-K3,
@@ -351,6 +363,38 @@ def check(ok, message: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def plain_corr_bodies(cfg, steps: int) -> dict:
+    """The plain correlation kernel's launches by body in ``steps`` steps
+    of a pipeline of ``cfg``: one a template a step (the syncword, then its
+    alternates, as ``Pipeline`` lists them), of the body its length names,
+    on every route but the fused front end's, which correlates with K2."""
+    from sondetpu_torch.kernels.lane_fir import plain_corr_body
+    from sondetpu_torch.runtime.pipeline import _route
+
+    if _route(cfg) == "fused":
+        return {}
+    spec = cfg.spec
+    lengths = [len(spec.sync_chip_template())]
+    if spec.extra.get("alt_syncword"):
+        lengths.append(len(spec.sync_chip_template(
+            spec.extra["alt_syncword"])))
+    lengths += [len(spec.sync_chip_template(bits=np.asarray(b)))
+                for b in spec.extra.get("alt_sync_bits", ())]
+    out = {}
+    for length in lengths:
+        key = "plain_corr:" + plain_corr_body(length)
+        out[key] = out.get(key, 0) + steps
+    return out
+
+
+def plain_corr_only(launches, cfg, steps: int) -> bool:
+    """True when the plain correlation kernel is the only hand kernel in
+    ``launches``, once a template a step (the plain-op route's)."""
+    want = sum(plain_corr_bodies(cfg, steps).values())
+    return ({k: v for k, v in launches.items() if v}
+            == ({"plain_corr": want} if want else {}))
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -937,8 +981,8 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4,
     sonde "rs41x", the same path on 518-byte extended frames carrying an
     ozone reading of RS41X_O3 mPa (K3's second shape). With ``dtype``
     ("f32" or "bf16"), the plain-op step instead (use_pallas=False, in that
-    compute dtype), which launches no hand kernel, as the original's
-    use_pallas=False step runs none."""
+    compute dtype), which launches no hand kernel but the plain
+    correlation's, once a step."""
     from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
@@ -993,7 +1037,7 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4,
               == ref_text for ch in range(CHANNELS)),
           f"{label}: telemetry differs between identical channels")
     if plain:
-        check(not any(launches.values()),
+        check(plain_corr_only(launches, cfg, n_blocks),
               f"{label}: hand kernels launched {launches}")
         check(sess.state.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
                                            else torch.float32),
@@ -1043,7 +1087,7 @@ def phase_distinct(torch, dev, sonde: str = "rs41", dtype=None):
     validity, valid frames and RS verdicts, the card's session equals the
     CPU's telemetry, and each channel decodes its own serial. With
     ``dtype``, the plain-op step in that compute dtype (rs41 or dfm), which
-    launches no hand kernel on the card."""
+    launches no hand kernel on the card but the plain correlation's."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -1095,7 +1139,8 @@ def phase_distinct(torch, dev, sonde: str = "rs41", dtype=None):
             check(got.aux_data == f"O3={o3[ch % 3]:.2f}mPa",
                   f"{sonde} channel {ch}: aux {got.aux_data!r}")
     if dtype is not None:
-        check(not any(cuda.launches.values()),
+        # two steps a block on the card: the pipeline's and the session's
+        check(plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
               f"plain {sonde} {dtype}: hand kernels launched {cuda.launches}")
     emit({"phase": ("plain_distinct" if dtype is not None
                     else "rs41x_distinct" if ext else "distinct_serials"),
@@ -1776,15 +1821,20 @@ def phase_fleet_path(torch, dev, n_bins: int = N_BINS,
           == launches["pfb_fir_stream"],
           f"fleet_path: PFB bodies {bodies}")
     # the correlator's sign bodies (rs41 L 64, dfm L 32) and the m10
-    # front end's compiled nb = 5 body, once per step each
+    # front end's compiled nb = 5 body, once per step each; m10's plain
+    # correlation, its syncword (L 80) and its alternate (L 64), once each
     steps = launches["pfb_dft"]
     check(bodies.get("corr:sign_l64") == steps
           and bodies.get("corr:sign_l32") == steps
           and launches["corr"] == 2 * steps
           and bodies.get("rs_clean:c384") == steps == launches["rs_clean"]
           and bodies.get("fused_dualtone_frontend:skip_nb5" + bf) == steps
-          == launches["fused_dualtone_frontend"],
-          f"fleet_path: correlator, K3 and dual-tone bodies {bodies}")
+          == launches["fused_dualtone_frontend"]
+          and bodies.get("plain_corr:t80") == steps
+          and bodies.get("plain_corr:t64") == steps
+          and launches["plain_corr"] == 2 * steps,
+          f"fleet_path: correlator, K3, dual-tone and plain correlation "
+          f"bodies {bodies}")
     emit({"phase": "fleet_path" + bf, "bins": n_bins, "block_len": block_len,
           "compute_dtype": compute_dtype,
           "blocks": n_blocks, "groups": groups, "updates": updates,
@@ -2263,18 +2313,91 @@ def phase_unpathed_kernels(torch, dev):
 
 
 def phase_plain_correlation(torch, dev):
-    """The plain syncword correlation (the dual-tone and AFSK paths') on the
-    card divides by L: on +/-1 chips every window sum s is an exact integer,
-    so each output must be float32(s / L) correctly rounded, not
-    s * float32(1/L). m10's template (L = 80) over one 4 s block of its
-    chips, imet4's three (L = 20) over one of theirs, at 2048 channels; the
-    first 64 rows also equal the CPU."""
+    """The plain syncword correlation (every route's but the fused front
+    end's) on the card: the kernel (``kernels/lane_fir.py:plain_corr``)
+    equals the plain formula, conv1d / L, bit for bit (int32 patterns) in
+    each body, float32 and bfloat16 rows, at m10's fleet ring [616, 40048]
+    (L = 80 and its alternate's 64, timed beside the formula and the bound)
+    and on edge shapes (every family's template length, a run-time length,
+    rows not a multiple of 4, a row view off 16 bytes, a zero row against
+    an all-negative template). Then it divides by L: on +/-1 chips every
+    window sum s is an exact integer, so each output must be float32(s / L)
+    correctly rounded, not s * float32(1/L): m10's template (L = 80) over
+    one 4 s block of its chips, imet4's three (L = 20) over one of theirs,
+    at 2048 channels; the first 64 rows also equal the CPU."""
     from sondetpu_torch.dsp.fir import conv1d
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.lane_fir import (plain_corr, plain_corr_body,
+                                                 plain_corr_plain)
     from sondetpu_torch.sondes import imet4, m10
     from sondetpu_torch.sync.correlator import correlate_syncword
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    templates = [("m10", m10.SPEC.sync_chip_template(), 38400)]
+    rng = np.random.default_rng(6)
+    results = {}
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def held(label, x, t):
+        body = "plain_corr:" + plain_corr_body(len(t))
+        before = cuda.body_launches.get(body, 0)
+        got, want = plain_corr(x, t), plain_corr_plain(x, t)
+        torch.cuda.synchronize()
+        check(cuda.body_launches.get(body, 0) == before + 1,
+              f"plain_corr {label}: bodies {cuda.body_launches}, expected "
+              f"{body}")
+        check(torch.equal(bits(got), bits(want)),
+              f"plain_corr {label}: not bit-equal to the plain formula "
+              f"(err {float((got - want).abs().max())})")
+        return body
+
+    m10_t = m10.SPEC.sync_chip_template()
+    m10_alt = m10.SPEC.sync_chip_template(m10.SPEC.extra["alt_syncword"])
+    c, ln = 616, 40048                       # m10's fleet ring
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        x = torch.randn((c, ln), generator=gen, device=dev).to(dtype)
+        for t in (m10_t, m10_alt):
+            L = len(t)
+            label = f"m10-fleet-l{L}-{tag}"
+            body = held(label, x, t)
+            n = ln - L + 1
+            entry = {"phase": "kernel", "name": "plain_corr", "case": label,
+                     "shape": [c, ln], "taps": L, "body": body,
+                     "max_abs_err": 0.0, "tol": 0,
+                     "ms": cuda_ms(torch, lambda: plain_corr(x, t), 20),
+                     "plain_ms": cuda_ms(torch,
+                                         lambda: plain_corr_plain(x, t), 3),
+                     **bound(nbytes(x) + 4 * c * n, c * n * (2 * L + 1))}
+            results[label] = entry
+            emit(entry)
+        del x
+    sign = {L: (rng.integers(0, 2, size=L) * 2.0 - 1.0).astype(np.float32)
+            for L in (16, 20, 24, 32, 64, 80)}
+    sign[100] = rng.normal(size=100).astype(np.float32)
+    bodies = set()
+    for L, t in sign.items():
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for rows, cols, offset in ((5, 3840 * 2 + L + 6, 0),
+                                       (3, 4099, 1), (7, 9600, 0)):
+                flat = torch.randn(rows * cols + offset, generator=gen,
+                                   device=dev)
+                flat[::5] = 0.0
+                flat[2::9] = -0.0
+                x = flat.to(dtype)[offset:].view(rows, cols)
+                bodies.add(held(f"l{L}-{tag}-{rows}x{cols}+{offset}", x, t))
+            zero = torch.zeros((3, 4000), dtype=dtype, device=dev)
+            neg = -np.ones(L, np.float32)
+            held(f"zero-row-l{L}-{tag}", zero, neg)
+            check(torch.equal(bits(plain_corr(zero, neg)),
+                              torch.zeros((3, 4000 - L + 1),
+                                          dtype=torch.int32, device=dev)),
+                  f"plain_corr zero row l{L} {tag}: not +0")
+    check(bodies == {"plain_corr:t80", "plain_corr:t64",
+                     "plain_corr:runtime_t"},
+          f"plain_corr: bodies launched {bodies}")
+
+    templates = [("m10", m10_t, 38400)]
     templates += [(f"imet4-{k}", t, 4800) for k, t in enumerate(
         [imet4.SPEC.sync_chip_template()]
         + [imet4.SPEC.sync_chip_template(bits=np.asarray(b))
@@ -2304,14 +2427,17 @@ def phase_plain_correlation(torch, dev):
           f"plain correlation: a check cannot tell the two roundings apart "
           f"({out})")
     emit({"phase": "plain_correlation", "templates": out,
-          "divides_by_l": True})
+          "divides_by_l": True, "bodies": sorted(bodies)})
+    torch.cuda.empty_cache()
+    return results
 
 
 def phase_afsk_path(torch, dev, family: str, n_blocks: int,
                     use_pallas: bool = True):
     """One AFSK family through DecoderSession at 2048 channels x 4 s, the
     same signal on every channel; with use_pallas False the jnp AFSK front
-    end (the JAX CLI's default), which launches no hand kernel."""
+    end (the JAX CLI's default), which launches no hand kernel but the
+    plain correlation's."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -2366,13 +2492,14 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int,
         check(pipe._route is None and len(sess.state.aux) == 5
               and sess.state.aux[4].dtype == torch.int32,
               f"plain {family} path: not the jnp AFSK front end")
-        check(not any(launches.values()),
+        check(plain_corr_only(launches, cfg, n_blocks),
               f"plain {family} path: hand kernels launched {launches}")
     else:
         # the identity matched taps take the front end's identity body; the
         # AFSK path correlates with the plain correlation, not K2
         check(bodies == {"fused_frontend:decim1_t41_identity": n_blocks,
-                         f"fused_afsk_frontend:win{win}": n_blocks},
+                         f"fused_afsk_frontend:win{win}": n_blocks,
+                         **plain_corr_bodies(cfg, n_blocks)},
               f"{family} path: bodies {bodies}")
     emit({"phase": "afsk_path" if use_pallas else "plain_afsk_path",
           "sonde": family, "channels": CHANNELS, "use_pallas": use_pallas,
@@ -2394,7 +2521,8 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3,
     """Per family, 8 channels carrying four distinct truths: the card
     equals the CPU (twins) on validity, valid frame bytes and telemetry,
     and each channel reports its own truth; with use_pallas False on the
-    jnp AFSK front end, no hand kernel launched."""
+    jnp AFSK front end, no hand kernel launched but the plain
+    correlation."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -2441,7 +2569,7 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3,
                 check(tg.serial == f"C50-{12345 + k}",
                       f"c50 channel {ch}: telemetry {tg.to_dict()}")
         if not use_pallas:
-            check(not any(cuda.launches.values()),
+            check(plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
                   f"plain {family} distinct: launches {cuda.launches}")
         out[family] = {"valid_frames": frames,
                        "frames_decoded": gsess.metrics.frames_decoded}
@@ -2531,8 +2659,9 @@ def time_midpoint(torch, pipe, planes, reps: int = 5):
 def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
     """ims100 or mrzn1 on the kernel path through DecoderSession at 2048
     channels x 4 s, one signal on every channel: the truth's telemetry on
-    every channel, K7's channel-filter body once a step and nothing else;
-    then the steady step, the midpoint DC alone and peak device memory."""
+    every channel, K7's channel-filter body and the plain correlation once
+    a step and nothing else; then the steady step, the midpoint DC alone
+    and peak device memory."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -2574,10 +2703,12 @@ def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
               == ref_text for ch in range(CHANNELS)),
           f"{label}: telemetry differs between identical channels")
     check(dualtone_truth(family, t), f"{label}: telemetry {ref}")
+    corr = plain_corr_bodies(cfg, n_blocks)
     check(launches["fused_dualtone_frontend"] == n_blocks
-          and sum(launches.values()) == n_blocks,
+          and sum(launches.values()) == n_blocks + sum(corr.values()),
           f"{label}: launches {launches}")
-    check(bodies == {"fused_dualtone_frontend:chanfilt_t41_nb20": n_blocks},
+    check(bodies == {"fused_dualtone_frontend:chanfilt_t41_nb20": n_blocks,
+                     **corr},
           f"{label}: bodies {bodies}")
     emit({"phase": f"{family}_path", "sonde": family, "channels": CHANNELS,
           "block_len": BLOCK_LEN, "blocks": n_blocks,
@@ -2654,7 +2785,8 @@ def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
     """ims100 and mrzn1 on the kernel path, 8 channels carrying four
     truths, with and without afc: the card equals the CPU (twins) on
     validity, valid frame bytes and telemetry, each channel its truth,
-    K7's chanfilt_t41_nb20 body (its _afc body with afc) once a step."""
+    K7's chanfilt_t41_nb20 body (its _afc body with afc) and the plain
+    correlation once a step."""
     from sondetpu_torch.runtime.pipeline import PipelineConfig
 
     c, out = 8, {}
@@ -2670,7 +2802,9 @@ def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
                 torch, dev, cfg, qi, qq, n_blocks, 4, label)
             body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
                     + ("_afc" if afc else ""))
-            check(bodies == {body: 2 * n_blocks}, f"{label}: bodies {bodies}")
+            check(bodies == {body: 2 * n_blocks,
+                             **plain_corr_bodies(cfg, 2 * n_blocks)},
+                  f"{label}: bodies {bodies}")
             out[label] = {"valid_frames": frames, "frames_decoded": decoded}
     emit({"phase": "dualtone_distinct", "channels": c, "blocks": n_blocks,
           "block_len": BLOCK_LEN, "runs": out, "matches_cpu": True})
@@ -2680,7 +2814,8 @@ def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
     """The plain-op dual-tone step (use_pallas=False; the JAX CLI's
     default) for m10, ims100 and mrzn1 in f32 and bf16 at 8 channels with
     four truths, card against CPU as in dualtone_distinct, no hand kernel
-    launched; then the 2048-channel m10 bf16 plain step (one signal on
+    launched but the plain correlation; then the 2048-channel m10 bf16
+    plain step (one signal on
     every channel): its valid frames, steady step and peak memory."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
@@ -2695,7 +2830,8 @@ def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
             label = f"plain {family} {dtype}"
             frames, decoded, bodies = card_equals_cpu(
                 torch, dev, cfg, qi, qq, n_blocks, 4, label)
-            check(not bodies and not any(cuda.launches.values()),
+            check(bodies == plain_corr_bodies(cfg, 2 * n_blocks)
+                  and plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
                   f"{label}: hand kernels launched {cuda.launches}")
             out[f"{family}_{dtype}"] = {"valid_frames": frames,
                                         "frames_decoded": decoded}
@@ -2719,7 +2855,7 @@ def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
         state, o = pipe.step(state, planes)
         valid.append(int(o.frame_valid.sum()))
     torch.cuda.synchronize()
-    check(not any(cuda.launches.values()),
+    check(plain_corr_only(cuda.launches, cfg, len(blocks)),
           f"plain m10 bf16 2048: hand kernels launched {cuda.launches}")
     check(state.chipbuf.dtype == torch.bfloat16 and valid[-1] > 0
           and valid[-1] % CHANNELS == 0,
@@ -3096,7 +3232,7 @@ def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
     blocks), or m10's FM fallback (M10_FALLBACK_BLOCK) on K1's
     decim1_t41_bf16 body with K2's long_l and sign_l64 bodies (m10's and
     M20's templates) on the widened bfloat16 ring. The truth's telemetry on every channel and exactly those bodies
-    once a step; then the bf16 and the f32 step of the same config in
+    (and on ims100's route the plain correlation's) once a step; then the bf16 and the f32 step of the same config in
     turns, each one's peak device memory."""
     import dataclasses
     import warnings
@@ -3117,6 +3253,8 @@ def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
     cfg = PipelineConfig(sonde=family, channels=CHANNELS, block_len=block,
                          use_pallas=True, compute_dtype="bf16",
                          input_dtype="i16")
+    # ims100's K7 route correlates with the plain correlation kernel
+    want.update(plain_corr_bodies(cfg, n_blocks))
     qi, qq = dualtone_planes(family, n_blocks * block, seed=9)
     row_i = torch.from_numpy(qi).to(dev)
     row_q = torch.from_numpy(qq).to(dev)
@@ -3208,7 +3346,8 @@ def gate_rows(family: str, c: int, n: int, fs: float):
 def phase_gates(torch, dev):
     """The original's kernel gates on the card, use_pallas=True: rs41 at 12
     channels (not a multiple of 8) and m10 at 200-sample blocks (below
-    HALO) take the plain-op front end and launch no kernel; ims100 at 48.1
+    HALO) take the plain-op front end and launch no kernel but the plain
+    correlation; ims100 at 48.1
     kHz (sps 20.04) takes K7's chanfilt_t41_nb20 body and linear_interp.
     Each on the card equals the CPU block by block (validity, valid frame bytes, RS
     verdicts), and the sessions' telemetry is equal, each channel its
@@ -3255,8 +3394,10 @@ def phase_gates(torch, dev):
             csess.process_block(blk)
         torch.cuda.synchronize()
         bodies = dict(cuda.body_launches)
-        want = {k: 2 * n_blocks * v for k, v in per.items()}
-        check(bodies == want and (per or not any(cuda.launches.values())),
+        want = {**{k: 2 * n_blocks * v for k, v in per.items()},
+                **plain_corr_bodies(cfg, 2 * n_blocks)}
+        check(bodies == want and (per or plain_corr_only(
+            cuda.launches, cfg, 2 * n_blocks)),
               f"gates {label}: bodies {bodies}, expected {want}")
         for ch in range(cfg.channels):
             tg, tc = gsess.telemetry.get(ch), csess.telemetry.get(ch)
@@ -3985,7 +4126,9 @@ def phase_cli_full_width(torch, dev, smi, channels: int = CHANNELS,
                 check(r["bodies"] == want,
                       f"cli_full_width {key}: bodies {r['bodies']}")
             else:
-                check(not any(r["launches"].values()),
+                check(plain_corr_only(r["launches"], PipelineConfig(
+                    sonde="rs41", channels=channels, block_len=block_len),
+                    n_blocks),
                       f"cli_full_width {key}: kernels {r['launches']}")
             h = r["cli_seconds"]
             # the same blocks through DecoderSession, host planes tiled
@@ -4089,10 +4232,13 @@ def phase_cli_wideband(torch, dev, smi, n_bins: int = N_BINS,
                       f"cli_wideband {how}: carrier {family} {serial} in "
                       f"bin {k} not decoded")
             la = r["launches"]
+            # m10's group correlates its two templates with the plain
+            # correlation kernel
             check(la["pfb_fir_stream"] == la["pfb_dft"] == n_blocks
                   and la["fused_dualtone_frontend"] == n_blocks
                   and la["fused_frontend"] == la["corr"] == 2 * n_blocks
-                  and la["rs_clean"] == n_blocks,
+                  and la["rs_clean"] == n_blocks
+                  and la["plain_corr"] == 2 * n_blocks,
                   f"cli_wideband {how}: launches {la}")
             if how == "stream":
                 check(r["readers"].get("native:iqs_read") == n_blocks,
@@ -4138,7 +4284,8 @@ def phase_scan(torch, dev, smi, iq: str, n_bins: int, carriers, d: str):
     4096, every family probed over the first 3 s) with --out: every
     carrier found once and classified as its family in its bin, the
     off-grid one within 1.5 kHz of its centre, nothing else; K4 and K6
-    launch once a probe block."""
+    launch once a probe block, and no other kernel but the probe sessions'
+    plain correlation."""
     from sondetpu_torch.cli.config import FrameworkConfig
     from sondetpu_torch.dsp.channelizer import bin_and_offset
 
@@ -4161,8 +4308,10 @@ def phase_scan(torch, dev, smi, iq: str, n_bins: int, carriers, d: str):
     la = r["launches"]
     blocks = int(os.path.getsize(iq) // (4 * n_bins * 48000))
     check(la["pfb_fir_stream"] == la["pfb_dft"] == min(blocks, 3)
+          and la["plain_corr"] > 0
           and not any(v for name, v in la.items()
-                      if name not in ("pfb_fir_stream", "pfb_dft")),
+                      if name not in ("pfb_fir_stream", "pfb_dft",
+                                      "plain_corr")),
           f"scan: launches {la}")
     emit({"phase": "scan", "bins": n_bins, "device": smi,
           "capture_bytes": os.path.getsize(iq), "carriers": found,
@@ -4281,14 +4430,22 @@ def phase_cli_narrowband(torch, dev, smi):
                                 "8", "--config", cfg_pallas], "cpu")
                 check(k8 == c8, f"cli_narrowband {family}: 8 channels with "
                       "use_pallas, card and CPU differ")
-                check(any(r["launches"].values()),
-                      f"cli_narrowband {family}: no kernel launched")
+                steps = -(-sig.size // 48000)
+                # the plain correlation once a template a step on every
+                # route but the fused one (m10, ims100, mrzn1, imet4, c50)
+                corr = sum(plain_corr_bodies(PipelineConfig(
+                    sonde=family, channels=8, use_pallas=True),
+                    steps).values())
+                check(any(r["launches"].values())
+                      and r["launches"]["plain_corr"] == corr,
+                      f"cli_narrowband {family}: launches {r['launches']}, "
+                      f"expected {corr} of the plain correlation")
                 res["c8_lines"] = k8[0].count(b"\n")
                 res["c8_launches"] = {k: v for k, v in r["launches"].items()
                                       if v}
                 kernel_runs[family] = {"launches": r["launches"],
                                        "bodies": r["bodies"],
-                                       "steps": -(-sig.size // 48000)}
+                                       "steps": steps}
             result[family] = res
     emit({"phase": "cli_narrowband", "device": smi, "families": result})
     return kernel_runs
@@ -4551,7 +4708,8 @@ def phase_autofleet(torch, dev, smi, n_bins: int = N_BINS,
     the tracked list ends with every live carrier at its bin and family and
     its serial decoded, the stopped one tracked and then dropped; K4 and K6
     launch once a fleet step and once a probe block of each
-    classification, and no other kernel. Each block's wall (synchronized)
+    classification, and no other kernel but the plain correlation of the
+    plain-op groups and probes. Each block's wall (synchronized)
     and each rescan's PSD ms, classification s and rebuild s are timed by
     wrapping the functions the AutoFleet calls."""
     import sondetpu_torch.dsp.scan as tscan
@@ -4633,8 +4791,10 @@ def phase_autofleet(torch, dev, smi, n_bins: int = N_BINS,
     probes = 2 * sum(r["classify_calls"] for r in rescans)
     steps = sum(fleet_steps)
     check(launches["pfb_fir_stream"] == launches["pfb_dft"] == steps + probes
+          and launches["plain_corr"] > 0
           and not any(v for name, v in launches.items()
-                      if name not in ("pfb_fir_stream", "pfb_dft")),
+                      if name not in ("pfb_fir_stream", "pfb_dft",
+                                      "plain_corr")),
           f"autofleet: launches {launches} (fleet steps {steps}, probe "
           f"blocks {probes})")
     rescan_blocks = {r["after_block"] for r in rescans}
@@ -4995,7 +5155,9 @@ def phase_mesh_plain_bf16(torch, dev, channels: int = 64, n_blocks: int = 2):
         msess.process_block((qi.numpy(), qq.numpy()))
         csess.process_block((qi, qq))
     torch.cuda.synchronize()
-    check(not any(cuda.launches.values()),
+    # each of the mesh's shards correlates on the card in both steps
+    check(plain_corr_only(cuda.launches, cfg,
+                          2 * mesh.devices.size * n_blocks),
           f"mesh plain bf16: hand kernels launched {dict(cuda.launches)}")
     check(telemetry_text(msess.telemetry) == telemetry_text(csess.telemetry)
           and len(msess.telemetry) == channels,
@@ -5056,8 +5218,13 @@ def phase_mesh_fleet(torch, dev, smi, n_blocks: int = 3):
     for k, family, serial in FLEET_CARRIERS:
         check(telem.get(k) is not None and telem[k].serial == serial,
               f"mesh_fleet: channel {k} ({family}) telemetry {telem.get(k)}")
+    # every group's shards correlate with the plain correlation kernel
+    corr = mesh2.devices.size * n_blocks * sum(
+        sum(plain_corr_bodies(sess.config, 1).values())
+        for _, (_, sess) in fm.groups.items())
     check(launches["pfb_fir_stream"] == n_blocks == launches["pfb_dft"]
-          and sum(launches.values()) == 2 * n_blocks,
+          and launches["plain_corr"] == corr
+          and sum(launches.values()) == 2 * n_blocks + corr,
           f"mesh_fleet: launches {launches}")
     run_a = {"launches": launches, "bodies": bodies, "steps": n_blocks}
     nk = {"m": 0, "u": 0}
@@ -5096,7 +5263,8 @@ def phase_mesh_fleet(torch, dev, smi, n_blocks: int = 3):
               f"{telem.get(k)}")
     want = {"pfb_fir_stream": n_blocks, "pfb_dft": n_blocks,
             "fused_frontend": 8 * n_blocks, "corr": 8 * n_blocks,
-            "rs_clean": 4 * n_blocks, "fused_dualtone_frontend": 4 * n_blocks}
+            "rs_clean": 4 * n_blocks, "fused_dualtone_frontend": 4 * n_blocks,
+            "plain_corr": 8 * n_blocks}
     check({k: klaunches[k] for k in want} == want,
           f"mesh_fleet kernel routes: launches {klaunches}, expected {want}")
     run_b = {"launches": klaunches, "bodies": kbodies, "steps": n_blocks}
@@ -5687,7 +5855,7 @@ def main() -> int:
     kres.update(phase_fleet_kernels(torch, dev))
     k8 = phase_afsk_kernels(torch, dev)
     kres["fused_afsk_frontend"] = k8["imet4"]
-    phase_plain_correlation(torch, dev)
+    plain_corr_res = phase_plain_correlation(torch, dev)
     unpathed, unpathed_launches = phase_unpathed_kernels(torch, dev)
     kres.update(unpathed)
     # every path is driven with the counts at 0 just before it and read
@@ -5878,6 +6046,21 @@ def main() -> int:
             for p in ("ims100", "mrzn1")})
     k7_row["chanfilt_runtime_nb19"] = subset(
         kres["fused_dualtone_frontend_ims100-nb19"])
+    # K10's second entry, the plain correlation: its timings at m10's fleet
+    # ring and its launches on every path that runs it
+    k10_row = next(e for e in table if e["name"] == "lane_fir")
+    k10_row["plain_corr"] = {
+        "fleet_m10_ring": {k: dict(subset(e), body=e["body"])
+                           for k, e in plain_corr_res.items()},
+        "launches_per_step": {p: runs[p]["launches"]["plain_corr"]
+                              / runs[p]["steps"] for p in paths},
+        "cli_launches": {p: r["launches"]["plain_corr"]
+                         for p, r in cli_runs.items()
+                         if r["launches"]["plain_corr"]},
+        "automation_launches": {p: r["launches"].get("plain_corr", 0)
+                                for p, r in new_runs.items()},
+        "mesh_launches": {p: r["launches"].get("plain_corr", 0)
+                          for p, r in mesh_runs.items()}}
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")

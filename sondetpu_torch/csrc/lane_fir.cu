@@ -26,6 +26,26 @@
 // alone (__fmul_rn/__fadd_rn, no FMA contraction), in the order of the
 // plain twin (sondetpu_torch/kernels/lane_fir.py:lane_fir_plain): the two
 // agree bit for bit.
+//
+// The second entry, sondetpu_plain_corr, is the plain syncword correlation
+// (sondetpu_torch/sync/correlator.py:correlate_syncword, the correlation of
+// every route but the fused front end's) on the same design:
+// corr[c, i] = (sum_k t[k] * x[c, i + k]) / L, t[k] in ascending k from a
+// zero accumulator, every product and sum rounded alone, then divided by
+// L correctly rounded: dsp/fir.py:conv1d's order and rounding, and the
+// division by a 0-d L tensor (not a multiply by 1/L, which is K2's). Tap
+// 0 adds its product to +0 (__fadd_rn(0, p)), as conv1d's zeros += p
+// does, so a -0 product gives +0. Its rows are float32 or bfloat16, with a
+// row stride of their own (a view of a wider buffer); a bfloat16 row is
+// widened on its way into shared memory, exactly. The taps ride in the
+// launch (up to CORR_MAX_TAPS, a bound of this entry's own), so no copy to
+// the card precedes it; m10's two template lengths, L = 80 and 64, are
+// compiled in, any other L takes the run-time body.
+//
+// What bounds it: at m10's fleet ring [614, 40044] (L = 80) the products
+// and sums are 2L = 160 operations per output (3.9e9, 0.12 ms at the FP32
+// rate) and the division ~10 more; a bfloat16 row read and the float32
+// result written are 0.15 GB, 0.05 ms at 3.35 TB/s.
 #include "common.cuh"
 
 #ifndef SONDETPU_LANE_FIR_R
@@ -105,4 +125,175 @@ SONDETPU_API int sondetpu_lane_fir(const float* x, const float* h, int T,
     cudaStream_t s = (cudaStream_t)stream;
     if (T == T_FIXED) return launch<T_FIXED>(x, th, T, C, ln, y, s);
     return launch<0>(x, th, T, C, ln, y, s);
+}
+
+// ---- the plain syncword correlation --------------------------------------
+
+namespace {
+
+constexpr int CORR_MAX_TAPS = 256;   // this entry's own tap bound
+constexpr int CORR_NX = SPAN + CORR_MAX_TAPS;
+
+// The template in the parameter space (1 KB of the launch's 4 KB).
+struct CorrTaps {
+    float h[CORR_MAX_TAPS];
+};
+
+// xs[0 .. nx) = row[m0 .. m0 + nx), zeros past ln. float32 rows by
+// cp.async, 16 bytes a copy where vec (row stride % 4 == 0 and x aligned
+// to 16 bytes) and the chunk lies inside the row, else 4.
+static __device__ __forceinline__ void stage_row(float* xs, const float* row,
+                                                 const int m0, const int nx,
+                                                 const int ln,
+                                                 const bool vec) {
+    if (vec) {
+        for (int j = 4 * threadIdx.x; j < nx; j += 4 * THREADS) {
+            const int g = m0 + j;
+            if (g + 4 <= ln) {
+                cp_async_f32x4(xs + j, row + g, true);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    cp_async_f32(xs + j + e, row + (g + e < ln ? g + e : 0),
+                                 g + e < ln);
+            }
+        }
+    } else {
+        for (int j = threadIdx.x; j < nx; j += THREADS) {
+            const int g = m0 + j;
+            cp_async_f32(xs + j, row + (g < ln ? g : 0), g < ln);
+        }
+    }
+    cp_async_wait_all();
+}
+
+// The same for bfloat16 rows: every load of a thread issued before its
+// first store, each value widened on its store to shared memory; 8 bytes
+// a load where vec (row stride % 4 == 0 and x aligned to 8 bytes), else 2.
+static __device__ __forceinline__ void stage_row(float* xs,
+                                                 const __nv_bfloat16* row,
+                                                 const int m0, const int nx,
+                                                 const int ln,
+                                                 const bool vec) {
+    if (vec) {
+        constexpr int K = (CORR_NX + 4 * THREADS - 1) / (4 * THREADS);
+        Bf16Word<4> w[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = 4 * (threadIdx.x + k * THREADS);
+            const int g = m0 + j;
+            w[k] = load_bf16<4>(row + (g + 4 <= ln ? g : 0),
+                                j < nx && g + 4 <= ln);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = 4 * (threadIdx.x + k * THREADS);
+            const int g = m0 + j;
+            if (j >= nx) break;
+            store_widened<4>(xs + j, w[k]);
+            if (g + 4 > ln) {    // the chunk the row's end cuts: by value
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    store_widened<1>(xs + j + e,
+                                     load_bf16<1>(row + (g + e < ln ? g + e
+                                                                    : 0),
+                                                  g + e < ln));
+            }
+        }
+    } else {
+        constexpr int K = (CORR_NX + THREADS - 1) / THREADS;
+        Bf16Word<1> w[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = threadIdx.x + k * THREADS;
+            const int g = m0 + j;
+            w[k] = load_bf16<1>(row + (g < ln ? g : 0), j < nx && g < ln);
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int j = threadIdx.x + k * THREADS;
+            if (j < nx) store_widened<1>(xs + j, w[k]);
+        }
+    }
+}
+
+template <int TT, typename E>
+__global__ void __launch_bounds__(THREADS, 4) plain_corr_kernel(
+    const E* __restrict__ x, const CorrTaps h, const int t_run,
+    const int ln, const long long ld, const bool vec,
+    float* __restrict__ y) {
+    __shared__ __align__(16) float xs[CORR_NX];  // [SPAN + T - 1]
+    const int T = TT > 0 ? TT : t_run;
+    const int c = blockIdx.y;
+    const int m0 = blockIdx.x * SPAN;
+    const int n = ln - T + 1;
+    stage_row(xs, x + (size_t)c * ld, m0, SPAN + T - 1, ln, vec);
+    __syncthreads();
+
+    // acc_r = sum_u h[u] * xs[t0 + r + u] from +0, r < R
+    const int t0 = threadIdx.x * R;
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    slide_window_up<R, TT>(xs + t0, T, [&](int u, int r, float v) {
+        acc[r] = __fadd_rn(acc[r], __fmul_rn(h.h[u], v));
+    });
+    __syncthreads();                             // every window read
+    const float l = (float)T;
+#pragma unroll
+    for (int r = 0; r < R; ++r) xs[t0 + r] = __fdiv_rn(acc[r], l);
+    __syncthreads();
+    float* orow = y + (size_t)c * n + m0;
+    for (int j = threadIdx.x; j < SPAN && m0 + j < n; j += THREADS)
+        orow[j] = xs[j];
+}
+
+template <int TT, typename E>
+int launch_corr(const E* x, const CorrTaps& h, int T, int C, int ln,
+                long long ld, float* y, cudaStream_t stream) {
+    const int n = ln - T + 1;
+    const bool vec = ld % 4 == 0 &&
+                     (sizeof(E) == 4 ? aligned16(x)
+                                     : (reinterpret_cast<uintptr_t>(x) & 7) ==
+                                           0);
+    // the grid's rows in runs of 65535
+    for (int c0 = 0; c0 < C; c0 += 65535) {
+        const int rows = C - c0 < 65535 ? C - c0 : 65535;
+        const dim3 grid((n + SPAN - 1) / SPAN, rows);
+        plain_corr_kernel<TT, E><<<grid, THREADS, 0, stream>>>(
+            x + (size_t)c0 * ld, h, T, ln, ld, vec, y + (size_t)c0 * n);
+        const int err = (int)cudaGetLastError();
+        if (err != 0) return err;
+    }
+    return 0;
+}
+
+template <typename E>
+int dispatch_corr(const E* x, const CorrTaps& h, int T, int C, int ln,
+                  long long ld, float* y, cudaStream_t s) {
+    if (T == 80) return launch_corr<80, E>(x, h, T, C, ln, ld, y, s);
+    if (T == 64) return launch_corr<64, E>(x, h, T, C, ln, ld, y, s);
+    return launch_corr<0, E>(x, h, T, C, ln, ld, y, s);
+}
+
+}  // namespace
+
+// x [C, ln] with row stride ld elements (float32, or bfloat16 with bf16
+// set); t: host array of T template taps (T <= 256, each already rounded
+// to bfloat16 for bfloat16 rows, as the plain correlation takes them);
+// y [C, ln - T + 1] float32, contiguous. T = 80 and 64 run compile-time
+// bodies, any other T the run-time one.
+SONDETPU_API int sondetpu_plain_corr(const void* x, int bf16, const float* t,
+                                     int T, int C, int ln, long long ld,
+                                     float* y, void* stream) {
+    if (T < 1 || T > CORR_MAX_TAPS || C < 1 || ln < T || ld < 0 ||
+        (C > 1 && ld < ln))
+        return (int)cudaErrorInvalidValue;
+    CorrTaps th{};
+    for (int k = 0; k < T; ++k) th.h[k] = t[k];
+    cudaStream_t s = (cudaStream_t)stream;
+    if (bf16)
+        return dispatch_corr(static_cast<const __nv_bfloat16*>(x), th, T, C,
+                             ln, ld, y, s);
+    return dispatch_corr(static_cast<const float*>(x), th, T, C, ln, ld, y, s);
 }

@@ -14,7 +14,10 @@
   (``csrc/afsk.cu``);
 - ``frontend.fused_demod_fir``: FM discriminator + DC + FIR without a
   channel filter (``csrc/demod_fir.cu``);
-- ``lane_fir.lane_fir``: the lane experiment's FIR (``csrc/lane_fir.cu``).
+- ``lane_fir.lane_fir``: the lane experiment's FIR (``csrc/lane_fir.cu``);
+  ``lane_fir.plain_corr``: the plain syncword correlation on the same
+  design (the second entry of ``csrc/lane_fir.cu``), which
+  ``sync.correlate_syncword`` launches on the card.
 
 ``cuda`` builds and loads the library and counts launches.
 """

@@ -35,6 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 _SIGNATURES = {
     "sondetpu_frontend_tiles": [_I, _I],
@@ -55,12 +56,13 @@ _SIGNATURES = {
     "sondetpu_demod_audio": [_P, _P, _P, _F, _I, _I, _P, _P, _P],
     "sondetpu_demod_fir": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "sondetpu_lane_fir": [_P, _P, _I, _I, _I, _P, _P],
+    "sondetpu_plain_corr": [_P, _I, _P, _I, _I, _I, _LL, _P, _P],
 }
 
 launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0,
             "pfb_fir_stream": 0, "pfb_fir_timemajor": 0, "pfb_dft": 0,
             "fused_dualtone_frontend": 0, "fused_afsk_frontend": 0,
-            "fused_demod_fir": 0, "lane_fir": 0}
+            "fused_demod_fir": 0, "lane_fir": 0, "plain_corr": 0}
 body_launches = {}       # "kernel:body" -> launches, for multi-body kernels
 build_seconds = None     # wall time of this process's nvcc build, if any
 _lib = None

@@ -11,6 +11,14 @@ order of the sum.
 tensors and runs :func:`lane_fir_plain` for CPU tensors; the two agree bit
 for bit. The kernel compiles in the experiment's 41 taps (body ``t41``) and
 takes any other count up to 64 at run time (``runtime_t``).
+
+:func:`plain_corr` is the plain syncword correlation on the same kernel
+design (the file's second entry): ``conv1d(x, t) / L`` bit for bit, which
+:func:`plain_corr_plain` computes and CPU tensors run. It takes float32 or
+bfloat16 rows, compiles in m10's two template lengths (bodies ``t80`` and
+``t64``) and takes any other length up to 256 at run time (``runtime_t``);
+its taps ride in the launch, so it copies nothing to the card and does not
+synchronise.
 """
 
 from __future__ import annotations
@@ -18,9 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sondetpu_torch.dsp.fir import conv1d
 from sondetpu_torch.kernels import cuda
 
 FIXED_TAPS = 41               # the tap count csrc/lane_fir.cu compiles in
+CORR_MAX_TAPS = 256           # csrc/lane_fir.cu CORR_MAX_TAPS
+CORR_FIXED_LENGTHS = (80, 64)  # template lengths plain_corr compiles in
 
 
 def _check_args(x, h):
@@ -63,4 +74,70 @@ def lane_fir(x: torch.Tensor, h) -> torch.Tensor:
     cuda.launch("lane_fir", "sondetpu_lane_fir", x.data_ptr(), hv.ctypes.data,
                 ntaps, c, n + ntaps - 1, y.data_ptr(), cuda.stream_handle(dev),
                 body="t41" if ntaps == FIXED_TAPS else "runtime_t")
+    return y
+
+
+def plain_corr_plain(x: torch.Tensor, template) -> torch.Tensor:
+    """The plain correlation, ``conv1d(x, template) / L`` (x of any dtype
+    conv1d takes): the twin of :func:`plain_corr`, and what
+    ``correlate_syncword`` computes on the CPU. L is a 0-d tensor on x's
+    device: CUDA turns a division by a Python number into a multiply by
+    its reciprocal, which rounds otherwise."""
+    t = np.asarray(template, np.float32)
+    return conv1d(x, t) / torch.full((), float(t.shape[0]),
+                                     dtype=torch.float32, device=x.device)
+
+
+def plain_corr_body(length: int) -> str:
+    """The body of :func:`plain_corr` that runs a template of ``length``
+    taps: ``t80`` or ``t64`` compiled in, else ``runtime_t``."""
+    return f"t{length}" if length in CORR_FIXED_LENGTHS else "runtime_t"
+
+
+def _corr_args(x, template) -> np.ndarray:
+    """Check x and the template; return the template as float32 NumPy."""
+    if isinstance(template, torch.Tensor):
+        template = template.detach().cpu().numpy()
+    t = np.ascontiguousarray(template, np.float32)
+    if t.ndim != 1 or not 1 <= t.shape[0] <= CORR_MAX_TAPS:
+        raise ValueError(f"plain_corr: template of shape {t.shape} (1 to "
+                         f"{CORR_MAX_TAPS} taps)")
+    if not isinstance(x, torch.Tensor) or x.dim() != 2:
+        raise ValueError("plain_corr: x must be a [C, n] tensor")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"plain_corr: dtype {x.dtype}, expected float32 or "
+                        "bfloat16")
+    if x.shape[1] < t.shape[0]:
+        raise ValueError(f"plain_corr: rows of {x.shape[1]} samples are "
+                         f"shorter than {t.shape[0]} taps")
+    return t
+
+
+def plain_corr(x: torch.Tensor, template) -> torch.Tensor:
+    """x [C, n] float32 or bfloat16 (rows may be a view with a row stride
+    of their own), template [L] float32 (NumPy, or a tensor, copied to the
+    host) -> [C, n - L + 1] float32, ``(sum_k t[k] * x[c, i + k]) / L`` as
+    :func:`plain_corr_plain` rounds it.
+
+    CPU tensors run the plain twin; CUDA tensors launch the kernel."""
+    t = _corr_args(x, template)
+    dev = x.device
+    if dev.type == "cpu":
+        return plain_corr_plain(x, t)
+    if dev.type != "cuda":
+        raise ValueError(f"plain_corr: unsupported device {dev}")
+    c, ln = x.shape
+    L = t.shape[0]
+    if x.stride(1) != 1 or (c > 1 and x.stride(0) < ln):
+        x = x.contiguous()
+    if x.dtype == torch.bfloat16:
+        # conv1d takes the taps rounded to bfloat16 for a bfloat16 input
+        t = torch.from_numpy(t).to(torch.bfloat16).float().numpy()
+    y = torch.empty((c, ln - L + 1), dtype=torch.float32, device=dev)
+    if c == 0:
+        return y
+    cuda.launch("plain_corr", "sondetpu_plain_corr", x.data_ptr(),
+                int(x.dtype == torch.bfloat16), t.ctypes.data, L, c, ln,
+                x.stride(0), y.data_ptr(), cuda.stream_handle(dev),
+                body=plain_corr_body(L))
     return y

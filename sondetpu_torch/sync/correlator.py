@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sondetpu_torch.dsp.fir import conv1d
+from sondetpu_torch.kernels.lane_fir import plain_corr, plain_corr_plain
 from sondetpu_torch.sync.coding import np_bytes_to_bits
 
 
@@ -27,13 +27,15 @@ def correlate_syncword(soft: torch.Tensor, template) -> torch.Tensor:
     ``(sum_k t[k] * soft[c, i + k]) / L``, normalized so a perfect hard
     match scores 1.0. It divides by L as the JAX ``correlate_syncword``
     does (the correlator kernel's twin multiplies by ``float32(1/L)``
-    instead, which rounds differently unless L is a power of two). L is a
-    tensor on the input's device: CUDA turns a division by a Python number
-    into a multiply by its reciprocal, which is that other rounding.
-    """
-    t = np.asarray(template, np.float32)
-    return conv1d(soft, t) / torch.full((), float(t.shape[0]),
-                                        dtype=torch.float32, device=soft.device)
+    instead, which rounds differently unless L is a power of two).
+
+    On a CUDA device one launch of the plain correlation kernel
+    (``kernels/lane_fir.py:plain_corr``, float32 or bfloat16 soft symbols,
+    L up to 256); elsewhere the formula it equals bit for bit
+    (``plain_corr_plain``)."""
+    if soft.device.type == "cuda":
+        return plain_corr(soft, template)
+    return plain_corr_plain(soft, template)
 
 
 def find_frame_starts(corr: torch.Tensor, threshold: float, max_peaks: int,

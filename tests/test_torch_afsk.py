@@ -35,7 +35,11 @@ from sondetpu_torch.kernels.afsk import (HALO, afsk_tables,
                                          fused_afsk_frontend_plain)
 from sondetpu_torch.kernels.corr import corr_kernel, corr_plain
 from sondetpu_torch.kernels.frontend import fused_demod_fir
-from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+from sondetpu_torch.kernels import cuda
+from sondetpu_torch.kernels.lane_fir import (CORR_MAX_TAPS, lane_fir,
+                                             lane_fir_plain, plain_corr,
+                                             plain_corr_body,
+                                             plain_corr_plain)
 from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.runtime.session import DecoderSession
@@ -259,6 +263,77 @@ def test_lane_fir_twin_edge_taps(ntaps):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     if ntaps == 1:
         assert np.signbit(got[x[:, :n] == 0]).any()
+
+
+@pytest.mark.parametrize("L,body", [(80, "t80"), (64, "t64"),
+                                    (20, "runtime_t"), (1, "runtime_t"),
+                                    (256, "runtime_t")])
+def test_plain_corr_body(L, body):
+    """The plain correlation's body follows the template's length alone:
+    m10's 80 and 64 compiled in, every other length at run time."""
+    assert plain_corr_body(L) == body
+
+
+@pytest.mark.parametrize("case", ["no-taps", "too-many-taps", "short-rows",
+                                  "float64", "float16", "int32", "one-dim"])
+def test_plain_corr_refuses_bad_arguments(case):
+    """The wrapper checks its arguments before it picks the twin or the
+    kernel, so the CPU refuses what the card would: 1 to 256 taps, rows at
+    least as long as the template, float32 or bfloat16 rows of [C, n]."""
+    x, t = torch.zeros((2, 300)), np.ones(16, np.float32)
+    exc, match = ValueError, "taps"
+    if case == "no-taps":
+        t = np.ones(0, np.float32)
+    elif case == "too-many-taps":
+        t = np.ones(CORR_MAX_TAPS + 1, np.float32)
+    elif case == "short-rows":
+        x, match = torch.zeros((2, 15)), "shorter"
+    elif case == "one-dim":
+        x, match = torch.zeros(300), r"\[C, n\]"
+    else:
+        x = x.to(getattr(torch, case))
+        exc, match = TypeError, "dtype"
+    with pytest.raises(exc, match=match):
+        plain_corr(x, t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [16, 20, 24, 32, 64, 80, 100])
+def test_plain_corr_on_the_cpu_is_the_plain_formula(dtype, L):
+    """CPU tensors run the plain formula, conv1d / L, bit for bit (as int32
+    patterns), for every family's template length and a run-time one,
+    launch nothing, and give what correlate_syncword gives; a bfloat16
+    row and a non-sign template take the taps rounded to bfloat16."""
+    rng = np.random.default_rng(L)
+    x = T(rng.normal(size=(3, 1001)).astype(np.float32)).to(dtype)
+    x[:, ::7] = -0.0
+    t = (rng.normal(size=L) if L == 100 else
+         rng.integers(0, 2, size=L) * 2.0 - 1.0).astype(np.float32)
+    want = conv1d(x, t) / torch.full((), float(L))
+    before = cuda.launches["plain_corr"]
+    got = plain_corr(x, t)
+    assert cuda.launches["plain_corr"] == before
+    assert got.dtype == torch.float32 and got.shape == (3, 1001 - L + 1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       plain_corr_plain(x, t).view(torch.int32))
+    assert torch.equal(got.view(torch.int32),
+                       tcorrelator.correlate_syncword(x, t).view(torch.int32))
+
+
+def test_plain_corr_zero_row_gives_positive_zero():
+    """Tap 0's product is added to a zero accumulator, as conv1d's is: a
+    zero row against an all-negative template sums -0 products to +0."""
+    x = torch.zeros((2, 200))
+    got = plain_corr(x, -np.ones(80, np.float32))
+    assert torch.equal(got.view(torch.int32), torch.zeros_like(
+        got, dtype=torch.int32))
+
+
+def test_plain_corr_refuses_unsupported_devices():
+    with pytest.raises(ValueError, match="unsupported device"):
+        plain_corr(torch.empty((4, 200), device="meta"),
+                   np.ones(80, np.float32))
 
 
 # --- the pipelines on the kernel path ------------------------------------------

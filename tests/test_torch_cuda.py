@@ -42,7 +42,9 @@ from sondetpu_torch.kernels.frontend import (HALO, WALK_EDGE_CASES,
                                              fused_demod_fir_plain,
                                              fused_frontend,
                                              fused_frontend_plain)
-from sondetpu_torch.kernels.lane_fir import lane_fir, lane_fir_plain
+from sondetpu_torch.kernels.lane_fir import (lane_fir, lane_fir_plain,
+                                             plain_corr, plain_corr_body,
+                                             plain_corr_plain)
 from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                              rs_clean_plain)
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
@@ -255,6 +257,27 @@ def _card_equals_cpu(cfg, device, planes, n_blocks):
     return gs, cs, frames
 
 
+def _plain_corr_bodies(cfg, steps):
+    """The plain correlation kernel's launches by body in ``steps`` steps
+    of a pipeline of ``cfg``: one a template a step, of the body its length
+    names, on every route but the fused front end's (which runs K2)."""
+    if tpipe._route(cfg) == "fused":
+        return {}
+    out = {}
+    for t in tpipe.Pipeline(cfg, CPU)._np_templates:
+        key = "plain_corr:" + plain_corr_body(len(t))
+        out[key] = out.get(key, 0) + steps
+    return out
+
+
+def _only_plain_corr(cfg, steps):
+    """True when the plain correlation kernel is the only hand kernel
+    launched since the counts were reset, once a template a step."""
+    want = sum(_plain_corr_bodies(cfg, steps).values())
+    return ({k: v for k, v in cuda.launches.items() if v}
+            == {"plain_corr": want})
+
+
 def test_cuda_pipeline_matches_cpu(cuda_device):
     """The RS41 kernel path on the card equals the CPU's (twins) on valid
     slots, byte for byte, 8 channels with three serials over 3 blocks."""
@@ -270,7 +293,8 @@ def test_cuda_pipeline_matches_cpu(cuda_device):
 def test_cuda_plain_path_matches_cpu(cuda_device):
     """The bf16 plain-op RS41 step (use_pallas=False) on the card equals
     the CPU's on validity, valid frame bytes and RS verdicts, 8 channels
-    with three serials over 3 blocks, and launches no hand kernel."""
+    with three serials over 3 blocks, and launches no hand kernel but the
+    plain correlation, once a block."""
     cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
                                use_pallas=False, compute_dtype="bf16",
                                input_dtype="i16")
@@ -278,7 +302,7 @@ def test_cuda_plain_path_matches_cpu(cuda_device):
     gs, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)),
                                      3)
     assert gs.chipbuf.dtype == torch.bfloat16 and frames >= 3 * 8
-    assert not any(cuda.launches.values()), cuda.launches
+    assert _only_plain_corr(cfg, 3), cuda.launches
 
 
 DUALTONE_SERIALS = {"m10": ("910-2-12345", "A05-3-54321", "C12-1-00042"),
@@ -319,8 +343,9 @@ def _dualtone_rows(sonde, n_blocks, c=8):
 def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
     """ims100 and mrzn1 on the kernel path, 8 channels with three serials,
     3 blocks: the card equals the CPU on validity and valid frame bytes,
-    K7's channel-filter body (its _afc body with afc) once a block; with
-    afc the tracked frequencies within AFC_HZ of the CPU's."""
+    K7's channel-filter body (its _afc body with afc) and the plain
+    correlation once a block; with afc the tracked frequencies within
+    AFC_HZ of the CPU's."""
     cfg = tpipe.PipelineConfig(sonde=sonde, channels=8, block_len=BLOCK,
                                use_pallas=True, input_dtype="i16", afc=afc)
     cuda.reset_launches()
@@ -329,7 +354,8 @@ def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
     assert frames >= 3 * 8
     body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
             + ("_afc" if afc else ""))
-    assert cuda.body_launches == {body: 3}, cuda.body_launches
+    assert cuda.body_launches == {body: 3, **_plain_corr_bodies(cfg, 3)}, \
+        cuda.body_launches
     if afc:
         torch.testing.assert_close(gs.aux[-1].cpu(), cs.aux[-1], rtol=0,
                                    atol=AFC_HZ)
@@ -340,7 +366,8 @@ def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
 def test_cuda_plain_dualtone_matches_cpu(cuda_device, sonde, dtype):
     """The plain-op dual-tone step (use_pallas=False) on the card equals
     the CPU's on validity and valid frame bytes, 8 channels with three
-    serials over 3 blocks, and launches no hand kernel."""
+    serials over 3 blocks, and launches no hand kernel but the plain
+    correlation (m10: its syncword and alternate), once a block."""
     cfg = tpipe.PipelineConfig(sonde=sonde, channels=8, block_len=BLOCK,
                                use_pallas=False, compute_dtype=dtype,
                                input_dtype="i16")
@@ -350,7 +377,7 @@ def test_cuda_plain_dualtone_matches_cpu(cuda_device, sonde, dtype):
     assert frames >= 3 * 8
     assert gs.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
                                 else torch.float32)
-    assert not any(cuda.launches.values()), cuda.launches
+    assert _only_plain_corr(cfg, 3), cuda.launches
 
 
 @pytest.mark.parametrize("sonde", ["rs41", "m10"])
@@ -734,9 +761,11 @@ _ROUTED = {
 def test_cuda_routed_configs_match_cpu(cuda_device, case):
     """Each config on the card equals the CPU (twins) on validity, valid
     frame bytes and RS verdicts block by block, and launches exactly the
-    bodies of its route: none where a kernel gate fails (12 channels, a
-    200-sample block, a block the AFSK tones' period does not divide) or
-    use_pallas is off (the jnp AFSK front end); K1 and K7 with
+    bodies of its route, with the plain correlation once a template a
+    block on every route but the fused one: no other where a kernel gate
+    fails (12 channels, a 200-sample block, a block the AFSK tones' period
+    does not divide) or use_pallas is off (the jnp AFSK front end); K1 and
+    K7 with
     linear_interp at 50 and 48.1 kHz; the bfloat16 bodies of K7, and of K1
     with K2 on the widened bfloat16 ring on m10's FM fallback (m10's
     80-chip template and M20's 64-chip alternate)."""
@@ -766,9 +795,11 @@ def test_cuda_routed_configs_match_cpu(cuda_device, case):
         assert torch.equal(go.rs_clean.cpu(), co.rs_clean)
         frames += int(v.sum())
     assert frames >= cfg.channels
-    assert cuda.body_launches == {k: n_blocks * v for k, v in bodies.items()}
+    assert cuda.body_launches == {
+        **{k: n_blocks * v for k, v in bodies.items()},
+        **_plain_corr_bodies(cfg, n_blocks)}
     if not bodies:
-        assert not any(cuda.launches.values()), cuda.launches
+        assert _only_plain_corr(cfg, n_blocks), cuda.launches
 
 
 def test_cuda_bf16_fleet_with_afsk_bins_matches_cpu(cuda_device):
@@ -960,6 +991,137 @@ def test_cuda_correlate_syncword_divides_by_l(cuda_device, name, tmpl):
     want = (conv1d(T(chips), tmpl).double() / len(tmpl)).float()
     assert torch.equal(got, want)
     assert torch.equal(got, tcorrelator.correlate_syncword(T(chips), tmpl))
+
+
+# the plain correlation kernel: every family's template length (c50 16,
+# imet4 20, ims100 and mrzn1 24, dfm 32, rs41 and m10's alternate 64, m10
+# 80) and a run-time length above 80
+_PLAIN_CORR_LENGTHS = (16, 20, 24, 32, 64, 80, 100)
+
+
+def _plain_corr_rows(rng, c, ln, dtype, device, offset=0, pad=0):
+    """[c, ln] rows of normal values with +0 and -0 spread through them, as
+    a view starting ``offset`` elements into a buffer with ``pad`` extra
+    columns a row (so a row stride of ln + pad)."""
+    flat = rng.normal(size=c * (ln + pad) + offset).astype(np.float32)
+    flat[::5] = 0.0
+    flat[2::9] = -0.0
+    buf = T(flat).to(device, dtype)
+    return buf[offset:].view(c, ln + pad)[:, :ln]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", _PLAIN_CORR_LENGTHS)
+def test_cuda_plain_corr_bit_equal(cuda_device, L, dtype):
+    """The plain correlation kernel equals the plain formula (conv1d / L)
+    bit for bit, compared as int32 patterns, on the card and against the
+    CPU: rows a multiple of 4 long and not, more than one tile, a row view
+    that starts off 16 bytes and one with a row stride of its own; a sign
+    template and, at the run-time length, a template of normal taps (which
+    a bfloat16 row takes rounded to bfloat16). One launch a call, of the
+    body its length names."""
+    rng = np.random.default_rng(100 + L)
+    t = (rng.normal(size=L) if L == 100 else
+         rng.integers(0, 2, size=L) * 2.0 - 1.0).astype(np.float32)
+    body = f"plain_corr:{plain_corr_body(L)}"
+    for c, ln, offset, pad in ((6, 4096, 0, 0), (3, 3840 * 2 + L + 6, 0, 0),
+                               (5, 2001, 0, 0), (4, 5000, 1, 0),
+                               (3, 4099, 0, 3), (1, L, 0, 0)):
+        x = _plain_corr_rows(rng, c, ln, dtype, cuda_device, offset, pad)
+        cuda.reset_launches()
+        got = plain_corr(x, t)
+        assert cuda.body_launches == {body: 1}
+        assert cuda.launches["plain_corr"] == 1
+        want = plain_corr_plain(x, t)
+        assert torch.equal(_bits(got), _bits(want)), (c, ln, offset, pad)
+        cpu = plain_corr_plain(x.cpu(), t)
+        assert torch.equal(_bits(got).cpu(), _bits(cpu)), (c, ln, offset, pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_plain_corr_zero_row_sign(cuda_device, dtype):
+    """A zero row against an all-negative template: every product is -0,
+    added to a +0 accumulator, so the card gives +0 as conv1d does (a
+    first product not added to zero would give -0)."""
+    x = torch.zeros((3, 4000), dtype=dtype, device=cuda_device)
+    for L in (80, 64, 24):
+        got = plain_corr(x, -np.ones(L, np.float32))
+        assert torch.equal(_bits(got), torch.zeros_like(_bits(got)))
+        assert torch.equal(_bits(got), _bits(plain_corr_plain(x, -np.ones(
+            L, np.float32))))
+
+
+def test_cuda_correlate_syncword_runs_the_kernel(cuda_device, tmp_path):
+    """correlate_syncword on the card is one launch of the kernel a
+    template (m10's, on a bfloat16 ring), with no copy to the card and no
+    synchronizing call."""
+    rng = np.random.default_rng(3)
+    chips = T((rng.integers(0, 2, size=(16, 9600)) * 2 - 1).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    tmpl = tm10.SPEC.sync_chip_template()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("probe.corr"):
+            got = tcorrelator.correlate_syncword(chips, tmpl)
+        torch.cuda.synchronize()
+    assert cuda.body_launches == {"plain_corr:t80": 1}
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    calls = _runtime_calls_in(path, "probe.corr")
+    assert not [n for n in calls if n.startswith("cudaMemcpy")
+                or n.endswith("Synchronize")], calls
+    assert torch.equal(_bits(got), _bits(plain_corr_plain(chips, tmpl)))
+
+
+def _runtime_calls_in(trace_path, span_name):
+    """The CUDA runtime calls that start inside a range named ``span_name``
+    in a chrome trace, as names."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("name") == span_name]
+    assert spans, f"no {span_name} span in the trace"
+    return [e["name"] for e in events
+            if e.get("ph") == "X"
+            and e.get("cat") == "cuda_runtime"
+            and any(a <= e["ts"] < b for a, b in spans)]
+
+
+def test_cuda_fleet_m10_group_corr_is_two_launches(cuda_device, tmp_path):
+    """One step of a bf16 fleet with an m10 group (the benchmark fleet's
+    dtype): m10's correlation is exactly two launches of the plain
+    correlation kernel (its syncword, L = 80, and its alternate, L = 64),
+    and ``sondetpu.corr`` makes no copy to the card and no synchronizing
+    call."""
+    chans = [FleetChannel(b, s) for b, s in FLEET_PLAN]
+    assert "m10" in {s for _, s in FLEET_PLAN}
+    fleet = FleetSession(chans, N_BINS, cuda_device, compute_dtype="bf16")
+    wide = _fleet_wideband()[:N_BINS * BLOCK]
+    wi = T(np.ascontiguousarray(wide.real, np.float32)).to(cuda_device)
+    wq = T(np.ascontiguousarray(wide.imag, np.float32)).to(cuda_device)
+    fleet.step(wi, wq)                       # warm: builds the library
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fleet.step(wi, wq)
+        torch.cuda.synchronize()
+    assert cuda.launches["plain_corr"] == 2
+    assert {k: v for k, v in cuda.body_launches.items()
+            if k.startswith("plain_corr")} == {"plain_corr:t80": 1,
+                                               "plain_corr:t64": 1}
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    calls = _runtime_calls_in(path, "sondetpu.corr")
+    assert not [n for n in calls if n.startswith("cudaMemcpy")
+                or n.endswith("Synchronize")], calls
+    assert sum(n.startswith("cudaLaunch") for n in calls) >= 2, calls
 
 
 # --- the command line's device pieces ----------------------------------------
