@@ -18,6 +18,13 @@ filtered plane by plane (real, then imaginary, as the original's
 ``_apply_windows`` does), and ``fir_apply`` over chunks is ``torch.equal``
 to ``fir_filter`` over the whole stream, since every output sums its own
 window in the same order.
+
+``tap_passes`` counts the passes that ``apply_windows`` makes, one a tap
+(a product and an in-place sum over the whole output): the plain-op
+front end's filters make them, 123 a step of RS41 at 41 taps. The kernels'
+plain twins filter through ``window_sum``, which counts none, as their
+kernels make none on the card. A run resets it with
+:func:`reset_tap_passes` and reads it afterwards.
 """
 
 from __future__ import annotations
@@ -26,6 +33,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+tap_passes = {"apply_windows": 0}
+
+
+def reset_tap_passes() -> None:
+    for k in tap_passes:
+        tap_passes[k] = 0
 
 
 def _blackman_harris(n: int) -> np.ndarray:
@@ -137,7 +151,13 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     """[C, n + ntaps - 1] padded input -> [C, n // stride] causal FIR
     ``y[m] = sum_u taps[u] * xp[m*stride + ntaps - 1 - u]``, summed in
     ascending u with every operation rounded on its own (see
-    :func:`conv1d`)."""
+    :func:`conv1d`); counted in ``tap_passes``."""
+    tap_passes["apply_windows"] += len(taps)
+    return window_sum(xp, taps, stride)
+
+
+def window_sum(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
+    """:func:`apply_windows` uncounted: the kernels' plain twins."""
     h = _taps(taps, xp)
     ntaps = h.shape[0]
     n_out = (xp.shape[-1] - ntaps) // stride + 1

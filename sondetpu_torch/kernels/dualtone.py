@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sondetpu_torch.dsp.fir import apply_windows
+from sondetpu_torch.dsp.fir import window_sum
 from sondetpu_torch.kernels import cuda
 from sondetpu_torch.kernels.frontend import HALO, input_dtype
 
@@ -76,7 +76,7 @@ def fused_dualtone_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, tab_cos,
         xw = torch.cat([tail, x], dim=-1).to(torch.float32)
         if skip_chanfilt:
             return xw[:, HALO - nb:]
-        return apply_windows(xw[:, HALO - nb - (T - 1):], chan_taps)
+        return window_sum(xw[:, HALO - nb - (T - 1):], chan_taps)
 
     cf_i = chanfilt(tail_i, iq_i)
     cf_q = chanfilt(tail_q, iq_q)

@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from sondetpu_torch.dsp.fir import apply_windows
+from sondetpu_torch.dsp.fir import window_sum
 from sondetpu_torch.kernels import cuda
 
 HALO = 256   # raw input samples carried per plane (the JAX package's HALO:
@@ -150,7 +150,7 @@ def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
         # widened first: float32 arithmetic and float32 taps on either
         # input type
         xcat = torch.cat([tail, x], dim=-1)[:, s0:].to(torch.float32)
-        return apply_windows(xcat, chan_taps, stride=decim)[:, :nproc + T]
+        return window_sum(xcat, chan_taps, stride=decim)[:, :nproc + T]
 
     cf_i = chanfilt(tail_i, iq_i)
     cf_q = chanfilt(tail_q, iq_q)
@@ -159,7 +159,7 @@ def fused_frontend_plain(iq_i, iq_q, tail_i, tail_q, chan_taps, match_taps,
     audio = fast_atan2(dim, dre) * torch.tensor(scale, dtype=torch.float32,
                                                 device=iq_i.device)
     # audio[g] for g in [-(T-1), nproc)
-    filt = apply_windows(audio, match_taps)
+    filt = window_sum(audio, match_taps)
     dc = torch.sum(audio[:, T - 1:], dim=-1) / torch.full(
         (), float(nproc), dtype=torch.float32, device=audio.device)
     if dc_block:
@@ -260,7 +260,7 @@ def fused_demod_fir_plain(iq_i, iq_q, prev, atail, taps, scale: float,
         scale, dtype=torch.float32, device=iq_i.device)
     if dc_block:
         audio = audio - torch.mean(audio, dim=-1, keepdim=True)
-    filt = apply_windows(torch.cat([atail, audio], dim=-1), taps)
+    filt = window_sum(torch.cat([atail, audio], dim=-1), taps)
     return filt, audio[:, n - (T - 1):].contiguous()
 
 

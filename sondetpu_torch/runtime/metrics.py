@@ -15,6 +15,15 @@ pipeline's and the fleet's step and of the session's block. While a
 traced run, or an operator's own), each span is a ``record_function``
 range in its trace, on the clock of the kernels, copies and CUDA runtime
 calls it launched; otherwise it is one shared no-op context.
+
+The vocabulary: the entries ``sondetpu.step`` and ``sondetpu.fleet.step``;
+inside the fleet's, ``sondetpu.fleet.pfb``, ``sondetpu.group.<sonde>`` and
+``sondetpu.fleet.pack``; the pipeline's stages ``sondetpu.ingest``,
+``.ddc``, ``.frontend``, ``.afc``, ``.timing``, ``.sample``, ``.ring``,
+``.corr``, ``.peaks``, ``.gather``, ``.syndrome`` and ``.pack``; inside
+``sondetpu.frontend`` on the plain-op path ``sondetpu.chanfilt``,
+``.demod`` and ``.matched``; and the session's ``sondetpu.session.step``,
+``.readback``, ``.decode`` and ``.fetch``.
 """
 
 from __future__ import annotations

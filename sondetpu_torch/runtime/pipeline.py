@@ -893,58 +893,66 @@ class Pipeline:
         the residual offset the AFC loop reads in audio/dev units or None
         when neither dc_block nor afc is set, the AFSK aux or ()); with
         profile_stop "chanfilt" the original's sum of the filtered planes
-        instead."""
+        instead. Its stages are the spans ``sondetpu.chanfilt``,
+        ``sondetpu.demod`` (the discriminator or the dual-tone metric, the
+        DC, and the AFSK mix and boxcar) and ``sondetpu.matched``."""
         c = self.config
         cdt, f32 = self._cdt, torch.float32
         h = c.ntaps - 1
         iq_i, iq_q = planes
         planes.clear()
-        # the carried tails as copies: views would keep the whole block
-        # alive until the next step
-        tail_i, tail_q = iq_i[:, -h:].contiguous(), iq_q[:, -h:].contiguous()
-        ci, cq = iq_i, iq_q
-        if not self._skip_chanfilt:
-            ci = apply_windows(torch.cat([state.chan_tail_i, iq_i], dim=-1),
-                               self._chan_taps, stride=c.decim).to(cdt)
-            cq = apply_windows(torch.cat([state.chan_tail_q, iq_q], dim=-1),
-                               self._chan_taps, stride=c.decim).to(cdt)
-        del iq_i, iq_q
-        if c.profile_stop == "chanfilt":
-            return torch.sum(ci) + torch.sum(cq)
-        fm_prev = torch.stack([ci[:, -1], cq[:, -1]], dim=-1)
-        rot_dc = None
-        if self._dualtone:
-            audio, fir, rot_dc = self._plain_dualtone(state.fir, ci, cq)
-        else:
-            ip = torch.cat([state.fm_prev[:, 0:1], ci[:, :-1]], dim=-1).to(f32)
-            qp = torch.cat([state.fm_prev[:, 1:2], cq[:, :-1]], dim=-1).to(f32)
-            ii, qq = ci.to(f32), cq.to(f32)
-            audio = torch.atan2(qq * ip - ii * qp,
-                                ii * ip + qq * qp) * self._scale_t
-            del ip, qp, ii, qq
-        del ci, cq
-        dc = None
-        if c.dc_block or c.afc:
-            # jnp.mean: the sum over a divisor on the device (CUDA
-            # multiplies by the reciprocal of a Python number)
-            dc = (midpoint_dc(audio) if self._midpoint
-                  else torch.sum(audio, dim=-1) / torch.full(
-                      (), float(audio.shape[-1]), dtype=f32,
-                      device=audio.device))
-        if c.dc_block:
-            audio = audio - dc[:, None]
-        aux = ()
-        if self._afsk:
-            filt, aux = self._plain_afsk(state.aux, audio)
-            fir = state.fir
-        elif self._dualtone:
-            # the envelope metric is already matched-filtered
+        with span("sondetpu.chanfilt"):
+            # the carried tails as copies: views would keep the whole block
+            # alive until the next step
+            tail_i = iq_i[:, -h:].contiguous()
+            tail_q = iq_q[:, -h:].contiguous()
+            ci, cq = iq_i, iq_q
+            if not self._skip_chanfilt:
+                ci = apply_windows(torch.cat([state.chan_tail_i, iq_i],
+                                             dim=-1),
+                                   self._chan_taps, stride=c.decim).to(cdt)
+                cq = apply_windows(torch.cat([state.chan_tail_q, iq_q],
+                                             dim=-1),
+                                   self._chan_taps, stride=c.decim).to(cdt)
+            del iq_i, iq_q
+            if c.profile_stop == "chanfilt":
+                return torch.sum(ci) + torch.sum(cq)
+        fir, rot_dc, dc, aux = state.fir, None, None, ()
+        with span("sondetpu.demod"):
+            fm_prev = torch.stack([ci[:, -1], cq[:, -1]], dim=-1)
+            if self._dualtone:
+                audio, fir, rot_dc = self._plain_dualtone(state.fir, ci, cq)
+            else:
+                ip = torch.cat([state.fm_prev[:, 0:1], ci[:, :-1]],
+                               dim=-1).to(f32)
+                qp = torch.cat([state.fm_prev[:, 1:2], cq[:, :-1]],
+                               dim=-1).to(f32)
+                ii, qq = ci.to(f32), cq.to(f32)
+                audio = torch.atan2(qq * ip - ii * qp,
+                                    ii * ip + qq * qp) * self._scale_t
+                del ip, qp, ii, qq
+            del ci, cq
+            if c.dc_block or c.afc:
+                # jnp.mean: the sum over a divisor on the device (CUDA
+                # multiplies by the reciprocal of a Python number)
+                dc = (midpoint_dc(audio) if self._midpoint
+                      else torch.sum(audio, dim=-1) / torch.full(
+                          (), float(audio.shape[-1]), dtype=f32,
+                          device=audio.device))
+            if c.dc_block:
+                audio = audio - dc[:, None]
+            if self._afsk:
+                audio, aux = self._plain_afsk(state.aux, audio)
+        if self._afsk or self._dualtone:
+            # the AFSK soft chips and the envelope metric are already
+            # matched-filtered
             filt = audio
         else:
-            xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
-            del audio
-            filt = apply_windows(xp, self._taps)
-            fir = FIRState(tail=xp[:, -h:].contiguous())
+            with span("sondetpu.matched"):
+                xp = torch.cat([state.fir.tail, audio.to(cdt)], dim=-1)
+                del audio
+                filt = apply_windows(xp, self._taps)
+                fir = FIRState(tail=xp[:, -h:].contiguous())
         return (filt, tail_i, tail_q, fm_prev, fir,
                 rot_dc if rot_dc is not None else dc, aux)
 

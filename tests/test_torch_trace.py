@@ -16,6 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from benchmark.harness import catalog, spans, trace
+from sondetpu_torch.dsp import fir
 from sondetpu_torch.runtime import metrics
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
@@ -124,6 +125,48 @@ def test_step_spans_in_order_and_outputs_bit_equal(kw, head, tmp_path):
     for name, ts, dur, tid, chain in sp:
         want = name if name == "sondetpu.step" else "sondetpu.step>" + name
         assert chain == want
+
+
+PLAIN_FRONTEND = ("sondetpu.chanfilt", "sondetpu.demod", "sondetpu.matched")
+
+
+def test_plain_frontend_spans_and_outputs_bit_equal(tmp_path):
+    """On the plain-op path (``use_pallas`` false) the front end's three
+    stages nest inside ``sondetpu.frontend``, once a step each."""
+    cfg = PipelineConfig(sonde="rs41", channels=C, block_len=BLOCK,
+                         input_dtype="i16")
+    planes = _planes(2)
+    plain = _steps(Pipeline(cfg, "cpu"), planes, 2)
+    pipe = Pipeline(cfg, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = _steps(pipe, planes, 2)
+    _assert_bit_equal(plain, traced)
+    assert bool(traced[1][-1].frame_valid.any())
+    sp = _program_spans(prof, tmp_path)
+    assert [s[0] for s in sp] == (
+        ["sondetpu.step", "sondetpu.ingest", "sondetpu.ingest",
+         STAGES[0]] + list(PLAIN_FRONTEND) + list(STAGES[1:])) * 2
+    chains = [s[4] for s in sp]
+    for name in PLAIN_FRONTEND:
+        assert chains.count(
+            "sondetpu.step>sondetpu.frontend>" + name) == 2, chains
+
+
+@pytest.mark.parametrize("use_pallas,passes", [(False, 123), (True, 0)],
+                         ids=["plain", "kernel"])
+def test_tap_passes_a_step(use_pallas, passes):
+    """``apply_windows``' passes: 41 a tap set for each of the channel
+    filter's two planes and the matched FIR on the plain-op path; none on
+    the kernel route, whose CPU twins filter uncounted."""
+    pipe = Pipeline(PipelineConfig(sonde="rs41", channels=C,
+                                   block_len=BLOCK, input_dtype="i16",
+                                   use_pallas=use_pallas), "cpu")
+    planes = _planes(1)
+    fir.reset_tap_passes()
+    _steps(pipe, planes, 1)
+    assert fir.tap_passes == {"apply_windows": passes}
+    fir.reset_tap_passes()
+    assert fir.tap_passes == {"apply_windows": 0}
 
 
 def test_fleet_stage_spans_nest_under_their_group(tmp_path):
