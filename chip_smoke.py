@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # env, build and step profiles only
     python3 chip_smoke.py --tune       # env, build, K2/K7/K10/K9 per R, K3 per F
+    python3 chip_smoke.py --plain-fir  # env, build, the plain filter, plain steps
     python3 chip_smoke.py --profile-pfb  # env, build, the PFB's bodies split
     python3 chip_smoke.py --profile-k7   # env, build, K7's chanfilt split
     python3 chip_smoke.py --profile-k1 [VARIANT ...]  # K1's bodies split
@@ -46,7 +47,10 @@ before the result line:
    shapes. plain_correlation holds the plain correlation kernel (K10's
    second entry, every route's correlation but the fused front end's) to
    the plain formula bit for bit in each body, float32 and bfloat16, timed
-   at m10's fleet ring, and checks that it divides by L.
+   at m10's fleet ring, and checks that it divides by L. plain_fir holds
+   the plain-op front end's filter (K10's third entry, apply_windows on
+   the card) to window_sum bit for bit in each body, float32 and
+   bfloat16, timed at the RS41 plain step's two filter shapes.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's and body's
    launch count read from that run alone; then an 8-channel run with three
@@ -62,7 +66,9 @@ before the result line:
     default shape; the JAX bench's default in bf16) through DecoderSession
     at 2048 channels x 4 s, 3 blocks in bf16 and in f32: serial S1234567
     and the same telemetry on every channel, no hand kernel launched but
-    the plain correlation once a step, the chip ring in the compute dtype; each with its steady step (plain_step)
+    the plain correlation once a step and the plain filter three times (the
+    two channel-filter planes, the matched filter), the chip ring in the
+    compute dtype; each with its steady step (plain_step)
     beside the card's name and power limit. Then plain_distinct, 8 channels
     of RS41 with three serials in bf16, card against CPU as in 4; one
     rs41x block in bf16 at 2048 channels; and 8 channels of dfm (three
@@ -104,7 +110,8 @@ before the result line:
     and telemetry equal.
 16. plain_dualtone: m10, ims100 and mrzn1 on the plain-op step
     (use_pallas=False) in f32 and bf16, 8 channels with four truths, card
-    against CPU, no hand kernel but the plain correlation; then the
+    against CPU, no hand kernel but the plain correlation and the plain
+    filter; then the
     2048-channel m10 bf16 plain step
     (plain_dualtone_step) and its peak memory.
 17. bf16 kernels (in the kernel phase): every K1 and K7 body on bfloat16
@@ -132,7 +139,7 @@ before the result line:
 19. plain_afsk_path: imet4 and c50 on the jnp AFSK front end
     (use_pallas=False, the JAX CLI's default, f32) at 2048 channels x 4 s,
     2 blocks: the truth on every channel, no hand kernel but the plain
-    correlation; plain_afsk_step;
+    correlation and the plain filter; plain_afsk_step;
     plain_afsk_distinct, 8 channels with four truths, card against CPU.
 20. ims100_bf16 and m10_fallback_bf16: ims100 on K7's
     chanfilt_t41_nb20_bf16 body,
@@ -365,15 +372,21 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def plain_corr_bodies(cfg, steps: int) -> dict:
-    """The plain correlation kernel's launches by body in ``steps`` steps
-    of a pipeline of ``cfg``: one a template a step (the syncword, then its
-    alternates, as ``Pipeline`` lists them), of the body its length names,
-    on every route but the fused front end's, which correlates with K2."""
-    from sondetpu_torch.kernels.lane_fir import plain_corr_body
-    from sondetpu_torch.runtime.pipeline import _route
+def plain_route_bodies(cfg, steps: int) -> dict:
+    """The launches by body in ``steps`` steps of a pipeline of ``cfg`` of
+    the two kernels that stand in for plain ops. The plain correlation: one
+    a template a step (the syncword, then its alternates, as ``Pipeline``
+    lists them), of the body its length names, on every route but the
+    fused front end's, which correlates with K2. On the plain-op route the
+    plain filter too, one a filter a step: the channel filter's two planes
+    (unless the dual-tone gate skips it), then the matched filter, the
+    dual-tone boxcar over its four planes or the AFSK boxcar's four."""
+    from sondetpu_torch.kernels.lane_fir import plain_corr_body, plain_fir_body
+    from sondetpu_torch.runtime.pipeline import (_afsk_params,
+                                                 _dualtone_gates, _route)
 
-    if _route(cfg) == "fused":
+    route = _route(cfg)
+    if route == "fused":
         return {}
     spec = cfg.spec
     lengths = [len(spec.sync_chip_template())]
@@ -383,18 +396,37 @@ def plain_corr_bodies(cfg, steps: int) -> dict:
     lengths += [len(spec.sync_chip_template(bits=np.asarray(b)))
                 for b in spec.extra.get("alt_sync_bits", ())]
     out = {}
+
+    def add(key, n):
+        out[key] = out.get(key, 0) + n * steps
+
     for length in lengths:
-        key = "plain_corr:" + plain_corr_body(length)
-        out[key] = out.get(key, 0) + steps
+        add("plain_corr:" + plain_corr_body(length), 1)
+    if route is None:
+        if not _dualtone_gates(cfg)[1]:
+            add("plain_fir:" + plain_fir_body(cfg.ntaps, cfg.decim), 2)
+        if spec.modulation == "afsk":
+            add("plain_fir:" + plain_fir_body(_afsk_params(cfg)[0], 1), 4)
+        else:
+            add("plain_fir:" + plain_fir_body(cfg.ntaps, 1), 1)
     return out
 
 
-def plain_corr_only(launches, cfg, steps: int) -> bool:
-    """True when the plain correlation kernel is the only hand kernel in
-    ``launches``, once a template a step (the plain-op route's)."""
-    want = sum(plain_corr_bodies(cfg, steps).values())
+def kernel_launches(bodies: dict) -> dict:
+    """Launches by kernel of launches by "kernel:body"."""
+    out = {}
+    for key, n in bodies.items():
+        kernel = key.split(":")[0]
+        out[kernel] = out.get(kernel, 0) + n
+    return out
+
+
+def plain_kernels_only(launches, cfg, steps: int) -> bool:
+    """True when the plain correlation and the plain filter are the only
+    hand kernels in ``launches``, as often as :func:`plain_route_bodies`
+    says."""
     return ({k: v for k, v in launches.items() if v}
-            == ({"plain_corr": want} if want else {}))
+            == kernel_launches(plain_route_bodies(cfg, steps)))
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -982,7 +1014,7 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4,
     ozone reading of RS41X_O3 mPa (K3's second shape). With ``dtype``
     ("f32" or "bf16"), the plain-op step instead (use_pallas=False, in that
     compute dtype), which launches no hand kernel but the plain
-    correlation's, once a step."""
+    correlation's, once a step, and the plain filter's, three times."""
     from sondetpu_torch.fec import native
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
@@ -1037,7 +1069,7 @@ def phase_main_path(torch, dev, sonde: str = "rs41", n_blocks: int = 4,
               == ref_text for ch in range(CHANNELS)),
           f"{label}: telemetry differs between identical channels")
     if plain:
-        check(plain_corr_only(launches, cfg, n_blocks),
+        check(plain_kernels_only(launches, cfg, n_blocks),
               f"{label}: hand kernels launched {launches}")
         check(sess.state.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
                                            else torch.float32),
@@ -1140,7 +1172,7 @@ def phase_distinct(torch, dev, sonde: str = "rs41", dtype=None):
                   f"{sonde} channel {ch}: aux {got.aux_data!r}")
     if dtype is not None:
         # two steps a block on the card: the pipeline's and the session's
-        check(plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
+        check(plain_kernels_only(cuda.launches, cfg, 2 * n_blocks),
               f"plain {sonde} {dtype}: hand kernels launched {cuda.launches}")
     emit({"phase": ("plain_distinct" if dtype is not None
                     else "rs41x_distinct" if ext else "distinct_serials"),
@@ -2432,12 +2464,101 @@ def phase_plain_correlation(torch, dev):
     return results
 
 
+def phase_plain_fir(torch, dev):
+    """The plain-op front end's filter on the card: the kernel
+    (``kernels/lane_fir.py:plain_fir``, what ``apply_windows`` launches for
+    a CUDA tensor) equals ``window_sum``'s eager passes bit for bit (int32
+    patterns) at the RS41 plain step's shapes, each timed beside the eager
+    passes and the bound: the channel filter [2048, 192040] at stride 2
+    (body t41_d2, two a step) and the matched filter [2048, 96040] at
+    stride 1 (t41_d1, one a step), float32 and bfloat16 rows with the
+    pipeline's own taps; then on edge shapes in every body (run-time tap
+    counts, a stride of 3, 300 taps in two chained launches, rows not a
+    multiple of 4, a row view off 16 bytes and one with a row stride of
+    its own, one output a row)."""
+    from sondetpu_torch.dsp.fir import window_sum
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.lane_fir import plain_fir, plain_fir_body
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    rs41 = Pipeline(PipelineConfig(sonde="rs41", channels=8,
+                                   block_len=BLOCK_LEN), "cpu")
+    results = {}
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def held(label, x, h, stride):
+        body = "plain_fir:" + plain_fir_body(len(h), stride)
+        before = cuda.body_launches.get(body, 0)
+        got, want = plain_fir(x, h, stride), window_sum(x, h, stride)
+        torch.cuda.synchronize()
+        check(cuda.body_launches.get(body, 0) == before + 1,
+              f"plain_fir {label}: bodies {cuda.body_launches}, expected "
+              f"{body}")
+        check(torch.equal(bits(got), bits(want)),
+              f"plain_fir {label}: not bit-equal to window_sum (err "
+              f"{float((got - want).abs().max())})")
+        return body
+
+    h = rs41.config.ntaps - 1
+    for name, taps, stride, ln in (
+            ("chanfilt", rs41._chan_taps, 2, BLOCK_LEN + h),
+            ("matched", rs41._taps, 1, BLOCK_LEN // 2 + h)):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            x = torch.randn((CHANNELS, ln), generator=gen,
+                            device=dev).to(dtype)
+            label = f"rs41-{name}-{tag}"
+            body = held(label, x, taps, stride)
+            n = (ln - len(taps)) // stride + 1
+            entry = {"phase": "kernel", "name": "plain_fir", "case": label,
+                     "shape": [CHANNELS, ln], "taps": len(taps),
+                     "stride": stride, "body": body, "max_abs_err": 0.0,
+                     "tol": 0,
+                     "ms": cuda_ms(torch, lambda: plain_fir(x, taps, stride),
+                                   20),
+                     "plain_ms": cuda_ms(torch, lambda: window_sum(
+                         x, taps, stride), 3),
+                     **bound(nbytes(x) + 4 * CHANNELS * n,
+                             CHANNELS * n * 2 * len(taps))}
+            results[label] = entry
+            emit(entry)
+            del x
+    rng = np.random.default_rng(24)
+    bodies = set()
+    for ntaps, stride in ((41, 2), (41, 1), (20, 1), (40, 2), (23, 2),
+                          (7, 3), (300, 2)):
+        taps = rng.normal(size=ntaps).astype(np.float32)
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for rows, cols, offset in ((5, stride * 2 * 3840 + ntaps + 6, 0),
+                                       (3, 4099, 1), (7, 9600, 0),
+                                       (2, ntaps, 0)):
+                flat = torch.randn(rows * cols + offset, generator=gen,
+                                   device=dev)
+                flat[::5] = 0.0
+                flat[2::9] = -0.0
+                x = flat.to(dtype)[offset:].view(rows, cols)
+                bodies.add(held(f"t{ntaps}-d{stride}-{tag}-{rows}x{cols}"
+                                f"+{offset}", x, taps, stride))
+            wide = torch.randn((4, 5000), generator=gen, device=dev).to(dtype)
+            held(f"t{ntaps}-d{stride}-{tag}-row-stride", wide[:, 3:4003],
+                 taps, stride)
+    check(bodies == {"plain_fir:t41_d2", "plain_fir:t41_d1",
+                     "plain_fir:runtime_t"},
+          f"plain_fir: bodies launched {bodies}")
+    emit({"phase": "plain_fir", "bodies": sorted(bodies),
+          "bit_equal_to_window_sum": True})
+    torch.cuda.empty_cache()
+    return results
+
+
 def phase_afsk_path(torch, dev, family: str, n_blocks: int,
                     use_pallas: bool = True):
     """One AFSK family through DecoderSession at 2048 channels x 4 s, the
     same signal on every channel; with use_pallas False the jnp AFSK front
     end (the JAX CLI's default), which launches no hand kernel but the
-    plain correlation's."""
+    plain correlation's and the plain filter's."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -2492,14 +2613,14 @@ def phase_afsk_path(torch, dev, family: str, n_blocks: int,
         check(pipe._route is None and len(sess.state.aux) == 5
               and sess.state.aux[4].dtype == torch.int32,
               f"plain {family} path: not the jnp AFSK front end")
-        check(plain_corr_only(launches, cfg, n_blocks),
+        check(plain_kernels_only(launches, cfg, n_blocks),
               f"plain {family} path: hand kernels launched {launches}")
     else:
         # the identity matched taps take the front end's identity body; the
         # AFSK path correlates with the plain correlation, not K2
         check(bodies == {"fused_frontend:decim1_t41_identity": n_blocks,
                          f"fused_afsk_frontend:win{win}": n_blocks,
-                         **plain_corr_bodies(cfg, n_blocks)},
+                         **plain_route_bodies(cfg, n_blocks)},
               f"{family} path: bodies {bodies}")
     emit({"phase": "afsk_path" if use_pallas else "plain_afsk_path",
           "sonde": family, "channels": CHANNELS, "use_pallas": use_pallas,
@@ -2522,7 +2643,7 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3,
     equals the CPU (twins) on validity, valid frame bytes and telemetry,
     and each channel reports its own truth; with use_pallas False on the
     jnp AFSK front end, no hand kernel launched but the plain
-    correlation."""
+    correlation and the plain filter."""
     from sondetpu_torch.kernels import cuda
     from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
     from sondetpu_torch.runtime.session import DecoderSession
@@ -2569,7 +2690,7 @@ def phase_afsk_distinct(torch, dev, n_blocks: int = 3,
                 check(tg.serial == f"C50-{12345 + k}",
                       f"c50 channel {ch}: telemetry {tg.to_dict()}")
         if not use_pallas:
-            check(plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
+            check(plain_kernels_only(cuda.launches, cfg, 2 * n_blocks),
                   f"plain {family} distinct: launches {cuda.launches}")
         out[family] = {"valid_frames": frames,
                        "frames_decoded": gsess.metrics.frames_decoded}
@@ -2703,7 +2824,7 @@ def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
               == ref_text for ch in range(CHANNELS)),
           f"{label}: telemetry differs between identical channels")
     check(dualtone_truth(family, t), f"{label}: telemetry {ref}")
-    corr = plain_corr_bodies(cfg, n_blocks)
+    corr = plain_route_bodies(cfg, n_blocks)
     check(launches["fused_dualtone_frontend"] == n_blocks
           and sum(launches.values()) == n_blocks + sum(corr.values()),
           f"{label}: launches {launches}")
@@ -2803,7 +2924,7 @@ def phase_dualtone_distinct(torch, dev, n_blocks: int = 3):
             body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
                     + ("_afc" if afc else ""))
             check(bodies == {body: 2 * n_blocks,
-                             **plain_corr_bodies(cfg, 2 * n_blocks)},
+                             **plain_route_bodies(cfg, 2 * n_blocks)},
                   f"{label}: bodies {bodies}")
             out[label] = {"valid_frames": frames, "frames_decoded": decoded}
     emit({"phase": "dualtone_distinct", "channels": c, "blocks": n_blocks,
@@ -2830,8 +2951,8 @@ def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
             label = f"plain {family} {dtype}"
             frames, decoded, bodies = card_equals_cpu(
                 torch, dev, cfg, qi, qq, n_blocks, 4, label)
-            check(bodies == plain_corr_bodies(cfg, 2 * n_blocks)
-                  and plain_corr_only(cuda.launches, cfg, 2 * n_blocks),
+            check(bodies == plain_route_bodies(cfg, 2 * n_blocks)
+                  and plain_kernels_only(cuda.launches, cfg, 2 * n_blocks),
                   f"{label}: hand kernels launched {cuda.launches}")
             out[f"{family}_{dtype}"] = {"valid_frames": frames,
                                         "frames_decoded": decoded}
@@ -2855,7 +2976,7 @@ def phase_plain_dualtone(torch, dev, smi, n_blocks: int = 2):
         state, o = pipe.step(state, planes)
         valid.append(int(o.frame_valid.sum()))
     torch.cuda.synchronize()
-    check(plain_corr_only(cuda.launches, cfg, len(blocks)),
+    check(plain_kernels_only(cuda.launches, cfg, len(blocks)),
           f"plain m10 bf16 2048: hand kernels launched {cuda.launches}")
     check(state.chipbuf.dtype == torch.bfloat16 and valid[-1] > 0
           and valid[-1] % CHANNELS == 0,
@@ -3254,7 +3375,7 @@ def phase_bf16_path(torch, dev, family: str, smi, n_blocks: int = 2):
                          use_pallas=True, compute_dtype="bf16",
                          input_dtype="i16")
     # ims100's K7 route correlates with the plain correlation kernel
-    want.update(plain_corr_bodies(cfg, n_blocks))
+    want.update(plain_route_bodies(cfg, n_blocks))
     qi, qq = dualtone_planes(family, n_blocks * block, seed=9)
     row_i = torch.from_numpy(qi).to(dev)
     row_q = torch.from_numpy(qq).to(dev)
@@ -3395,8 +3516,8 @@ def phase_gates(torch, dev):
         torch.cuda.synchronize()
         bodies = dict(cuda.body_launches)
         want = {**{k: 2 * n_blocks * v for k, v in per.items()},
-                **plain_corr_bodies(cfg, 2 * n_blocks)}
-        check(bodies == want and (per or plain_corr_only(
+                **plain_route_bodies(cfg, 2 * n_blocks)}
+        check(bodies == want and (per or plain_kernels_only(
             cuda.launches, cfg, 2 * n_blocks)),
               f"gates {label}: bodies {bodies}, expected {want}")
         for ch in range(cfg.channels):
@@ -3560,6 +3681,7 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                           r"afsk_kernel|dft2048_kernel|"
                           r"pfb_dft_kernel|corr_blocked_kernel|long_kernel|"
                           r"dualtone_kernel|rs_clean_kernel|lane_fir_kernel|"
+                          r"plain_fir_kernel|plain_fir_strided_kernel|"
                           r"demod_audio_kernel|demod_fir_kernel|"
                           r"pfb_fir_kernel|pfb_fir_bf16_kernel|"
                           r"dft2048_bf16_kernel)"
@@ -4126,7 +4248,7 @@ def phase_cli_full_width(torch, dev, smi, channels: int = CHANNELS,
                 check(r["bodies"] == want,
                       f"cli_full_width {key}: bodies {r['bodies']}")
             else:
-                check(plain_corr_only(r["launches"], PipelineConfig(
+                check(plain_kernels_only(r["launches"], PipelineConfig(
                     sonde="rs41", channels=channels, block_len=block_len),
                     n_blocks),
                       f"cli_full_width {key}: kernels {r['launches']}")
@@ -4308,10 +4430,10 @@ def phase_scan(torch, dev, smi, iq: str, n_bins: int, carriers, d: str):
     la = r["launches"]
     blocks = int(os.path.getsize(iq) // (4 * n_bins * 48000))
     check(la["pfb_fir_stream"] == la["pfb_dft"] == min(blocks, 3)
-          and la["plain_corr"] > 0
+          and la["plain_corr"] > 0 and la["plain_fir"] > 0
           and not any(v for name, v in la.items()
                       if name not in ("pfb_fir_stream", "pfb_dft",
-                                      "plain_corr")),
+                                      "plain_corr", "plain_fir")),
           f"scan: launches {la}")
     emit({"phase": "scan", "bins": n_bins, "device": smi,
           "capture_bytes": os.path.getsize(iq), "carriers": found,
@@ -4433,9 +4555,9 @@ def phase_cli_narrowband(torch, dev, smi):
                 steps = -(-sig.size // 48000)
                 # the plain correlation once a template a step on every
                 # route but the fused one (m10, ims100, mrzn1, imet4, c50)
-                corr = sum(plain_corr_bodies(PipelineConfig(
+                corr = kernel_launches(plain_route_bodies(PipelineConfig(
                     sonde=family, channels=8, use_pallas=True),
-                    steps).values())
+                    steps)).get("plain_corr", 0)
                 check(any(r["launches"].values())
                       and r["launches"]["plain_corr"] == corr,
                       f"cli_narrowband {family}: launches {r['launches']}, "
@@ -4791,10 +4913,10 @@ def phase_autofleet(torch, dev, smi, n_bins: int = N_BINS,
     probes = 2 * sum(r["classify_calls"] for r in rescans)
     steps = sum(fleet_steps)
     check(launches["pfb_fir_stream"] == launches["pfb_dft"] == steps + probes
-          and launches["plain_corr"] > 0
+          and launches["plain_corr"] > 0 and launches["plain_fir"] > 0
           and not any(v for name, v in launches.items()
                       if name not in ("pfb_fir_stream", "pfb_dft",
-                                      "plain_corr")),
+                                      "plain_corr", "plain_fir")),
           f"autofleet: launches {launches} (fleet steps {steps}, probe "
           f"blocks {probes})")
     rescan_blocks = {r["after_block"] for r in rescans}
@@ -5156,7 +5278,7 @@ def phase_mesh_plain_bf16(torch, dev, channels: int = 64, n_blocks: int = 2):
         csess.process_block((qi, qq))
     torch.cuda.synchronize()
     # each of the mesh's shards correlates on the card in both steps
-    check(plain_corr_only(cuda.launches, cfg,
+    check(plain_kernels_only(cuda.launches, cfg,
                           2 * mesh.devices.size * n_blocks),
           f"mesh plain bf16: hand kernels launched {dict(cuda.launches)}")
     check(telemetry_text(msess.telemetry) == telemetry_text(csess.telemetry)
@@ -5218,14 +5340,17 @@ def phase_mesh_fleet(torch, dev, smi, n_blocks: int = 3):
     for k, family, serial in FLEET_CARRIERS:
         check(telem.get(k) is not None and telem[k].serial == serial,
               f"mesh_fleet: channel {k} ({family}) telemetry {telem.get(k)}")
-    # every group's shards correlate with the plain correlation kernel
-    corr = mesh2.devices.size * n_blocks * sum(
-        sum(plain_corr_bodies(sess.config, 1).values())
-        for _, (_, sess) in fm.groups.items())
+    # every group's shards correlate with the plain correlation kernel and
+    # filter with the plain filter
+    plain = {}
+    for _, (_, sess) in fm.groups.items():
+        for k, v in kernel_launches(plain_route_bodies(sess.config,
+                                                       1)).items():
+            plain[k] = plain.get(k, 0) + mesh2.devices.size * n_blocks * v
     check(launches["pfb_fir_stream"] == n_blocks == launches["pfb_dft"]
-          and launches["plain_corr"] == corr
-          and sum(launches.values()) == 2 * n_blocks + corr,
-          f"mesh_fleet: launches {launches}")
+          and all(launches[k] == v for k, v in plain.items())
+          and sum(launches.values()) == 2 * n_blocks + sum(plain.values()),
+          f"mesh_fleet: launches {launches}, expected {plain}")
     run_a = {"launches": launches, "bodies": bodies, "steps": n_blocks}
     nk = {"m": 0, "u": 0}
 
@@ -5528,7 +5653,8 @@ def phase_library(torch, dev, smi, c: int = CHANNELS, n: int = BLOCK_LEN,
     (the coding and physics on all), within tests/test_torch_library.py's
     limits and exact where those are; fir_apply and fm_apply over 4
     chunks torch.equal to fir_filter and fm_demod on the card; each timed
-    by CUDA events. No hand kernel runs here."""
+    by CUDA events. The FIR's filters are the one hand kernel here, the
+    plain filter (``apply_windows`` on the card)."""
     import sondetpu_torch.dsp as tdsp
     import sondetpu_torch.sync as tsync
     from sondetpu_torch import physics
@@ -5730,12 +5856,14 @@ def phase_library(torch, dev, smi, c: int = CHANNELS, n: int = BLOCK_LEN,
     timed("dewpt_torch", lambda: physics.dewpt_torch(temp, rh), 20,
           temp.shape, max_abs_err=err)
     torch.cuda.synchronize()
-    launched = sum(cuda.launches.values())
-    check(launched == 0, f"library: {launched} hand-kernel launches")
+    launched = {k: v for k, v in cuda.launches.items() if v}
+    check(list(launched) == ["plain_fir"],
+          f"library: hand-kernel launches {launched}, expected the plain "
+          "filter's alone")
     torch.cuda.empty_cache()
     emit({"phase": "library", "device": smi, "cpu_rows": sub,
-          "seconds": time.perf_counter() - t0, "hand_kernel_launches": 0,
-          "functions": res})
+          "seconds": time.perf_counter() - t0,
+          "hand_kernel_launches": launched, "functions": res})
     return res
 
 
@@ -5844,6 +5972,19 @@ def main() -> int:
             v for v in K1_PROFILE_VARIANTS if not names or v[0] in names])
         print(smi, flush=True)
         return 0
+    if sys.argv[1:] == ["--plain-fir"]:
+        # the plain filter and the plain-op RS41 steps it runs in:
+        # python3 chip_smoke.py --plain-fir
+        phase_resources(("lane_fir.cu",))
+        phase_plain_fir(torch, dev)
+        for dtype in ("f32", "bf16"):
+            pipe, blocks, _ = phase_main_path(torch, dev, "rs41", 3, dtype)
+            phase_step(torch, pipe, blocks, phase="plain_step", smi=smi)
+            del pipe, blocks
+            torch.cuda.empty_cache()
+        phase_distinct(torch, dev, "rs41", "bf16")
+        print(smi, flush=True)
+        return 0
     if sys.argv[1:] == ["--tune"]:
         # outputs or frames per thread: python3 chip_smoke.py --tune
         phase_tune(torch, dev)
@@ -5856,6 +5997,7 @@ def main() -> int:
     k8 = phase_afsk_kernels(torch, dev)
     kres["fused_afsk_frontend"] = k8["imet4"]
     plain_corr_res = phase_plain_correlation(torch, dev)
+    plain_fir_res = phase_plain_fir(torch, dev)
     unpathed, unpathed_launches = phase_unpathed_kernels(torch, dev)
     kres.update(unpathed)
     # every path is driven with the counts at 0 just before it and read
@@ -5874,7 +6016,8 @@ def main() -> int:
     del pipe, blocks
     torch.cuda.empty_cache()
     # the plain-op step (use_pallas=False, the JAX bench's default in bf16):
-    # RS41 in bf16 and f32, rs41x and dfm in bf16; no hand kernel
+    # RS41 in bf16 and f32, rs41x and dfm in bf16; no hand kernel but the
+    # plain correlation and the plain filter
     for dtype in ("bf16", "f32"):
         pipe, blocks, runs[f"plain_{dtype}"] = phase_main_path(
             torch, dev, "rs41", 3, dtype)
@@ -6060,6 +6203,20 @@ def main() -> int:
         "automation_launches": {p: r["launches"].get("plain_corr", 0)
                                 for p, r in new_runs.items()},
         "mesh_launches": {p: r["launches"].get("plain_corr", 0)
+                          for p, r in mesh_runs.items()}}
+    # K10's third entry, the plain-op front end's filter: its timings at
+    # the RS41 plain step's shapes and its launches on every path
+    k10_row["plain_fir"] = {
+        "rs41_plain_step": {k: dict(subset(e), body=e["body"])
+                            for k, e in plain_fir_res.items()},
+        "launches_per_step": {p: runs[p]["launches"]["plain_fir"]
+                              / runs[p]["steps"] for p in paths},
+        "cli_launches": {p: r["launches"]["plain_fir"]
+                         for p, r in cli_runs.items()
+                         if r["launches"]["plain_fir"]},
+        "automation_launches": {p: r["launches"].get("plain_fir", 0)
+                                for p, r in new_runs.items()},
+        "mesh_launches": {p: r["launches"].get("plain_fir", 0)
                           for p, r in mesh_runs.items()}}
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))

@@ -19,12 +19,17 @@ filtered plane by plane (real, then imaginary, as the original's
 to ``fir_filter`` over the whole stream, since every output sums its own
 window in the same order.
 
-``tap_passes`` counts the passes that ``apply_windows`` makes, one a tap
-(a product and an in-place sum over the whole output): the plain-op
-front end's filters make them, 123 a step of RS41 at 41 taps. The kernels'
-plain twins filter through ``window_sum``, which counts none, as their
-kernels make none on the card. A run resets it with
-:func:`reset_tap_passes` and reads it afterwards.
+On a CUDA tensor ``apply_windows`` is one launch of the hand-written
+filter ``kernels/lane_fir.py:plain_fir``, which sums in the same order
+and rounds every operation alone, so the card gives ``window_sum``'s bits;
+its taps ride in the launch. ``tap_passes`` counts the eager passes that
+``apply_windows`` makes on any other device, one a tap (a product and an
+in-place sum over the whole output): the plain-op front end's filters make
+123 a step of RS41 at 41 taps on the CPU, none on the card (there
+``cuda.launches["plain_fir"]`` counts its launches). The kernels' plain
+twins filter through ``window_sum``, which counts none, as their kernels
+make none on the card. A run resets it with :func:`reset_tap_passes` and
+reads it afterwards.
 """
 
 from __future__ import annotations
@@ -151,13 +156,22 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     """[C, n + ntaps - 1] padded input -> [C, n // stride] causal FIR
     ``y[m] = sum_u taps[u] * xp[m*stride + ntaps - 1 - u]``, summed in
     ascending u with every operation rounded on its own (see
-    :func:`conv1d`); counted in ``tap_passes``."""
+    :func:`conv1d`): on a CUDA tensor one launch of ``plain_fir``, else
+    :func:`window_sum`, counted in ``tap_passes``."""
+    if xp.device.type == "cuda":
+        # imported here: kernels.lane_fir imports this module
+        from sondetpu_torch.kernels.lane_fir import plain_fir
+
+        if xp.dtype not in (torch.float32, torch.bfloat16):
+            xp = xp.to(torch.float32)       # as window_sum widens it
+        return plain_fir(xp, taps, stride)
     tap_passes["apply_windows"] += len(taps)
     return window_sum(xp, taps, stride)
 
 
 def window_sum(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
-    """:func:`apply_windows` uncounted: the kernels' plain twins."""
+    """:func:`apply_windows`' eager passes, uncounted: the kernels' plain
+    twins, ``plain_fir``'s among them."""
     h = _taps(taps, xp)
     ntaps = h.shape[0]
     n_out = (xp.shape[-1] - ntaps) // stride + 1

@@ -6,8 +6,10 @@ and mrzn1), the configs the kernel gates send to the plain-op path, the
 jnp AFSK front end, the bfloat16 kernel routes, the DDC and AFC loop and
 the fleet (float32, and bfloat16 with AFSK bins) on the card against the
 CPU; the correlator in every body, the RS syndrome flag, the AFSK tone
-kernel and the plain correlation's division; and the command line's device
-pieces (the resampler, ``decode``) on the card against the CPU.
+kernel and the plain correlation's division; the plain-op front end's
+filter (``plain_fir``) against ``window_sum`` in every body and the plain
+step against its eager tap passes; and the command line's device pieces
+(the resampler, ``decode``) on the card against the CPU.
 
 This file imports neither jax nor the JAX package (sondetpu), so it runs
 on a machine that has only torch and the CUDA toolkit; tests/conftest.py
@@ -26,7 +28,9 @@ import pytest
 import torch
 
 from sondetpu_torch.dsp.channelizer import PFBChannelizer
-from sondetpu_torch.dsp.fir import conv1d, design_lowpass
+from sondetpu_torch.dsp import fir
+from sondetpu_torch.dsp.fir import (apply_windows, conv1d, design_lowpass,
+                                    window_sum)
 from sondetpu_torch.dsp.resample import DeviceStreamingResampler
 from sondetpu_torch.fec.rs import ReedSolomon
 from sondetpu_torch.kernels import cuda
@@ -44,7 +48,8 @@ from sondetpu_torch.kernels.frontend import (HALO, WALK_EDGE_CASES,
                                              fused_frontend_plain)
 from sondetpu_torch.kernels.lane_fir import (lane_fir, lane_fir_plain,
                                              plain_corr, plain_corr_body,
-                                             plain_corr_plain)
+                                             plain_corr_plain, plain_fir,
+                                             plain_fir_body)
 from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                              rs_clean_plain)
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
@@ -257,25 +262,43 @@ def _card_equals_cpu(cfg, device, planes, n_blocks):
     return gs, cs, frames
 
 
-def _plain_corr_bodies(cfg, steps):
-    """The plain correlation kernel's launches by body in ``steps`` steps
-    of a pipeline of ``cfg``: one a template a step, of the body its length
-    names, on every route but the fused front end's (which runs K2)."""
+def _plain_route_bodies(cfg, steps):
+    """The launches by body in ``steps`` steps of a pipeline of ``cfg`` of
+    the two kernels that stand in for plain ops: the plain correlation, one
+    a template a step, of the body its length names, on every route but
+    the fused front end's (which runs K2); on the plain-op route also the
+    plain filter, one a filter a step (the channel filter's two planes
+    unless the dual-tone gate skips it, then the matched filter, the
+    dual-tone boxcar over its four planes or the AFSK boxcar's four)."""
     if tpipe._route(cfg) == "fused":
         return {}
+    pipe = tpipe.Pipeline(cfg, CPU)
     out = {}
-    for t in tpipe.Pipeline(cfg, CPU)._np_templates:
-        key = "plain_corr:" + plain_corr_body(len(t))
-        out[key] = out.get(key, 0) + steps
+
+    def add(key, n):
+        out[key] = out.get(key, 0) + n * steps
+
+    for t in pipe._np_templates:
+        add("plain_corr:" + plain_corr_body(len(t)), 1)
+    if pipe._plain:
+        if not pipe._skip_chanfilt:
+            add("plain_fir:" + plain_fir_body(cfg.ntaps, cfg.decim), 2)
+        if pipe._afsk:
+            add("plain_fir:" + plain_fir_body(pipe._afsk_win, 1), 4)
+        else:
+            add("plain_fir:" + plain_fir_body(cfg.ntaps, 1), 1)
     return out
 
 
-def _only_plain_corr(cfg, steps):
-    """True when the plain correlation kernel is the only hand kernel
-    launched since the counts were reset, once a template a step."""
-    want = sum(_plain_corr_bodies(cfg, steps).values())
-    return ({k: v for k, v in cuda.launches.items() if v}
-            == {"plain_corr": want})
+def _only_plain_kernels(cfg, steps):
+    """True when the plain correlation and the plain filter are the only
+    hand kernels launched since the counts were reset, as many times as
+    :func:`_plain_route_bodies` says."""
+    want = {}
+    for key, n in _plain_route_bodies(cfg, steps).items():
+        kernel = key.split(":")[0]
+        want[kernel] = want.get(kernel, 0) + n
+    return {k: v for k, v in cuda.launches.items() if v} == want
 
 
 def test_cuda_pipeline_matches_cpu(cuda_device):
@@ -294,7 +317,7 @@ def test_cuda_plain_path_matches_cpu(cuda_device):
     """The bf16 plain-op RS41 step (use_pallas=False) on the card equals
     the CPU's on validity, valid frame bytes and RS verdicts, 8 channels
     with three serials over 3 blocks, and launches no hand kernel but the
-    plain correlation, once a block."""
+    plain correlation, once a block, and the plain filter, three times."""
     cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
                                use_pallas=False, compute_dtype="bf16",
                                input_dtype="i16")
@@ -302,7 +325,53 @@ def test_cuda_plain_path_matches_cpu(cuda_device):
     gs, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)),
                                      3)
     assert gs.chipbuf.dtype == torch.bfloat16 and frames >= 3 * 8
-    assert _only_plain_corr(cfg, 3), cuda.launches
+    assert _only_plain_kernels(cfg, 3), cuda.launches
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_plain_path_packs_what_the_eager_filters_pack(cuda_device,
+                                                           monkeypatch,
+                                                           dtype):
+    """The plain-op RS41 step (f32: the command line's default route) on
+    the card packs bit for bit what it packed with the eager tap passes in
+    place of the plain filter, over 3 blocks of 8 channels with three
+    serials: every field of every block's output and the carried state; its
+    filters are three plain_fir launches a step (t41_d2 for the channel
+    filter's two planes, t41_d1 for the matched filter) and no tap pass.
+    Its valid frames and RS verdicts equal the CPU's."""
+    cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
+                               use_pallas=False, compute_dtype=dtype,
+                               input_dtype="i16")
+    planes = _cs16(_rs41_rows(3))
+    blocks = [tuple(x[:, b * BLOCK:(b + 1) * BLOCK] for x in planes)
+              for b in range(3)]
+
+    def run():
+        pipe = tpipe.Pipeline(cfg, cuda_device)
+        state, outs = pipe.init_state(), []
+        for blk in blocks:
+            state, out = pipe.step(state, blk)
+            outs.append(out)
+        return state, outs
+
+    cuda.reset_launches()
+    fir.reset_tap_passes()
+    gs, gouts = run()
+    assert cuda.body_launches == {"plain_fir:t41_d2": 6,
+                                  "plain_fir:t41_d1": 3,
+                                  "plain_corr:t64": 3}
+    assert fir.tap_passes == {"apply_windows": 0}
+    monkeypatch.setattr(tpipe, "apply_windows", fir.window_sum)
+    es, eouts = run()
+    for b, (g, e) in enumerate(zip(gouts, eouts)):
+        for name in g._fields:
+            assert torch.equal(getattr(g, name), getattr(e, name)), (b, name)
+    for name in ("chan_tail_i", "chan_tail_q", "fm_prev", "chipbuf",
+                 "buf_fill"):
+        assert torch.equal(getattr(gs, name), getattr(es, name)), name
+    assert torch.equal(gs.fir.tail, es.fir.tail)
+    monkeypatch.undo()
+    _card_equals_cpu(cfg, cuda_device, planes, 3)
 
 
 DUALTONE_SERIALS = {"m10": ("910-2-12345", "A05-3-54321", "C12-1-00042"),
@@ -354,7 +423,7 @@ def test_cuda_dualtone_families_match_cpu(cuda_device, sonde, afc):
     assert frames >= 3 * 8
     body = ("fused_dualtone_frontend:chanfilt_t41_nb20"
             + ("_afc" if afc else ""))
-    assert cuda.body_launches == {body: 3, **_plain_corr_bodies(cfg, 3)}, \
+    assert cuda.body_launches == {body: 3, **_plain_route_bodies(cfg, 3)}, \
         cuda.body_launches
     if afc:
         torch.testing.assert_close(gs.aux[-1].cpu(), cs.aux[-1], rtol=0,
@@ -377,7 +446,7 @@ def test_cuda_plain_dualtone_matches_cpu(cuda_device, sonde, dtype):
     assert frames >= 3 * 8
     assert gs.chipbuf.dtype == (torch.bfloat16 if dtype == "bf16"
                                 else torch.float32)
-    assert _only_plain_corr(cfg, 3), cuda.launches
+    assert _only_plain_kernels(cfg, 3), cuda.launches
 
 
 @pytest.mark.parametrize("sonde", ["rs41", "m10"])
@@ -797,9 +866,9 @@ def test_cuda_routed_configs_match_cpu(cuda_device, case):
     assert frames >= cfg.channels
     assert cuda.body_launches == {
         **{k: n_blocks * v for k, v in bodies.items()},
-        **_plain_corr_bodies(cfg, n_blocks)}
+        **_plain_route_bodies(cfg, n_blocks)}
     if not bodies:
-        assert _only_plain_corr(cfg, n_blocks), cuda.launches
+        assert _only_plain_kernels(cfg, n_blocks), cuda.launches
 
 
 def test_cuda_bf16_fleet_with_afsk_bins_matches_cpu(cuda_device):
@@ -1037,6 +1106,69 @@ def test_cuda_plain_corr_bit_equal(cuda_device, L, dtype):
         assert torch.equal(_bits(got), _bits(want)), (c, ln, offset, pad)
         cpu = plain_corr_plain(x.cpu(), t)
         assert torch.equal(_bits(got).cpu(), _bits(cpu)), (c, ln, offset, pad)
+
+
+# the plain filter: (id, taps, stride): RS41's two compiled bodies, run-time
+# tap counts even and odd at both strides, a run-time stride and a tap count
+# that chains two launches
+_PLAIN_FIR_CASES = (("t41-d2", 41, 2), ("t41-d1", 41, 1), ("t20", 20, 1),
+                    ("t40-d2", 40, 2), ("t23-d2", 23, 2), ("t7-d3", 7, 3),
+                    ("t300-d2-chained", 300, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("ntaps,stride", [c[1:] for c in _PLAIN_FIR_CASES],
+                         ids=[c[0] for c in _PLAIN_FIR_CASES])
+def test_cuda_plain_fir_bit_equal(cuda_device, ntaps, stride, dtype):
+    """The plain filter equals window_sum bit for bit, compared as int32
+    patterns, on the card (window_sum's eager passes) and against the CPU:
+    rows over many tiles, rows not a multiple of 4 long, a row view that
+    starts off 16 bytes and one with a row stride of its own, one output a
+    row; one launch a call, of the body the taps and stride name (two
+    chained launches above 256 taps count as one call). No rows give an
+    empty result and launch nothing; apply_windows on a CUDA tensor is
+    the same launch and counts no tap pass."""
+    rng = np.random.default_rng(7 * ntaps + stride)
+    h = rng.normal(size=ntaps).astype(np.float32)
+    body = f"plain_fir:{plain_fir_body(ntaps, stride)}"
+    for c, ln, offset, pad in ((6, 9000, 0, 0),
+                               (3, stride * 2 * 15 * 256 + ntaps + 5, 0, 0),
+                               (5, 2001, 0, 0), (4, 5000, 1, 0),
+                               (3, 4099, 0, 3), (3, 4096, 0, 4),
+                               (2, ntaps, 0, 0)):
+        x = _plain_corr_rows(rng, c, ln, dtype, cuda_device, offset, pad)
+        cuda.reset_launches()
+        got = plain_fir(x, h, stride)
+        assert cuda.body_launches == {body: 1}
+        assert got.shape == (c, (ln - ntaps) // stride + 1)
+        want = window_sum(x, h, stride)
+        assert torch.equal(_bits(got), _bits(want)), (c, ln, offset, pad)
+        cpu = window_sum(x.cpu(), h, stride)
+        assert torch.equal(_bits(got).cpu(), _bits(cpu)), (c, ln, offset, pad)
+    cuda.reset_launches()
+    empty = plain_fir(torch.zeros((0, 500), dtype=dtype, device=cuda_device),
+                      h, stride)
+    assert empty.shape == (0, (500 - ntaps) // stride + 1)
+    assert cuda.launches["plain_fir"] == 0
+    fir.reset_tap_passes()
+    got = apply_windows(x, h, stride)
+    assert cuda.body_launches == {body: 1}
+    assert fir.tap_passes == {"apply_windows": 0}
+    assert torch.equal(_bits(got), _bits(window_sum(x, h, stride)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_plain_fir_zero_row_sign(cuda_device, dtype):
+    """A zero row against all-negative taps: every product is -0, added to
+    a +0 accumulator, so the card gives +0 as window_sum does."""
+    x = torch.zeros((3, 4000), dtype=dtype, device=cuda_device)
+    for ntaps, stride in ((41, 2), (41, 1), (20, 1), (300, 2)):
+        neg = -np.ones(ntaps, np.float32)
+        got = plain_fir(x, neg, stride)
+        assert torch.equal(_bits(got), torch.zeros_like(_bits(got)))
+        assert torch.equal(_bits(got), _bits(window_sum(x, neg, stride)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
