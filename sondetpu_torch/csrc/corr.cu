@@ -20,7 +20,7 @@
 // (long_kernel). R is odd, so threads at stride R read 32 distinct banks;
 // the outputs go back through shared memory so the global store is
 // coalesced. R = 15 timed faster than 9 and 21 at [2048, 21760] on an H100
-// (chip_smoke.py --tune); the sign bodies take 32 registers.
+// (PR 5); the sign bodies take 32 registers.
 //
 // Exactness. The plain twin (sondetpu_torch/kernels/corr.py:corr_plain)
 // sums t[k] * x in ascending k from zero, every product and sum rounded
@@ -33,13 +33,9 @@
 // twin's bit for bit, scaled by the float32 1/L the caller rounds.
 #include "common.cuh"
 
-#ifndef SONDETPU_CORR_R
-#define SONDETPU_CORR_R 15
-#endif
-
 namespace {
 
-constexpr int R = SONDETPU_CORR_R;               // outputs per thread
+constexpr int R = 15;                            // outputs per thread
 constexpr int THREADS = 256;
 constexpr int SPAN = R * THREADS;                // outputs per block
 constexpr int LONG_TILE = 1024;                  // long_kernel's tile

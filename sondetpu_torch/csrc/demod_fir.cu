@@ -43,7 +43,7 @@
 //    time. R is odd, so threads at stride R read 32 distinct banks; the
 //    outputs go back through shared memory so the global store is
 //    coalesced. R = 21 was the fastest of 9, 15 and 21 on an H100 (63
-//    registers in the t41 body, no spill; chip_smoke.py --tune).
+//    registers in the t41 body, no spill; PR 8).
 //
 // Exactness: every product and sum of the discriminator and the FIR is
 // rounded on its own (__fmul_rn/__fadd_rn, no FMA contraction) in the order
@@ -53,15 +53,11 @@
 // torch.mean. Without dc_block the kernel and the twin agree bit for bit.
 #include "common.cuh"
 
-#ifndef SONDETPU_DEMOD_FIR_R
-#define SONDETPU_DEMOD_FIR_R 21
-#endif
-
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int AUDIO_SPAN = 16 * THREADS;          // positions a launch-1 block
-constexpr int R = SONDETPU_DEMOD_FIR_R;           // FIR outputs per thread
+constexpr int R = 21;                             // FIR outputs per thread
 constexpr int SPAN = R * THREADS;                 // FIR outputs per block
 constexpr int NV = (SPAN / 4 + THREADS - 1) / THREADS;  // float4s a thread
 constexpr int HIST = SONDETPU_MAX_TAPS;           // history slots, >= T - 1

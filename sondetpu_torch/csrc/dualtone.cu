@@ -74,14 +74,14 @@
 //     goes back through the warp's own row of shared memory so the global
 //     store is coalesced, and each tile partial is a warp sum.
 // R is odd, so lanes at stride R read 32 distinct banks. R = 9 timed
-// faster than 7 and within 2% of 11 at [616, 192000] on an H100
-// (chip_smoke.py --tune); at 11 the skip_nb5_afc body spills at the 64
-// registers that __launch_bounds__(256, 4) allows, which the compiled
-// chanfilt bodies use in full, without spills.
+// faster than 7 and within 2% of 11 at [616, 192000] on an H100 (PR 5);
+// at 11 the skip_nb5_afc body spills at the 64 registers that
+// __launch_bounds__(256, 4) allows, which the compiled chanfilt bodies use
+// in full, without spills.
 // The chanfilt times above are at [2048, 192000], 41 taps, nb 20 on an
-// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --profile-k7), where the
-// compiled body takes 4.79 ms on float32 and 4.83 on bfloat16 input, and
-// the run-time body it replaced on those paths 9.41 and 9.49.
+// NVIDIA H100 80GB HBM3 at 700 W (PR 17), where the compiled body takes
+// 4.79 ms on float32 and 4.83 on bfloat16 input, and the run-time body it
+// replaced on those paths 9.41 and 9.49.
 //
 // The planes and tails come in float32 or bfloat16 (bf16 groups and the
 // bf16 compute dtype store the sample-rate planes in bfloat16; the Pallas
@@ -98,28 +98,15 @@
 // agrees bit for bit and the sums up to their order of summation.
 #include "common.cuh"
 
-#ifndef SONDETPU_DUALTONE_R
-#define SONDETPU_DUALTONE_R 9
-#endif
-// Profile builds only (chip_smoke.py --profile-k7): bits that leave out a
-// stage, so that the time of the rest can be read. 1: the channel filter
-// (cf = x); 2: the mix and the boxcars (each output takes its position's
-// cf and table values); 4: the metric's stores. A profile build computes
-// nothing a path may use.
-#ifndef SONDETPU_DUALTONE_PROFILE
-#define SONDETPU_DUALTONE_PROFILE 0
-#endif
-
 namespace {
 
-constexpr int R = SONDETPU_DUALTONE_R;   // positions per lane
+constexpr int R = 9;                     // positions per lane
 constexpr int CH = 8;                    // channel rows per block, one a warp
 constexpr int THREADS = 32 * CH;
 constexpr int TILE = 32 * R;             // positions per block and row
 constexpr int RC = 10;                   // channel-filter outputs per lane
 constexpr int T_FIXED = 41;              // every path's channel-filter taps
 constexpr int NB_FIXED = 20;             // ims100's and mrzn1's boxcar
-constexpr int PROFILE = SONDETPU_DUALTONE_PROFILE;
 
 // cf positions a row computes: the tile and its lead, in whole passes of
 // 32 lanes x RC
@@ -245,10 +232,8 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     float* xr_i = ts + nx + 2 * w * nx;  // this warp's row, same indexing
     float* xr_q = xr_i + nx;
     // cf at positions g0 - lead + k (the input itself when skipped)
-    float* cf_i = SKIP || (PROFILE & 1)
-                      ? xr_i + fh
-                      : ts + nx + 2 * CH * nx + 2 * w * ncf;
-    float* cf_q = SKIP || (PROFILE & 1) ? xr_q + fh : cf_i + ncf;
+    float* cf_i = SKIP ? xr_i + fh : ts + nx + 2 * CH * nx + 2 * w * ncf;
+    float* cf_q = SKIP ? xr_q + fh : cf_i + ncf;
 
     const bool row_valid = c < C;
     const size_t rc = row_valid ? (size_t)c : 0;
@@ -264,7 +249,7 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     __syncthreads();                     // the tables are the block's
     if (!row_valid) return;
 
-    if constexpr (!SKIP && !(PROFILE & 1)) {
+    if constexpr (!SKIP) {
         // cf[k] = sum_u hc[u] * x[position - u], ascending u from zero, for
         // k < TILE + lead
         if constexpr (TT > 0) {
@@ -336,15 +321,7 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
             }
         }
     };
-    if constexpr ((PROFILE & 2) != 0) {
-#pragma unroll
-        for (int o = 0; o < RO; ++o) {
-            acc[0][o] = pi[o + nb - 1];
-            acc[1][o] = pq[o + nb - 1];
-            acc[2][o] = pc[o + nb - 1];
-            acc[3][o] = psn[o + nb - 1];
-        }
-    } else if constexpr (NB > 0) {
+    if constexpr (NB > 0) {
 #pragma unroll
         for (int j = RO + NB - 2; j >= 0; --j) position(j);
     } else {
@@ -367,7 +344,7 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
         const float pm = __fadd_rn(__fmul_rn(lmi, lmi), __fmul_rn(lmq, lmq));
         const float met = __fdiv_rn(__fsub_rn(pp, pm),
                                     __fadd_rn(__fadd_rn(pp, pm), 1e-12f));
-        if constexpr (!(PROFILE & 4)) orow[t0 + o - A] = met;
+        orow[t0 + o - A] = met;
         const int g = g0 + t0 + o - A;
         if (g < n) s_dc += met;
         if (AFC && g >= 1 && g < n) {
@@ -385,8 +362,7 @@ __global__ void __launch_bounds__(THREADS, 4) dualtone_kernel(
     }
     __syncwarp();
     float* mrow = metric + (size_t)c * n + g0;
-    if constexpr ((PROFILE & 4) != 0) {
-    } else if (vec) {
+    if (vec) {
         for (int k = 4 * lane; k < TILE && g0 + k < n; k += 4 * 32)
             *reinterpret_cast<float4*>(mrow + k) =
                 *reinterpret_cast<const float4*>(orow + k);

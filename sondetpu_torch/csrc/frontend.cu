@@ -66,9 +66,9 @@
 // are frontend_walk_kernel. What bounds frontend_kernel is the FP32 issue
 // of its three stages (at [2048, 192000] decim 1: the channel filter ~2.3
 // ms, the matched FIR ~1.1, the discriminator ~0.4), and on bfloat16 a
-// staging that cost 0.34-0.46 ms more than float32's (chip_smoke.py
-// --profile-k1, which splits every body). The walking body stages the raw
-// words by 16-byte cp.async (half the bytes of a widened window) into one
+// staging that cost 0.34-0.46 ms more than float32's (PR 18, a split of
+// every body's stages). The walking body stages the raw words by 16-byte
+// cp.async (half the bytes of a widened window) into one
 // of two buffers while the block computes the tile before, widens each
 // word by a shift at its register-window load (ld_f32), keeps the channel
 // filter's outputs in registers for the discriminator, carries the FIR's
@@ -80,21 +80,6 @@
 // nothing, and walks of 1 to 16 tiles within 4%.
 #include "common.cuh"
 
-// Profile builds (chip_smoke.py --profile-k1) leave stages out with
-// -DSONDETPU_FRONTEND_PROFILE=bits: 1 the channel filter (cf = x), 2 the
-// discriminator (audio = cf_i), 4 the matched FIR (filt = the delayed
-// audio), 8 the stores of filt, and in the walking bodies 16 the wait for
-// the staged tile and 32 the staging. A profile build computes nothing a
-// path may use.
-#ifndef SONDETPU_FRONTEND_PROFILE
-#define SONDETPU_FRONTEND_PROFILE 0
-#endif
-// -DSONDETPU_FRONTEND_WALK_F32=1 (chip_smoke.py --profile-k1 only) sends
-// float32 planes at 41 taps to the walking bodies too
-#ifndef SONDETPU_FRONTEND_WALK_F32
-#define SONDETPU_FRONTEND_WALK_F32 0
-#endif
-
 namespace {
 
 constexpr int R = 9;                              // outputs per thread
@@ -102,8 +87,6 @@ constexpr int THREADS = 256;
 constexpr int SPAN = R * THREADS;                 // outputs of one pass
 constexpr int TILE = SPAN - SONDETPU_MAX_TAPS;    // filt outputs per block
 constexpr int T_FIXED = 41;                       // every path's tap count
-constexpr int PROFILE = SONDETPU_FRONTEND_PROFILE;
-constexpr bool WALK_F32 = SONDETPU_FRONTEND_WALK_F32 != 0;
 
 template <int D, int TT, bool IDENT, typename In>
 __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
@@ -170,13 +153,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
 
     // 1. cf[g0 - T + k] = sum_u hc[u] * xs[D*k + T - 1 - u], k = k0 .. k0+R-1
     const int k0 = threadIdx.x * R;
-    if ((PROFILE & 1) && k0 < ncf) {
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-            cf_i[k0 + r] = xs_i[D * (k0 + r) + T - 1];
-            cf_q[k0 + r] = xs_q[D * (k0 + r) + T - 1];
-        }
-    } else if (k0 < ncf) {
+    if (k0 < ncf) {
         float y[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) y[r] = 0.0f;
@@ -206,11 +183,9 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
         const float pa = cf_i[m], pb = cf_q[m];
         const float dre = __fadd_rn(__fmul_rn(a, pa), __fmul_rn(b, pb));
         const float dim = __fsub_rn(__fmul_rn(b, pa), __fmul_rn(a, pb));
-        const float v = (PROFILE & 2) ? a
-                                      : __fmul_rn(fast_atan2(dim, dre), scale);
+        const float v = __fmul_rn(fast_atan2(dim, dre), scale);
         if (IDENT) {
-            if (!(PROFILE & 8) && m < TILE && g0 + m < N)
-                filt[(size_t)c * N + g0 + m] = v;
+            if (m < TILE && g0 + m < N) filt[(size_t)c * N + g0 + m] = v;
             const int g = g0 + m - (T - 1);
             if (m >= T - 1 && g < N) s += v;
         } else {
@@ -226,15 +201,10 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
             float y[R];
 #pragma unroll
             for (int r = 0; r < R; ++r) y[r] = 0.0f;
-            if constexpr ((PROFILE & 4) != 0) {
-#pragma unroll
-                for (int r = 0; r < R; ++r) y[r] = au[t0 + r + T - 1];
-            } else {
-                slide_window<R, 1, TT>(au + t0 + T - 1, T,
-                                       [&](int u, int r, float x) {
-                    y[r] = __fadd_rn(y[r], __fmul_rn(hm.h[u], x));
-                });
-            }
+            slide_window<R, 1, TT>(au + t0 + T - 1, T,
+                                   [&](int u, int r, float x) {
+                y[r] = __fadd_rn(y[r], __fmul_rn(hm.h[u], x));
+            });
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 out[t0 + r] = y[r];
@@ -242,8 +212,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_kernel(
             }
         }
         __syncthreads();
-        for (int t = threadIdx.x; !(PROFILE & 8) && t < TILE && g0 + t < N;
-             t += THREADS)
+        for (int t = threadIdx.x; t < TILE && g0 + t < N; t += THREADS)
             filt[(size_t)c * N + g0 + t] = out[t];
     }
 
@@ -395,7 +364,6 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
         return k * TILE - (k == kbeg ? LEAD : 0);
     };
     auto stage = [&](const int k) {
-        if constexpr ((PROFILE & 32) != 0) return;
         In* buf = raw + 2 * ((k - kbeg) & 1) * L::NXA;
         const long xw = (long)D * (first_pos(k) - 1) - (T - 1);
         const int cnt = D * ((k == kbeg ? LAST_FIRST : LAST_NEXT) + 1) + T;
@@ -417,7 +385,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
         float* au = aus + b * AU;               // audio[g0 - LEAD + j]
         float* au_next = aus + (b ^ 1) * AU;    // the next tile's
         float* out = reinterpret_cast<float*>(buf);  // free after B2
-        if constexpr (!(PROFILE & 48)) cp_async_wait_all();
+        cp_async_wait_all();
         __syncthreads();                                          // B1
         if (k + 1 < kend) stage(k + 1);
 
@@ -435,14 +403,9 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
                 float y[R];
 #pragma unroll
                 for (int r = 0; r < R; ++r) y[r] = 0.0f;
-                if constexpr ((PROFILE & 1) != 0) {
-#pragma unroll
-                    for (int r = 0; r < R; ++r) y[r] = ld_f32(pp + D * r);
-                } else {
-                    slide_window<R, D, T>(pp, T, [&](int u, int r, float x) {
-                        y[r] = __fadd_rn(y[r], __fmul_rn(hc.h[u], x));
-                    });
-                }
+                slide_window<R, D, T>(pp, T, [&](int u, int r, float x) {
+                    y[r] = __fadd_rn(y[r], __fmul_rn(hc.h[u], x));
+                });
 #pragma unroll
                 for (int r = 0; r < R; ++r) {
                     if (p == 0)
@@ -464,9 +427,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
                 const float a = ci[r], bq = cq[r];
                 const float dre = __fadd_rn(__fmul_rn(a, pa), __fmul_rn(bq, pb));
                 const float dim = __fsub_rn(__fmul_rn(bq, pa), __fmul_rn(a, pb));
-                const float v =
-                    (PROFILE & 2) ? __fadd_rn(__fadd_rn(a, bq), __fadd_rn(pa, pb))
-                                  : __fmul_rn(fast_atan2(dim, dre), scale);
+                const float v = __fmul_rn(fast_atan2(dim, dre), scale);
                 pa = a;
                 pb = bq;
                 const int j = j0 + r;
@@ -482,8 +443,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
         if constexpr (IDENT) {
             for (int m = threadIdx.x; m < TILE + LEAD; m += THREADS) {
                 const float v = au[m];
-                if (!(PROFILE & 8) && m < TILE && g0 + m < N)
-                    filt[(size_t)c * N + g0 + m] = v;
+                if (m < TILE && g0 + m < N) filt[(size_t)c * N + g0 + m] = v;
                 if (m >= LEAD && g0 + m - LEAD < N) s += v;
             }
         } else {
@@ -493,20 +453,11 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
                 float y[R];
 #pragma unroll
                 for (int r = 0; r < R; ++r) y[r] = 0.0f;
-                if constexpr ((PROFILE & 4) != 0) {
-#pragma unroll
-                    for (int r = 0; r < R; ++r) {
-                        y[r] = au[t0 + r + T - 1];
-                        if (t0 + r < TILE && g0 + t0 + r < N) s += y[r];
-                    }
-                } else {
-                    slide_window<R, 1, T>(au + t0 + T - 1, T,
-                                          [&](int u, int r, float x) {
-                        y[r] = __fadd_rn(y[r], __fmul_rn(hm.h[u], x));
-                        if (u == 0 && t0 + r < TILE && g0 + t0 + r < N)
-                            s += x;
-                    });
-                }
+                slide_window<R, 1, T>(au + t0 + T - 1, T,
+                                      [&](int u, int r, float x) {
+                    y[r] = __fadd_rn(y[r], __fmul_rn(hm.h[u], x));
+                    if (u == 0 && t0 + r < TILE && g0 + t0 + r < N) s += x;
+                });
 #pragma unroll
                 for (int r = 0; r < R; ++r) out[t0 + r] = y[r];
             }
@@ -515,7 +466,7 @@ __global__ void __launch_bounds__(THREADS, 4) frontend_walk_kernel(
             s += __shfl_xor_sync(0xffffffffu, s, o);
         if (lane == 0) warp_sums[threadIdx.x >> 5] = s;
         __syncthreads();                                          // B3
-        if (!IDENT && !(PROFILE & 8)) {
+        if (!IDENT) {
             float* frow = filt + (size_t)c * N + g0;
             if (vec) {
                 for (int t = 4 * threadIdx.x; t < TILE && g0 + t < N;
@@ -579,7 +530,9 @@ int dispatch(const void* xi, const void* xq, const void* ti, const void* tq,
     const In* ptq = static_cast<const In*>(tq);
     const In* pti = static_cast<const In*>(ti);
     if (T == T_FIXED) {
-        if constexpr (sizeof(In) == 2 || WALK_F32)
+        // float32 planes do not walk: at decim 2 the walk took 3.443 ms
+        // against frontend_kernel's 3.255 on an H100 (PR 18)
+        if constexpr (sizeof(In) == 2)
             return identity
                 ? launch_walk<D, true>(pi, pq, pti, ptq, th, tm, scale, C, n,
                                        halo, walk, filt, partial, s)

@@ -73,13 +73,9 @@
 // (0.48 ms) and 1.57 GB (0.47 ms).
 #include "common.cuh"
 
-#ifndef SONDETPU_LANE_FIR_R
-#define SONDETPU_LANE_FIR_R 15
-#endif
-
 namespace {
 
-constexpr int R = SONDETPU_LANE_FIR_R;           // outputs per thread
+constexpr int R = 15;                            // outputs per thread
 constexpr int THREADS = 256;
 constexpr int SPAN = R * THREADS;                // outputs per block
 constexpr int T_FIXED = 41;                      // the experiment's taps

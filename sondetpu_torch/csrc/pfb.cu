@@ -61,11 +61,6 @@ constexpr int TPP = 8;
 constexpr int THREADS = 256;
 constexpr int ROWS = 128;
 constexpr int BATCH = 4;
-// profiling builds only (chip_smoke.py --profile-pfb): bit 1 skips the
-// bf16 body's arithmetic and writes each rounded input pair
-#ifndef SONDETPU_PFB_PROFILE
-#define SONDETPU_PFB_PROFILE 0
-#endif
 
 __device__ __forceinline__ float vv_at(const float* __restrict__ x,
                                        const float* __restrict__ tail,
@@ -229,15 +224,12 @@ __global__ void __launch_bounds__(THREADS) pfb_fir_bf16_kernel(
             wq[TPP - 1] = __byte_perm(cq, pq, sel);
             pi = ci;
             pq = cq;
-            unsigned ai = wi[TPP - 1], aq = wq[TPP - 1];
-            if (!(SONDETPU_PFB_PROFILE & 1)) {
-                ai = mul_bf16x2(h[0], wi[TPP - 1]);
-                aq = mul_bf16x2(h[0], wq[TPP - 1]);
+            unsigned ai = mul_bf16x2(h[0], wi[TPP - 1]);
+            unsigned aq = mul_bf16x2(h[0], wq[TPP - 1]);
 #pragma unroll
-                for (int t = 1; t < TPP; ++t) {
-                    ai = add_bf16x2(ai, mul_bf16x2(h[t], wi[TPP - 1 - t]));
-                    aq = add_bf16x2(aq, mul_bf16x2(h[t], wq[TPP - 1 - t]));
-                }
+            for (int t = 1; t < TPP; ++t) {
+                ai = add_bf16x2(ai, mul_bf16x2(h[t], wi[TPP - 1 - t]));
+                aq = add_bf16x2(aq, mul_bf16x2(h[t], wq[TPP - 1 - t]));
             }
             store_pair<VEC>(ui, (r + u) * n + j, ai, hi);
             store_pair<VEC>(uq, (r + u) * n + j, aq, hi);

@@ -198,14 +198,6 @@ int rows_per_block(int n) {
 
 // --- N = 2048: three register passes ----------------------------------------
 
-// profiling builds only (chip_smoke.py --profile-pfb): bit 1 skips the
-// passes (the loaded points go straight to the transposed tile), bit 2 the
-// loads from device memory, bit 4 the stores to it
-#ifndef SONDETPU_PFB_PROFILE
-#define SONDETPU_PFB_PROFILE 0
-#endif
-constexpr int PF = SONDETPU_PFB_PROFILE;
-
 constexpr int N2K = 2048;
 constexpr int ROWS2K = 8;                 // time rows per block
 constexpr int RT = 128;                   // threads per row
@@ -325,60 +317,53 @@ dft2048_kernel(
     const size_t base = (size_t)(live ? r0 + row : 0) * N2K + j;
 #pragma unroll
     for (int s = 0; s < 16; ++s) {
-        if (PF & 2) {
-            xr[s] = (float)(base + RT * s);
-            xi[s] = (float)(s - j);
-        } else {
-            xr[s] = live ? ui[base + RT * s] : 0.0f;
-            xi[s] = live ? uq[base + RT * s] : 0.0f;
-        }
+        xr[s] = live ? ui[base + RT * s] : 0.0f;
+        xi[s] = live ? uq[base + RT * s] : 0.0f;
     }
     for (int x = threadIdx.x; x < N2K / 2; x += ROWS2K * RT) {
         wc[x] = twc[x];
         ws[x] = tws[x];
     }
     __syncthreads();
-    if (!(PF & 1)) {
-        dft_reg<16>(xr, xi);
+    dft_reg<16>(xr, xi);
 #pragma unroll
-        for (int k1 = 1; k1 < 16; ++k1)
-            rotate2k(wc, ws, j * k1, xr[k1], xi[k1]);
+    for (int k1 = 1; k1 < 16; ++k1)
+        rotate2k(wc, ws, j * k1, xr[k1], xi[k1]);
 #pragma unroll
-        for (int k1 = 0; k1 < 16; ++k1) {       // A[t = j][k1]
-            are[k1 * 136 + j] = xr[k1];
-            aim[k1 * 136 + j] = xi[k1];
-        }
-        __syncthreads();
-
-        // pass 2: (t1, k1) = (j % 8, j / 8) takes A[t1 + 8 t2][k1], t2 < 16
-        const int t1 = j & 7, k1 = j >> 3;
-#pragma unroll
-        for (int t2 = 0; t2 < 16; ++t2) {
-            xr[t2] = are[k1 * 136 + t1 + 8 * t2];
-            xi[t2] = aim[k1 * 136 + t1 + 8 * t2];
-        }
-        __syncthreads();                        // B overwrites A
-        dft_reg<16>(xr, xi);
-#pragma unroll
-        for (int k2 = 1; k2 < 16; ++k2)
-            rotate2k(wc, ws, 16 * t1 * k2, xr[k2], xi[k2]);
-#pragma unroll
-        for (int k2 = 0; k2 < 16; ++k2) {       // B[t1][g = k1 + 16 k2]
-            are[t1 * 260 + k1 + 16 * k2] = xr[k2];
-            aim[t1 * 260 + k1 + 16 * k2] = xi[k2];
-        }
-        __syncthreads();
-
-        // pass 3: groups g = j and j + 128, 8 points over t1 each;
-        // y[g + 256 k3] for k3 < 8
-#pragma unroll
-        for (int t = 0; t < 16; ++t) {  // x[8 h + t1] of group j + 128 h
-            xr[t] = are[(t & 7) * 260 + j + RT * (t >> 3)];
-            xi[t] = aim[(t & 7) * 260 + j + RT * (t >> 3)];
-        }
-        dft_reg<8, 0>(xr, xi);
-        dft_reg<8, 8>(xr, xi);
+    for (int k1 = 0; k1 < 16; ++k1) {       // A[t = j][k1]
+        are[k1 * 136 + j] = xr[k1];
+        aim[k1 * 136 + j] = xi[k1];
     }
+    __syncthreads();
+
+    // pass 2: (t1, k1) = (j % 8, j / 8) takes A[t1 + 8 t2][k1], t2 < 16
+    const int t1 = j & 7, k1 = j >> 3;
+#pragma unroll
+    for (int t2 = 0; t2 < 16; ++t2) {
+        xr[t2] = are[k1 * 136 + t1 + 8 * t2];
+        xi[t2] = aim[k1 * 136 + t1 + 8 * t2];
+    }
+    __syncthreads();                        // B overwrites A
+    dft_reg<16>(xr, xi);
+#pragma unroll
+    for (int k2 = 1; k2 < 16; ++k2)
+        rotate2k(wc, ws, 16 * t1 * k2, xr[k2], xi[k2]);
+#pragma unroll
+    for (int k2 = 0; k2 < 16; ++k2) {       // B[t1][g = k1 + 16 k2]
+        are[t1 * 260 + k1 + 16 * k2] = xr[k2];
+        aim[t1 * 260 + k1 + 16 * k2] = xi[k2];
+    }
+    __syncthreads();
+
+    // pass 3: groups g = j and j + 128, 8 points over t1 each;
+    // y[g + 256 k3] for k3 < 8
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {  // x[8 h + t1] of group j + 128 h
+        xr[t] = are[(t & 7) * 260 + j + RT * (t >> 3)];
+        xi[t] = aim[(t & 7) * 260 + j + RT * (t >> 3)];
+    }
+    dft_reg<8, 0>(xr, xi);
+    dft_reg<8, 8>(xr, xi);
     __syncthreads();                            // the tile overwrites B
 #pragma unroll
     for (int t = 0; t < 16; ++t) {
@@ -392,7 +377,7 @@ dft2048_kernel(
 #pragma unroll 4
     for (int e = threadIdx.x; e < N2K * ROWS2K; e += ROWS2K * RT) {
         const int k = e / ROWS2K, rr = e % ROWS2K;
-        if ((PF & 4) ? m < 0 : r0 + rr < m) {
+        if (r0 + rr < m) {
             const size_t o = (size_t)k * m + r0 + rr;
             yi[o] = tre[k * (ROWS2K + 1) + rr];
             yq[o] = tim[k * (ROWS2K + 1) + rr];
@@ -558,7 +543,7 @@ dft2048_bf16_kernel(
             while (!mbar_try_wait(bar, phase)) {
             }
             phase ^= 1;
-        } else if (!(PF & 2)) {
+        } else {
             const int rows = rows_of(t);
             for (int e = tid; e < rows * N2K; e += ROWS2K * RT) {
                 in[e] = ui[r0 * N2K + e];
@@ -577,19 +562,15 @@ dft2048_bf16_kernel(
         }
         float* are = xs + row * N2K;
         float* aim = xs + (ROWS2K + row) * N2K;
-        if (!(PF & 1)) {
-            dft_reg<16>(xr, xi);
+        dft_reg<16>(xr, xi);
 #pragma unroll
-            for (int k1 = 1; k1 < 16; ++k1)
-                rotate_by(tw1[(k1 - 1) * RT + j], xr[k1], xi[k1]);
-        }
+        for (int k1 = 1; k1 < 16; ++k1)
+            rotate_by(tw1[(k1 - 1) * RT + j], xr[k1], xi[k1]);
         __syncthreads();            // the store tile (over A) is read
-        if (!(PF & 1)) {
 #pragma unroll
-            for (int k1 = 0; k1 < 16; ++k1) {
-                are[swz(k1, j)] = xr[k1];
-                aim[swz(k1, j)] = xi[k1];
-            }
+        for (int k1 = 0; k1 < 16; ++k1) {
+            are[swz(k1, j)] = xr[k1];
+            aim[swz(k1, j)] = xi[k1];
         }
         // the row's A written and its input row read: the row's next
         // input row may come in
@@ -598,39 +579,37 @@ dft2048_bf16_kernel(
             load_row(ui, uq, r0 + (long)step * CL * ROWS2K + row,
                      row < rows_of(t + step), in_row, bar);
 
-        if (!(PF & 1)) {
-            // pass 2: (t1, k1) = (j % 8, j / 8) takes A[k1][t1 + 8 t2],
-            // t2 < 16; a 16-point DFT over t2, times exp(-2 pi i t1 k2 /
-            // 128): B(t1, g = k1 + 16 k2), written where it read A[k1][t1 +
-            // 8 k2] (its own 16 words: no barrier between)
-            const int t1 = j & 7, k1 = j >> 3;
+        // pass 2: (t1, k1) = (j % 8, j / 8) takes A[k1][t1 + 8 t2],
+        // t2 < 16; a 16-point DFT over t2, times exp(-2 pi i t1 k2 /
+        // 128): B(t1, g = k1 + 16 k2), written where it read A[k1][t1 +
+        // 8 k2] (its own 16 words: no barrier between)
+        const int t1 = j & 7, k1 = j >> 3;
 #pragma unroll
-            for (int t2 = 0; t2 < 16; ++t2) {
-                xr[t2] = are[swz(k1, t1 + 8 * t2)];
-                xi[t2] = aim[swz(k1, t1 + 8 * t2)];
-            }
-            dft_reg<16>(xr, xi);
-#pragma unroll
-            for (int k2 = 1; k2 < 16; ++k2)
-                rotate_by(tw2[(k2 - 1) * 8 + t1], xr[k2], xi[k2]);
-#pragma unroll
-            for (int k2 = 0; k2 < 16; ++k2) {
-                are[swz(k1, t1 + 8 * k2)] = xr[k2];
-                aim[swz(k1, t1 + 8 * k2)] = xi[k2];
-            }
-            row_sync(row);          // the row's B written
-
-            // pass 3: groups g = j and j + 128, 8 points over t1 each:
-            // x[8 h + t1] = B(t1, j + 128 h); y[g + 256 k3] for k3 < 8
-#pragma unroll
-            for (int x = 0; x < 16; ++x) {
-                const int g = j + RT * (x >> 3);
-                xr[x] = are[swz(g & 15, (x & 7) + 8 * (g >> 4))];
-                xi[x] = aim[swz(g & 15, (x & 7) + 8 * (g >> 4))];
-            }
-            dft_reg<8, 0>(xr, xi);
-            dft_reg<8, 8>(xr, xi);
+        for (int t2 = 0; t2 < 16; ++t2) {
+            xr[t2] = are[swz(k1, t1 + 8 * t2)];
+            xi[t2] = aim[swz(k1, t1 + 8 * t2)];
         }
+        dft_reg<16>(xr, xi);
+#pragma unroll
+        for (int k2 = 1; k2 < 16; ++k2)
+            rotate_by(tw2[(k2 - 1) * 8 + t1], xr[k2], xi[k2]);
+#pragma unroll
+        for (int k2 = 0; k2 < 16; ++k2) {
+            are[swz(k1, t1 + 8 * k2)] = xr[k2];
+            aim[swz(k1, t1 + 8 * k2)] = xi[k2];
+        }
+        row_sync(row);          // the row's B written
+
+        // pass 3: groups g = j and j + 128, 8 points over t1 each:
+        // x[8 h + t1] = B(t1, j + 128 h); y[g + 256 k3] for k3 < 8
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+            const int g = j + RT * (x >> 3);
+            xr[x] = are[swz(g & 15, (x & 7) + 8 * (g >> 4))];
+            xi[x] = aim[swz(g & 15, (x & 7) + 8 * (g >> 4))];
+        }
+        dft_reg<8, 0>(xr, xi);
+        dft_reg<8, 8>(xr, xi);
         // the cluster's blocks have read their B: the store tiles (over
         // the exchange) may be written, here and in the peers
         cluster_arrive();
@@ -678,9 +657,7 @@ dft2048_bf16_kernel(
                 const int k = (int)rank * CH + 2 * c + b;
                 __nv_bfloat16* y =
                     (p ? yq : yi) + (size_t)k * m + c0 + 2 * li;
-                if (PF & 4) {
-                    if (m < 0) *reinterpret_cast<unsigned*>(y) = v[b];
-                } else if (full) {
+                if (full) {
                     *reinterpret_cast<unsigned*>(y) = v[b];
                 } else {
                     if (c0 + 2 * li < m)
@@ -746,7 +723,7 @@ int launch_2048_bf16(const __nv_bfloat16* ui, const __nv_bfloat16* uq,
     // bulk copies need 16-byte aligned planes (else every thread copies
     // its share of the tile, without overlap); 4-byte stores of a
     // channel's rows need m % 8 == 0 (else 2-byte ones)
-    const bool bulk = !(PF & 2) && aligned16(ui) && aligned16(uq);
+    const bool bulk = aligned16(ui) && aligned16(uq);
     const bool vec = m % 8 == 0 && aligned16(yi) && aligned16(yq);
     dft2048_bf16_kernel<<<CL * clusters, ROWS2K * RT, BF_SMEM, stream>>>(
         ui, uq, twc, tws, m, tiles, bulk, vec, yi, yq);

@@ -37,10 +37,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int KC = 16;       // WT words (rows) per staged chunk
 
 // Frames per warp of the c384 body: 6 (99 registers) timed faster than 4
-// and 8 at 18432 x 320 and x 518 bytes on an H100 (chip_smoke.py --tune)
-#ifndef SONDETPU_RS_CLEAN_F
-#define SONDETPU_RS_CLEAN_F 6
-#endif
+// and 8 at 18432 x 320 and x 518 bytes on an H100 (PR 7)
+constexpr int C384_F = 6;
 
 // The frame tile's row stride in words for F frames per warp: even (8-byte
 // loads), 4 more than the block's frames so that the staging stores of 32
@@ -191,8 +189,7 @@ SONDETPU_API int sondetpu_rs_clean(const uint8_t* frames, const uint32_t* wt,
                                    void* stream) {
     if (R < 1 || fb < 1 || !aligned16(wt)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (ncols == 384)
-        return launch<12, SONDETPU_RS_CLEAN_F>(frames, wt, R, fb, out, s);
+    if (ncols == 384) return launch<12, C384_F>(frames, wt, R, fb, out, s);
     if (ncols == 512) return launch<16, 6>(frames, wt, R, fb, out, s);
     return (int)cudaErrorInvalidValue;
 }

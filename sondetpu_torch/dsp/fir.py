@@ -22,14 +22,10 @@ window in the same order.
 On a CUDA tensor ``apply_windows`` is one launch of the hand-written
 filter ``kernels/lane_fir.py:plain_fir``, which sums in the same order
 and rounds every operation alone, so the card gives ``window_sum``'s bits;
-its taps ride in the launch. ``tap_passes`` counts the eager passes that
-``apply_windows`` makes on any other device, one a tap (a product and an
-in-place sum over the whole output): the plain-op front end's filters make
-123 a step of RS41 at 41 taps on the CPU, none on the card (there
-``cuda.launches["plain_fir"]`` counts its launches). The kernels' plain
-twins filter through ``window_sum``, which counts none, as their kernels
-make none on the card. A run resets it with :func:`reset_tap_passes` and
-reads it afterwards.
+its taps ride in the launch (``cuda.launches["plain_fir"]`` counts the
+launches). On any other device it is ``window_sum``: one eager pass a tap,
+a product and an in-place sum over the whole output. The kernels' plain
+twins filter through ``window_sum`` too.
 """
 
 from __future__ import annotations
@@ -38,14 +34,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-
-tap_passes = {"apply_windows": 0}
-
-
-def reset_tap_passes() -> None:
-    for k in tap_passes:
-        tap_passes[k] = 0
-
 
 def _blackman_harris(n: int) -> np.ndarray:
     k = np.arange(n)
@@ -157,7 +145,7 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
     ``y[m] = sum_u taps[u] * xp[m*stride + ntaps - 1 - u]``, summed in
     ascending u with every operation rounded on its own (see
     :func:`conv1d`): on a CUDA tensor one launch of ``plain_fir``, else
-    :func:`window_sum`, counted in ``tap_passes``."""
+    :func:`window_sum`."""
     if xp.device.type == "cuda":
         # imported here: kernels.lane_fir imports this module
         from sondetpu_torch.kernels.lane_fir import plain_fir
@@ -165,13 +153,12 @@ def apply_windows(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
         if xp.dtype not in (torch.float32, torch.bfloat16):
             xp = xp.to(torch.float32)       # as window_sum widens it
         return plain_fir(xp, taps, stride)
-    tap_passes["apply_windows"] += len(taps)
     return window_sum(xp, taps, stride)
 
 
 def window_sum(xp: torch.Tensor, taps, stride: int = 1) -> torch.Tensor:
-    """:func:`apply_windows`' eager passes, uncounted: the kernels' plain
-    twins, ``plain_fir``'s among them."""
+    """:func:`apply_windows`' eager passes, one a tap; also the kernels'
+    plain twins, ``plain_fir``'s among them."""
     h = _taps(taps, xp)
     ntaps = h.shape[0]
     n_out = (xp.shape[-1] - ntaps) // stride + 1

@@ -4,9 +4,13 @@ The sources are compiled with nvcc for Hopper (``sm_90a``), one process per
 source, all at once, and linked into one shared library with a plain C
 interface, at the first launch, and bound with ctypes: no PyTorch headers,
 so the build takes seconds. The library lands in ``build/sondetpu_torch/``
-beside the package, named by a hash of the sources, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs when the
-module is imported.
+beside the package, named by a hash of the sources and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Nothing here
+runs when the module is imported.
+
+The library has exactly one configuration: ``NVCC_FLAGS`` is a constant
+tuple that defines no macro, and the sources hold no preprocessor
+conditional, so every kernel is built one way, the way it ships.
 
 ``launches`` counts, per kernel, the launches that went through
 :func:`launch`, and ``body_launches`` the launches of each compiled body of
@@ -31,8 +35,8 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                          "sondetpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong

@@ -337,8 +337,7 @@ def test_cuda_plain_path_packs_what_the_eager_filters_pack(cuda_device,
     place of the plain filter, over 3 blocks of 8 channels with three
     serials: every field of every block's output and the carried state; its
     filters are three plain_fir launches a step (t41_d2 for the channel
-    filter's two planes, t41_d1 for the matched filter) and no tap pass.
-    Its valid frames and RS verdicts equal the CPU's."""
+    filter's two planes, t41_d1 for the matched filter). Its valid frames and RS verdicts equal the CPU's."""
     cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
                                use_pallas=False, compute_dtype=dtype,
                                input_dtype="i16")
@@ -355,12 +354,10 @@ def test_cuda_plain_path_packs_what_the_eager_filters_pack(cuda_device,
         return state, outs
 
     cuda.reset_launches()
-    fir.reset_tap_passes()
     gs, gouts = run()
     assert cuda.body_launches == {"plain_fir:t41_d2": 6,
                                   "plain_fir:t41_d1": 3,
                                   "plain_corr:t64": 3}
-    assert fir.tap_passes == {"apply_windows": 0}
     monkeypatch.setattr(tpipe, "apply_windows", fir.window_sum)
     es, eouts = run()
     for b, (g, e) in enumerate(zip(gouts, eouts)):
@@ -1128,7 +1125,7 @@ def test_cuda_plain_fir_bit_equal(cuda_device, ntaps, stride, dtype):
     row; one launch a call, of the body the taps and stride name (two
     chained launches above 256 taps count as one call). No rows give an
     empty result and launch nothing; apply_windows on a CUDA tensor is
-    the same launch and counts no tap pass."""
+    the same launch."""
     rng = np.random.default_rng(7 * ntaps + stride)
     h = rng.normal(size=ntaps).astype(np.float32)
     body = f"plain_fir:{plain_fir_body(ntaps, stride)}"
@@ -1151,10 +1148,8 @@ def test_cuda_plain_fir_bit_equal(cuda_device, ntaps, stride, dtype):
                       h, stride)
     assert empty.shape == (0, (500 - ntaps) // stride + 1)
     assert cuda.launches["plain_fir"] == 0
-    fir.reset_tap_passes()
     got = apply_windows(x, h, stride)
     assert cuda.body_launches == {body: 1}
-    assert fir.tap_passes == {"apply_windows": 0}
     assert torch.equal(_bits(got), _bits(window_sum(x, h, stride)))
 
 

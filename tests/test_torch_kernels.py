@@ -7,6 +7,8 @@ with their twins on the card (tests/test_torch_cuda.py, which imports no
 jax, and chip_smoke.py).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -434,3 +436,17 @@ def test_kernel_library_is_named_by_its_sources():
         "frontend.cu", "corr.cu", "syndrome.cu", "common.cuh"}
     assert path == cuda.library_path()
     assert cuda._lib is None or torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("source", cuda._sources(),
+                         ids=lambda p: p.rsplit("/", 1)[-1])
+def test_kernel_library_has_one_build(source):
+    """Every kernel is built one way, as it ships: no source holds a
+    preprocessor conditional, and the flags are a constant that defines
+    no macro."""
+    with open(source) as f:
+        conditionals = [line for line in f
+                        if re.match(r"\s*#\s*(if|ifdef|ifndef|elif)\b", line)]
+    assert conditionals == []
+    assert isinstance(cuda.NVCC_FLAGS, tuple)
+    assert not any(flag.startswith("-D") for flag in cuda.NVCC_FLAGS)

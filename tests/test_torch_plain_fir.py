@@ -2,8 +2,8 @@
 plain_fir`` (the hand-written launch that ``dsp/fir.py:apply_windows``
 makes for a CUDA tensor) checks its arguments as the card's entry would,
 runs ``window_sum`` for CPU tensors and picks its body from the tap count
-and the stride alone; ``apply_windows`` on a CPU tensor still makes its
-eager passes and counts them in ``tap_passes``.
+and the stride alone; ``apply_windows`` on a CPU tensor runs
+``window_sum``'s eager passes and launches nothing.
 
 The kernel itself runs only on a card: ``tests/test_torch_cuda.py`` holds
 it to ``window_sum`` bit for bit in every body.
@@ -78,18 +78,16 @@ def test_plain_fir_refuses_unsupported_devices():
          "one-output", "no-output"])
 def test_plain_fir_on_the_cpu_is_window_sum(dtype, ntaps, stride, ln):
     """CPU tensors run ``window_sum`` bit for bit (as int32 patterns):
-    launch nothing, count no tap pass, and give float32 [C, (ln - T) //
-    stride + 1], down to one output and none; a tap count above one
-    launch's 256 is taken too."""
+    launch nothing and give float32 [C, (ln - T) // stride + 1], down to
+    one output and none; a tap count above one launch's 256 is taken
+    too."""
     rng = np.random.default_rng(ntaps * 10 + stride)
     x = T(rng.normal(size=(3, ln)).astype(np.float32)).to(dtype)
     x[:, ::7] = -0.0
     h = rng.normal(size=ntaps).astype(np.float32)
-    fir.reset_tap_passes()
     before = cuda.launches["plain_fir"]
     got = plain_fir(x, h, stride)
     assert cuda.launches["plain_fir"] == before
-    assert fir.tap_passes == {"apply_windows": 0}
     assert got.dtype == torch.float32
     assert got.shape == (3, (ln - ntaps) // stride + 1)
     assert torch.equal(_bits(got), _bits(window_sum(x, h, stride)))
@@ -108,18 +106,23 @@ def test_plain_fir_takes_no_rows_and_row_views():
 
 
 @pytest.mark.parametrize("taps_kind", ["numpy", "tensor"])
-def test_apply_windows_on_the_cpu_counts_tap_passes(taps_kind):
-    """A CPU tensor still takes the eager passes: ``window_sum``'s result,
-    one tap pass a tap, and no kernel launch; the taps may be NumPy or a
-    tensor."""
+def test_apply_windows_on_the_cpu_counts_tap_passes(taps_kind, monkeypatch):
+    """A CPU tensor takes the eager passes: one call of ``window_sum`` with
+    the 41 taps (a pass a tap), its result, and no kernel launch; the taps
+    may be NumPy or a tensor."""
     rng = np.random.default_rng(4)
     x = T(rng.normal(size=(5, 1041)).astype(np.float32))
     h = design_lowpass(5000.0, 48000.0, 41)
     taps = h if taps_kind == "numpy" else T(h)
-    fir.reset_tap_passes()
+    passes = []
+
+    def counted(xp, taps, stride=1):
+        passes.append(len(taps))
+        return window_sum(xp, taps, stride)
+
+    monkeypatch.setattr(fir, "window_sum", counted)
     before = cuda.launches["plain_fir"]
     got = apply_windows(x, taps, stride=2)
-    assert fir.tap_passes == {"apply_windows": 41}
+    assert passes == [41]
     assert cuda.launches["plain_fir"] == before
     assert torch.equal(_bits(got), _bits(window_sum(x, h, 2)))
-    fir.reset_tap_passes()

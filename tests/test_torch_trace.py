@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 from benchmark.harness import catalog, spans, trace
 from sondetpu_torch.dsp import fir
 from sondetpu_torch.runtime import metrics
+from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 from sondetpu_torch.runtime.session import DecoderSession
@@ -154,19 +155,23 @@ def test_plain_frontend_spans_and_outputs_bit_equal(tmp_path):
 
 @pytest.mark.parametrize("use_pallas,passes", [(False, 123), (True, 0)],
                          ids=["plain", "kernel"])
-def test_tap_passes_a_step(use_pallas, passes):
-    """``apply_windows``' passes: 41 a tap set for each of the channel
+def test_tap_passes_a_step(use_pallas, passes, monkeypatch):
+    """``apply_windows``' passes, one a tap: 41 for each of the channel
     filter's two planes and the matched FIR on the plain-op path; none on
-    the kernel route, whose CPU twins filter uncounted."""
+    the kernel route, whose CPU twins filter without it."""
     pipe = Pipeline(PipelineConfig(sonde="rs41", channels=C,
                                    block_len=BLOCK, input_dtype="i16",
                                    use_pallas=use_pallas), "cpu")
     planes = _planes(1)
-    fir.reset_tap_passes()
+    taps_seen = []
+
+    def counted(xp, taps, stride=1):
+        taps_seen.append(len(taps))
+        return fir.apply_windows(xp, taps, stride)
+
+    monkeypatch.setattr(tpipe, "apply_windows", counted)
     _steps(pipe, planes, 1)
-    assert fir.tap_passes == {"apply_windows": passes}
-    fir.reset_tap_passes()
-    assert fir.tap_passes == {"apply_windows": 0}
+    assert sum(taps_seen) == passes
 
 
 def test_fleet_stage_spans_nest_under_their_group(tmp_path):
