@@ -45,6 +45,12 @@ before the result line:
    the plain-op front end's filter (K10's third entry, apply_windows on
    the card) to window_sum bit for bit in each body, float32 and
    bfloat16, timed at the RS41 plain step's two filter shapes.
+   peak_pick holds the peak pick (csrc/peak_pick.cu, every route's
+   find_frame_starts) to its eager twin with torch.equal at RS41's 2048
+   rows, the fleet's rs41, m10 and dfm groups and c50's 135 rounds (quantized
+   rows with ties, peaks at float32(threshold) and one ulp either side,
+   under thresholds that round up and down) and on kernels/peak_cases.py's
+   edge rows, each shape timed beside the twin and its bytes bound.
 4. main_path: the RS41 kernel path through DecoderSession at 2048 channels
    x 4 s blocks: decoded telemetry checked, each kernel's and body's
    launch count read from that run alone; then an 8-channel run with three
@@ -238,6 +244,9 @@ before the result line:
 37. oracle: python -m sondetpu_torch.bench.oracle --selftest on the card
     and on the CPU (in this process): every family ok, every expected
     frame bit-exact, the card's report equal to the CPU's.
+Every pipeline step launches the peak pick once, on every route: the
+lists of kernels a phase launches above leave it out, and the phases'
+launch checks count it.
 Shards on one card run in turn: the mesh phases' times show the cost of
 sharding, never scaling. An NCCL group needs a card per rank.
 
@@ -291,6 +300,9 @@ KERNEL_SOURCES = {
     "lane_fir": ("sondetpu_torch/csrc/lane_fir.cu",
                  "tools/exp_chanfilt.py:51"),
 }
+# the peak pick replaces no TPU kernel: the original's is jnp ops
+PEAK_PICK_SOURCE = ("sondetpu_torch/csrc/peak_pick.cu",
+                    "none (sondetpu/sync/correlator.py:39, jnp ops)")
 # the card's peaks for the bound of each kernel (NVIDIA's H100 SXM data
 # sheet): device memory, and FP32 outside the tensor cores at 67 TFLOP/s,
 # which counts an FMA as two; the kernels round every product and sum on its
@@ -398,9 +410,10 @@ def kernel_launches(bodies: dict) -> dict:
 def plain_kernels_only(launches, cfg, steps: int) -> bool:
     """True when the plain correlation and the plain filter are the only
     hand kernels in ``launches``, as often as :func:`plain_route_bodies`
-    says."""
+    says, beside the peak pick, once a step."""
     return ({k: v for k, v in launches.items() if v}
-            == kernel_launches(plain_route_bodies(cfg, steps)))
+            == {**kernel_launches(plain_route_bodies(cfg, steps)),
+                "peak_pick": steps})
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2438,6 +2451,70 @@ def phase_plain_correlation(torch, dev):
     return results
 
 
+def phase_peak_pick(torch, dev):
+    """The peak pick (``kernels/peak_pick.py:peak_pick``, every route's
+    ``find_frame_starts`` on the card) torch.equal to its eager twin on the
+    card: at RS41's 4-s shape on 2048 rows, at the fleet's three groups
+    (1230 rs41, 614 m10, 204 dfm rows) and at c50's 4-s shape (135
+    rounds), on quantized rows with planted ties and peaks at
+    float32(threshold) and one ulp either side, under a threshold that
+    rounds up and one that rounds down; and on the edge rows of
+    ``kernels/peak_cases.py``. One launch a call. Each shape is timed
+    beside the twin and its bound: one read of the rows and the picks
+    written."""
+    from sondetpu_torch.kernels import cuda
+    from sondetpu_torch.kernels.peak_cases import (EDGE_CASES, THRESHOLDS,
+                                                   edge_case_rows,
+                                                   planted_rows)
+    from sondetpu_torch.kernels.peak_pick import (find_frame_starts_plain,
+                                                  peak_pick)
+    from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+
+    def held(label, corr, threshold, k, md):
+        before = cuda.launches["peak_pick"]
+        s, ok = peak_pick(corr, threshold, k, md)
+        ws, wok = find_frame_starts_plain(corr, threshold, k, md)
+        torch.cuda.synchronize()
+        check(cuda.launches["peak_pick"] == before + 1,
+              f"peak_pick {label}: {cuda.launches['peak_pick'] - before} "
+              "launches")
+        check(torch.equal(s, ws) and torch.equal(ok, wok),
+              f"peak_pick {label}: differs from the eager twin")
+
+    results = {}
+    shapes = (("rs41-2048", "rs41", 2048), ("fleet-rs41", "rs41", 1230),
+              ("fleet-m10", "m10", 614), ("fleet-dfm", "dfm", 204),
+              ("c50-2048", "c50", 2048))
+    for label, sonde, c in shapes:
+        n, k, md = Pipeline(PipelineConfig(sonde=sonde, channels=1,
+                                           block_len=BLOCK_LEN),
+                            torch.device("cpu")).peak_shape()
+        for seed, threshold in enumerate(THRESHOLDS):
+            corr = planted_rows(c, n, md, threshold, seed, dev)
+            held(f"{label} threshold {threshold}", corr, threshold, k, md)
+        entry = {"phase": "kernel", "name": "peak_pick", "case": label,
+                 "shape": [c, n], "max_peaks": k, "min_distance": md,
+                 "max_abs_err": 0.0, "tol": 0,
+                 "ms": cuda_ms(torch, lambda: peak_pick(corr, 0.7, k, md),
+                               20),
+                 "plain_ms": cuda_ms(torch, lambda: find_frame_starts_plain(
+                     corr, 0.7, k, md), 3),
+                 "library_ms": None,
+                 **bound(nbytes(corr) + 5 * c * k, 0)}
+        results[label] = entry
+        emit(entry)
+        del corr
+    for label, n, k, md, kind in EDGE_CASES:
+        for c in (1, 7, 33):
+            for seed, threshold in enumerate(THRESHOLDS):
+                corr = torch.from_numpy(edge_case_rows(kind, c, n, seed))
+                held(f"{label} c{c} threshold {threshold}", corr.to(dev),
+                     threshold, k, md)
+    emit({"phase": "peak_pick", "shapes": sorted(results),
+          "edge_cases": [e[0] for e in EDGE_CASES], "matches_twin": True})
+    return results
+
+
 def phase_plain_fir(torch, dev):
     """The plain-op front end's filter on the card: the kernel
     (``kernels/lane_fir.py:plain_fir``, what ``apply_windows`` launches for
@@ -2800,7 +2877,8 @@ def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
     check(dualtone_truth(family, t), f"{label}: telemetry {ref}")
     corr = plain_route_bodies(cfg, n_blocks)
     check(launches["fused_dualtone_frontend"] == n_blocks
-          and sum(launches.values()) == n_blocks + sum(corr.values()),
+          == launches["peak_pick"]
+          and sum(launches.values()) == 2 * n_blocks + sum(corr.values()),
           f"{label}: launches {launches}")
     check(bodies == {"fused_dualtone_frontend:chanfilt_t41_nb20": n_blocks,
                      **corr},
@@ -3633,7 +3711,8 @@ def phase_profile_fleet(torch, dev, steps: int = 3):
 
 def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                              "corr.cu", "dualtone.cu", "syndrome.cu",
-                             "lane_fir.cu", "demod_fir.cu")):
+                             "lane_fir.cu", "demod_fir.cu",
+                             "peak_pick.cu")):
     """Registers, stack, spills and static shared memory of each body of
     the redesigned kernels, as ptxas reports them (nvcc -Xptxas -v), with
     the library's flags. K3's shared memory is dynamic: see
@@ -3658,7 +3737,7 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                           r"plain_fir_kernel|plain_fir_strided_kernel|"
                           r"demod_audio_kernel|demod_fir_kernel|"
                           r"pfb_fir_kernel|pfb_fir_bf16_kernel|"
-                          r"dft2048_bf16_kernel)"
+                          r"dft2048_bf16_kernel|peak_pick_kernel)"
                           r"((?:I|L[ib]-?\d+E|f|13__nv_bfloat16)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling
@@ -3984,9 +4063,11 @@ def phase_scan(torch, dev, smi, iq: str, n_bins: int, carriers, d: str):
     blocks = int(os.path.getsize(iq) // (4 * n_bins * 48000))
     check(la["pfb_fir_stream"] == la["pfb_dft"] == min(blocks, 3)
           and la["plain_corr"] > 0 and la["plain_fir"] > 0
+          and la["peak_pick"] > 0
           and not any(v for name, v in la.items()
                       if name not in ("pfb_fir_stream", "pfb_dft",
-                                      "plain_corr", "plain_fir")),
+                                      "plain_corr", "plain_fir",
+                                      "peak_pick")),
           f"scan: launches {la}")
     emit({"phase": "scan", "bins": n_bins, "device": smi,
           "capture_bytes": os.path.getsize(iq), "carriers": found,
@@ -4467,9 +4548,11 @@ def phase_autofleet(torch, dev, smi, n_bins: int = N_BINS,
     steps = sum(fleet_steps)
     check(launches["pfb_fir_stream"] == launches["pfb_dft"] == steps + probes
           and launches["plain_corr"] > 0 and launches["plain_fir"] > 0
+          and launches["peak_pick"] > 0
           and not any(v for name, v in launches.items()
                       if name not in ("pfb_fir_stream", "pfb_dft",
-                                      "plain_corr", "plain_fir")),
+                                      "plain_corr", "plain_fir",
+                                      "peak_pick")),
           f"autofleet: launches {launches} (fleet steps {steps}, probe "
           f"blocks {probes})")
     rescan_blocks = {r["after_block"] for r in rescans}
@@ -4741,7 +4824,7 @@ def phase_mesh_session(torch, dev, smi, n_blocks: int = 3):
               and abs(t.lat - 45.0) < 1e-4,
               f"mesh_session: channel {ch} telemetry {t}")
     want = {"fused_frontend": 4 * n_blocks, "corr": 4 * n_blocks,
-            "rs_clean": 4 * n_blocks}
+            "rs_clean": 4 * n_blocks, "peak_pick": 4 * n_blocks}
     check({k: launches[k] for k in want} == want
           and not any(v for k, v in launches.items() if k not in want),
           f"mesh_session: launches {launches}, expected {want}")
@@ -4897,8 +4980,8 @@ def phase_mesh_fleet(torch, dev, smi, n_blocks: int = 3):
     # filter with the plain filter
     plain = {}
     for _, (_, sess) in fm.groups.items():
-        for k, v in kernel_launches(plain_route_bodies(sess.config,
-                                                       1)).items():
+        for k, v in {**kernel_launches(plain_route_bodies(sess.config, 1)),
+                     "peak_pick": 1}.items():
             plain[k] = plain.get(k, 0) + mesh2.devices.size * n_blocks * v
     check(launches["pfb_fir_stream"] == n_blocks == launches["pfb_dft"]
           and all(launches[k] == v for k, v in plain.items())
@@ -5515,6 +5598,7 @@ def main() -> int:
     kres["fused_afsk_frontend"] = k8["imet4"]
     plain_corr_res = phase_plain_correlation(torch, dev)
     plain_fir_res = phase_plain_fir(torch, dev)
+    peak_res = phase_peak_pick(torch, dev)
     unpathed, unpathed_launches = phase_unpathed_kernels(torch, dev)
     kres.update(unpathed)
     # every path is driven with the counts at 0 just before it and read
@@ -5735,6 +5819,30 @@ def main() -> int:
                                 for p, r in new_runs.items()},
         "mesh_launches": {p: r["launches"].get("plain_fir", 0)
                           for p, r in mesh_runs.items()}}
+    # the peak pick, once a group step on every path: its timings at the
+    # cells' group shapes and its launches on every path that runs it
+    table.append({
+        "name": "peak_pick", "route": "cuda", "source": PEAK_PICK_SOURCE[0],
+        "replaces": PEAK_PICK_SOURCE[1],
+        "launches": runs["rs41"]["launches"]["peak_pick"],
+        "launches_from": "rs41",
+        **subset(peak_res["rs41-2048"]),
+        "shapes": {k: dict(subset(e), shape=e["shape"],
+                           max_peaks=e["max_peaks"])
+                   for k, e in peak_res.items()},
+        "launches_per_step": {p: runs[p]["launches"].get("peak_pick", 0)
+                              / runs[p]["steps"] for p in paths},
+        "cli_launches": {p: r["launches"].get("peak_pick", 0)
+                         for p, r in cli_runs.items()
+                         if r["launches"].get("peak_pick", 0)},
+        "automation_launches": {p: r["launches"].get("peak_pick", 0)
+                                for p, r in new_runs.items()},
+        "mesh_launches": {p: r["launches"].get("peak_pick", 0)
+                          for p, r in mesh_runs.items()}})
+    per_step = table[-1]["launches_per_step"]
+    check(per_step["rs41"] == per_step["plain_f32"] == 1
+          and per_step["fleet"] == 3,
+          f"peak_pick: launches per step {per_step}")
     k9_row = next(e for e in table if e["name"] == "fused_demod_fir")
     k9_row.update(subset(kres["fused_demod_fir"], keys=("audio_ms", "fir_ms")))
     k2_row = next(e for e in table if e["name"] == "corr")

@@ -17,7 +17,10 @@
 - ``lane_fir.lane_fir``: the lane experiment's FIR (``csrc/lane_fir.cu``);
   ``lane_fir.plain_corr``: the plain syncword correlation on the same
   design (the second entry of ``csrc/lane_fir.cu``), which
-  ``sync.correlate_syncword`` launches on the card.
+  ``sync.correlate_syncword`` launches on the card;
+- ``peak_pick.peak_pick``: the syncword correlation's peak pick
+  (``csrc/peak_pick.cu``), which ``sync.find_frame_starts`` launches on
+  the card (the original's is jnp ops, not a Pallas kernel).
 
 ``cuda`` builds and loads the library and counts launches.
 """

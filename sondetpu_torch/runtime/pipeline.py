@@ -621,6 +621,8 @@ class Pipeline:
             templates.append(spec.sync_chip_template(bits=np.asarray(b)))
         # host arrays: the correlator kernel takes its taps from the host
         self._np_templates = [np.asarray(t, np.float32) for t in templates]
+        # the peak pick's suppression distance
+        self._min_dist = max(c.min_frame_chips // 4, self._template.shape[0])
         self._dualtone, self._skip_chanfilt = _dualtone_gates(c)
         if (spec.extra.get("fsk_dualtone") and not self._dualtone
                 and spec.modulation in ("gfsk", "fsk")):
@@ -702,6 +704,14 @@ class Pipeline:
         self._f_seed = torch.from_numpy(
             np.asarray(c.fine_offsets, np.float32) if c.fine_offsets is not None
             else np.zeros(c.channels, np.float32)).to(dev)
+
+    def peak_shape(self) -> tuple:
+        """(n, max_peaks, min_distance) of the step's peak pick: the
+        correlation's columns (the longest template's), the frame slots
+        and the suppression distance."""
+        c = self.config
+        n = c.buf_len - max(len(t) for t in self._np_templates) + 1
+        return n, c.k_slots, self._min_dist
 
     # -- state -------------------------------------------------------------
 
@@ -1183,9 +1193,8 @@ class Pipeline:
             if stop == "corr":
                 return torch.sum(corr)
         with span("sondetpu.peaks"):
-            min_dist = max(c.min_frame_chips // 4, self._template.shape[0])
             starts, ok = find_frame_starts(corr, c.sync_threshold, c.k_slots,
-                                           min_dist)
+                                           self._min_dist)
             if stop == "peaks":
                 return _int32_sum(starts) + _int32_sum(ok)
             # dedup across blocks: only frames whose END lies in the new

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from sondetpu_torch.kernels.lane_fir import plain_corr, plain_corr_plain
+from sondetpu_torch.kernels.peak_pick import peak_pick
 from sondetpu_torch.sync.coding import np_bytes_to_bits
 
 
@@ -46,36 +47,13 @@ def find_frame_starts(corr: torch.Tensor, threshold: float, max_peaks: int,
     top-2 values are candidates, then an iterative argmax with
     +/-``min_distance`` suppression runs on the candidates. Ties resolve to
     the first index, as in JAX, and the final position sort is stable, as
-    ``jnp.argsort`` is. Returns (starts [C, K] int32 sorted ascending,
-    ok [C, K] bool).
-    """
-    c, n = corr.shape
-    dev = corr.device
-    half = max(min_distance // 2, 1)
-    nb = -(-n // half)
-    cp = torch.nn.functional.pad(corr, (0, nb * half - n), value=-float("inf"))
-    blocks = cp.reshape(c, nb, half)
-    v1, a1 = _max_first(blocks)
-    masked = blocks.scatter(-1, a1[..., None], -float("inf"))
-    v2, a2 = _max_first(masked)
-    base = half * torch.arange(nb, device=dev)[None, :]
-    cand_v = torch.cat([v1, v2], dim=-1)                    # [C, 2*nb]
-    cand_p = torch.cat([a1 + base, a2 + base], dim=-1)
-    idxs = []
-    oks = []
-    work = cand_v
-    for _ in range(max_peaks):
-        v, j = _max_first(work)
-        p = torch.gather(cand_p, -1, j[:, None])[:, 0]
-        idxs.append(p)
-        oks.append(v >= threshold)
-        work = torch.where((cand_p - p[:, None]).abs() <= min_distance,
-                           torch.full_like(work, -float("inf")), work)
-    starts = torch.stack(idxs, dim=-1).to(torch.int32)
-    ok = torch.stack(oks, dim=-1)
-    key = torch.where(ok, starts, torch.full_like(starts, n + 1))
-    order = torch.argsort(key, dim=-1, stable=True)
-    return torch.gather(starts, -1, order), torch.gather(ok, -1, order)
+    ``jnp.argsort`` is. corr is float32. Returns (starts [C, K] int32
+    sorted ascending, ok [C, K] bool).
+
+    On a CUDA device one launch of the peak-pick kernel
+    (``kernels/peak_pick.py:peak_pick``); elsewhere the eager ops it equals
+    bit for bit (``find_frame_starts_plain``)."""
+    return peak_pick(corr, threshold, max_peaks, min_distance)
 
 
 def gather_frames(stream: torch.Tensor, starts: torch.Tensor,
@@ -98,11 +76,3 @@ def gather_frames(stream: torch.Tensor, starts: torch.Tensor,
     # [C, K, frame_len] result
     return stream.unfold(1, frame_len, 1)[rows, safe], valid
 
-
-def _max_first(x: torch.Tensor):
-    """(max, index of its first occurrence) over the last axis, as
-    ``jnp.max``/``jnp.argmax``."""
-    v = torch.amax(x, dim=-1)
-    idx = torch.arange(x.shape[-1], device=x.device)
-    first = torch.where(x == v[..., None], idx, x.shape[-1]).amin(dim=-1)
-    return v, first

@@ -6,7 +6,9 @@ and mrzn1), the configs the kernel gates send to the plain-op path, the
 jnp AFSK front end, the bfloat16 kernel routes, the DDC and AFC loop and
 the fleet (float32, and bfloat16 with AFSK bins) on the card against the
 CPU; the correlator in every body, the RS syndrome flag, the AFSK tone
-kernel and the plain correlation's division; the plain-op front end's
+kernel and the plain correlation's division; the peak pick against its
+eager twin at every family's shape and on its edge rows, once a group
+step on every route; the plain-op front end's
 filter (``plain_fir``) against ``window_sum`` in every body and the plain
 step against its eager tap passes; and the command line's device pieces
 (the resampler, ``decode``) on the card against the CPU.
@@ -50,6 +52,10 @@ from sondetpu_torch.kernels.lane_fir import (lane_fir, lane_fir_plain,
                                              plain_corr, plain_corr_body,
                                              plain_corr_plain, plain_fir,
                                              plain_fir_body)
+from sondetpu_torch.kernels.peak_cases import (EDGE_CASES, THRESHOLDS,
+                                               edge_case_rows, planted_rows)
+from sondetpu_torch.kernels.peak_pick import (find_frame_starts_plain,
+                                              peak_pick)
 from sondetpu_torch.kernels.syndrome import (rs_clean_flags_kernel,
                                              rs_clean_plain)
 from sondetpu_torch.kernels.pfb import (pfb_dft, pfb_dft_plain, pfb_fir_plain,
@@ -67,6 +73,7 @@ from sondetpu_torch.sondes.modulate import freq_shift
 from sondetpu_torch.sondes.mrzn1 import MRZN1Modulator, MRZN1Truth
 from sondetpu_torch.sondes.rs41 import (SPEC, RS41Modulator, RS41Truth,
                                         RS41XModulator)
+from sondetpu_torch.sondes import SUPPORTED_TYPES
 from sondetpu_torch.sondes import imet4 as timet4
 from sondetpu_torch.sondes import m10 as tm10
 from sondetpu_torch.sync import correlator as tcorrelator
@@ -293,8 +300,8 @@ def _plain_route_bodies(cfg, steps):
 def _only_plain_kernels(cfg, steps):
     """True when the plain correlation and the plain filter are the only
     hand kernels launched since the counts were reset, as many times as
-    :func:`_plain_route_bodies` says."""
-    want = {}
+    :func:`_plain_route_bodies` says, beside the peak pick, once a step."""
+    want = {"peak_pick": steps}
     for key, n in _plain_route_bodies(cfg, steps).items():
         kernel = key.split(":")[0]
         want[kernel] = want.get(kernel, 0) + n
@@ -310,7 +317,7 @@ def test_cuda_pipeline_matches_cpu(cuda_device):
     _, _, frames = _card_equals_cpu(cfg, cuda_device, _cs16(_rs41_rows(3)), 3)
     assert frames >= 3 * 8
     assert all(cuda.launches[k] == 3 for k in ("fused_frontend", "corr",
-                                                "rs_clean"))
+                                                "rs_clean", "peak_pick"))
 
 
 def test_cuda_plain_path_matches_cpu(cuda_device):
@@ -1249,6 +1256,94 @@ def test_cuda_fleet_m10_group_corr_is_two_launches(cuda_device, tmp_path):
     assert not [n for n in calls if n.startswith("cudaMemcpy")
                 or n.endswith("Synchronize")], calls
     assert sum(n.startswith("cudaLaunch") for n in calls) >= 2, calls
+
+
+# --- the peak pick -----------------------------------------------------------
+
+# every registered family's peak pick as its pipeline runs it, at the
+# default 1-s block and the benchmark's 4-s block; rows: one, seven, the
+# fleet's dfm, m10 and rs41 groups and the RS41 cells' channels
+FAMILY_PEAKS = [(s, b) for s in SUPPORTED_TYPES for b in (48000, 192000)]
+PEAK_ROWS = (1, 7, 204, 614, 1230, 2048)
+
+
+def _peak_pick_equals_twin(corr, threshold, k, md):
+    before = cuda.launches["peak_pick"]
+    s, ok = peak_pick(corr, threshold, k, md)
+    assert cuda.launches["peak_pick"] == before + 1
+    ws, wok = find_frame_starts_plain(corr, threshold, k, md)
+    assert s.dtype == torch.int32 and ok.dtype == torch.bool
+    assert torch.equal(s, ws) and torch.equal(ok, wok)
+
+
+@pytest.mark.parametrize("sonde,block", FAMILY_PEAKS)
+def test_cuda_peak_pick_matches_twin_at_family_shapes(cuda_device, sonde,
+                                                      block):
+    """The kernel is torch.equal to the eager twin on the card at the
+    family's peak-pick shape (n, k_slots and distance from its pipeline)
+    for 1 to 2048 rows: quantized rows with planted ties and peaks at
+    float32(threshold) and one ulp either side, under a threshold that
+    rounds up and one that rounds down to float32."""
+    pipe = tpipe.Pipeline(tpipe.PipelineConfig(sonde=sonde, channels=1,
+                                               block_len=block), CPU)
+    n, k, md = pipe.peak_shape()
+    for c in PEAK_ROWS:
+        for seed, threshold in enumerate(THRESHOLDS):
+            corr = planted_rows(c, n, md, threshold, 100 * c + seed,
+                                cuda_device)
+            _peak_pick_equals_twin(corr, threshold, k, md)
+
+
+@pytest.mark.parametrize("label,n,k,md,kind", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_cuda_peak_pick_edge_cases(cuda_device, label, n, k, md, kind):
+    """The kernel equals the twin on the pick's edges: every candidate
+    suppressed before the last round, n not a multiple of the half-window
+    and a last window of one column, second candidates that tie or fall on
+    the masked column, one-column windows, a window wider than the row,
+    rows under the threshold and -inf columns."""
+    for c in (1, 7, 33):
+        for seed, threshold in enumerate(THRESHOLDS):
+            corr = T(edge_case_rows(kind, c, n, seed)).to(cuda_device)
+            _peak_pick_equals_twin(corr, threshold, k, md)
+
+
+def test_cuda_peak_pick_once_a_group_step(cuda_device, tmp_path):
+    """``cuda.launches["peak_pick"]`` counts one launch a group step: an
+    RS41 step on the kernel route, one on the plain-op route, and a fleet
+    step of three groups (rs41, m10, dfm); ``sondetpu.peaks`` copies
+    nothing to the card and does not synchronize."""
+    for use_pallas in (True, False):
+        cfg = tpipe.PipelineConfig(sonde="rs41", channels=8, block_len=BLOCK,
+                                   use_pallas=use_pallas, input_dtype="i16")
+        pipe = tpipe.Pipeline(cfg, cuda_device)
+        blk = _cs16(_rs41_rows(1))
+        pipe.step(pipe.init_state(), blk)
+        torch.cuda.synchronize()
+        cuda.reset_launches()
+        pipe.step(pipe.init_state(), blk)
+        assert cuda.launches["peak_pick"] == 1, (use_pallas, cuda.launches)
+    chans = [FleetChannel(b, s) for b, s in FLEET_PLAN]
+    fleet = FleetSession(chans, N_BINS, cuda_device, compute_dtype="bf16")
+    assert len(fleet.groups) == 3
+    wide = _fleet_wideband()[:N_BINS * BLOCK]
+    wi = T(np.ascontiguousarray(wide.real, np.float32)).to(cuda_device)
+    wq = T(np.ascontiguousarray(wide.imag, np.float32)).to(cuda_device)
+    fleet.step(wi, wq)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fleet.step(wi, wq)
+        torch.cuda.synchronize()
+    assert cuda.launches["peak_pick"] == 3, cuda.launches
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    calls = _runtime_calls_in(path, "sondetpu.peaks")
+    assert not [n for n in calls if n.startswith("cudaMemcpy")
+                or n.endswith("Synchronize")], calls
+    assert sum(n.startswith("cudaLaunch") for n in calls) >= 3, calls
 
 
 # --- the command line's device pieces ----------------------------------------

@@ -35,9 +35,15 @@ from sondetpu_torch.kernels.frontend import (HALO, WALK_MAX, fast_atan2,
                                              frontend_walk, fused_frontend,
                                              fused_frontend_plain,
                                              is_delay_taps)
+from sondetpu_torch.kernels.peak_cases import (EDGE_CASES, THRESHOLDS,
+                                               edge_case_rows, planted_rows)
+from sondetpu_torch.kernels.peak_pick import (PLAN_BYTES, peak_pick,
+                                              shared_bytes)
 from sondetpu_torch.kernels.syndrome import (pack_syndrome_columns,
                                              rs_clean_flags_kernel,
                                              rs_clean_plain, syndrome_body)
+from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
+from sondetpu_torch.sondes import SUPPORTED_TYPES
 from sondetpu_torch.sync.correlator import find_frame_starts
 from sondetpu_torch.sync.timing import oerder_meyr_tau, spectral_line_tables
 import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
@@ -364,18 +370,79 @@ def test_syndrome_body_refuses_wide_matrices():
             syndrome_body(bad)
 
 
-def test_find_frame_starts_matches_jax():
-    """Exact starts and ok flags, including ties (quantized values) and
-    peaks below the threshold."""
+def _quantized_corr():
     rng = np.random.default_rng(4)
     corr = np.round(rng.uniform(-1, 1, size=(8, 7297)) * 4) / 4
     corr[:, ::700] = 0.9
-    corr = corr.astype(np.float32)
-    for k, md in ((3, 640), (9, 64)):
-        ws, wok = jax_find_frame_starts(jnp.asarray(corr), 0.6, k, md)
-        gs, gok = find_frame_starts(torch.from_numpy(corr), 0.6, k, md)
-        np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
-        np.testing.assert_array_equal(gok.numpy(), np.asarray(wok))
+    return corr.astype(np.float32)
+
+
+def _peak_pick_matches_jax(corr, threshold, k, md):
+    ws, wok = jax_find_frame_starts(jnp.asarray(corr), threshold, k, md)
+    gs, gok = find_frame_starts(torch.from_numpy(corr), threshold, k, md)
+    assert gs.dtype == torch.int32 and gok.dtype == torch.bool
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))
+    np.testing.assert_array_equal(gok.numpy(), np.asarray(wok))
+
+
+# every registered family's peak pick as its pipeline runs it, at the
+# default 1-s block and at the benchmark's 4-s block
+FAMILY_PEAKS = [(s, b) for s in SUPPORTED_TYPES for b in (48000, 192000)]
+
+
+@pytest.mark.parametrize("case", ["k3_md640", "k9_md64"]
+                         + [f"{s}_{b}" for s, b in FAMILY_PEAKS])
+def test_find_frame_starts_matches_jax(case):
+    """Exact starts and ok flags, including ties (quantized values) and
+    peaks below the threshold: on quantized rows, and at each family's
+    peak-pick shape (n, k_slots and the distance from its pipeline) on
+    rows with planted ties and peaks at float32(threshold) and one ulp
+    either side, under a threshold that rounds up and one that rounds
+    down to float32."""
+    if case.startswith("k"):
+        k, md = (3, 640) if case == "k3_md640" else (9, 64)
+        _peak_pick_matches_jax(_quantized_corr(), 0.6, k, md)
+        return
+    sonde, block = case.rsplit("_", 1)
+    pipe = Pipeline(PipelineConfig(sonde=sonde, channels=1,
+                                   block_len=int(block)), torch.device("cpu"))
+    n, k, md = pipe.peak_shape()
+    for seed, threshold in enumerate(THRESHOLDS):
+        corr = planted_rows(3, n, md, threshold, seed).numpy()
+        _peak_pick_matches_jax(corr, threshold, k, md)
+
+
+@pytest.mark.parametrize("label,n,k,md,kind", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+def test_find_frame_starts_edge_cases_match_jax(label, n, k, md, kind):
+    """The edges of the pick against the original: every candidate
+    suppressed before the last round, the -inf padding of a row that is
+    not a multiple of the half-window (down to a last window of one
+    column), second candidates that tie with the first or fall on the
+    masked column, one-column windows, a window wider than the row and
+    -inf columns."""
+    for seed, threshold in enumerate(THRESHOLDS):
+        _peak_pick_matches_jax(edge_case_rows(kind, 4, n, seed), threshold,
+                               k, md)
+
+
+def test_peak_pick_refuses_other_dtypes_and_plans():
+    """float32 only, at least one pick, and a candidate set inside the
+    kernel's shared memory: refused alike on every device, with no
+    fallback."""
+    corr = torch.from_numpy(_quantized_corr())
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(TypeError, match="expected float32"):
+            peak_pick(corr.to(dtype), 0.6, 3, 640)
+    with pytest.raises(ValueError, match="max_peaks"):
+        peak_pick(corr, 0.6, 0, 640)
+    with pytest.raises(ValueError, match="shared memory"):
+        peak_pick(corr, 0.6, 3, 2)
+    assert shared_bytes(7297, 3, 2) > PLAN_BYTES >= shared_bytes(7297, 3, 6)
+    # the largest plan a registered family's 4-s block takes: c50's
+    pipe = Pipeline(PipelineConfig(sonde="c50", channels=1, block_len=192000),
+                    torch.device("cpu"))
+    assert shared_bytes(*pipe.peak_shape()) < PLAN_BYTES / 2
 
 
 def test_oerder_meyr_tau_matches_jax():
@@ -402,6 +469,8 @@ def test_wrappers_reject_unsupported_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         rs_clean_flags_kernel(torch.empty((4, 320), dtype=torch.uint8,
                                           device="meta"), RS)
+    with pytest.raises(ValueError, match="unsupported device"):
+        peak_pick(meta, 0.6, 3, 64)
     with pytest.raises(ValueError, match="decim"):
         fused_frontend_plain(torch.zeros(8, 512), torch.zeros(8, 512),
                              torch.zeros(8, HALO), torch.zeros(8, HALO),
