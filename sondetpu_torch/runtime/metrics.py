@@ -22,8 +22,11 @@ inside the fleet's, ``sondetpu.fleet.pfb``, ``sondetpu.group.<sonde>`` and
 ``.ddc``, ``.frontend``, ``.afc``, ``.timing``, ``.sample``, ``.ring``,
 ``.corr``, ``.peaks``, ``.gather``, ``.syndrome`` and ``.pack``; inside
 ``sondetpu.frontend`` on the plain-op path ``sondetpu.chanfilt``,
-``.demod`` and ``.matched``; and the session's ``sondetpu.session.step``,
-``.readback``, ``.decode`` and ``.fetch``.
+``.demod`` and ``.matched``; the midpoint DC of the midpoint-DC families
+(ims100, mrzn1) in ``sondetpu.midpoint``, inside ``sondetpu.frontend`` on
+the kernel route and inside ``sondetpu.demod`` on the plain-op path; and
+the session's ``sondetpu.session.step``, ``.readback``, ``.decode`` and
+``.fetch``.
 """
 
 from __future__ import annotations

@@ -905,7 +905,8 @@ class Pipeline:
         profile_stop "chanfilt" the original's sum of the filtered planes
         instead. Its stages are the spans ``sondetpu.chanfilt``,
         ``sondetpu.demod`` (the discriminator or the dual-tone metric, the
-        DC, and the AFSK mix and boxcar) and ``sondetpu.matched``."""
+        DC, and the AFSK mix and boxcar) and ``sondetpu.matched``; the
+        midpoint DC in ``sondetpu.midpoint``, inside ``sondetpu.demod``."""
         c = self.config
         cdt, f32 = self._cdt, torch.float32
         h = c.ntaps - 1
@@ -945,10 +946,13 @@ class Pipeline:
             if c.dc_block or c.afc:
                 # jnp.mean: the sum over a divisor on the device (CUDA
                 # multiplies by the reciprocal of a Python number)
-                dc = (midpoint_dc(audio) if self._midpoint
-                      else torch.sum(audio, dim=-1) / torch.full(
-                          (), float(audio.shape[-1]), dtype=f32,
-                          device=audio.device))
+                if self._midpoint:
+                    with span("sondetpu.midpoint"):
+                        dc = midpoint_dc(audio)
+                else:
+                    dc = torch.sum(audio, dim=-1) / torch.full(
+                        (), float(audio.shape[-1]), dtype=f32,
+                        device=audio.device)
             if c.dc_block:
                 audio = audio - dc[:, None]
             if self._afsk:
@@ -1111,7 +1115,8 @@ class Pipeline:
                         skip_chanfilt=self._skip_chanfilt)
                 if c.dc_block:
                     if self._midpoint:
-                        dc = midpoint_dc(filt)
+                        with span("sondetpu.midpoint"):
+                            dc = midpoint_dc(filt)
                     filt = filt - dc[:, None]
                 afc_dc = (torch.atan2(rot_im, rot_re) * self._scale_t
                           if c.afc else None)

@@ -22,6 +22,7 @@ from sondetpu_torch.runtime import pipeline as tpipe
 from sondetpu_torch.runtime.fleet import FleetChannel, FleetSession
 from sondetpu_torch.runtime.pipeline import Pipeline, PipelineConfig
 from sondetpu_torch.runtime.session import DecoderSession
+from sondetpu_torch.sondes.ims100 import IMS100Modulator, IMS100Truth
 from sondetpu_torch.sondes.rs41 import RS41Modulator, RS41Truth
 import torch_cpu_threads  # noqa: F401  (one torch thread per worker)
 
@@ -151,6 +152,44 @@ def test_plain_frontend_spans_and_outputs_bit_equal(tmp_path):
     for name in PLAIN_FRONTEND:
         assert chains.count(
             "sondetpu.step>sondetpu.frontend>" + name) == 2, chains
+
+
+def _ims100_planes(n_blocks, seed=0):
+    """int16 (i, q) [C, n_blocks * BLOCK] of one iMS-100 with seeded
+    noise."""
+    n = n_blocks * BLOCK
+    iq = IMS100Modulator().modulate([IMS100Truth(frame_no=j)
+                                     for j in range(n // 11520 + 2)])[:n]
+    rng = np.random.default_rng(seed)
+    iq = iq[None] + 0.1 * (rng.normal(size=(C, n))
+                           + 1j * rng.normal(size=(C, n)))
+    return (np.clip(iq.real * 32767, -32768, 32767).astype(np.int16),
+            np.clip(iq.imag * 32767, -32768, 32767).astype(np.int16))
+
+
+@pytest.mark.parametrize("use_pallas,chain", [
+    (True, "sondetpu.step>sondetpu.frontend>sondetpu.midpoint"),
+    (False, "sondetpu.step>sondetpu.frontend>sondetpu.demod>"
+            "sondetpu.midpoint"),
+], ids=["kernel", "plain"])
+def test_midpoint_span_inside_the_frontend(use_pallas, chain, tmp_path):
+    """ims100's midpoint DC is one ``sondetpu.midpoint`` span a step inside
+    ``sondetpu.frontend``, on the dual-tone kernel route and on the
+    plain-op route; the outputs are bit-equal with the profiler on."""
+    cfg = PipelineConfig(sonde="ims100", channels=C, block_len=BLOCK,
+                         input_dtype="i16", use_pallas=use_pallas)
+    planes = _ims100_planes(2)
+    plain = _steps(Pipeline(cfg, "cpu"), planes, 2)
+    pipe = Pipeline(cfg, "cpu")
+    assert pipe._midpoint and pipe._plain != use_pallas
+    assert pipe._route == ("dualtone" if use_pallas else None)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = _steps(pipe, planes, 2)
+    _assert_bit_equal(plain, traced)
+    assert bool(traced[1][-1].frame_valid.any())
+    chains = [s[4] for s in _program_spans(prof, tmp_path)]
+    assert [c for c in chains if c.endswith("sondetpu.midpoint")] == \
+        [chain] * 2
 
 
 @pytest.mark.parametrize("use_pallas,passes", [(False, 123), (True, 0)],
