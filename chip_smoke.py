@@ -101,10 +101,13 @@ before the result line:
 14. ims100_path (3 blocks) and mrzn1_path (2 blocks): the kernel path at
     2048 channels x 4 s, one signal from the family's modulator on every
     channel (noise std 0.04): the truth's serial and telemetry on every
-    channel, K7's chanfilt_t41_nb20 body and the plain correlation once a
-    step and no other kernel; then the
-    steady step (ims100_step, mrzn1_step), the midpoint DC alone on one
-    block's metric and peak device memory.
+    channel, K7's chanfilt_t41_nb20 body, the plain correlation and the
+    midpoint DC (csrc/midpoint.cu) once a step and no other kernel; then
+    the steady step (ims100_step, mrzn1_step) and peak device memory, and
+    the midpoint DC alone on one block's metric in float32 and bfloat16
+    (ims100_midpoint): the kernel equal to its twin bit for bit, timed
+    beside its bound, the twin and the twin's four torch.kthvalue selects
+    (library_ms), and the device memory it takes beyond the metric.
 15. dualtone_distinct: ims100 and mrzn1, 8 channels with four truths, with
     and without afc, card against CPU (twins): validity, valid frame bytes
     and telemetry equal.
@@ -407,13 +410,25 @@ def kernel_launches(bodies: dict) -> dict:
     return out
 
 
+def midpoint_launches(cfg, steps: int) -> dict:
+    """The midpoint DC's launches in ``steps`` steps of a pipeline of
+    ``cfg``: one a step for the midpoint-DC families (ims100, mrzn1) where
+    the step removes a DC (dc_block, or afc on the plain-op route)."""
+    from sondetpu_torch.runtime.pipeline import _route
+
+    runs = cfg.spec.extra.get("dc_mode") == "midpoint" and (
+        cfg.dc_block or (cfg.afc and _route(cfg) is None))
+    return {"midpoint_dc": steps} if runs else {}
+
+
 def plain_kernels_only(launches, cfg, steps: int) -> bool:
     """True when the plain correlation and the plain filter are the only
     hand kernels in ``launches``, as often as :func:`plain_route_bodies`
-    says, beside the peak pick, once a step."""
+    says, beside the peak pick, once a step, and the midpoint DC as
+    :func:`midpoint_launches` says."""
     return ({k: v for k, v in launches.items() if v}
             == {**kernel_launches(plain_route_bodies(cfg, steps)),
-                "peak_pick": steps})
+                "peak_pick": steps, **midpoint_launches(cfg, steps)})
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2805,11 +2820,19 @@ def dualtone_truth(family: str, t, k: int = 0) -> bool:
 
 
 def time_midpoint(torch, pipe, planes, reps: int = 5):
-    """The midpoint DC alone on the metric of one block: K7 on the
-    dequantized planes, then midpoint_dc timed with CUDA events (ms), and
-    that call's peak device memory beside the metric's."""
+    """The midpoint DC alone on the metric of one block (K7 on the
+    dequantized planes), in float32 and on the metric in bfloat16: the
+    kernel (``midpoint_dc``, one launch) equal to its twin bit for bit,
+    timed with CUDA events (ms) beside its bound (one read of the metric),
+    the twin (four torch.kthvalue selects, the fused sums, the NaN mask)
+    and those four selects alone (``library_ms``: timed here only; the port
+    never calls torch.kthvalue on the card), and the device memory the
+    kernel takes beyond the metric's (its [C] result)."""
+    from sondetpu_torch.kernels import cuda
     from sondetpu_torch.kernels.dualtone import fused_dualtone_frontend
-    from sondetpu_torch.runtime.pipeline import midpoint_dc
+    from sondetpu_torch.kernels.midpoint import (midpoint_dc,
+                                                 midpoint_dc_plain,
+                                                 quantile_ranks)
 
     scale = float(np.float32(1.0 / 32768.0))
     i, q = (p.to(torch.float32) * scale for p in planes)
@@ -2819,13 +2842,31 @@ def time_midpoint(torch, pipe, planes, reps: int = 5):
         pipe._mix_cos, pipe._mix_sin, pipe._nb,
         skip_chanfilt=pipe._skip_chanfilt)[0]
     del i, q
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ms = cuda_ms(torch, lambda: midpoint_dc(met), reps)
-    extra = torch.cuda.max_memory_allocated() - base
-    return {"midpoint_ms": ms, "midpoint_extra_bytes": extra,
-            "metric_bytes": nbytes(met), "metric_shape": list(met.shape)}
+    ranks = sorted({r for lo, hi, _ in quantile_ranks(met.shape[1])
+                    for r in (lo, hi)})
+    out = {"metric_shape": list(met.shape)}
+    for label, x in (("f32", met), ("bf16", met.to(torch.bfloat16))):
+        before = cuda.launches["midpoint_dc"]
+        got, want = midpoint_dc(x), midpoint_dc_plain(x)
+        torch.cuda.synchronize()
+        bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+        nan = torch.isnan(want)
+        check(cuda.launches["midpoint_dc"] == before + 1
+              and torch.equal(torch.isnan(got), nan)
+              and torch.equal(got[~nan].view(bits), want[~nan].view(bits)),
+              f"midpoint {label}: the kernel differs from its twin")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: midpoint_dc(x), reps)
+        extra = torch.cuda.max_memory_allocated() - base
+        out[label] = {
+            "midpoint_ms": ms, "midpoint_extra_bytes": extra,
+            "metric_bytes": nbytes(x), **bound(nbytes(x) + nbytes(got), 0),
+            "plain_ms": cuda_ms(torch, lambda: midpoint_dc_plain(x), 3),
+            "library_ms": cuda_ms(torch, lambda: [
+                torch.kthvalue(x, r + 1, dim=-1) for r in ranks], 3)}
+        del x, got, want
+    return out
 
 
 def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
@@ -2877,8 +2918,8 @@ def phase_dualtone_path(torch, dev, family: str, n_blocks: int, smi):
     check(dualtone_truth(family, t), f"{label}: telemetry {ref}")
     corr = plain_route_bodies(cfg, n_blocks)
     check(launches["fused_dualtone_frontend"] == n_blocks
-          == launches["peak_pick"]
-          and sum(launches.values()) == 2 * n_blocks + sum(corr.values()),
+          == launches["peak_pick"] == launches["midpoint_dc"]
+          and sum(launches.values()) == 3 * n_blocks + sum(corr.values()),
           f"{label}: launches {launches}")
     check(bodies == {"fused_dualtone_frontend:chanfilt_t41_nb20": n_blocks,
                      **corr},
@@ -3712,7 +3753,7 @@ def phase_profile_fleet(torch, dev, steps: int = 3):
 def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                              "corr.cu", "dualtone.cu", "syndrome.cu",
                              "lane_fir.cu", "demod_fir.cu",
-                             "peak_pick.cu")):
+                             "peak_pick.cu", "midpoint.cu")):
     """Registers, stack, spills and static shared memory of each body of
     the redesigned kernels, as ptxas reports them (nvcc -Xptxas -v), with
     the library's flags. K3's shared memory is dynamic: see
@@ -3737,7 +3778,8 @@ def phase_resources(sources=("frontend.cu", "afsk.cu", "pfb_dft.cu",
                           r"plain_fir_kernel|plain_fir_strided_kernel|"
                           r"demod_audio_kernel|demod_fir_kernel|"
                           r"pfb_fir_kernel|pfb_fir_bf16_kernel|"
-                          r"dft2048_bf16_kernel|peak_pick_kernel)"
+                          r"dft2048_bf16_kernel|peak_pick_kernel|"
+                          r"midpoint_kernel)"
                           r"((?:I|L[ib]-?\d+E|f|13__nv_bfloat16)*)", line)
             if m:
                 # the kernel's name and template arguments, from the mangling

@@ -63,13 +63,15 @@ _SIGNATURES = {
     "sondetpu_plain_corr": [_P, _I, _P, _I, _I, _I, _LL, _P, _P],
     "sondetpu_plain_fir": [_P, _I, _P, _I, _I, _I, _I, _LL, _P, _P],
     "sondetpu_peak_pick": [_P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P],
+    "sondetpu_midpoint_dc": [_P, _I, _I, _LL, _I, _I, _I, _I, _I, _F, _F, _F,
+                             _F, _P, _P],
 }
 
 launches = {"fused_frontend": 0, "corr": 0, "rs_clean": 0,
             "pfb_fir_stream": 0, "pfb_fir_timemajor": 0, "pfb_dft": 0,
             "fused_dualtone_frontend": 0, "fused_afsk_frontend": 0,
             "fused_demod_fir": 0, "lane_fir": 0, "plain_corr": 0,
-            "plain_fir": 0, "peak_pick": 0}
+            "plain_fir": 0, "peak_pick": 0, "midpoint_dc": 0}
 body_launches = {}       # "kernel:body" -> launches, for multi-body kernels
 build_seconds = None     # wall time of this process's nvcc build, if any
 _lib = None

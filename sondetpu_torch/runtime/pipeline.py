@@ -32,8 +32,9 @@ pick (``_route``):
 The sample-rate arrays are stored in the compute dtype where the original
 casts them. The block DC is the block mean, or for the unwhitened NRZ
 families (``dc_mode == "midpoint"``: ims100, mrzn1) the midpoint of the
-10th and 90th percentiles, ``midpoint_dc``, equal to ``jnp.quantile``'s bit
-for bit.
+10th and 90th percentiles, ``midpoint_dc`` (``kernels/midpoint.py``: one
+launch of its kernel on the card, its plain twin on the CPU), equal to
+``jnp.quantile``'s bit for bit.
 
 On every path, ``fine_offsets`` or ``afc`` put the per-channel DDC (plain
 torch ops, the original's float32 formula) between the dequant and the
@@ -79,6 +80,7 @@ from sondetpu_torch.kernels.corr import corr_kernel
 from sondetpu_torch.kernels.dualtone import (fused_dualtone_frontend,
                                              mixer_tables)
 from sondetpu_torch.kernels.frontend import HALO, fused_frontend
+from sondetpu_torch.kernels.midpoint import midpoint_dc
 from sondetpu_torch.kernels.syndrome import rs_clean_flags_kernel
 from sondetpu_torch.runtime.metrics import span
 from sondetpu_torch.sondes.base import get_sonde
@@ -528,61 +530,6 @@ def _route(c):
             or c.spec.extra.get("dc_mode") == "midpoint"):
         return None
     return "fused"
-
-
-def _fma_f32(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
-    """fl32(a * b + c) rounded once, for float32 ``a``, ``c`` and a float32
-    value ``b``: the fused multiply-add that XLA on the CPU makes of
-    ``jnp.quantile``'s ``lo * (1 - w) + hi * w``. In float64 the product is
-    exact; the sum is taken with its rounding error (TwoSum) and rounded to
-    odd, so that the final rounding to float32 is the single one."""
-    f64 = torch.float64
-    x = a.to(f64) * b
-    y = c.to(f64)
-    s = x + y
-    bb = s - x
-    err = (x - (s - bb)) + (y - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.copysign(torch.full_like(s, float("inf")), err)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
-def midpoint_dc(x: torch.Tensor) -> torch.Tensor:
-    """Per-row midpoint ``0.5 * (q10 + q90)`` of ``x`` [C, n] in x's dtype:
-    the original's ``0.5 * (jnp.quantile(x, 0.10, axis=-1) +
-    jnp.quantile(x, 0.90, axis=-1))`` bit for bit (midpoint DC,
-    ``sondetpu/runtime/pipeline.py:715-718, 881-889``).
-
-    As ``jnp.quantile`` computes it: the position q * (n - 1) in float32
-    (0.1 and 0.9 rounded to float32 first) sets the order statistics at its
-    floor and ceil and the weight w of the upper one; the quantile is
-    ``lo * (1 - w) + hi * w`` in float32, the first product fused into the
-    sum as XLA on the CPU fuses it, cast back to x's dtype; the midpoint is
-    formed in x's dtype. A row holding a NaN gives NaN. The order
-    statistics come from ``torch.kthvalue`` (exact, whatever the method of
-    selection); ``torch.quantile`` refuses rows of more than 2**24
-    elements in all and interpolates with lerp."""
-    n = x.shape[-1]
-    f32 = torch.float32
-    stats = {}
-
-    def order_stat(k):
-        if k not in stats:
-            stats[k] = torch.kthvalue(x, k + 1, dim=-1).values.to(f32)
-        return stats[k]
-
-    qs = []
-    for q in (np.float32(0.1), np.float32(0.9)):
-        pos = np.float32(q * np.float32(n - 1))
-        lo, hi = int(np.floor(pos)), int(np.ceil(pos))
-        w = np.float32(pos - np.floor(pos))
-        hw = order_stat(hi) * torch.tensor(w, dtype=f32, device=x.device)
-        qs.append(_fma_f32(order_stat(lo), float(np.float32(1.0) - w),
-                           hw).to(x.dtype))
-    mid = (qs[0] + qs[1]) * 0.5
-    return torch.where(torch.isnan(x).any(dim=-1),
-                       torch.full_like(mid, float("nan")), mid)
 
 
 def _int32_sum(x: torch.Tensor) -> torch.Tensor:

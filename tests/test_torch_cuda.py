@@ -8,7 +8,10 @@ the fleet (float32, and bfloat16 with AFSK bins) on the card against the
 CPU; the correlator in every body, the RS syndrome flag, the AFSK tone
 kernel and the plain correlation's division; the peak pick against its
 eager twin at every family's shape and on its edge rows, once a group
-step on every route; the plain-op front end's
+step on every route; the midpoint DC against its twin (four
+torch.kthvalue selects) on ties, NaN, signed zeros, infinities, rows too
+tied for shared memory and K7's metric at [2048, 192000], once an ims100
+step and without a sync; the plain-op front end's
 filter (``plain_fir``) against ``window_sum`` in every body and the plain
 step against its eager tap passes; and the command line's device pieces
 (the resampler, ``decode``) on the card against the CPU.
@@ -48,6 +51,7 @@ from sondetpu_torch.kernels.frontend import (HALO, WALK_EDGE_CASES,
                                              fused_demod_fir_plain,
                                              fused_frontend,
                                              fused_frontend_plain)
+from sondetpu_torch.kernels.midpoint import midpoint_dc, midpoint_dc_plain
 from sondetpu_torch.kernels.lane_fir import (lane_fir, lane_fir_plain,
                                              plain_corr, plain_corr_body,
                                              plain_corr_plain, plain_fir,
@@ -300,8 +304,13 @@ def _plain_route_bodies(cfg, steps):
 def _only_plain_kernels(cfg, steps):
     """True when the plain correlation and the plain filter are the only
     hand kernels launched since the counts were reset, as many times as
-    :func:`_plain_route_bodies` says, beside the peak pick, once a step."""
+    :func:`_plain_route_bodies` says, beside the peak pick, once a step,
+    and on the midpoint-DC families (ims100, mrzn1) the midpoint DC, once
+    a step where the plain-op step removes a DC (dc_block or afc)."""
     want = {"peak_pick": steps}
+    if cfg.spec.extra.get("dc_mode") == "midpoint" and (cfg.dc_block
+                                                        or cfg.afc):
+        want["midpoint_dc"] = steps
     for key, n in _plain_route_bodies(cfg, steps).items():
         kernel = key.split(":")[0]
         want[kernel] = want.get(kernel, 0) + n
@@ -1344,6 +1353,160 @@ def test_cuda_peak_pick_once_a_group_step(cuda_device, tmp_path):
     assert not [n for n in calls if n.startswith("cudaMemcpy")
                 or n.endswith("Synchronize")], calls
     assert sum(n.startswith("cudaLaunch") for n in calls) >= 3, calls
+
+
+# --- the midpoint DC -----------------------------------------------------------
+
+def _midpoint_equals_twin(x):
+    """One launch of the kernel equals the twin on the card: NaN at the same
+    rows and every other value bit for bit (the signed zeros too: the
+    twin's torch.kthvalue selects by the kernel's key order on the card)."""
+    before = cuda.launches["midpoint_dc"]
+    got = midpoint_dc(x)
+    assert cuda.launches["midpoint_dc"] == before + 1
+    want = midpoint_dc_plain(x)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [48000, 191999, 10001, 7, 2, 1])
+def test_cuda_midpoint_dc_matches_twin(cuda_device, n, dtype):
+    """The cases of tests/test_torch_pipeline.py::test_midpoint_dc_equals_
+    jnp_quantile on the card: rows of seeded noise at many scales, rows of
+    integer ties, a constant row and a row holding a NaN."""
+    rng = np.random.default_rng(n)
+    x = (rng.normal(size=(64, n))
+         * rng.uniform(1e-3, 1e3, size=(64, 1))).astype(np.float32)
+    x[:8] = np.round(x[:8])
+    x[8] = 0.25
+    x[9, n // 2] = np.nan
+    _midpoint_equals_twin(T(x).to(cuda_device, dtype))
+
+
+def _tied_rows(n=192000):
+    """Rows whose ranks fall in more equal keys than shared memory holds,
+    so that the select goes on over the row to the last key bit: 190,000
+    equal values and a few others (the ranks in the tie), the tie at the
+    10th percentile alone, and two ties, one a quantile each."""
+    rng = np.random.default_rng(3)
+    x = np.full((4, n), 0.5, np.float32)
+    x[0, :2000] = rng.normal(size=2000)
+    x[1, :n // 2] = -1.0
+    x[1, n // 2:] = rng.normal(size=n - n // 2)
+    x[2, :n // 2] = -0.75
+    x[2, n // 2:] = 0.75
+    x[3, :1000] = rng.normal(size=1000)
+    x[3, 1000:2000] = 0.5000001
+    return x
+
+
+def _inf_zero_rows(n=1001):
+    """Rows with -inf, +inf, -0 and +0 at the selected ranks (n = 1001:
+    ranks 100 and 900, weight 0), and one where a quantile's two ranks
+    are -inf and +inf (n = 1002: weight 0.1 between them)."""
+    x = np.zeros((5, n), np.float32)
+    x[0, :200] = -np.inf
+    x[0, 800:] = np.inf
+    x[1, :500] = -0.0
+    x[2] = np.where(np.arange(n) % 2, -0.0, 0.0)
+    x[3, :101] = -np.inf
+    x[3, 101:] = np.inf
+    x[4, :899] = -0.0
+    x[4, 899:] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_midpoint_dc_edge_rows(cuda_device, dtype):
+    """The kernel equals the twin on rows too tied for shared memory (the
+    passes over the row that follow), on infinities and signed zeros at the
+    ranks, and on rows that start off the kernel's 32-byte chunks: a view
+    of a wider buffer's rows, and the same rows copied side by side."""
+    _midpoint_equals_twin(T(_tied_rows()).to(cuda_device, dtype))
+    for n in (1001, 1002):
+        _midpoint_equals_twin(T(_inf_zero_rows(n)).to(cuda_device, dtype))
+    rng = np.random.default_rng(7)
+    wide = T(rng.normal(size=(33, 30010)).astype(np.float32))
+    wide = wide.to(cuda_device, dtype)
+    _midpoint_equals_twin(wide[:, 3:])
+    _midpoint_equals_twin(wide[:, 3:].contiguous())
+
+
+def test_cuda_midpoint_dc_of_the_ims100_metric(cuda_device):
+    """The kernel equals the twin on K7's metric of ims100 blocks at the
+    benchmark's shape, [2048, 192000] (8 noisy channels, each on 256 rows),
+    in float32 and in bfloat16."""
+    cfg = tpipe.PipelineConfig(sonde="ims100", channels=2048,
+                               block_len=4 * BLOCK, use_pallas=True,
+                               input_dtype="i16")
+    pipe = tpipe.Pipeline(cfg, cuda_device)
+    qi, qq = _cs16(_dualtone_rows("ims100", 4))
+    scale = float(np.float32(1.0 / 32768.0))
+    i, q = (T(p).to(cuda_device).repeat(256, 1).to(torch.float32) * scale
+            for p in (qi, qq))
+    st = pipe.init_state()
+    met = fused_dualtone_frontend(
+        i, q, st.chan_tail_i, st.chan_tail_q, pipe._chan_taps,
+        pipe._mix_cos, pipe._mix_sin, pipe._nb,
+        skip_chanfilt=pipe._skip_chanfilt)[0]
+    del i, q
+    assert met.shape == (2048, 4 * BLOCK) and met.dtype == torch.float32
+    _midpoint_equals_twin(met)
+    _midpoint_equals_twin(met.to(torch.bfloat16))
+
+
+def test_cuda_midpoint_dc_refuses_what_the_twin_refuses(cuda_device):
+    """A tensor whose rows do not hold their elements side by side, a
+    float16, float64 or one-dimensional tensor raises on the card as on the
+    CPU, and launches nothing."""
+    x = torch.zeros((8, 64), device=cuda_device)
+    before = cuda.launches["midpoint_dc"]
+    with pytest.raises(ValueError, match="contiguous"):
+        midpoint_dc(x.t())
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="dtype"):
+            midpoint_dc(x.to(dtype))
+    with pytest.raises(ValueError, match=r"\[C, n\]"):
+        midpoint_dc(x[0])
+    assert cuda.launches["midpoint_dc"] == before
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_cuda_midpoint_once_an_ims100_step(cuda_device, monkeypatch,
+                                           tmp_path, use_pallas):
+    """``cuda.launches["midpoint_dc"]`` counts one launch an ims100 step, on
+    the kernel route and on the plain-op route; no step calls
+    torch.kthvalue; ``sondetpu.midpoint`` copies nothing to the card and
+    does not synchronize."""
+    cfg = tpipe.PipelineConfig(sonde="ims100", channels=8, block_len=BLOCK,
+                               use_pallas=use_pallas, input_dtype="i16")
+    pipe = tpipe.Pipeline(cfg, cuda_device)
+    assert pipe._midpoint and pipe._plain != use_pallas
+    blk = _cs16(_dualtone_rows("ims100", 1))
+    pipe.step(pipe.init_state(), blk)
+    torch.cuda.synchronize()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.kthvalue called by a step on the card")
+
+    monkeypatch.setattr(torch, "kthvalue", refuse)
+    cuda.reset_launches()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pipe.step(pipe.init_state(), blk)
+        torch.cuda.synchronize()
+    assert cuda.launches["midpoint_dc"] == 1, cuda.launches
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    calls = _runtime_calls_in(path, "sondetpu.midpoint")
+    assert not [n for n in calls if n.startswith("cudaMemcpy")
+                or n.endswith("Synchronize")], calls
+    assert sum(n.startswith("cudaLaunch") for n in calls) == 1, calls
 
 
 # --- the command line's device pieces ----------------------------------------
